@@ -1,0 +1,579 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``detikzify_torch``) on one GPU.
+
+    python3 chip_smoke.py            # one CUDA card; exits non-zero without
+
+Phases, each printing one JSON line:
+
+1. device  -- the card's name and power limit as nvidia-smi reports them;
+2. build   -- compile every hand-written kernel (one nvcc per source, all
+              at once) and time it;
+3. kernels -- hold each kernel against its plain PyTorch version on the
+              card, in bf16, at the main path's shapes, and time kernel,
+              plain version and the PyTorch library call (CUDA events,
+              median of many launches, L2 flushed before each), next to the
+              least time the card needs for the same work;
+4. reference -- the model path on the card (bf16, kernels) against the
+              same weights on the host CPU (fp32, plain versions) at full
+              width and 2+2 layers;
+5. main    -- random-weight ``detikzify-v2-8b`` at full width and depth in
+              bf16: three ``DetikzifyPipeline.sample()`` requests and one
+              ``sample_batch()`` of three figures, 128 new tokens each, with
+              the kernels' launch counters reset just before and read just
+              after;
+6. profile -- one more ``sample()`` request of 32 tokens under
+              torch.profiler: the card's busy time and idle share;
+7. the ``kernels`` JSON line, the nvidia-smi line, and as the last line
+   ``{"ok": true, "device": {...}}``.
+
+Any failed check raises, so the script exits non-zero and prints no result.
+``--cpu-rehearsal`` runs the same phases on the CPU at ``tiny-test`` with
+the plain versions (no kernels, no timings of the card); it exists for the
+test suite and never prints a device result.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+PEAK_BF16_FLOPS = 989e12       # H100 SXM dense bf16 tensor-core peak
+PEAK_BYTES = 3.35e12           # H100 SXM HBM3 bandwidth
+BF16_U = 2.0 ** -8             # bf16 unit roundoff
+
+# (name, B, S, T, NH, NKV, Hd, mode) for K1 at the main path's shapes
+K1_CASES = (
+    ("vision", 3, 900, 900, 16, 16, 72, "full"),
+    ("map_head", 3, 1, 900, 16, 16, 72, "full"),
+    ("prefill_window", 3, 512, 640, 32, 8, 128, "window"),
+)
+K2_CASE = dict(B=8, NH=32, NKV=8, Hd=128, page=128, m=16,
+               lengths=(300, 517, 800, 1024, 1311, 1600, 1900, 2048))
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+class Timer:
+    """Median kernel time with CUDA events, L2 flushed before each launch."""
+
+    def __init__(self, torch, device, iters: int):
+        self.torch = torch
+        self.iters = iters
+        self.flush_buf = torch.empty(64 << 20, dtype=torch.uint8,
+                                     device=device)
+
+    def __call__(self, fn) -> float:
+        torch = self.torch
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        pairs = []
+        for _ in range(self.iters):
+            self.flush_buf.zero_()
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            pairs.append((s, e))
+        torch.cuda.synchronize()
+        return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def k1_inputs(torch, gen, device, b, s, t, nh, nkv, hd, mode):
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=device,
+                           dtype=torch.float32).to(torch.bfloat16)
+
+    q, k, v = rnd(b, s, nh, hd), rnd(b, t, nkv, hd), rnd(b, t, nkv, hd)
+    kw = {}
+    visible_keys = b * s * t
+    if mode == "window":
+        # two fresh 300-token prompts and one row restored from a 128-row
+        # prefix (q_offsets > 0), as the engine's fused start builds them
+        offs = [0, 0, 128]
+        lims = [300, 300, 128 + 300]
+        kw = dict(q_offsets=torch.tensor(offs, dtype=torch.int32,
+                                         device=device),
+                  kv_limits=torch.tensor(lims, dtype=torch.int32,
+                                         device=device))
+        visible_keys = sum(min(o + i + 1, lim) for o, lim in zip(offs, lims)
+                           for i in range(s))
+    return q, k, v, kw, visible_keys
+
+
+def tolerance_check(torch, got, want, pv_abs) -> dict:
+    """|kernel - plain| <= 2u (pv_abs + |plain|) elementwise, u = 2^-8, with
+    pv_abs = sum_t p_t |v_t| the plain version run on |v|: the mass that
+    reaches each output element. Both sides round the output to bf16 once,
+    and each rounds the probabilities to bf16 at a different point (the
+    plain version after normalising, K1 before; K2 keeps p in fp32 where
+    the plain version rounds it), each costing at most u * pv_abs."""
+    err = (got.float() - want.float()).abs()
+    bound = 2 * BF16_U * (pv_abs.float() + want.float().abs())
+    ok = (bool(torch.isfinite(got.float()).all())
+          and bool((err <= bound).all()))
+    return {"max_abs_err": float(err.max()),
+            "tolerance": "2^-7 * (plain(|v|) + |plain|) elementwise",
+            "max_err_over_tol": float((err / bound).max()),
+            "tol_over_median_abs_plain": float(
+                bound.median() / want.float().abs().median()),
+            "ok": ok}
+
+
+def kernel_phase(torch, device, rehearsal: bool, iters: int):
+    from detikzify_torch.ops import attention, flash, paged
+
+    gen = torch.Generator(device=device).manual_seed(1234)
+    timer = None if rehearsal else Timer(torch, device, iters)
+    rows = []
+    for name, b, s, t, nh, nkv, hd, mode in K1_CASES:
+        if rehearsal:   # tiny shapes: the CPU only checks the wiring
+            s, t = min(s, 9), 12
+        q, k, v, kw, vis = k1_inputs(torch, gen, device, b, s, t, nh, nkv,
+                                     hd, mode)
+        got = flash.flash_attention(q, k, v, **kw)
+        want = attention.attend_plain(q, k, v, **kw)
+        tol = tolerance_check(torch, got, want,
+                              attention.attend_plain(q, k, v.abs(), **kw))
+        if not tol.pop("ok"):
+            raise SystemExit(f"K1 {name}: kernel disagrees with its plain "
+                             f"version: {tol}")
+        row = {"name": f"flash_attention/{name}", "kernel": "flash_attention",
+               "route": "cuda", "source": "detikzify_torch/csrc/flash_attn.cu",
+               "replaces": "detikzify_tpu/ops/flash.py:187",
+               "shape": {"B": b, "S": s, "T": t, "NH": nh, "NKV": nkv,
+                         "Hd": hd, "mode": mode},
+               **tol}
+        flops = 4 * nh * hd * vis
+        nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel())
+        row["bound_ms"] = max(flops / PEAK_BF16_FLOPS,
+                              nbytes / PEAK_BYTES) * 1e3
+        row["bound_by"] = ("operations" if flops / PEAK_BF16_FLOPS
+                           >= nbytes / PEAK_BYTES else "bytes")
+        if timer is not None:
+            import torch.nn.functional as F
+
+            row["ms"] = timer(lambda: flash.flash_attention(q, k, v, **kw))
+            row["plain_ms"] = timer(
+                lambda: attention.attend_plain(q, k, v, **kw))
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            mask = None
+            if mode == "window":
+                qpos = (kw["q_offsets"][:, None, None, None]
+                        + torch.arange(s, device=device)[None, None, :, None])
+                kpos = torch.arange(t, device=device)[None, None, None, :]
+                mask = (kpos <= qpos) & (kpos
+                                         < kw["kv_limits"][:, None, None, None])
+            row["library_ms"] = timer(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=nh != nkv))
+        rows.append(row)
+
+    c = dict(K2_CASE)
+    if rehearsal:
+        c.update(B=2, NH=4, NKV=2, Hd=64, page=16, m=3, lengths=(5, 40))
+    b, nh, nkv, hd, page, m = (c[x] for x in ("B", "NH", "NKV", "Hd", "page",
+                                              "m"))
+    n_pages = b * m + 1
+    pool_k = torch.randn((n_pages, page, nkv, hd), generator=gen,
+                         device=device).to(torch.bfloat16)
+    pool_v = torch.randn((n_pages, page, nkv, hd), generator=gen,
+                         device=device).to(torch.bfloat16)
+    perm = torch.randperm(n_pages, generator=gen, device=device)[:b * m]
+    tab = perm.reshape(b, m).to(torch.int32).contiguous()
+    lengths = torch.tensor(c["lengths"], dtype=torch.int32, device=device)
+    q = torch.randn((b, nh, hd), generator=gen,
+                    device=device).to(torch.bfloat16)
+    got = paged.decode_attend_paged(q, pool_k, pool_v, tab, lengths)
+    want = paged.decode_attend_paged_plain(q, pool_k, pool_v, tab, lengths)
+    tol = tolerance_check(torch, got, want, paged.decode_attend_paged_plain(
+        q, pool_k, pool_v.abs(), tab, lengths))
+    if not tol.pop("ok"):
+        raise SystemExit(f"K2: kernel disagrees with its plain version: "
+                         f"{tol}")
+    live = sum(c["lengths"])
+    nbytes = live * nkv * hd * 2 * 2 + 2 * q.numel() * 2
+    flops = 4 * nh * hd * live
+    row = {"name": "paged_decode", "kernel": "paged_decode", "route": "cuda",
+           "source": "detikzify_torch/csrc/paged_decode.cu",
+           "replaces": "detikzify_tpu/ops/paged.py:194",
+           "shape": {"B": b, "NH": nh, "NKV": nkv, "Hd": hd, "page": page,
+                     "m": m, "lengths": list(c["lengths"])},
+           **tol,
+           "bound_ms": max(nbytes / PEAK_BYTES,
+                           flops / PEAK_BF16_FLOPS) * 1e3,
+           "bound_by": ("bytes" if nbytes / PEAK_BYTES
+                        >= flops / PEAK_BF16_FLOPS else "operations")}
+    if timer is not None:
+        import torch.nn.functional as F
+
+        row["ms"] = timer(lambda: paged.decode_attend_paged(
+            q, pool_k, pool_v, tab, lengths))
+        row["plain_ms"] = timer(lambda: paged.decode_attend_paged_plain(
+            q, pool_k, pool_v, tab, lengths))
+        # library yardstick: SDPA on pre-gathered contiguous pages with the
+        # length mask (the gather itself is not in the timing)
+        kg = paged.gather_pages(pool_k, tab).transpose(1, 2).contiguous()
+        vg = paged.gather_pages(pool_v, tab).transpose(1, 2).contiguous()
+        mask = (torch.arange(m * page, device=device)[None, :]
+                < lengths[:, None])[:, None, None, :]
+        qs = q[:, :, None, :]
+        row["library_ms"] = timer(lambda: F.scaled_dot_product_attention(
+            qs, kg, vg, attn_mask=mask, enable_gqa=True))
+    rows.append(row)
+    return rows
+
+
+def reference_phase(torch, device, rehearsal: bool, seed: int):
+    """The model path on the card (bf16, kernels K1 and K2) against the
+    same weights on the host CPU (fp32, plain versions): v2-8b at full
+    width cut to 2 vision + 2 text layers; vision tower, a paged prefill of
+    300 image tokens + 16 text tokens, then 4 zero-copy decode steps."""
+    import copy
+
+    import numpy as np
+
+    from detikzify_torch.config import get_config
+    from detikzify_torch.models import convert, detikzify, llama
+
+    base = get_config("tiny-test" if rehearsal else "detikzify-v2-8b")
+    cfg = base.replace(
+        vision=base.vision.replace(num_hidden_layers=2),
+        text=base.text.replace(num_hidden_layers=2))
+    cpu = torch.device("cpu")
+    ref = convert.init_random(cfg, device=cpu, dtype=torch.float32,
+                              generator=torch.Generator().manual_seed(seed))
+    dut = copy.deepcopy(ref).to(device=device, dtype=(
+        torch.float32 if rehearsal else torch.bfloat16))
+    rng = np.random.default_rng(seed)
+    size = cfg.vision.image_size
+    pix = rng.standard_normal((1, size, size, 3)).astype(np.float32)
+    n_img, n_txt, page = cfg.image_seq_len, 16, 128 if not rehearsal else 16
+    prompt = ([cfg.image_token_id] * n_img + [cfg.bos_token_id]
+              + [int(t) for t in rng.integers(0, 256, n_txt - 1)])
+    s = 1 << (len(prompt) - 1).bit_length()
+    ids = np.zeros((1, s), np.int32)
+    ids[0, :len(prompt)] = prompt
+    m = -(-(s + 8) // page)
+    steps = [int(t) for t in rng.integers(0, 256, 4)]
+
+    @torch.inference_mode()
+    def run(params, dev):
+        dt = params.dtype
+        i32 = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa
+        pool = llama.init_paged_cache(cfg.text, m + 1, page, dtype=dt,
+                                      device=dev)
+        tab = torch.arange(m, dtype=torch.int32, device=dev)[None]
+        emb = detikzify.encode_image(params, cfg, torch.from_numpy(pix).to(
+            dev))
+        out = []
+        logits, _ = detikzify.prefill_paged(
+            params, cfg, torch.from_numpy(ids).to(dev), emb, i32([0]),
+            i32([len(prompt)]), pool, torch.zeros((1, 0), dtype=torch.int32,
+                                                  device=dev),
+            tab, i32([0]), image_offsets=i32([0]), trash_row=m * page - 1,
+            trash_page=m)
+        out.append(logits)
+        for j, tok in enumerate(steps):
+            logits, _ = detikzify.decode_step_paged(
+                params, cfg, i32([tok]), i32([len(prompt) + j]), pool, tab,
+                kv_pages=m, trash_row=m * page - 1, trash_page=m)
+            out.append(logits)
+        return torch.cat(out).float().cpu(), emb.float().cpu()
+
+    got, got_emb = run(dut, device)
+    want, want_emb = run(ref, cpu)
+    scale = float(want.std())
+    rel = float((got - want).abs().max()) / scale
+    cos = float(torch.nn.functional.cosine_similarity(got, want, dim=-1)
+                .min())
+    emb_cos = float(torch.nn.functional.cosine_similarity(
+        got_emb.flatten(1), want_emb.flatten(1)).min())
+    agree = int((got.argmax(-1) == want.argmax(-1)).sum())
+    result = {"phase": "reference", "layers": {"vision": 2, "text": 2},
+              "max_abs_err_over_std": rel, "min_cosine": cos,
+              "image_tokens_cosine": emb_cos,
+              "argmax_agree": f"{agree}/{got.shape[0]}",
+              "tolerance": "cosine >= 0.999 and max|err| <= 0.1 std"}
+    emit(result)
+    if not (bool(torch.isfinite(got).all()) and cos >= 0.999
+            and emb_cos >= 0.999 and rel <= 0.1):
+        raise SystemExit(f"card path disagrees with the fp32 reference: "
+                         f"{result}")
+
+
+def synthetic_figures(n: int, seed: int):
+    """Line-art figures drawn from a seed (numpy RNG, PIL)."""
+    import numpy as np
+    from PIL import Image, ImageDraw
+
+    rng = np.random.default_rng(seed)
+    figs = []
+    for _ in range(n):
+        w, h = (int(x) for x in rng.integers(240, 640, 2))
+        img = Image.new("RGB", (w, h), "white")
+        d = ImageDraw.Draw(img)
+        for _ in range(int(rng.integers(3, 9))):
+            x0, x1 = sorted(int(x) for x in rng.integers(0, w, 2))
+            y0, y1 = sorted(int(y) for y in rng.integers(0, h, 2))
+            color = tuple(int(c) for c in rng.integers(0, 200, 3))
+            kind = int(rng.integers(3))
+            if kind == 0:
+                d.rectangle([x0, y0, x1, y1], outline=color, width=2)
+            elif kind == 1:
+                d.ellipse([x0, y0, x1, y1], outline=color, width=2)
+            else:
+                d.line([x0, y0, x1, y1], fill=color, width=2)
+        figs.append(img)
+    return figs
+
+
+def profile_request(torch, pipe, fig, max_new_tokens: int) -> dict:
+    """One ``sample()`` request timed plainly, then the same request under
+    torch.profiler: device busy time is the sum of the device-side events
+    (kernels, copies), set against the plain request's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe.sample(image=fig, max_new_tokens=max_new_tokens)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pipe.sample(image=fig, max_new_tokens=max_new_tokens)
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) \
+            or getattr(e, "self_cuda_time_total", 0)
+
+    rows = [(e.key, dev_us(e), e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    busy_ms = sum(r[1] for r in rows) / 1e3
+    if busy_ms <= 0:
+        raise SystemExit("torch.profiler recorded no device time")
+    rows.sort(key=lambda r: -r[1])
+    return {"phase": "profile", "request": "sample()",
+            "max_new_tokens": max_new_tokens, "wall_ms": wall_ms,
+            "device_busy_ms": busy_ms,
+            "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
+            "top": [{"name": k[:80], "device_ms": us / 1e3, "calls": n}
+                    for k, us, n in rows[:10]]}
+
+
+def main_phase(torch, device, rehearsal: bool, seed: int,
+               max_new_tokens: int):
+    from detikzify_torch.config import get_config
+    from detikzify_torch.infer import (DetikzifyPipeline, FakeBackend,
+                                       TikzDocument, set_backend)
+    from detikzify_torch.models import convert
+    from detikzify_torch.ops import launch_counts, reset_launch_counts
+    from detikzify_torch.processing import ByteTokenizer, DetikzifyProcessor
+
+    def sync():
+        if not rehearsal:
+            torch.cuda.synchronize()
+
+    stages = {}
+    t0 = time.perf_counter()
+    cfg = get_config("tiny-test" if rehearsal else "detikzify-v2-8b")
+    dtype = torch.float32 if rehearsal else torch.bfloat16
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = convert.init_random(cfg, device=device, dtype=dtype,
+                                 generator=gen)
+    sync()
+    stages["init_weights_s"] = time.perf_counter() - t0
+
+    set_backend(FakeBackend())
+    tok = ByteTokenizer(vocab_size=cfg.text.vocab_size,
+                        image_token_id=cfg.image_token_id,
+                        bos_token_id=cfg.bos_token_id,
+                        eos_token_id=cfg.eos_token_id,
+                        pad_token_id=cfg.pad_token_id,
+                        model_max_length=2048)
+    processor = DetikzifyProcessor(tok, cfg)
+    t0 = time.perf_counter()
+    pipe = DetikzifyPipeline(params, cfg, processor, metric="fast",
+                             num_slots=8, device=device, seed=seed)
+    eng = pipe.engine
+    sync()
+    stages["engine_s"] = time.perf_counter() - t0
+    figs = synthetic_figures(3, seed)
+
+    # time spent inside engine.step (decode blocks; each ends in a host
+    # fetch of the block's tokens)
+    decode = {"s": 0.0}
+    step = eng.step
+
+    def timed_step(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return step(*a, **kw)
+        finally:
+            decode["s"] += time.perf_counter() - t
+
+    eng.step = timed_step
+    # every token the engine hands to a rollout on the main path
+    seen = []
+    accept = eng._accept_token
+
+    def recording_accept(ro, tok):
+        seen.append(tok)
+        return accept(ro, tok)
+
+    eng._accept_token = recording_accept
+    free0 = eng.num_free_pages
+    reset_launch_counts()
+    if not rehearsal:
+        torch.cuda.reset_peak_memory_stats()
+    docs = []
+    tokens0 = eng.counters["decode_tokens"]
+    t_main = time.perf_counter()
+    for i, fig in enumerate(figs):
+        t0 = time.perf_counter()
+        docs.append(pipe.sample(image=fig, max_new_tokens=max_new_tokens))
+        sync()
+        stages[f"sample_{i}_s"] = time.perf_counter() - t0
+        held = eng.prefix_pages_used
+        if eng.num_free_pages != free0 - held:
+            raise SystemExit(f"pool leak after sample {i}: "
+                             f"{eng.num_free_pages} free, expected "
+                             f"{free0} - {held}")
+    t0 = time.perf_counter()
+    docs.extend(pipe.sample_batch(figs, max_new_tokens=max_new_tokens))
+    sync()
+    stages["sample_batch_s"] = time.perf_counter() - t0
+    main_s = time.perf_counter() - t_main
+    counts = launch_counts()
+    eng.step, eng._accept_token = step, accept
+
+    if eng.num_free_pages != free0 - eng.prefix_pages_used:
+        raise SystemExit("pool leak after sample_batch")
+    if len(docs) != 6 or not all(isinstance(d, TikzDocument) for d in docs):
+        raise SystemExit("main path returned no documents")
+    if eng.num_active or eng.num_free_slots != eng.num_slots:
+        raise SystemExit("slots still held after the requests")
+    if not rehearsal:
+        for name in ("flash_attention", "paged_decode"):
+            if counts[name] <= 0:
+                raise SystemExit(f"main path never launched {name}")
+    if not seen or min(seen) < 0 or max(seen) >= cfg.text.vocab_size:
+        raise SystemExit("generated ids outside the vocabulary")
+    if cfg.image_token_id in seen:
+        raise SystemExit("the banned <image> token was generated")
+    # finite logits and image tokens of the expected shape on one figure
+    emb = eng.encode_image(processor(images=[pipe.load(figs[0])])
+                           .pixel_values)
+    if (tuple(emb.shape) != (1, cfg.image_seq_len, cfg.text.hidden_size)
+            or not bool(torch.isfinite(emb.float()).all())):
+        raise SystemExit(f"image tokens {tuple(emb.shape)} not finite "
+                         "or of the wrong shape")
+    decode_tokens = eng.counters["decode_tokens"] - tokens0
+    result = {
+        "phase": "main", "preset": "tiny-test" if rehearsal
+        else "detikzify-v2-8b", "dtype": str(dtype).replace("torch.", ""),
+        "requests": {"sample": 3, "sample_batch": 1, "figures": 6,
+                     "max_new_tokens": max_new_tokens},
+        "stages_s": stages, "main_s": main_s,
+        "decode_s": decode["s"], "decode_tokens": decode_tokens,
+        "decode_tokens_per_s": decode_tokens / max(decode["s"], 1e-9),
+        "launches": counts, "engine_counters": dict(eng.counters),
+        "pool_pages": int(eng._page_refs.shape[0]),
+        "code_chars": [len(d.code) for d in docs],
+    }
+    if not rehearsal:
+        result["max_memory_allocated_bytes"] = \
+            torch.cuda.max_memory_allocated()
+    emit(result)
+    if not rehearsal:
+        emit(profile_request(torch, pipe, figs[0], 32))
+    pipe.close()
+    return counts
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--cpu-rehearsal", action="store_true",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--max-new-tokens", type=int, default=128)
+    ap.add_argument("--iters", type=int, default=30,
+                    help="timed launches per kernel measurement")
+    ap.add_argument("--skip-main", action="store_true",
+                    help="build and hold the kernels only")
+    args = ap.parse_args(argv)
+
+    if not (ROOT / "detikzify_torch" / "csrc").is_dir():
+        print("chip_smoke.py: run it from a checkout of the repository "
+              "(detikzify_torch/ not found beside it)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    rehearsal = args.cpu_rehearsal
+    if rehearsal:
+        device = torch.device("cpu")
+        torch.manual_seed(args.seed)
+    else:
+        if not torch.cuda.is_available():
+            print("chip_smoke.py: torch.cuda.is_available() is false",
+                  file=sys.stderr)
+            return 1
+        device = torch.device("cuda", 0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        smi = nvidia_smi()
+        emit({"phase": "device", "nvidia_smi": smi,
+              "torch": torch.__version__, "cuda": torch.version.cuda,
+              "name": torch.cuda.get_device_name(0),
+              "count": torch.cuda.device_count()})
+        from detikzify_torch.ops import build_all
+
+        t0 = time.perf_counter()
+        logs = build_all()
+        ptxas = {name: [ln.strip() for ln in log.splitlines()
+                        if "registers" in ln or "spill" in ln][:8]
+                 for name, log in logs.items()}
+        emit({"phase": "build", "seconds": time.perf_counter() - t0,
+              "ptxas": ptxas})
+
+    rows = kernel_phase(torch, device, rehearsal, args.iters)
+    if args.skip_main:      # a kernel-only run prints no result line
+        emit({"kernels": rows})
+        return 0
+    reference_phase(torch, device, rehearsal, args.seed)
+    counts = main_phase(torch, device, rehearsal, args.seed,
+                        args.max_new_tokens)
+    for row in rows:
+        row["launches"] = counts.get(row["kernel"])
+    emit({"kernels": rows})
+    if rehearsal:
+        emit({"ok": True, "rehearsal": "cpu"})
+        return 0
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,96 @@
+"""Build the port's weights: random from a seed, or carried over from the
+JAX package's ``Params``.
+
+JAX dense kernels are ``[in, out]`` and per-layer weights are stacked
+``[L, ...]`` (``detikzify_tpu/models/import_hf.py``); the port's
+``nn.Linear`` weights are ``[out, in]`` and layers are a ``ModuleList``, so
+``params_from_numpy`` transposes and unstacks.
+"""
+from __future__ import annotations
+
+from typing import Mapping, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..config import DetikzifyConfig
+from .detikzify import Params
+from .layers import LayerNorm, RMSNorm
+
+
+def _as_mapping(tree) -> Mapping:
+    if isinstance(tree, Mapping):
+        return tree
+    if hasattr(tree, "_asdict"):          # the JAX Params NamedTuple
+        return tree._asdict()
+    raise TypeError(f"expected a mapping of numpy arrays, got {type(tree)}")
+
+
+@torch.no_grad()
+def init_random(cfg: DetikzifyConfig, device="cuda", dtype=torch.bfloat16,
+                generator: Optional[torch.Generator] = None,
+                seed: int = 0) -> Params:
+    """Random weights allocated directly on ``device`` and drawn from
+    ``generator`` (a ``torch.Generator`` on that device; one seeded with
+    ``seed`` when None). Scales follow the JAX ``layers.dense_init``: dense
+    kernels N(0, 1/in), embeddings / positions / probe N(0, 0.02^2), norms
+    at identity, biases zero -- so a full-depth tower stays finite in
+    bf16."""
+    params = Params(cfg, device=device, dtype=dtype)
+    if generator is None:
+        generator = torch.Generator(device=params.device).manual_seed(seed)
+    for mod in params.modules():
+        if isinstance(mod, nn.Linear):
+            mod.weight.normal_(0.0, mod.in_features ** -0.5,
+                               generator=generator)
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, (LayerNorm, RMSNorm)):
+            mod.scale.fill_(1.0)
+            if isinstance(mod, LayerNorm):
+                mod.bias.zero_()
+    for p in (params.vision.embeddings.position, params.text.embed_tokens):
+        p.normal_(0.0, 0.02, generator=generator)
+    if params.vision.head is not None:
+        params.vision.head.probe.normal_(0.0, 0.02, generator=generator)
+    return params
+
+
+def _load(module: nn.Module, tree: Mapping, layer: Optional[int]) -> None:
+    def pick(arr):
+        arr = np.asarray(arr)
+        return arr[layer] if layer is not None else arr
+
+    if isinstance(module, nn.Linear):
+        if "kernel" not in tree:
+            raise NotImplementedError(
+                f"packed or int8 weights ({sorted(tree)}) are not ported yet "
+                "(ROADMAP queue 1, int8 on K5)")
+        module.weight.copy_(torch.from_numpy(np.array(pick(tree["kernel"]).T)))
+        if module.bias is not None:
+            module.bias.copy_(torch.from_numpy(np.array(pick(tree["bias"]))))
+        return
+    for name, param in module.named_parameters(recurse=False):
+        param.copy_(torch.from_numpy(np.array(pick(tree[name]))))
+    for name, child in module.named_children():
+        if child is None:
+            continue
+        if isinstance(child, nn.ModuleList):
+            for i, sub in enumerate(child):
+                _load(sub, tree[name], i)
+        else:
+            _load(child, tree[name], layer)
+
+
+@torch.no_grad()
+def params_from_numpy(tree, cfg: DetikzifyConfig, device="cuda",
+                      dtype=torch.float32) -> Params:
+    """JAX ``Params`` (``vision``, ``connector``, ``text``) as nested dicts
+    of numpy arrays -> the port's ``Params`` on ``device`` in ``dtype``."""
+    tree = _as_mapping(tree)
+    head = bool(_as_mapping(tree["vision"]).get("head"))
+    params = Params(cfg, vision_head=head, device="cpu", dtype=torch.float32)
+    for name in ("vision", "connector", "text"):
+        _load(getattr(params, name), _as_mapping(tree[name]), None)
+    return params.to(device=device, dtype=dtype)

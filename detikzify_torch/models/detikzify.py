@@ -1,0 +1,172 @@
+"""Composite DeTikZify model: SigLIP vision + connector + LLaMA decoder
+(counterpart of ``detikzify_tpu/models/detikzify.py``, v2 family).
+
+  * ``connector``      -- 3->1 patch concatenation + projection;
+  * ``merge_inputs``   -- image embeddings into the ``<image>`` token slots
+                          (a masked gather, with ``image_offsets`` for
+                          prefill blocks that are the tail of a prompt);
+  * ``forward``        -- logits and the masked shifted-CE loss;
+  * ``encode_image`` / ``prefill_paged`` / ``decode_step_paged`` -- the
+    decode engine's entry points.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..config import DetikzifyConfig
+from . import llama, siglip
+from .layers import linear
+
+
+class Connector(nn.Module):
+    def __init__(self, cfg: DetikzifyConfig, *, device=None, dtype=None):
+        super().__init__()
+        self.proj = nn.Linear(cfg.projection_in, cfg.text.hidden_size,
+                              bias=cfg.projector_bias, device=device,
+                              dtype=dtype)
+
+
+class Params(nn.Module):
+    """The model's weights: ``vision``, ``connector``, ``text`` (the field
+    names of the JAX ``Params``)."""
+
+    def __init__(self, cfg: DetikzifyConfig, *, vision_head: bool = True,
+                 device="cuda", dtype=torch.bfloat16):
+        """Allocates the weights on ``device`` WITHOUT initialising them:
+        build through ``convert.init_random`` or ``convert.params_from_numpy``.
+        Inference only, so no parameter requires a gradient."""
+        super().__init__()
+        kw = dict(device="meta", dtype=dtype)
+        self.vision = siglip.SiglipVision(cfg.vision, head=vision_head, **kw)
+        self.connector = Connector(cfg, **kw)
+        self.text = llama.Llama(cfg.text, **kw)
+        self.to_empty(device=device)
+        self.requires_grad_(False)
+
+    @property
+    def device(self) -> torch.device:
+        return self.text.embed_tokens.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.text.embed_tokens.dtype
+
+
+def connector(params: Params, image_hidden: torch.Tensor,
+              concat_factor: int) -> torch.Tensor:
+    """[B, N, Dv] -> [B, N/cf, Dv*cf] -> [B, N/cf, Dt]."""
+    b, n, d = image_hidden.shape
+    x = image_hidden.reshape(b, n // concat_factor, d * concat_factor)
+    return linear(params.connector.proj, x)
+
+
+def vision_features(params: Params, cfg: DetikzifyConfig,
+                    pixel_values: torch.Tensor) -> torch.Tensor:
+    """pixel_values [B,H,W,C] -> pre-connector features [B, N, Dv] (v2: the
+    final post-norm hidden state)."""
+    if cfg.feature_layer is not None:
+        raise NotImplementedError(
+            "v1 feature-layer taps are not ported yet (ROADMAP queue 1, "
+            "loading/export and v1)")
+    return siglip.apply(params.vision, cfg.vision,
+                        pixel_values)["last_hidden_state"]
+
+
+def encode_image(params: Params, cfg: DetikzifyConfig,
+                 pixel_values: torch.Tensor) -> torch.Tensor:
+    """pixel_values [B,H,W,C] -> projected image tokens
+    [B, image_seq_len, Dt] (vision tower + connector)."""
+    feats = vision_features(params, cfg, pixel_values)
+    return connector(params, feats, cfg.concat_factor)
+
+
+def merge_inputs(cfg: DetikzifyConfig, input_ids: torch.Tensor,
+                 inputs_embeds: torch.Tensor, image_embeds: torch.Tensor,
+                 image_offsets: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """Scatter image embeddings into the <image> token positions: the k-th
+    ``<image>`` token of a row takes ``image_embeds[row, k + offset]``."""
+    is_image = input_ids == cfg.image_token_id                   # [B, S]
+    k = is_image.to(torch.int64).cumsum(-1) - 1
+    if image_offsets is not None:
+        k = k + image_offsets.to(torch.int64)[:, None]
+    k = k.clamp(0, image_embeds.shape[1] - 1)
+    idx = k[..., None].expand(*k.shape, image_embeds.shape[-1])
+    gathered = torch.gather(image_embeds, 1, idx)                # [B, S, D]
+    return torch.where(is_image[..., None],
+                       gathered.to(inputs_embeds.dtype), inputs_embeds)
+
+
+def forward(params: Params, cfg: DetikzifyConfig, input_ids: torch.Tensor,
+            pixel_values: Optional[torch.Tensor] = None, *,
+            attention_mask: Optional[torch.Tensor] = None,
+            labels: Optional[torch.Tensor] = None,
+            image_embeds: Optional[torch.Tensor] = None):
+    """Full forward. Returns (logits [B,S,V] fp32, loss or None)."""
+    embeds = llama.embed(params.text, input_ids)
+    if image_embeds is None and pixel_values is not None:
+        image_embeds = encode_image(params, cfg, pixel_values)
+    if image_embeds is not None:
+        embeds = merge_inputs(cfg, input_ids, embeds, image_embeds)
+    hidden = llama.forward(params.text, cfg.text, embeds,
+                           attention_mask=attention_mask)
+    logits = llama.unembed(params.text, hidden)
+
+    loss = None
+    if labels is not None:
+        # attention-mask-aware shift (reference modeling_detikzify.py:357-376)
+        shift_logits = logits[:, :-1]
+        shift_labels = labels[:, 1:]
+        valid = shift_labels != -100
+        if attention_mask is not None:
+            valid = valid & attention_mask[:, 1:]
+        safe = torch.where(valid, shift_labels, torch.zeros_like(shift_labels))
+        logp = torch.log_softmax(shift_logits, dim=-1)
+        token_lp = torch.gather(logp, -1, safe[..., None].long())[..., 0]
+        loss = -torch.where(valid, token_lp, torch.zeros_like(token_lp)
+                            ).sum() / valid.sum().clamp(min=1)
+    return logits, loss
+
+
+def _last_valid(hidden: torch.Tensor, seq_len: torch.Tensor) -> torch.Tensor:
+    idx = (seq_len.to(torch.int64) - 1).clamp(min=0)
+    return hidden[torch.arange(hidden.shape[0], device=hidden.device), idx]
+
+
+def prefill_paged(params: Params, cfg: DetikzifyConfig,
+                  input_ids: torch.Tensor,          # [B, S] (padded block)
+                  image_embeds: Optional[torch.Tensor],
+                  start: torch.Tensor,              # [B] write offsets
+                  seq_len: torch.Tensor,            # [B] valid lengths
+                  pool: llama.PagedKV,
+                  read_tab: torch.Tensor,           # [B, PB] prefix pages
+                  write_tab: torch.Tensor,          # [B, m_cap] slot tables
+                  cow_begin: torch.Tensor,          # [B] write-back base
+                  *, image_offsets: Optional[torch.Tensor] = None,
+                  trash_row=None, trash_page=None):
+    """Paged prefill; returns (last-valid-token logits [B, V], pool)."""
+    embeds = llama.embed(params.text, input_ids)
+    if image_embeds is not None:
+        embeds = merge_inputs(cfg, input_ids, embeds, image_embeds,
+                              image_offsets)
+    hidden, pool = llama.prefill_paged(
+        params.text, cfg.text, embeds, start, seq_len, pool, read_tab,
+        write_tab, cow_begin, trash_row=trash_row, trash_page=trash_page)
+    return llama.unembed(params.text, _last_valid(hidden, seq_len)), pool
+
+
+def decode_step_paged(params: Params, cfg: DetikzifyConfig,
+                      token_ids: torch.Tensor,      # [B]
+                      positions: torch.Tensor,      # [B]
+                      pool: llama.PagedKV,
+                      tab: torch.Tensor,            # [B, m_cap]
+                      kv_pages=None, trash_row=None, trash_page=None):
+    """One zero-copy paged decode step; returns (logits [B, V] fp32, pool)."""
+    embeds = llama.embed(params.text, token_ids)
+    hidden, pool = llama.decode_step_paged(
+        params.text, cfg.text, embeds, positions, pool, tab,
+        kv_pages=kv_pages, trash_row=trash_row, trash_page=trash_page)
+    return llama.unembed(params.text, hidden), pool

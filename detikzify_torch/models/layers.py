@@ -1,0 +1,107 @@
+"""Shared neural-net primitives (counterpart of ``detikzify_tpu/models/layers.py``).
+
+Dense layers are ``torch.nn.Linear`` (weights ``[out, in]``, the transpose
+of the JAX ``[in, out]`` kernels). Norms compute in fp32 and cast back to the
+input dtype, as the JAX functions do. RoPE is the non-interleaved
+"rotate_half" form with optional llama3 frequency scaling.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+class LayerNorm(nn.Module):
+    """Parameters of a layer norm (``scale``, ``bias``), applied by
+    ``layer_norm``."""
+
+    def __init__(self, dim: int, *, device=None, dtype=None):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(dim, device=device, dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device, dtype=dtype))
+
+
+class RMSNorm(nn.Module):
+    """Parameters of an RMS norm (``scale``), applied by ``rms_norm``."""
+
+    def __init__(self, dim: int, *, device=None, dtype=None):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(dim, device=device, dtype=dtype))
+
+
+def linear(p: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """Dense layer ``x W^T + b`` (the JAX ``einsum('...i,io->...o')``)."""
+    return F.linear(x, p.weight, p.bias)
+
+
+def layer_norm(p: LayerNorm, x: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = (xf - mean).square().mean(-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    return (y * p.scale.float() + p.bias.float()).to(x.dtype)
+
+
+def rms_norm(p: RMSNorm, x: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+    return (y * p.scale.float()).to(x.dtype)
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """PyTorch 'gelu_pytorch_tanh' / gelu(approximate='tanh')."""
+    return F.gelu(x, approximate="tanh")
+
+
+ACTIVATIONS = {
+    "gelu": lambda x: F.gelu(x, approximate="none"),
+    "gelu_pytorch_tanh": gelu_tanh,
+    "silu": F.silu,
+    "relu": F.relu,
+}
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings (LLaMA-style, non-interleaved "rotate_half").
+# ---------------------------------------------------------------------------
+
+def rope_inv_freq(head_dim: int, theta: float, rope_scaling=None,
+                  device=None) -> torch.Tensor:
+    """Per-frequency inverse wavelengths, with optional llama3 NTK scaling."""
+    inv_freq = 1.0 / (theta ** (torch.arange(0, head_dim, 2,
+                                             dtype=torch.float32,
+                                             device=device) / head_dim))
+    if rope_scaling and rope_scaling.get("rope_type") == "llama3":
+        factor = rope_scaling["factor"]
+        lo = rope_scaling["low_freq_factor"]
+        hi = rope_scaling["high_freq_factor"]
+        orig = rope_scaling["original_max_position_embeddings"]
+        wavelen = 2.0 * math.pi / inv_freq
+        low_wl, high_wl = orig / lo, orig / hi
+        smooth = (orig / wavelen - lo) / (hi - lo)
+        inv_freq = torch.where(
+            wavelen > low_wl, inv_freq / factor,
+            torch.where(wavelen < high_wl, inv_freq,
+                        (1 - smooth) * inv_freq / factor + smooth * inv_freq))
+    return inv_freq
+
+
+def rope_cos_sin(positions: torch.Tensor, inv_freq: torch.Tensor):
+    """positions [...] int -> (cos, sin) each [..., head_dim] fp32."""
+    angles = positions[..., None].float() * inv_freq
+    angles = torch.cat([angles, angles], dim=-1)
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x [..., n_heads, head_dim]; cos/sin broadcastable [..., head_dim]."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    rotated = torch.cat([-x2, x1], dim=-1)
+    cos = cos[..., None, :]
+    sin = sin[..., None, :]
+    return (x.float() * cos + rotated.float() * sin).to(x.dtype)

@@ -1,0 +1,321 @@
+"""LLaMA-family decoder (counterpart of ``detikzify_tpu/models/llama.py``).
+
+Entry points:
+
+  * ``forward``            -- full-sequence causal pass (evaluation / loss);
+  * ``prefill_paged``      -- offset prefill of a token block against the
+                              engine's page pool: restored prefix pages are
+                              gathered into a per-layer work cache, attention
+                              is the per-batch window of kernel K1, and the
+                              tail plus at most one copy-on-write boundary
+                              page are written back through the page table;
+  * ``decode_step_paged``  -- one token for every slot, zero-copy: K/V rows
+                              are written into the pool through the page
+                              table and attention reads the pool through it
+                              (kernel K2). This is the JAX package's
+                              ``_decode_step_paged_zerocopy``.
+
+The pool is ``PagedKV [L, P, page, NKV, Hd]``; rows at or beyond the
+engine's ``trash_row`` are written to the shared trash page, never through
+a (possibly stale) page table -- do not simplify that routing. Where JAX
+donated the pool buffers, the port updates the pool in place.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..config import TextConfig
+from ..ops.flash import flash_attention
+from ..ops.paged import decode_attend_paged
+from .layers import (ACTIVATIONS, RMSNorm, apply_rope, linear, rms_norm,
+                     rope_cos_sin, rope_inv_freq)
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: TextConfig, *, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        d, hd = cfg.hidden_size, cfg.head_dim
+        nh, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
+        bias = cfg.attention_bias
+        self.q = nn.Linear(d, nh * hd, bias=bias, **kw)
+        self.k = nn.Linear(d, nkv * hd, bias=bias, **kw)
+        self.v = nn.Linear(d, nkv * hd, bias=bias, **kw)
+        self.o = nn.Linear(nh * hd, d, bias=False, **kw)
+
+
+class MLP(nn.Module):
+    def __init__(self, cfg: TextConfig, *, device=None, dtype=None):
+        super().__init__()
+        kw = dict(bias=False, device=device, dtype=dtype)
+        d, i = cfg.hidden_size, cfg.intermediate_size
+        self.gate = nn.Linear(d, i, **kw)
+        self.up = nn.Linear(d, i, **kw)
+        self.down = nn.Linear(i, d, **kw)
+
+
+class DecoderLayer(nn.Module):
+    def __init__(self, cfg: TextConfig, *, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.input_ln = RMSNorm(cfg.hidden_size, **kw)
+        self.attn = Attention(cfg, **kw)
+        self.post_ln = RMSNorm(cfg.hidden_size, **kw)
+        self.mlp = MLP(cfg, **kw)
+
+
+class Llama(nn.Module):
+    def __init__(self, cfg: TextConfig, *, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.embed_tokens = nn.Parameter(torch.zeros(
+            cfg.vocab_size, cfg.hidden_size, **kw))
+        self.layers = nn.ModuleList(DecoderLayer(cfg, **kw)
+                                    for _ in range(cfg.num_hidden_layers))
+        self.norm = RMSNorm(cfg.hidden_size, **kw)
+        self.lm_head = (None if cfg.tie_word_embeddings else
+                        nn.Linear(cfg.hidden_size, cfg.vocab_size,
+                                  bias=False, **kw))
+
+
+def embed(params: Llama, token_ids: torch.Tensor) -> torch.Tensor:
+    return params.embed_tokens[token_ids.long()]
+
+
+def unembed(params: Llama, hidden: torch.Tensor) -> torch.Tensor:
+    """Final-norm'd hidden -> fp32 logits (the product accumulates in fp32;
+    with bf16 weights its result is rounded to bf16 before the cast)."""
+    weight = (params.lm_head.weight if params.lm_head is not None
+              else params.embed_tokens)
+    return torch.nn.functional.linear(hidden, weight).float()
+
+
+def _qkv(lp: DecoderLayer, x: torch.Tensor, cfg: TextConfig, cos, sin):
+    lead = x.shape[:-1]            # [B, S] full-seq / [B] decode
+    hd, nh, nkv = cfg.head_dim, cfg.num_attention_heads, \
+        cfg.num_key_value_heads
+    q = linear(lp.attn.q, x).reshape(*lead, nh, hd)
+    k = linear(lp.attn.k, x).reshape(*lead, nkv, hd)
+    v = linear(lp.attn.v, x).reshape(*lead, nkv, hd)
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def _mlp(lp: DecoderLayer, x: torch.Tensor, act) -> torch.Tensor:
+    return linear(lp.mlp.down,
+                  act(linear(lp.mlp.gate, x)) * linear(lp.mlp.up, x))
+
+
+def _inv_freq(cfg: TextConfig, device) -> torch.Tensor:
+    return rope_inv_freq(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling,
+                         device=device)
+
+
+# ---------------------------------------------------------------------------
+# full-sequence forward
+# ---------------------------------------------------------------------------
+
+def forward(params: Llama, cfg: TextConfig, inputs_embeds: torch.Tensor, *,
+            positions: Optional[torch.Tensor] = None,
+            attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Causal full-sequence pass; returns final-norm'd hidden [B, S, D]."""
+    b, s, _ = inputs_embeds.shape
+    dev = inputs_embeds.device
+    act = ACTIVATIONS[cfg.hidden_act]
+    if positions is None:
+        if attention_mask is not None:
+            positions = (attention_mask.to(torch.int32).cumsum(-1) - 1
+                         ).clamp(min=0)
+        else:
+            positions = torch.arange(s, device=dev)[None].expand(b, s)
+    cos, sin = rope_cos_sin(positions, _inv_freq(cfg, dev))
+    x = inputs_embeds
+    for lp in params.layers:
+        h = rms_norm(lp.input_ln, x, cfg.rms_norm_eps)
+        q, k, v = _qkv(lp, h, cfg, cos, sin)
+        h = flash_attention(q, k, v, causal=True, kv_mask=attention_mask)
+        x = x + linear(lp.attn.o, h.reshape(b, s, -1))
+        h = rms_norm(lp.post_ln, x, cfg.rms_norm_eps)
+        x = x + _mlp(lp, h, act)
+    return rms_norm(params.norm, x, cfg.rms_norm_eps)
+
+
+# ---------------------------------------------------------------------------
+# paged KV cache: shared page pool + per-slot page tables
+# ---------------------------------------------------------------------------
+
+class PagedKV(NamedTuple):
+    k: torch.Tensor  # [n_layers, n_pages, page, n_kv_heads, head_dim]
+    v: torch.Tensor
+
+    @property
+    def page(self) -> int:
+        return self.k.shape[2]
+
+    @property
+    def n_pages(self) -> int:
+        return self.k.shape[1]
+
+
+def init_paged_cache(cfg: TextConfig, n_pages: int, page: int,
+                     dtype=torch.bfloat16, device="cuda") -> PagedKV:
+    shape = (cfg.num_hidden_layers, n_pages, page,
+             cfg.num_key_value_heads, cfg.head_dim)
+    return PagedKV(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device))
+
+
+def _scatter_rows(pool_x: torch.Tensor, src: torch.Tensor,
+                  rows: torch.Tensor, write_tab: torch.Tensor, page: int,
+                  trash_row: Optional[int] = None,
+                  trash_page: Optional[int] = None) -> None:
+    """Write src [B, R, N, H] (one layer) at absolute token rows ``rows``
+    [B, R] of each slot, through its ``write_tab`` [B, m_cap] page table,
+    into ``pool_x`` [P, page, N, H] in place.
+
+    Rows at or beyond ``trash_row`` (the engine's trash block) write to the
+    shared ``trash_page`` instead of dereferencing the table: a RELEASED
+    slot's stale table must never be written through. Without a trash
+    config, rows beyond the allocation clamp to the slot's last row."""
+    m_cap = write_tab.shape[1]
+    entry = (rows // page).clamp(0, m_cap - 1)
+    pid = torch.gather(write_tab, 1, entry)
+    rid = rows % page
+    if trash_row is not None:
+        pid = torch.where(rows >= trash_row,
+                          torch.full_like(pid, trash_page), pid)
+    else:
+        overflow = rows >= m_cap * page
+        pid = torch.where(overflow, write_tab[:, -1:].expand_as(pid), pid)
+        rid = torch.where(overflow, torch.full_like(rid, page - 1), rid)
+    pool_x[pid.long(), rid.long()] = src.to(pool_x.dtype)
+
+
+def prefill_paged(
+    params: Llama,
+    cfg: TextConfig,
+    inputs_embeds: torch.Tensor,     # [B, S, D] (padded block)
+    start: torch.Tensor,             # [B] int32 -- block write offset
+    seq_len: torch.Tensor,           # [B] int32 -- valid tokens in block
+    pool: PagedKV,
+    read_tab: torch.Tensor,          # [B, PB] prefix pages (PB may be 0)
+    write_tab: torch.Tensor,         # [B, m_cap] the slot's full page table
+    cow_begin: torch.Tensor,         # [B] first row written back (page-
+                                     # aligned boundary of the restored
+                                     # prefix; == start when fresh)
+    *,
+    trash_row: Optional[int] = None,
+    trash_page: Optional[int] = None,
+) -> Tuple[torch.Tensor, PagedKV]:
+    """Offset prefill against the page pool. Per layer: the restored prefix
+    pages are gathered into a contiguous work cache [B, W, N, H] with
+    ``W = PB*page + S + page``, the block's K/V land at rows
+    ``start .. start+S``, attention is K1's per-batch window
+    (``t <= start + i and t < start + seq_len``), and rows
+    ``[cow_begin, cow_begin + page + S)`` go back to the pool through
+    ``write_tab``: the tail plus at most one copy-on-write boundary page.
+    Returns (hidden [B, S, D], pool updated in place)."""
+    b, s, _ = inputs_embeds.shape
+    dev = inputs_embeds.device
+    act = ACTIVATIONS[cfg.hidden_act]
+    page = pool.page
+    pb = read_tab.shape[1]
+    n, hd = pool.k.shape[-2], pool.k.shape[-1]
+    w = pb * page + s + page       # pad page: the write-back never clamps
+
+    start = start.to(torch.int32)
+    seq_len = seq_len.to(torch.int32)
+    positions = start[:, None] + torch.arange(s, device=dev)[None, :]
+    cos, sin = rope_cos_sin(positions, _inv_freq(cfg, dev))
+    kv_limits = (start + seq_len).contiguous()
+    q_offsets = start.contiguous()
+    bidx = torch.arange(b, device=dev)[:, None]
+    block_rows = positions.long()                                # [B, S]
+    rows = cow_begin.long()[:, None] + torch.arange(page + s, device=dev)
+    read_ids = read_tab.long()
+
+    x = inputs_embeds
+    for li, lp in enumerate(params.layers):
+        h = rms_norm(lp.input_ln, x, cfg.rms_norm_eps)
+        q, k, v = _qkv(lp, h, cfg, cos, sin)
+        work = []
+        for pool_x, new in ((pool.k[li], k), (pool.v[li], v)):
+            wx = torch.zeros((b, w, n, hd), dtype=pool_x.dtype, device=dev)
+            if pb:
+                wx[:, :pb * page] = pool_x[read_ids].reshape(
+                    b, pb * page, n, hd)
+            wx[bidx, block_rows] = new.to(wx.dtype)
+            work.append(wx)
+        h = flash_attention(q, work[0], work[1], q_offsets=q_offsets,
+                            kv_limits=kv_limits)
+        x = x + linear(lp.attn.o, h.reshape(b, s, -1))
+        h = rms_norm(lp.post_ln, x, cfg.rms_norm_eps)
+        x = x + _mlp(lp, h, act)
+        # write-back after this layer's reads: later layers only read their
+        # own layer of the pool, so this equals JAX's one scatter at the end
+        for pool_x, wx in ((pool.k[li], work[0]), (pool.v[li], work[1])):
+            _scatter_rows(pool_x, wx[bidx, rows], rows, write_tab, page,
+                          trash_row, trash_page)
+    return rms_norm(params.norm, x, cfg.rms_norm_eps), pool
+
+
+def _route_pool_writes(tab: torch.Tensor, positions: torch.Tensor, page: int,
+                       trash_row: Optional[int], trash_page
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Resolve each slot's write position [B] to a pool (page, row) through
+    its page table, DIVERTING rows at/beyond ``trash_row`` to the shared
+    trash page. Diverted writes must never go through a (possibly stale)
+    released slot's table: do not simplify this routing."""
+    m_cap = tab.shape[1]
+    pos2 = positions[:, None].long()
+    entry = (pos2 // page).clamp(0, m_cap - 1)
+    pid = torch.gather(tab.long(), 1, entry)
+    if trash_row is not None:
+        divert = (torch.full_like(pid, trash_page) if trash_page is not None
+                  else tab[:, -1:].long().expand_as(pid))
+        pid = torch.where(pos2 >= trash_row, divert, pid)
+    return pid[:, 0], positions.long() % page
+
+
+def decode_step_paged(
+    params: Llama,
+    cfg: TextConfig,
+    inputs_embeds: torch.Tensor,   # [B, D]
+    positions: torch.Tensor,       # [B] int32 (engine trash-clamps done slots)
+    pool: PagedKV,
+    tab: torch.Tensor,             # [B, m_cap] int32 page tables
+    *,
+    kv_pages: Optional[int] = None,   # attend pages [0, kv_pages)
+    trash_row: Optional[int] = None,
+    trash_page: Optional[int] = None,
+) -> Tuple[torch.Tensor, PagedKV]:
+    """Zero-copy decode step: per layer, the new K/V rows are written into
+    the pool through the routed (page, row), then kernel K2 reads the pool
+    through ``tab[:, :kv_pages]`` up to ``min(position + 1, kv_pages*page)``
+    rows. Returns (hidden [B, D], pool updated in place)."""
+    act = ACTIVATIONS[cfg.hidden_act]
+    page = pool.page
+    m_cap = tab.shape[1]
+    m = min(kv_pages or m_cap, m_cap)
+    dev = inputs_embeds.device
+
+    cos, sin = rope_cos_sin(positions, _inv_freq(cfg, dev))
+    lengths = torch.clamp(positions.to(torch.int32) + 1,
+                          max=m * page).contiguous()
+    pid, rid = _route_pool_writes(tab, positions, page, trash_row,
+                                  trash_page)
+    sub = tab[:, :m]
+    x = inputs_embeds
+    for li, lp in enumerate(params.layers):
+        h = rms_norm(lp.input_ln, x, cfg.rms_norm_eps)
+        q, k, v = _qkv(lp, h, cfg, cos, sin)
+        pk, pv = pool.k[li], pool.v[li]
+        pk[pid, rid] = k.to(pk.dtype)
+        pv[pid, rid] = v.to(pv.dtype)
+        h = decode_attend_paged(q, pk, pv, sub, lengths)
+        x = x + linear(lp.attn.o, h.reshape(x.shape[0], -1))
+        h = rms_norm(lp.post_ln, x, cfg.rms_norm_eps)
+        x = x + _mlp(lp, h, act)
+    return rms_norm(params.norm, x, cfg.rms_norm_eps), pool

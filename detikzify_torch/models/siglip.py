@@ -1,0 +1,135 @@
+"""SigLIP-style ViT vision encoder (counterpart of
+``detikzify_tpu/models/siglip.py``; the TikZero adapter waits for its own
+slice).
+
+Images are NHWC at the public surface, as in the JAX package. The patch
+embedding is an unfold + matmul whose per-patch order is (C, ph, pw), so a
+torch ``Conv2d`` weight ``[D, C, ph, pw]`` reshapes to it directly. Every
+attention call (the 900-patch layers and the 1-query MAP head) goes
+through ``ops.flash.flash_attention``, i.e. kernel K1 on the card.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..config import VisionConfig
+from ..ops.flash import flash_attention
+from .layers import ACTIVATIONS, LayerNorm, layer_norm, linear
+
+
+class Attention(nn.Module):
+    def __init__(self, d: int, *, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.q = nn.Linear(d, d, **kw)
+        self.k = nn.Linear(d, d, **kw)
+        self.v = nn.Linear(d, d, **kw)
+        self.o = nn.Linear(d, d, **kw)
+
+
+class MLP(nn.Module):
+    def __init__(self, d: int, i: int, *, device=None, dtype=None):
+        super().__init__()
+        self.fc1 = nn.Linear(d, i, device=device, dtype=dtype)
+        self.fc2 = nn.Linear(i, d, device=device, dtype=dtype)
+
+
+class EncoderLayer(nn.Module):
+    def __init__(self, cfg: VisionConfig, *, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        d = cfg.hidden_size
+        self.ln1 = LayerNorm(d, **kw)
+        self.attn = Attention(d, **kw)
+        self.ln2 = LayerNorm(d, **kw)
+        self.mlp = MLP(d, cfg.intermediate_size, **kw)
+
+
+class Embeddings(nn.Module):
+    def __init__(self, cfg: VisionConfig, *, device=None, dtype=None):
+        super().__init__()
+        patch_dim = cfg.patch_size * cfg.patch_size * cfg.num_channels
+        self.patch = nn.Linear(patch_dim, cfg.hidden_size, device=device,
+                               dtype=dtype)
+        self.position = nn.Parameter(torch.zeros(
+            cfg.num_patches, cfg.hidden_size, device=device, dtype=dtype))
+
+
+class MAPHead(nn.Module):
+    """SigLIP multihead attention-pooling head: one learned probe query."""
+
+    def __init__(self, cfg: VisionConfig, *, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        d = cfg.hidden_size
+        self.probe = nn.Parameter(torch.zeros(1, 1, d, **kw))
+        self.attn = Attention(d, **kw)
+        self.ln = LayerNorm(d, **kw)
+        self.mlp = MLP(d, cfg.intermediate_size, **kw)
+
+
+class SiglipVision(nn.Module):
+    def __init__(self, cfg: VisionConfig, *, head: bool = True, device=None,
+                 dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.embeddings = Embeddings(cfg, **kw)
+        self.layers = nn.ModuleList(EncoderLayer(cfg, **kw)
+                                    for _ in range(cfg.num_hidden_layers))
+        self.post_ln = LayerNorm(cfg.hidden_size, **kw)
+        self.head = MAPHead(cfg, **kw) if head else None
+
+
+def patchify(pixel_values: torch.Tensor, patch: int) -> torch.Tensor:
+    """[B, H, W, C] -> [B, (H/p)*(W/p), p*p*C], per-patch order (C, ph, pw)."""
+    b, h, w, c = pixel_values.shape
+    gh, gw = h // patch, w // patch
+    x = pixel_values.reshape(b, gh, patch, gw, patch, c)
+    x = x.permute(0, 1, 3, 5, 2, 4)             # [B, gh, gw, C, ph, pw]
+    return x.reshape(b, gh * gw, c * patch * patch)
+
+
+def _mha(p: Attention, x_q: torch.Tensor, x_kv: torch.Tensor,
+         num_heads: int, *, kv_mask=None) -> torch.Tensor:
+    b, s, d = x_q.shape
+    hd = d // num_heads
+    t = x_kv.shape[1]
+    q = linear(p.q, x_q).reshape(b, s, num_heads, hd)
+    k = linear(p.k, x_kv).reshape(b, t, num_heads, hd)
+    v = linear(p.v, x_kv).reshape(b, t, num_heads, hd)
+    out = flash_attention(q, k, v, kv_mask=kv_mask)
+    return linear(p.o, out.reshape(b, s, d))
+
+
+def apply(params: SiglipVision, cfg: VisionConfig,
+          pixel_values: torch.Tensor) -> dict:
+    """pixel_values [B, H, W, C] (SigLIP-normalized) ->
+    {'last_hidden_state': [B, N, D], 'pooler_output': [B, D]}."""
+    act = ACTIVATIONS[cfg.hidden_act]
+    eps = cfg.layer_norm_eps
+    nh = cfg.num_attention_heads
+    dtype = params.embeddings.patch.weight.dtype
+
+    x = linear(params.embeddings.patch,
+               patchify(pixel_values.to(dtype), cfg.patch_size))
+    x = x + params.embeddings.position
+    for lp in params.layers:
+        h = layer_norm(lp.ln1, x, eps)
+        x = x + _mha(lp.attn, h, h, nh)
+        h = layer_norm(lp.ln2, x, eps)
+        x = x + linear(lp.mlp.fc2, act(linear(lp.mlp.fc1, h)))
+    x = layer_norm(params.post_ln, x, eps)
+
+    hp: Optional[MAPHead] = params.head
+    if hp is not None:
+        probe = hp.probe.expand(x.shape[0], 1, x.shape[-1]).to(x.dtype)
+        pooled = _mha(hp.attn, probe, x, nh)
+        h = layer_norm(hp.ln, pooled, eps)
+        h = linear(hp.mlp.fc2, act(linear(hp.mlp.fc1, h)))
+        pooled = (pooled + h)[:, 0]
+    else:
+        pooled = x.mean(dim=1)
+    return {"last_hidden_state": x, "pooler_output": pooled}

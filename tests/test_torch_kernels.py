@@ -1,0 +1,238 @@
+"""The port's kernel modules against the JAX package, on the CPU.
+
+K1 (``detikzify_torch.ops.flash``) and K2 (``detikzify_torch.ops.paged``)
+take their plain PyTorch versions for CPU tensors; these are held against
+the Pallas kernels run in interpret mode and against the JAX XLA paths, at
+the tolerances of ``tests/test_kernels.py`` (fp32). Sampling is held
+exactly on greedy rows and on the warped candidate logits, and by support
+on sampled rows (threefry and Philox draw different bits).
+"""
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from detikzify_tpu.ops import sampling as jsampling
+from detikzify_tpu.ops.attention import attend_xla, decode_attend
+from detikzify_tpu.ops.flash import flash_attention as jflash
+from detikzify_tpu.ops.paged import decode_attend_paged_pallas, gather_pages
+from detikzify_torch.ops import flash as tflash
+from detikzify_torch.ops import paged as tpaged
+from detikzify_torch.ops import sampling as tsampling
+
+torch.set_num_threads(1)
+
+ATOL, RTOL = 2e-5, 2e-4
+
+
+def _t(x):
+    return torch.from_numpy(np.asarray(x))
+
+
+def _qkv(rng, b, s, t, nh, nkv, hd):
+    return (rng.standard_normal((b, s, nh, hd)).astype(np.float32),
+            rng.standard_normal((b, t, nkv, hd)).astype(np.float32),
+            rng.standard_normal((b, t, nkv, hd)).astype(np.float32))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", [
+    (2, 36, 4, 2, 24),     # vision-ish: unaligned seq + head dim, GQA
+    (1, 130, 8, 2, 64),    # decoder-ish: GQA 4:1
+    (1, 20, 2, 2, 72),     # SigLIP head_dim 72
+])
+def test_flash_plain_matches_pallas_and_xla(causal, shape):
+    b, s, nh, nkv, hd = shape
+    q, k, v = _qkv(np.random.default_rng(0), b, s, s, nh, nkv, hd)
+    want = np.asarray(attend_xla(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), causal=causal))
+    pallas = np.asarray(jflash(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), causal=causal,
+                               interpret=True))
+    got = tflash.flash_attention(_t(q), _t(k), _t(v), causal=causal).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(got, pallas, atol=ATOL, rtol=RTOL)
+
+
+def test_flash_plain_kv_mask():
+    rng = np.random.default_rng(1)
+    q, k, v = _qkv(rng, 2, 8, 24, 4, 4, 32)
+    mask = np.zeros((2, 24), bool)
+    mask[0, :10] = True
+    mask[1, :17] = True
+    want = attend_xla(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                      kv_mask=jnp.asarray(mask))
+    pallas = jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                    kv_mask=jnp.asarray(mask), interpret=True)
+    got = tflash.flash_attention(_t(q), _t(k), _t(v),
+                                 kv_mask=_t(mask)).numpy()
+    np.testing.assert_allclose(got, np.asarray(want), atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(got, np.asarray(pallas), atol=ATOL,
+                               rtol=RTOL)
+
+
+def test_flash_plain_offsets_window():
+    """Per-batch offset-prefill window (the engine's prefix-restore mask)."""
+    rng = np.random.default_rng(3)
+    q, k, v = _qkv(rng, 2, 8, 32, 4, 2, 32)
+    offs = np.asarray([0, 10], np.int32)
+    lims = np.asarray([6, 18], np.int32)
+    want = np.asarray(attend_xla(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), q_offsets=jnp.asarray(offs),
+                                 kv_limits=jnp.asarray(lims)))
+    pallas = np.asarray(jflash(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), q_offsets=jnp.asarray(offs),
+                               kv_limits=jnp.asarray(lims), interpret=True))
+    got = tflash.flash_attention(_t(q), _t(k), _t(v), q_offsets=_t(offs),
+                                 kv_limits=_t(lims)).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+    # rows beyond slot 0's 6 valid queries differ only in padding
+    np.testing.assert_allclose(got[0, :6], pallas[0, :6], atol=ATOL,
+                               rtol=RTOL)
+    np.testing.assert_allclose(got[1], pallas[1], atol=ATOL, rtol=RTOL)
+
+
+def test_flash_plain_single_query_map_head():
+    """S=1 against T keys (the SigLIP MAP head's probe query)."""
+    rng = np.random.default_rng(4)
+    q, k, v = _qkv(rng, 3, 1, 45, 4, 4, 24)
+    want = np.asarray(attend_xla(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v)))
+    pallas = np.asarray(jflash(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), interpret=True))
+    got = tflash.flash_attention(_t(q), _t(k), _t(v)).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(got, pallas, atol=ATOL, rtol=RTOL)
+
+
+def test_flash_wrapper_rejects_kv_limits_without_offsets():
+    q, k, v = _qkv(np.random.default_rng(0), 1, 4, 4, 2, 2, 8)
+    with pytest.raises(ValueError, match="q_offsets"):
+        tflash.flash_attention(_t(q), _t(k), _t(v),
+                               kv_limits=torch.tensor([2], dtype=torch.int32))
+
+
+@pytest.mark.parametrize("nh,nkv,hd", [(8, 8, 64), (8, 2, 64), (4, 4, 128)])
+def test_paged_plain_matches_pallas(nh, nkv, hd):
+    """K2's plain version (gather + contiguous decode) == the Pallas paged
+    kernel and the JAX contiguous decode on a shuffled page pool."""
+    rng = np.random.default_rng(11)
+    b, page, m, P = 3, 128, 4, 16
+    pool_k = rng.standard_normal((P, page, nkv, hd)).astype(np.float32)
+    pool_v = rng.standard_normal((P, page, nkv, hd)).astype(np.float32)
+    tab = np.stack([rng.permutation(P)[:m] for _ in range(b)]).astype(
+        np.int32)
+    q = rng.standard_normal((b, nh, hd)).astype(np.float32)
+    lengths = np.asarray([page * m, 37, 200], np.int32)
+
+    jk, jv, jt = jnp.asarray(pool_k), jnp.asarray(pool_v), jnp.asarray(tab)
+    want = np.asarray(decode_attend(jnp.asarray(q), gather_pages(jk, jt),
+                                    gather_pages(jv, jt),
+                                    jnp.asarray(lengths),
+                                    implementation="xla"))
+    pallas = np.asarray(decode_attend_paged_pallas(
+        jnp.asarray(q), jk, jv, jt, jnp.asarray(lengths), interpret=True))
+    got = tpaged.decode_attend_paged(_t(q), _t(pool_k), _t(pool_v), _t(tab),
+                                     _t(lengths)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=1e-5)
+    np.testing.assert_allclose(got, pallas, atol=2e-5, rtol=1e-4)
+    # a column slice of a wider table (the engine's kv_pages window)
+    wide = np.concatenate([tab, np.zeros((b, 3), np.int32)], axis=1)
+    got_w = tpaged.decode_attend_paged(_t(q), _t(pool_k), _t(pool_v),
+                                       _t(wide)[:, :m], _t(lengths)).numpy()
+    np.testing.assert_array_equal(got_w, got)
+
+
+# ---------------------------------------------------------------------------
+# sampling
+# ---------------------------------------------------------------------------
+
+def _tsample(logits, seed=0, **kw):
+    gen = torch.Generator().manual_seed(seed)
+    return tsampling.sample(torch.as_tensor(logits), gen, **kw)
+
+
+def test_sampling_greedy_and_bans_match_jax():
+    rng = np.random.default_rng(5)
+    logits = rng.standard_normal((6, 300)).astype(np.float32)
+    banned = (int(logits[0].argmax()), 7)
+    want = jsampling.sample(jnp.asarray(logits), jax.random.PRNGKey(0),
+                            params=jsampling.SamplingParams(temperature=0.0),
+                            banned_tokens=banned)
+    got = _tsample(logits, params=tsampling.SamplingParams(temperature=0.0),
+                   banned_tokens=banned)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert banned[0] not in got.tolist()
+
+
+def test_sampling_eos_suppression_first_step_only():
+    logits = np.full((2, 8), -5.0, np.float32)
+    logits[:, 3] = 10.0   # eos dominant
+    for is_first in ([True, False], [False, True]):
+        want = jsampling.sample(
+            jnp.asarray(logits), jax.random.PRNGKey(0),
+            params=jsampling.SamplingParams(temperature=0.0),
+            suppress_begin_tokens=(3,), is_first=jnp.asarray(is_first))
+        got = _tsample(logits,
+                       params=tsampling.SamplingParams(temperature=0.0),
+                       suppress_begin_tokens=(3,),
+                       is_first=torch.tensor(is_first))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        assert [t == 3 for t in got.tolist()] == [not f for f in is_first]
+
+
+@pytest.mark.parametrize("temperature,top_p,top_k", [
+    (0.8, 0.95, 0), (1.0, 0.5, 0), (1.0, 1.0, 2), (0.7, 0.9, 5),
+    (0.0, 0.95, 0), (1.3, 0.0, 0)])
+def test_warp_candidate_logits_match_jax(temperature, top_p, top_k):
+    """The warped candidate set (temperature -> top-k -> top-p in the top
+    `candidates`) is identical, value for value, per row."""
+    rng = np.random.default_rng(6)
+    b, v, cand = 4, 200, 64
+    logits = (rng.standard_normal((b, v)) * 3).astype(np.float32)
+    temp = np.full((b,), temperature, np.float32)
+    temp[0] = 0.0                                     # one greedy row
+    tp = np.full((b,), top_p, np.float32)
+    tk = np.full((b,), top_k, np.int32)
+    jl, ji, jg = jsampling._warp(jnp.asarray(logits), jnp.asarray(temp),
+                                 jnp.asarray(tp), jnp.asarray(tk), cand)
+    tl, ti, tg = tsampling._warp(_t(logits), _t(temp), _t(tp), _t(tk), cand)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(tg.numpy(), np.asarray(jg))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-6,
+                               atol=0)
+    # the kept set is exactly the same
+    np.testing.assert_array_equal(tl.numpy() > -1e29, np.asarray(jl) > -1e29)
+
+
+def test_sampling_top_p_support():
+    # one dominant token: with top_p=0.5 only it survives
+    logits = np.full((1, 16), -10.0, np.float32)
+    logits[0, 7] = 10.0
+    params = tsampling.SamplingParams(temperature=1.0, top_p=0.5)
+    assert {int(_tsample(logits, seed, params=params)[0])
+            for seed in range(20)} == {7}
+
+
+def test_sampling_top_k_support_matches_jax():
+    logits = np.linspace(0, 3, 8)[None].astype(np.float32)
+    params_t = tsampling.SamplingParams(temperature=1.0, top_p=1.0, top_k=2)
+    params_j = jsampling.SamplingParams(temperature=1.0, top_p=1.0, top_k=2)
+    got = {int(_tsample(logits, seed, params=params_t)[0])
+           for seed in range(40)}
+    want = {int(jsampling.sample(jnp.asarray(logits),
+                                 jax.random.PRNGKey(seed),
+                                 params=params_j)[0]) for seed in range(40)}
+    assert got == want == {6, 7}
+
+
+def test_sampling_distribution_matches_softmax():
+    """Sampled draws follow the warped distribution (by frequency)."""
+    logits = np.log(np.asarray([[0.5, 0.3, 0.2]], np.float32))
+    params = tsampling.SamplingParams(temperature=1.0, top_p=1.0)
+    draws = _tsample(np.repeat(logits, 4000, 0), seed=3,
+                     params=params).numpy()
+    freq = np.bincount(draws, minlength=3) / len(draws)
+    np.testing.assert_allclose(freq, [0.5, 0.3, 0.2], atol=0.03)
