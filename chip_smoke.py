@@ -8,14 +8,16 @@ Phases, each printing one JSON line:
 1. device  -- the card's name and power limit as nvidia-smi reports them;
 2. build   -- compile every hand-written kernel (one nvcc per source, all
               at once) and time it;
-3. kernels -- hold each kernel against its plain PyTorch version on the
-              card, in bf16, at the main path's shapes, and time kernel,
-              plain version and the PyTorch library call (CUDA events,
-              median of many launches, L2 flushed before each), next to the
-              least time the card needs for the same work;
+3. kernels -- hold each kernel (K1, K2, K5) against its plain PyTorch
+              version on the card, in bf16, at the main path's shapes (K5:
+              every int8 product of the simulate path at 1, 8 and 64
+              rows), and time kernel, plain version and the PyTorch
+              library call (CUDA events, median of many launches, L2
+              flushed before each), next to the least time the card needs
+              for the same work;
 4. reference -- the model path on the card (bf16, kernels) against the
               same weights on the host CPU (fp32, plain versions) at full
-              width and 2+2 layers;
+              width and 2+2 layers, with bf16 and with int8 + fused weights;
 5. main    -- random-weight ``detikzify-v2-8b`` at full width and depth in
               bf16: three ``DetikzifyPipeline.sample()`` requests and one
               ``sample_batch()`` of three figures, 128 new tokens each, with
@@ -23,7 +25,16 @@ Phases, each printing one JSON line:
               after;
 6. profile -- one more ``sample()`` request of 32 tokens under
               torch.profiler: the card's busy time and idle share;
-7. the ``kernels`` JSON line, the nvidia-smi line, and as the last line
+7. simulate -- the same weights made int8 + fused
+              (``fuse_projections(quantize_params(...))``), then
+              ``DetikzifyPipeline`` with SelfSim (``metric="model"``, EMD)
+              runs ``simulate()``: 16 expansions, parallelism 8, 128 new
+              tokens, counters reset just before and read just after;
+              rollouts/min, tokens/s, the renders in each SelfSim wave,
+              launches, memory;
+8. profile -- one wave of 8 expansions under torch.profiler;
+9. the ``kernels`` JSON line (launches on the simulate path, and per
+   path), the nvidia-smi line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -34,6 +45,7 @@ test suite and never prints a device result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import statistics
 import subprocess
@@ -55,6 +67,18 @@ K1_CASES = (
 )
 K2_CASE = dict(B=8, NH=32, NKV=8, Hd=128, page=128, m=16,
                lengths=(300, 517, 800, 1024, 1311, 1600, 1900, 2048))
+# (name, K, N, output) for K5: every int8 product of the simulate path that
+# K5 takes (fused qkv, o, fused gateup, down, the fp32 lm_head, the MAP
+# head's q and o), each at 1, 8 (the engine's slots) and 64 rows
+K5_CASES = (
+    ("qkv", 4096, 6144, "bf16"), ("o", 4096, 4096, "bf16"),
+    ("gateup", 4096, 28672, "bf16"), ("down", 14336, 4096, "bf16"),
+    ("lm_head", 4096, 128256, "fp32"), ("map_head_q_o", 1152, 1152, "bf16"),
+)
+K5_ROWS = (1, 8, 64)
+K5_FP32_SUMS = 2        # fp32 sums whose rounding errors an fp32 K5 check
+#                         allows for: the kernel's and the plain version's
+SIM_EXPANSIONS = 16     # MCTS expansions of the simulate phase
 
 
 def emit(obj) -> None:
@@ -70,7 +94,11 @@ def nvidia_smi() -> str:
 
 
 class Timer:
-    """Median kernel time with CUDA events, L2 flushed before each launch."""
+    """Median kernel time with CUDA events, L2 flushed before each launch.
+    A spin of the card (``torch.cuda._sleep``, ~0.3 ms) is queued after the
+    flush, so the start event, the launch and the end event are all queued
+    before the card reaches them: the host's time to issue the call does
+    not count, only the card's."""
 
     def __init__(self, torch, device, iters: int):
         self.torch = torch
@@ -86,6 +114,7 @@ class Timer:
         pairs = []
         for _ in range(self.iters):
             self.flush_buf.zero_()
+            torch.cuda._sleep(500_000)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -135,6 +164,98 @@ def tolerance_check(torch, got, want, pv_abs) -> dict:
             "tol_over_median_abs_plain": float(
                 bound.median() / want.float().abs().median()),
             "ok": ok}
+
+
+def k5_tolerance_check(torch, got, want, mag, k: int, out_dtype) -> dict:
+    """|kernel - plain| <= u_out |plain| + acc elementwise, mag =
+    plain(|x|, |q|) the sum of the products' magnitudes.
+
+    bf16 output: u_out = 2^-7, one rounding of the output (a whole bf16
+    ulp, since the two fp32 sums may fall on either side of a rounding
+    boundary), and acc = K 2^-23 mag, the worst case of two fp32 sums of K
+    products in different orders.
+
+    fp32 output (the lm_head's logits): u_out = 0 and acc = 2 sqrt(K)
+    2^-24 mag, the random-walk size of the same two sums' rounding errors,
+    factor 2 for the two sums. The worst-case K 2^-23 would be sqrt(K)
+    (64 at K 4096) times looser and would let an output rounded through
+    bf16 pass; the caller holds a bf16-rounded copy of the output against
+    this bound as a control that must fail."""
+    want = want.float()
+    err = (got.float() - want).abs()
+    if out_dtype == torch.bfloat16:
+        bound = 2.0 ** -7 * want.abs() + k * 2.0 ** -23 * mag
+        rule = "2^-7 |plain| + K 2^-23 plain(|x|,|q|)"
+    else:
+        bound = K5_FP32_SUMS * k ** 0.5 * 2.0 ** -24 * mag
+        rule = "2 sqrt(K) 2^-24 plain(|x|,|q|)"
+    ok = (bool(torch.isfinite(got.float()).all())
+          and bool((err <= bound).all()))
+    return {"max_abs_err": float(err.max()), "tolerance": rule,
+            "max_err_over_tol": float((err / bound).max()), "ok": ok}
+
+
+def k5_rows(torch, gen, device, rehearsal: bool, timer) -> list:
+    """K5 against int8_matmul_plain at every K5 product of the simulate
+    path; times kernel, plain version and the bf16 F.linear yardstick."""
+    import torch.nn.functional as F
+
+    from detikzify_torch.ops import quant_matmul
+    from detikzify_torch.ops.quant import quantize_kernel
+
+    rows = []
+    for name, k, n, out in K5_CASES:
+        if rehearsal:       # tiny shapes: the CPU only checks the wiring
+            k, n = 256, 384
+        w = torch.randn((n, k), generator=gen, device=device) * k ** -0.5
+        q, scale = quantize_kernel(w)
+        w_bf16 = (q.float() * scale[:, None]).to(torch.bfloat16)
+        del w
+        out_dtype = torch.float32 if out == "fp32" else torch.bfloat16
+        for m in K5_ROWS:
+            x = torch.randn((m, k), generator=gen, device=device,
+                            dtype=torch.float32).to(torch.bfloat16)
+            got = quant_matmul.int8_matmul(x, q, scale, out_dtype)
+            want = quant_matmul.int8_matmul_plain(x, q, scale, out_dtype)
+            mag = quant_matmul.int8_matmul_plain(x.abs(), q.abs(), scale,
+                                                 torch.float32)
+            tol = k5_tolerance_check(torch, got, want, mag, k, out_dtype)
+            if not tol.pop("ok"):
+                raise SystemExit(f"K5 {name} rows {m}: kernel disagrees "
+                                 f"with its plain version: {tol}")
+            if out_dtype == torch.float32:
+                # control: the same output rounded through bf16 must fail
+                ctl = k5_tolerance_check(torch, got.to(torch.bfloat16), want,
+                                         mag, k, out_dtype)
+                if ctl["ok"]:
+                    raise SystemExit(f"K5 {name} rows {m}: the fp32 check "
+                                     "passes an output rounded to bf16")
+                tol["bf16_control_max_err_over_tol"] = ctl["max_err_over_tol"]
+            nbytes = n * k + m * k * 2 + n * 4 + m * n * (
+                4 if out == "fp32" else 2)
+            flops = 2 * m * n * k
+            row = {"name": f"int8_gemv/{name}/rows{m}",
+                   "kernel": "int8_gemv", "route": "cuda",
+                   "source": "detikzify_torch/csrc/int8_gemv.cu",
+                   "replaces": "detikzify_tpu/ops/quant_matmul.py:40",
+                   "shape": {"M": m, "K": k, "N": n, "out": out}, **tol,
+                   "bound_ms": max(nbytes / PEAK_BYTES,
+                                   flops / PEAK_BF16_FLOPS) * 1e3,
+                   "bound_by": ("bytes" if nbytes / PEAK_BYTES
+                                >= flops / PEAK_BF16_FLOPS
+                                else "operations")}
+            if timer is not None:
+                row["ms"] = timer(lambda: quant_matmul.int8_gemv(
+                    x, q, scale, out_dtype))
+                row["plain_ms"] = timer(lambda: quant_matmul.
+                                        int8_matmul_plain(x, q, scale,
+                                                          out_dtype))
+                # library yardstick: one cuBLAS product on the dequantised
+                # bf16 weight (twice the weight bytes)
+                row["library_ms"] = timer(lambda: F.linear(x, w_bf16))
+            rows.append(row)
+        del q, scale, w_bf16
+    return rows
 
 
 def kernel_phase(torch, device, rehearsal: bool, iters: int):
@@ -237,20 +358,23 @@ def kernel_phase(torch, device, rehearsal: bool, iters: int):
         row["library_ms"] = timer(lambda: F.scaled_dot_product_attention(
             qs, kg, vg, attn_mask=mask, enable_gqa=True))
     rows.append(row)
+    rows.extend(k5_rows(torch, gen, device, rehearsal, timer))
     return rows
 
 
 def reference_phase(torch, device, rehearsal: bool, seed: int):
-    """The model path on the card (bf16, kernels K1 and K2) against the
-    same weights on the host CPU (fp32, plain versions): v2-8b at full
-    width cut to 2 vision + 2 text layers; vision tower, a paged prefill of
-    300 image tokens + 16 text tokens, then 4 zero-copy decode steps."""
+    """The model path on the card (bf16, kernels) against the same weights
+    on the host CPU (fp32, plain versions): v2-8b at full width cut to 2
+    vision + 2 text layers; vision tower, a paged prefill of 300 image
+    tokens + 16 text tokens, then 4 zero-copy decode steps. Once with the
+    bf16 weights (K1, K2), once with their int8 + fused form (K5 too)."""
     import copy
 
     import numpy as np
 
     from detikzify_torch.config import get_config
     from detikzify_torch.models import convert, detikzify, llama
+    from detikzify_torch.ops.quant import fuse_projections, quantize_params
 
     base = get_config("tiny-test" if rehearsal else "detikzify-v2-8b")
     cfg = base.replace(
@@ -297,25 +421,37 @@ def reference_phase(torch, device, rehearsal: bool, seed: int):
             out.append(logits)
         return torch.cat(out).float().cpu(), emb.float().cpu()
 
-    got, got_emb = run(dut, device)
-    want, want_emb = run(ref, cpu)
-    scale = float(want.std())
-    rel = float((got - want).abs().max()) / scale
-    cos = float(torch.nn.functional.cosine_similarity(got, want, dim=-1)
-                .min())
-    emb_cos = float(torch.nn.functional.cosine_similarity(
-        got_emb.flatten(1), want_emb.flatten(1)).min())
-    agree = int((got.argmax(-1) == want.argmax(-1)).sum())
-    result = {"phase": "reference", "layers": {"vision": 2, "text": 2},
-              "max_abs_err_over_std": rel, "min_cosine": cos,
-              "image_tokens_cosine": emb_cos,
-              "argmax_agree": f"{agree}/{got.shape[0]}",
-              "tolerance": "cosine >= 0.999 and max|err| <= 0.1 std"}
-    emit(result)
-    if not (bool(torch.isfinite(got).all()) and cos >= 0.999
-            and emb_cos >= 0.999 and rel <= 0.1):
-        raise SystemExit(f"card path disagrees with the fp32 reference: "
-                         f"{result}")
+    def compare(weights: str, dut, ref) -> None:
+        got, got_emb = run(dut, device)
+        want, want_emb = run(ref, cpu)
+        scale = float(want.std())
+        rel = float((got - want).abs().max()) / scale
+        cos = float(torch.nn.functional.cosine_similarity(got, want, dim=-1)
+                    .min())
+        emb_cos = float(torch.nn.functional.cosine_similarity(
+            got_emb.flatten(1), want_emb.flatten(1)).min())
+        agree = int((got.argmax(-1) == want.argmax(-1)).sum())
+        result = {"phase": "reference", "weights": weights,
+                  "layers": {"vision": 2, "text": 2},
+                  "max_abs_err_over_std": rel, "min_cosine": cos,
+                  "image_tokens_cosine": emb_cos,
+                  "argmax_agree": f"{agree}/{got.shape[0]}",
+                  "tolerance": "cosine >= 0.999 and max|err| <= 0.1 std"}
+        emit(result)
+        if not (bool(torch.isfinite(got).all()) and cos >= 0.999
+                and emb_cos >= 0.999 and rel <= 0.1):
+            raise SystemExit(f"card path disagrees with the fp32 "
+                             f"reference: {result}")
+
+    compare("bf16", dut, ref)
+    # int8 + fused: the same quantized tree on the card (bf16 activations,
+    # K5 for the decode rows, the lm_head and the MAP head) and on the CPU
+    # (fp32 activations, plain versions)
+    del dut
+    qref = fuse_projections(quantize_params(ref))
+    qdut = copy.deepcopy(qref).to(device=device, dtype=(
+        torch.float32 if rehearsal else torch.bfloat16))
+    compare("int8+fused", qdut, qref)
 
 
 def synthetic_figures(n: int, seed: int):
@@ -344,21 +480,46 @@ def synthetic_figures(n: int, seed: int):
     return figs
 
 
-def profile_request(torch, pipe, fig, max_new_tokens: int) -> dict:
-    """One ``sample()`` request timed plainly, then the same request under
-    torch.profiler: device busy time is the sum of the device-side events
-    (kernels, copies), set against the plain request's wall time."""
+def smoke_tokenizer(byte_tokenizer, cfg):
+    """The byte tokenizer with every id above the 256 bytes decoding to
+    text too: one id in 16 to a newline, the others to a letter. Random
+    weights spread their tokens over the whole vocabulary (128,256 ids at
+    v2-8b), and the byte tokenizer decodes all but the first 256 to
+    nothing, so every rollout would be the same empty program and SelfSim
+    would see one render per search. Through this one each rollout is a
+    distinct program of several lines, without braces, which FakeBackend
+    compiles and renders from the program's hash."""
+
+    class SmokeTokenizer(byte_tokenizer):
+        def decode(self, token_ids, skip_special_tokens=False):
+            return super().decode([
+                t if t < 256 or t in self.all_special_ids
+                else 10 if t % 16 == 0 else 97 + t % 26
+                for t in token_ids], skip_special_tokens)
+
+    return SmokeTokenizer(vocab_size=cfg.text.vocab_size,
+                          image_token_id=cfg.image_token_id,
+                          bos_token_id=cfg.bos_token_id,
+                          eos_token_id=cfg.eos_token_id,
+                          pad_token_id=cfg.pad_token_id,
+                          model_max_length=2048)
+
+
+def profile_call(torch, fn, label: str) -> dict:
+    """``fn()`` timed plainly, then once more under torch.profiler: device
+    busy time is the sum of the device-side events (kernels, copies), set
+    against the plain call's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    pipe.sample(image=fig, max_new_tokens=max_new_tokens)
+    fn()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        pipe.sample(image=fig, max_new_tokens=max_new_tokens)
+        fn()
         torch.cuda.synchronize()
 
     def dev_us(e):
@@ -371,8 +532,7 @@ def profile_request(torch, pipe, fig, max_new_tokens: int) -> dict:
     if busy_ms <= 0:
         raise SystemExit("torch.profiler recorded no device time")
     rows.sort(key=lambda r: -r[1])
-    return {"phase": "profile", "request": "sample()",
-            "max_new_tokens": max_new_tokens, "wall_ms": wall_ms,
+    return {"phase": "profile", "request": label, "wall_ms": wall_ms,
             "device_busy_ms": busy_ms,
             "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
             "top": [{"name": k[:80], "device_ms": us / 1e3, "calls": n}
@@ -403,13 +563,7 @@ def main_phase(torch, device, rehearsal: bool, seed: int,
     stages["init_weights_s"] = time.perf_counter() - t0
 
     set_backend(FakeBackend())
-    tok = ByteTokenizer(vocab_size=cfg.text.vocab_size,
-                        image_token_id=cfg.image_token_id,
-                        bos_token_id=cfg.bos_token_id,
-                        eos_token_id=cfg.eos_token_id,
-                        pad_token_id=cfg.pad_token_id,
-                        model_max_length=2048)
-    processor = DetikzifyProcessor(tok, cfg)
+    processor = DetikzifyProcessor(smoke_tokenizer(ByteTokenizer, cfg), cfg)
     t0 = time.perf_counter()
     pipe = DetikzifyPipeline(params, cfg, processor, metric="fast",
                              num_slots=8, device=device, seed=seed)
@@ -463,7 +617,7 @@ def main_phase(torch, device, rehearsal: bool, seed: int,
     stages["sample_batch_s"] = time.perf_counter() - t0
     main_s = time.perf_counter() - t_main
     counts = launch_counts()
-    eng.step, eng._accept_token = step, accept
+    del eng.step, eng._accept_token     # the class's methods again
 
     if eng.num_free_pages != free0 - eng.prefix_pages_used:
         raise SystemExit("pool leak after sample_batch")
@@ -504,7 +658,149 @@ def main_phase(torch, device, rehearsal: bool, seed: int,
             torch.cuda.max_memory_allocated()
     emit(result)
     if not rehearsal:
-        emit(profile_request(torch, pipe, figs[0], 32))
+        emit(profile_call(torch, lambda: pipe.sample(
+            image=figs[0], max_new_tokens=32), "sample(), 32 new tokens"))
+    pipe.close()
+    return counts, params, processor
+
+
+def simulate_phase(torch, device, rehearsal: bool, seed: int, params,
+                   processor, max_new_tokens: int) -> dict:
+    """MCTS ``simulate()`` scored by SelfSim on the int8 + fused weights:
+    the bf16 weights of the main phase go through ``quantize_params`` and
+    ``fuse_projections`` in place, then ``DetikzifyPipeline`` with its
+    default ``metric="model"`` (EMD for v2) runs ``SIM_EXPANSIONS``
+    expansions with parallelism 8 on one synthetic figure, the launch
+    counters reset just before and read just after. The smoke tokenizer
+    makes each rollout a distinct program, so SelfSim scores batched waves
+    of several renders inside the search."""
+    import math
+
+    from detikzify_torch.infer import DetikzifyPipeline, TikzDocument
+    from detikzify_torch.ops import launch_counts, reset_launch_counts
+    from detikzify_torch.ops.quant import (fuse_projections, params_nbytes,
+                                           quantize_params)
+
+    def sync():
+        if not rehearsal:
+            torch.cuda.synchronize()
+
+    cfg = processor.cfg
+    gc.collect()                # the main phase's engine and page pool
+    t0 = time.perf_counter()
+    fuse_projections(quantize_params(params))
+    if not rehearsal:
+        torch.cuda.empty_cache()
+    sync()
+    quantize_s = time.perf_counter() - t0
+    pipe = DetikzifyPipeline(params, cfg, processor, num_slots=8,
+                             device=device, seed=seed)
+    eng, metric = pipe.engine, pipe.metric
+    fig = synthetic_figures(1, seed + 1)[0]
+
+    # the renders in each SelfSim wave enqueued by the search
+    wave_sizes = []
+    dispatch = metric.score_against_async
+
+    def counted_dispatch(imgs, *a, **kw):
+        wave_sizes.append(len(imgs))
+        return dispatch(imgs, *a, **kw)
+
+    metric.score_against_async = counted_dispatch
+    single = {"n": 0}
+    score = metric.score
+
+    def counted_score(*a, **kw):
+        single["n"] += 1
+        return score(*a, **kw)
+
+    metric.score = counted_score
+    free0 = eng.num_free_pages
+    tokens0 = eng.counters["decode_tokens"]
+    reset_launch_counts()
+    if not rehearsal:
+        torch.cuda.reset_peak_memory_stats()
+    sync()
+    t0 = time.perf_counter()
+    results = list(pipe.simulate(image=fig, expansions=SIM_EXPANSIONS,
+                                 parallelism=8,
+                                 max_new_tokens=max_new_tokens))
+    sync()
+    wall_s = time.perf_counter() - t0
+    counts = launch_counts()
+    del metric.score_against_async, metric.score   # the class's methods
+    decode_tokens = eng.counters["decode_tokens"] - tokens0
+
+    if len(results) != SIM_EXPANSIONS or not all(
+            isinstance(d, TikzDocument) for _, d in results):
+        raise SystemExit(f"simulate yielded {len(results)} results, "
+                         f"expected {SIM_EXPANSIONS} (score, document) "
+                         "pairs")
+    scores = [float(sc) for sc, _ in results]
+    if not all(math.isfinite(sc) for sc in scores):
+        raise SystemExit(f"simulate gave non-finite scores: {scores}")
+    scored = sum(wave_sizes) + single["n"]
+    if scored <= 0:
+        raise SystemExit("SelfSim scored no render during simulate")
+    if max(wave_sizes, default=0) < 2:
+        raise SystemExit(f"no SelfSim wave scored more than one render "
+                         f"during simulate: waves {wave_sizes}")
+    if eng.num_active or eng.num_free_slots != eng.num_slots:
+        raise SystemExit("slots still held after simulate")
+    if eng.num_free_pages != free0 - eng.prefix_pages_used:
+        raise SystemExit("pool leak after simulate")
+    if not rehearsal:
+        for name in ("flash_attention", "paged_decode", "int8_gemv"):
+            if counts[name] <= 0:
+                raise SystemExit(f"simulate never launched {name}")
+    result = {
+        "phase": "simulate",
+        "preset": "tiny-test" if rehearsal else "detikzify-v2-8b",
+        "weights": "int8 + fused", "metric": f"SelfSim {metric.mode}",
+        "expansions": SIM_EXPANSIONS, "parallelism": 8,
+        "max_new_tokens": max_new_tokens, "quantize_s": quantize_s,
+        "wall_s": wall_s, "rollouts": len(results),
+        "rollouts_per_min": len(results) / wall_s * 60,
+        "decode_tokens": decode_tokens,
+        "decode_tokens_per_s": decode_tokens / wall_s,
+        "selfsim_wave_sizes": wave_sizes, "selfsim_scored_renders": scored,
+        "distinct_programs": len({d.code for _, d in results}),
+        "scores": scores, "launches": counts,
+        "weight_bytes": params_nbytes(params),
+        "engine_counters": dict(eng.counters),
+    }
+    if not rehearsal:
+        result["max_memory_allocated_bytes"] = \
+            torch.cuda.max_memory_allocated()
+        # one SelfSim wave of 8 renders against the cached input features,
+        # and its two parts: the encoder pass and the pair scores (EMD)
+        from detikzify_torch.evaluate.imagesim import score_pairs
+
+        renders = synthetic_figures(8, seed + 2)
+        pix = metric._tensor(metric._stack(renders))
+        ref = metric.features(fig)
+
+        def wall_ms(fn):
+            fn()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t) * 1e3, out
+
+        result["selfsim_wave8_ms"], _ = wall_ms(
+            lambda: metric.score_against(renders, fig))
+        result["selfsim_wave8_encoder_ms"], feats = wall_ms(
+            lambda: metric.embed(pix))
+        result["selfsim_wave8_scores_ms"], _ = wall_ms(
+            lambda: score_pairs(feats, ref.expand_as(feats), metric.mode))
+        prof = profile_call(torch, lambda: list(pipe.simulate(
+            image=fig, expansions=8, parallelism=8, max_new_tokens=32)),
+            "simulate(), one wave of 8 expansions, 32 new tokens")
+        result["wave_device_idle_share"] = prof["device_idle_share"]
+    emit(result)
+    if not rehearsal:
+        emit(prof)
     pipe.close()
     return counts
 
@@ -550,7 +846,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         logs = build_all()
         ptxas = {name: [ln.strip() for ln in log.splitlines()
-                        if "registers" in ln or "spill" in ln][:8]
+                        if "registers" in ln or "spill" in ln][:24]
                  for name, log in logs.items()}
         emit({"phase": "build", "seconds": time.perf_counter() - t0,
               "ptxas": ptxas})
@@ -560,10 +856,15 @@ def main(argv=None) -> int:
         emit({"kernels": rows})
         return 0
     reference_phase(torch, device, rehearsal, args.seed)
-    counts = main_phase(torch, device, rehearsal, args.seed,
-                        args.max_new_tokens)
+    counts, params, processor = main_phase(torch, device, rehearsal,
+                                           args.seed, args.max_new_tokens)
+    sim_counts = simulate_phase(torch, device, rehearsal, args.seed, params,
+                                processor, args.max_new_tokens)
     for row in rows:
-        row["launches"] = counts.get(row["kernel"])
+        # launches on this slice's main path (simulate), and on each path
+        row["launches"] = sim_counts.get(row["kernel"])
+        row["launches_by_path"] = {"sample": counts.get(row["kernel"]),
+                                   "simulate": row["launches"]}
     emit({"kernels": rows})
     if rehearsal:
         emit({"ok": True, "rehearsal": "cpu"})

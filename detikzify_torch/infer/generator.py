@@ -1,21 +1,36 @@
-"""TikZ generation session against the decode engine (counterpart of
+"""MCTS-driven TikZ generation against the decode engine (counterpart of
 ``detikzify_tpu/infer/generator.py``).
 
-This slice ports one-shot sampling: the constructor (root prompt, vision
-pass, search tree root), ``rollout`` (line-boundary prefixes streamed from
-an engine rollout), ``decode``, ``sample`` / ``sample_iter`` and the
-prefix store/release on finish. MCTS ``simulate()`` and its wave machinery
-come with SelfSim in the next slice (ROADMAP queue 1).
+Search semantics are the reference's (progressive widening, line-boundary
+segmentation, failed-rollout caching, error-line-bounded expansion, dynamic
+score normalisation), executed the JAX package's way:
+
+  * rollouts run on ``DecodeEngine`` slots with tree-prefix KV reuse: a
+    child rollout restores its deepest stored ancestor's pages and
+    prefills only the tail;
+  * LaTeX compiles run through the ``CompileService`` worker pool;
+  * SelfSim scores a whole completion wave in one batched encoder pass
+    (``evaluate.imagesim``), enqueued on the card while decode goes on.
+
+``simulate(parallelism=1)`` keeps the reference's sequential order;
+``parallelism > 1`` runs that many expansions at once over the engine's
+slots, with virtual loss to spread the selections. Not ported yet: the
+speculative draft hints (they need ``speculate > 0``), the shared-engine
+mode and per-iteration hook of the serving scheduler, and TikZero text
+conditioning (ROADMAP).
 """
 from __future__ import annotations
 
+import concurrent.futures as _cf
 import dataclasses
 import itertools
 import time
 from collections import deque
+from math import sqrt
 from typing import Dict, Generator, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..engine import DecodeEngine
 from ..mcts import MonteCarlo, Node, Normalizer
@@ -71,7 +86,7 @@ _gen_counter = itertools.count()
 
 
 class DetikzifyGenerator:
-    """One image -> TikZ sampling session."""
+    """One image -> TikZ session: one-shot sampling or MCTS search."""
 
     def __init__(
         self,
@@ -79,7 +94,7 @@ class DetikzifyGenerator:
         processor: DetikzifyProcessor,
         image=None,                     # preprocessed PIL image or None
         text: Optional[str] = None,
-        metric=None,
+        metric=None,                    # ImageSim-like or None (fast mode)
         compile_timeout: float = 60.0,
         mcts_timeout: Optional[float] = None,
         exploration: float = 0.6,
@@ -111,6 +126,9 @@ class DetikzifyGenerator:
         self._own_compiler = compile_service is None
         self.on_token = on_token
         self.sampling = sampling        # None -> engine defaults
+        # batched wave scoring needs score_against_async; other metrics
+        # keep the per-render score() path
+        self._wave_scoring_ok = hasattr(metric, "score_against_async")
         self.namespace = ("gen", next(_gen_counter))
 
         # root prompt mirrors reference generate.py:178-186: image tokens
@@ -134,15 +152,27 @@ class DetikzifyGenerator:
         self.norm = Normalizer()
         self.montecarlo = MonteCarlo(
             WideNode(NodeState(root_ids, 0), exploration=exploration))
+        self.montecarlo.child_finder = self.child_finder
 
         self._newline = self._build_newline_table()
         self._pending_rollout = None    # engine Rollout awaiting prefix save
 
         self.decode = cache_cast(lambda ids: tuple(ids))(self.decode)
+        self.score = cache_cast(lambda img: img.tobytes())(self.score)
 
         self.stats = {"rollouts": 0, "rollout_tokens": 0,
-                      "rollout_time": 0.0, "prefix_hits": 0,
-                      "prefix_tokens_saved": 0}
+                      "rollout_time": 0.0, "compile_time": 0.0,
+                      "score_time": 0.0, "prefix_hits": 0,
+                      "prefix_tokens_saved": 0,
+                      # host wall time by phase of the parallel loop
+                      "t_launch": 0.0, "t_step": 0.0, "t_resolve": 0.0,
+                      "t_complete": 0.0, "t_dispatch": 0.0, "t_wait": 0.0,
+                      # selections that landed on a terminal state, and
+                      # wave renders whose score was already memoised
+                      "terminal_revisits": 0, "score_memo_hits": 0,
+                      # iterations that decoded while compile or score work
+                      # was pending, and the most expansions in flight
+                      "overlap_ticks": 0, "max_inflight": 0}
 
     def close(self) -> None:
         self.engine.drop_namespace(self.namespace)
@@ -285,12 +315,12 @@ class DetikzifyGenerator:
         self._finish_rollout([])
         return doc
 
-    def simulate(self, *args, **kw):
-        raise NotImplementedError(
-            "MCTS simulate() comes with SelfSim (ROADMAP queue 1, item "
-            "'SelfSim, generator.simulate() and MCTS')")
-
-    # ------------------------------------------------------------------
+    def score(self, image) -> Numeric:
+        assert self.metric is not None
+        t0 = time.time()
+        value = float(self.metric.score(image, self.image))
+        self.stats["score_time"] += time.time() - t0
+        return value
 
     def _store_prefixes_for(self, ro, nodes: List[WideNode]) -> List[tuple]:
         """Store KV prefixes (rollout prompt + candidate tree nodes) from a
@@ -320,3 +350,489 @@ class DetikzifyGenerator:
             return
         self._store_prefixes_for(ro, attached)
         self.engine.release(ro)
+
+    # ------------------------------------------------------------------
+    # MCTS expansion policy (semantics: reference generate.py:305-353)
+    # ------------------------------------------------------------------
+
+    def child_finder(self, node: WideNode, montecarlo: MonteCarlo) -> None:
+        new_nodes: List[WideNode] = []
+        rollout_gen = self.rollout(node.state)
+        for token_ids, num_lines in rollout_gen:
+            new_node = WideNode(NodeState(token_ids, num_lines),
+                                exploration=self.exploration)
+            if new_node.state in self.failed_rollouts:
+                # replay a known-failing suffix instead of regenerating
+                new_nodes.extend(self.failed_rollouts[new_node.state])
+                rollout_gen.close()
+                break
+            new_nodes.append(new_node)
+        if not new_nodes and self.control.should_stop:
+            # aborted before producing anything: do not compile and score
+            # the parent as if it were a fresh rollout
+            return
+
+        if node.is_widen_node:
+            node.visits += 1
+            node, new_nodes = self._merge(node.parent, new_nodes)
+
+        t0 = time.time()
+        tikz = self.decode((new_nodes or [node])[-1].token_ids)
+        tikz.compile()
+        self.stats["compile_time"] += time.time() - t0
+
+        attached = self._attach(node, new_nodes, tikz)
+        self._finish_rollout(attached)
+        self._score_and_backprop(attached[-1] if attached else node, tikz)
+
+    def _attach(self, node: WideNode, new_nodes: List[WideNode],
+                tikz: TikzDocument) -> List[WideNode]:
+        """Attach rollout prefixes to the tree given the compile outcome
+        (reference generate.py:320-335). Returns the attached chain."""
+        skip_idx = round(sqrt(len(new_nodes)))
+        scorable = tikz.is_rasterizable and not (
+            self.strict and tikz.compiled_with_errors)
+        attached: List[WideNode] = []
+        if scorable:
+            for new_node in new_nodes[:skip_idx]:
+                node.add_child(new_node)
+                node = new_node
+                attached.append(new_node)
+        else:
+            errorln = min(tikz.errors or [0])
+            if errorln:
+                # attach only prefixes strictly before the error line; cache
+                # the failing suffix once a node lies beyond it (the
+                # reference's effective semantics, as in the JAX package)
+                for idx, new_node in enumerate(new_nodes):
+                    if new_node.num_lines < errorln and idx < skip_idx:
+                        node.add_child(new_node)
+                        node = new_node
+                        attached.append(new_node)
+                    elif new_node.num_lines > errorln:
+                        self.failed_rollouts[new_node.state] = new_nodes[idx:]
+                        break
+        return attached
+
+    def _score_and_backprop(self, node: WideNode, tikz: TikzDocument,
+                            precomputed: Optional[float] = None) -> Numeric:
+        scorable = tikz.is_rasterizable and not (
+            self.strict and tikz.compiled_with_errors)
+        if self.metric is not None:
+            if scorable:
+                score = (precomputed if precomputed is not None
+                         else self.score(tikz.rasterize()))
+            else:
+                score = -1
+            node.update_win_value(self.norm(score) if scorable else score)
+        else:
+            # fast mode: compiler diagnostics in {-1, 0, 1}
+            score = int(scorable) - int(tikz.compiled_with_errors)
+            node.update_win_value(score)
+        self.solution.append((score, tikz))
+        return score
+
+    def _merge(self, node: WideNode, nodes_to_merge: List[WideNode]
+               ) -> Tuple[WideNode, List[WideNode]]:
+        """Fold a widen-node rollout into existing children where states
+        already exist (reference generate.py:345-353)."""
+        for merge_node in nodes_to_merge:
+            for child in node.children:
+                if child.state == merge_node.state:
+                    node, nodes_to_merge = child, nodes_to_merge[1:]
+                    break
+            else:
+                break
+        return node, nodes_to_merge
+
+    # ------------------------------------------------------------------
+
+    def simulate(self, expansions: Optional[float] = 1,
+                 parallelism: int = 1
+                 ) -> Generator[Tuple[Numeric, TikzDocument], None, None]:
+        """Run MCTS expansions, yielding every rollout's (score, document).
+
+        ``parallelism > 1`` runs that many expansions concurrently on the
+        engine's slots (virtual loss spreads the selections; LaTeX compiles
+        and SelfSim waves overlap decode); ``parallelism=1`` keeps the
+        reference's strictly sequential order."""
+        if parallelism > 1:
+            yield from self._simulate_parallel(expansions, parallelism)
+            return
+        start = time.time()
+        budget = expansions
+        while budget is None or (budget := budget - 1) >= 0:
+            self.montecarlo.simulate()
+            if self.solution:
+                yield self.solution.pop()
+            if self.control.should_stop:
+                # the whole search stops, not just the in-flight rollout;
+                # the flag is sticky, so an abort between rollouts holds
+                return
+            if (self.mcts_timeout is not None
+                    and time.time() - start > self.mcts_timeout):
+                return
+
+    __call__ = simulate
+
+    # ------------------------------------------------------------------
+    # parallel MCTS: K concurrent expansions over engine slots
+    # ------------------------------------------------------------------
+
+    class _Expansion:
+        __slots__ = ("node", "path", "ro", "boundary", "line", "num_lines",
+                     "continuation", "processed", "new_nodes", "stopped",
+                     "future", "t0", "prompt", "prefix", "stored_keys")
+
+        def __init__(self, node, path):
+            self.node = node
+            self.path = path
+            self.ro = None
+            self.new_nodes: List = []
+            self.stopped = False
+            self.future = None
+            self.t0 = time.time()
+            self.prompt = None      # token ids to roll out from (None: leaf)
+            self.prefix = None      # StoredPrefix to restore, if any
+            self.stored_keys: List = []   # speculative prefix stores
+
+    def _select_leaf(self) -> WideNode:
+        node = self.montecarlo.root_node
+        while node.expanded:
+            node = node.get_preferred_child(self.montecarlo.root_node)
+        return node  # type: ignore[return-value]
+
+    def _virtual_loss(self, node) -> list:
+        """Inflate visit counts along the path so concurrent selections
+        diversify; reverted before the real backprop."""
+        path = []
+        n = node
+        while n is not None:
+            n.visits += 1
+            path.append(n)
+            n = n.parent
+        return path
+
+    def _prepare_expansion(self) -> "_Expansion":
+        """Select a leaf (with virtual loss) and resolve its rollout prompt
+        and stored prefix, without starting it: a wave of prepared
+        expansions starts together through ``engine.start_many``."""
+        node = self._select_leaf()
+        exp = self._Expansion(node, self._virtual_loss(node))
+        ids = list(node.state.token_ids)
+        eos = self.engine.eos_token_id
+        if (ids and ids[-1] == eos) or len(ids) >= self.max_length:
+            return exp  # terminal: no rollout, straight to compile
+        found = self.engine.best_prefix(ids, namespace=self.namespace)
+        prefix = found[1] if found else None
+        if prefix is not None:
+            self.stats["prefix_hits"] += 1
+            self.stats["prefix_tokens_saved"] += prefix.length
+        exp.prompt = ids
+        exp.prefix = prefix
+        return exp
+
+    def _launch_wave(self, wave: List["_Expansion"]) -> None:
+        """Start a wave of prepared expansions as fused starts."""
+        ros = self.engine.start_many(
+            [exp.prompt for exp in wave],
+            image_embeds=self.image_embeds,
+            max_new_tokens=[self.max_length - len(exp.prompt)
+                            for exp in wave],
+            prefixes=[exp.prefix for exp in wave],
+            sampling=self.sampling, on_token=self.on_token)
+        for exp, ro in zip(wave, ros):
+            exp.ro = ro
+            exp.boundary = list(exp.prompt)
+            exp.line = []
+            exp.num_lines = exp.node.state.num_lines
+            exp.continuation = False
+            exp.processed = len(exp.prompt)
+
+    def _advance_segmentation(self, exp: "_Expansion") -> None:
+        """Consume newly decoded tokens, cutting nodes at line boundaries
+        (the semantics of ``rollout``) and replaying failed suffixes."""
+        ro = exp.ro
+        for tok in ro.token_ids[exp.processed:]:
+            exp.processed += 1
+            if exp.stopped:
+                continue
+            exp.line.append(tok)
+            info = self._newline.get(tok)
+            if not info:
+                continue
+            n, trailing = info
+            exp.num_lines += n - exp.continuation
+            exp.continuation = not trailing
+            exp.boundary = exp.boundary + exp.line
+            exp.line = []
+            new_node = WideNode(
+                NodeState(tuple(exp.boundary), exp.num_lines),
+                exploration=self.exploration)
+            if new_node.state in self.failed_rollouts:
+                exp.new_nodes.extend(self.failed_rollouts[new_node.state])
+                exp.stopped = True
+                self.engine.abort(ro)
+            else:
+                exp.new_nodes.append(new_node)
+
+    def _finalize_rollout(self, exp: "_Expansion") -> None:
+        """Rollout finished: cut the trailing segment, store candidate KV
+        prefixes, free the slot, submit the compile."""
+        ro = exp.ro
+        if not exp.stopped and exp.line:
+            exp.new_nodes.append(WideNode(
+                NodeState(tuple(exp.boundary + exp.line),
+                          exp.num_lines - exp.continuation),
+                exploration=self.exploration))
+        self.stats["rollouts"] += 1
+        self.stats["rollout_tokens"] += ro.new_tokens
+        self.stats["rollout_time"] += time.time() - exp.t0
+        # only the first sqrt(n) nodes can be attached. They are stored
+        # before the compile resolves (the slot must be freed first);
+        # _complete_expansion drops whatever ends up unattached
+        skip_idx = round(sqrt(len(exp.new_nodes)))
+        exp.stored_keys = self._store_prefixes_for(
+            ro, exp.new_nodes[:skip_idx])
+        self.engine.release(ro)
+        tikz = self.decode((exp.new_nodes or [exp.node])[-1].token_ids)
+        exp.future = self.compiler.submit_doc(tikz)
+
+    def _complete_expansion(self, exp: "_Expansion",
+                            precomputed: Optional[float] = None
+                            ) -> Tuple[Numeric, TikzDocument]:
+        tikz = exp.future.result()
+        for n in exp.path:
+            n.visits -= 1           # revert virtual loss
+        node, new_nodes = exp.node, exp.new_nodes
+        if node.is_widen_node:
+            node.visits += 1
+            node, new_nodes = self._merge(node.parent, new_nodes)
+        attached = self._attach(node, new_nodes, tikz)
+        # drop the stored prefixes of candidates that were not attached
+        # (the sequential path stores attached nodes only)
+        attached_states = {n.state for n in attached}
+        for key, state in exp.stored_keys:
+            if state not in attached_states:
+                self.engine.drop_prefix(key)
+        if exp.node.children:
+            exp.node.expanded = True
+        # MonteCarlo.expand's bookkeeping (sequential path)
+        self.montecarlo.stats_expansion_count += 1
+        if not exp.node.children:
+            self.montecarlo.stats_failed_expansion_count += 1
+        if self.montecarlo.on_expansion is not None:
+            self.montecarlo.on_expansion(exp.node)
+        score = self._score_and_backprop(
+            attached[-1] if attached else node, tikz,
+            precomputed=precomputed)
+        if self.solution:
+            self.solution.pop()
+        return score, tikz
+
+    def _dispatch_scores(self, exps: list):
+        """Rasterize one completion wave's scorable renders and enqueue ONE
+        batched SelfSim pass over them. Renders whose bytes are already in
+        the ``score`` memo are skipped (completion falls back to the memo);
+        duplicate renders in the wave encode once. Returns a pending handle
+        for ``_resolve_scores`` (the scores on the device, their count, the
+        bookkeeping, and a CUDA event that marks them ready), or None when
+        the wave has nothing to score."""
+        if self.metric is None or not exps or not self._wave_scoring_ok:
+            return None
+        memo = getattr(self.score, "cache", None)
+        imgs, keys, img_bytes = [], [], []
+        seen: Dict[bytes, List[int]] = {}   # in-wave dedup: bytes -> exps
+        for exp in exps:
+            doc = exp.future.result()
+            if doc.is_rasterizable and not (self.strict
+                                            and doc.compiled_with_errors):
+                img = doc.rasterize()
+                if img is not None:
+                    b = img.tobytes()
+                    if memo is not None and b in memo:
+                        self.stats["score_memo_hits"] += 1
+                        continue
+                    if b in seen:
+                        seen[b].append(id(exp))
+                        continue
+                    seen[b] = [id(exp)]
+                    imgs.append(img)
+                    keys.append(id(exp))
+                    img_bytes.append(b)
+        if not imgs:
+            return None
+        t0 = time.time()
+        dev, k = self.metric.score_against_async(imgs, self.image)
+        ready = None
+        if isinstance(dev, torch.Tensor) and dev.is_cuda:
+            ready = torch.cuda.Event()
+            ready.record()
+        self.stats["score_time"] += time.time() - t0
+        return dev, k, keys, img_bytes, seen, ready
+
+    def _resolve_scores(self, pending) -> dict:
+        """Fetch the batched wave scores dispatched by _dispatch_scores and
+        write them into the ``score`` memo."""
+        if pending is None:
+            return {}
+        dev, k, keys, img_bytes, seen, _ = pending
+        t0 = time.time()
+        vals = (dev[:k].float().cpu().numpy()
+                if isinstance(dev, torch.Tensor) else np.asarray(dev)[:k])
+        self.stats["score_time"] += time.time() - t0
+        memo = getattr(self.score, "cache", None)
+        out = {}
+        for key, b, v in zip(keys, img_bytes, vals):
+            v = float(v)
+            if memo is not None:
+                memo[b] = v         # later revisits hit the memo
+            for dup_key in seen[b]:
+                out[dup_key] = v    # in-wave duplicates share the value
+        return out
+
+    def _simulate_parallel(self, expansions: Optional[float],
+                           parallelism: int
+                           ) -> Generator[Tuple[Numeric, TikzDocument],
+                                          None, None]:
+        start = time.time()
+        target = expansions
+        parallelism = max(1, min(parallelism, self.engine.num_slots))
+        launched = completed = 0
+        decoding: List = []
+        compiling: List = []
+        scoring: List = []      # [(exps, pending)] score-dispatched waves
+
+        def timed_out() -> bool:
+            return (self.mcts_timeout is not None
+                    and time.time() - start > self.mcts_timeout)
+
+        try:
+            while target is None or completed < target:
+                t_ph = time.time()
+                wave: List = []
+                # ``parallelism`` bounds concurrent DECODING rollouts;
+                # expansions in the compile or score stage hold no slot, so
+                # new rollouts refill the engine while LaTeX runs. All
+                # in-flight expansions are capped at 2x parallelism to
+                # bound virtual-loss staleness.
+                n_scoring = sum(len(e) for e, _ in scoring)
+                while ((target is None or launched < target)
+                       and len(decoding) + len(wave) < parallelism
+                       and len(decoding) + len(compiling) + n_scoring
+                       + len(wave) < 2 * parallelism
+                       and self.engine.num_active + len(wave)
+                       < self.engine.num_slots
+                       and len(wave) < self.engine.num_free_slots
+                       and not timed_out()
+                       and not self.control.should_stop):
+                    exp = self._prepare_expansion()
+                    launched += 1
+                    if exp.prompt is None:      # terminal state
+                        self.stats["terminal_revisits"] += 1
+                        doc = self.decode(exp.node.token_ids)
+                        if "output" in doc.__dict__:
+                            # an already-compiled program (decode memo):
+                            # skip the compile pool
+                            fut: _cf.Future = _cf.Future()
+                            fut.set_result(doc)
+                            exp.future = fut
+                        else:
+                            exp.future = self.compiler.submit_doc(doc)
+                        compiling.append(exp)
+                    else:
+                        wave.append(exp)
+                if wave:
+                    self._launch_wave(wave)
+                    decoding.extend(wave)
+                self.stats["t_launch"] += time.time() - t_ph
+                self.stats["max_inflight"] = max(
+                    self.stats["max_inflight"],
+                    len(decoding) + len(compiling) + n_scoring)
+
+                if decoding:
+                    if compiling or scoring:
+                        self.stats["overlap_ticks"] += 1
+                    t_ph = time.time()
+                    self.engine.step()
+                    for exp in list(decoding):
+                        self._advance_segmentation(exp)
+                        if exp.ro.finished:
+                            self._finalize_rollout(exp)
+                            decoding.remove(exp)
+                            compiling.append(exp)
+                    self.stats["t_step"] += time.time() - t_ph
+
+                # resolve score waves dispatched on an EARLIER iteration;
+                # while decode or compile work remains, only those whose
+                # device work has already finished
+                while scoring:
+                    exps_w, pending = scoring[0]
+                    if (decoding or compiling) and pending is not None:
+                        ready = pending[-1]
+                        if ready is not None and not ready.query():
+                            break
+                    t_ph = time.time()
+                    wave_scores = self._resolve_scores(pending)
+                    self.stats["t_resolve"] += time.time() - t_ph
+                    while exps_w:
+                        exp = exps_w.pop(0)
+                        completed += 1
+                        t_ph = time.time()
+                        out = self._complete_expansion(
+                            exp, precomputed=wave_scores.get(id(exp)))
+                        self.stats["t_complete"] += time.time() - t_ph
+                        yield out
+                    scoring.pop(0)
+
+                t_ph = time.time()
+                ready = [exp for exp in compiling if exp.future.done()]
+                if ready:
+                    for exp in ready:
+                        compiling.remove(exp)
+                    pending = self._dispatch_scores(ready)
+                    self.stats["t_dispatch"] += time.time() - t_ph
+                    if pending is None:
+                        # nothing to batch (no metric / nothing
+                        # rasterizable / all memoised): complete in place
+                        for exp in ready:
+                            completed += 1
+                            t_ph = time.time()
+                            out = self._complete_expansion(exp)
+                            self.stats["t_complete"] += time.time() - t_ph
+                            yield out
+                    else:
+                        scoring.append((ready, pending))
+
+                if timed_out() or self.control.should_stop:
+                    break
+                if (not decoding and not compiling and not scoring
+                        and target is not None and launched >= target):
+                    break
+                if not decoding and not compiling and not scoring:
+                    # nothing launched and nothing in flight: every slot
+                    # is held by another user of the engine
+                    time.sleep(0.001)
+                    continue
+                if not decoding and compiling:
+                    # nothing to decode: wait briefly for ANY compile
+                    t_ph = time.time()
+                    _cf.wait([e.future for e in compiling], timeout=0.05,
+                             return_when=_cf.FIRST_COMPLETED)
+                    self.stats["t_wait"] += time.time() - t_ph
+        finally:
+            for exp in decoding:
+                self.engine.abort(exp.ro)
+            while any(not exp.ro.finished for exp in decoding):
+                self.engine.step()
+            for exp in decoding:
+                self.engine.release(exp.ro)
+                for n in exp.path:
+                    n.visits -= 1
+            for exp in compiling:
+                for n in exp.path:
+                    n.visits -= 1
+            for exps_w, _ in scoring:
+                for exp in exps_w:     # dispatched but never completed
+                    for n in exp.path:
+                        n.visits -= 1

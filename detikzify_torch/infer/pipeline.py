@@ -3,18 +3,17 @@
 
 ``sample()`` generates one TikZ program for one figure; ``sample_batch()``
 runs many figures' rollouts concurrently over the engine's slots with one
-vision pass for the batch. Default hyperparameters are the reference's
-(T=0.8, top-p 0.95, top-k 0; compile timeout 60 s; exploration 0.6). One
-``DecodeEngine`` (page pool + sampling state) is shared across calls.
-
-This slice scores with compiler diagnostics only (``metric="fast"``):
-``metric="model"`` (SelfSim on the model's own tower) and ``simulate()``
-(MCTS) raise ``NotImplementedError`` until SelfSim is ported (ROADMAP
-queue 1).
+vision pass for the batch; ``simulate()`` refines with MCTS and yields
+(score, TikzDocument) per rollout. Default hyperparameters are the
+reference's (T=0.8, top-p 0.95, top-k 0; compile timeout 60 s; exploration
+0.6). One ``DecodeEngine`` (page pool + sampling state) is shared across
+calls. ``metric="model"`` (the default) scores with SelfSim on the model's
+own vision tower (``evaluate.ImageSim``, EMD for v2); ``metric="fast"``
+with compiler diagnostics only.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Generator, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -22,6 +21,7 @@ from PIL import Image
 
 from ..config import DetikzifyConfig
 from ..engine import DecodeEngine
+from ..evaluate.imagesim import ImageSim
 from ..models.detikzify import Params
 from ..ops.sampling import SamplingParams
 from ..processing import DetikzifyProcessor
@@ -29,9 +29,7 @@ from ..utils.image import expand, load
 from .generator import DetikzifyGenerator
 from .tikz import CompileService, TikzDocument
 
-_SELFSIM = ("SelfSim (ImageSim) is not ported yet: it comes with "
-            "generator.simulate() in ROADMAP queue 1, item 'SelfSim, "
-            "generator.simulate() and MCTS'. Use metric='fast'.")
+Numeric = Union[int, float]
 
 
 class DetikzifyPipeline:
@@ -54,11 +52,6 @@ class DetikzifyPipeline:
         device="cuda",
         seed: int = 0,
     ):
-        if metric == "model":    # SelfSim on the model's own vision tower
-            raise NotImplementedError(_SELFSIM)
-        # "fast": compiler diagnostics only; a custom metric object is kept
-        # for the MCTS scoring that comes with simulate()
-        self.metric = None if metric == "fast" else metric
         self.cfg = cfg
         self.processor = processor
         self.compile_timeout = compile_timeout
@@ -70,6 +63,13 @@ class DetikzifyPipeline:
             sampling=SamplingParams(temperature=temperature, top_p=top_p,
                                     top_k=top_k),
             device=device, seed=seed)
+        if metric == "model":   # SelfSim on the model's own vision tower
+            self.metric = ImageSim.from_detikzify(params, cfg,
+                                                  processor=processor)
+        elif metric == "fast":  # compiler diagnostics only
+            self.metric = None
+        else:
+            self.metric = metric
         self.compiler = CompileService(workers=compile_workers,
                                        timeout=compile_timeout)
 
@@ -100,8 +100,9 @@ class DetikzifyPipeline:
                                  ("top_p", top_p), ("top_k", top_k)]
                if v is not None})
 
-    def _generator(self, image, text, preprocess, *, control=None,
-                   on_token=None, temperature=None, top_p=None, top_k=None,
+    def _generator(self, image, text, preprocess, *, metric=None,
+                   mcts_timeout=None, control=None, on_token=None,
+                   temperature=None, top_p=None, top_k=None,
                    exploration=None, compile_timeout=None,
                    **kw) -> DetikzifyGenerator:
         self.check_inputs(image, text)
@@ -110,9 +111,10 @@ class DetikzifyPipeline:
             engine=self.engine,
             processor=self.processor,
             image=self.load(image, preprocess),
-            metric=self.metric,
+            metric=metric,
             compile_timeout=self.compile_timeout
             if compile_timeout is None else compile_timeout,
+            mcts_timeout=mcts_timeout,
             exploration=self.exploration if exploration is None
             else exploration,
             compile_service=self.compiler,
@@ -185,8 +187,26 @@ class DetikzifyPipeline:
                                      backend=self.compiler.backend))
         return docs
 
-    def simulate(self, *args, **kw):
-        raise NotImplementedError(_SELFSIM)
+    def simulate(
+        self,
+        image: Optional[Union[Image.Image, str]] = None,
+        text: Optional[str] = None,
+        preprocess: bool = True,
+        expansions: Optional[Numeric] = None,
+        timeout: Optional[Numeric] = None,
+        parallelism: int = 1,
+        **kw,
+    ) -> Generator[Tuple[Numeric, TikzDocument], None, None]:
+        """DeTikZify with MCTS refinement: yields (score, doc) per rollout.
+        ``parallelism > 1`` runs that many expansions at once on the
+        engine's slots."""
+        gen = self._generator(image, text, preprocess, metric=self.metric,
+                              mcts_timeout=timeout or None, **kw)
+        try:
+            yield from gen.simulate(expansions or None,
+                                    parallelism=parallelism)
+        finally:
+            gen.close()
 
     def close(self) -> None:
         self.compiler.shutdown()

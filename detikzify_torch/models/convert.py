@@ -4,7 +4,10 @@ JAX package's ``Params``.
 JAX dense kernels are ``[in, out]`` and per-layer weights are stacked
 ``[L, ...]`` (``detikzify_tpu/models/import_hf.py``); the port's
 ``nn.Linear`` weights are ``[out, in]`` and layers are a ``ModuleList``, so
-``params_from_numpy`` transposes and unstacks.
+``params_from_numpy`` transposes and unstacks. It also takes the trees of
+``detikzify_tpu.ops.quant``: an int8 ``{'kernel_q': {'q', 'scale'}}`` leaf
+becomes a ``QuantLinear`` (``q`` transposed the same way), and fused
+``qkv`` / ``gateup`` projections are fused in the port's model too.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import torch
 from torch import nn
 
 from ..config import DetikzifyConfig
+from ..ops.quant import FUSED, QuantLinear, fuse_module
 from .detikzify import Params
 from .layers import LayerNorm, RMSNorm
 
@@ -62,20 +66,30 @@ def _load(module: nn.Module, tree: Mapping, layer: Optional[int]) -> None:
         arr = np.asarray(arr)
         return arr[layer] if layer is not None else arr
 
-    if isinstance(module, nn.Linear):
-        if "kernel" not in tree:
-            raise NotImplementedError(
-                f"packed or int8 weights ({sorted(tree)}) are not ported yet "
-                "(ROADMAP queue 1, int8 on K5)")
-        module.weight.copy_(torch.from_numpy(np.array(pick(tree["kernel"]).T)))
+    def transposed(arr):
+        return torch.from_numpy(np.array(np.swapaxes(pick(arr), -1, -2)))
+
+    if isinstance(module, (nn.Linear, QuantLinear)):
+        if isinstance(module, QuantLinear):
+            module.q.copy_(transposed(tree["kernel_q"]["q"]))
+            module.scale.copy_(torch.from_numpy(np.array(
+                pick(tree["kernel_q"]["scale"]))))
+        else:
+            module.weight.copy_(transposed(tree["kernel"]))
         if module.bias is not None:
             module.bias.copy_(torch.from_numpy(np.array(pick(tree["bias"]))))
         return
+    for fused in FUSED:             # a fused tree: fuse this module first
+        if fused in tree:
+            fuse_module(module, fused)
     for name, param in module.named_parameters(recurse=False):
         param.copy_(torch.from_numpy(np.array(pick(tree[name]))))
-    for name, child in module.named_children():
+    for name, child in list(module.named_children()):
         if child is None:
             continue
+        if isinstance(child, nn.Linear) and "kernel_q" in tree[name]:
+            child = QuantLinear.like(child)
+            setattr(module, name, child)
         if isinstance(child, nn.ModuleList):
             for i, sub in enumerate(child):
                 _load(sub, tree[name], i)

@@ -1,8 +1,10 @@
 """Shared neural-net primitives (counterpart of ``detikzify_tpu/models/layers.py``).
 
 Dense layers are ``torch.nn.Linear`` (weights ``[out, in]``, the transpose
-of the JAX ``[in, out]`` kernels). Norms compute in fp32 and cast back to the
-input dtype, as the JAX functions do. RoPE is the non-interleaved
+of the JAX ``[in, out]`` kernels) or, once quantized, ``ops.quant.
+QuantLinear`` (int8 ``[out, in]`` + fp32 per-channel scale). Norms compute
+in fp32 and cast back to the input dtype, as the JAX functions do. RoPE is
+the non-interleaved
 "rotate_half" form with optional llama3 frequency scaling.
 """
 from __future__ import annotations
@@ -12,6 +14,9 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.quant import QuantLinear
+from ..ops.quant_matmul import int8_matmul
 
 
 class LayerNorm(nn.Module):
@@ -32,8 +37,13 @@ class RMSNorm(nn.Module):
         self.scale = nn.Parameter(torch.ones(dim, device=device, dtype=dtype))
 
 
-def linear(p: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    """Dense layer ``x W^T + b`` (the JAX ``einsum('...i,io->...o')``)."""
+def linear(p: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """Dense layer ``x W^T + b`` (the JAX ``einsum('...i,io->...o')``); an
+    int8 ``QuantLinear`` goes through ``int8_matmul`` (kernel K5 for
+    decode-regime products on the card), then adds its bias."""
+    if isinstance(p, QuantLinear):
+        y = int8_matmul(x, p.q, p.scale)
+        return y if p.bias is None else y + p.bias
     return F.linear(x, p.weight, p.bias)
 
 

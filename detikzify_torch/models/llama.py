@@ -15,6 +15,10 @@ Entry points:
                               (kernel K2). This is the JAX package's
                               ``_decode_step_paged_zerocopy``.
 
+Projections may be int8 (``ops.quant.QuantLinear``, kernel K5 in the
+decode regime) and q/k/v and gate/up may be fused (``fuse_projections``);
+the layer bodies take either layout.
+
 The pool is ``PagedKV [L, P, page, NKV, Hd]``; rows at or beyond the
 engine's ``trash_row`` are written to the shared trash page, never through
 a (possibly stale) page table -- do not simplify that routing. Where JAX
@@ -30,6 +34,8 @@ from torch import nn
 from ..config import TextConfig
 from ..ops.flash import flash_attention
 from ..ops.paged import decode_attend_paged
+from ..ops.quant import QuantLinear
+from ..ops.quant_matmul import int8_matmul, matmul_f32
 from .layers import (ACTIVATIONS, RMSNorm, apply_rope, linear, rms_norm,
                      rope_cos_sin, rope_inv_freq)
 
@@ -86,26 +92,41 @@ def embed(params: Llama, token_ids: torch.Tensor) -> torch.Tensor:
 
 
 def unembed(params: Llama, hidden: torch.Tensor) -> torch.Tensor:
-    """Final-norm'd hidden -> fp32 logits (the product accumulates in fp32;
-    with bf16 weights its result is rounded to bf16 before the cast)."""
-    weight = (params.lm_head.weight if params.lm_head is not None
-              else params.embed_tokens)
-    return torch.nn.functional.linear(hidden, weight).float()
+    """Final-norm'd hidden -> fp32 logits, accumulated in fp32 and never
+    rounded through bf16 (JAX ``preferred_element_type=float32``). An int8
+    head is K5's product with an fp32 output."""
+    head = params.lm_head
+    if isinstance(head, QuantLinear):
+        return int8_matmul(hidden, head.q, head.scale,
+                           out_dtype=torch.float32)
+    return matmul_f32(hidden, head.weight if head is not None
+                      else params.embed_tokens)
 
 
 def _qkv(lp: DecoderLayer, x: torch.Tensor, cfg: TextConfig, cos, sin):
+    """Rotated q, k and v from separate q/k/v projections or from one
+    fused ``qkv`` (``ops.quant.fuse_projections``)."""
     lead = x.shape[:-1]            # [B, S] full-seq / [B] decode
     hd, nh, nkv = cfg.head_dim, cfg.num_attention_heads, \
         cfg.num_key_value_heads
-    q = linear(lp.attn.q, x).reshape(*lead, nh, hd)
-    k = linear(lp.attn.k, x).reshape(*lead, nkv, hd)
-    v = linear(lp.attn.v, x).reshape(*lead, nkv, hd)
+    if hasattr(lp.attn, "qkv"):
+        q, k, v = torch.split(linear(lp.attn.qkv, x),
+                              [nh * hd, nkv * hd, nkv * hd], dim=-1)
+    else:
+        q, k, v = (linear(lp.attn.q, x), linear(lp.attn.k, x),
+                   linear(lp.attn.v, x))
+    q = q.reshape(*lead, nh, hd)
+    k = k.reshape(*lead, nkv, hd)
+    v = v.reshape(*lead, nkv, hd)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
 def _mlp(lp: DecoderLayer, x: torch.Tensor, act) -> torch.Tensor:
-    return linear(lp.mlp.down,
-                  act(linear(lp.mlp.gate, x)) * linear(lp.mlp.up, x))
+    if hasattr(lp.mlp, "gateup"):
+        gate, up = linear(lp.mlp.gateup, x).chunk(2, dim=-1)
+    else:
+        gate, up = linear(lp.mlp.gate, x), linear(lp.mlp.up, x)
+    return linear(lp.mlp.down, act(gate) * up)
 
 
 def _inv_freq(cfg: TextConfig, device) -> torch.Tensor:
@@ -135,7 +156,8 @@ def forward(params: Llama, cfg: TextConfig, inputs_embeds: torch.Tensor, *,
     for lp in params.layers:
         h = rms_norm(lp.input_ln, x, cfg.rms_norm_eps)
         q, k, v = _qkv(lp, h, cfg, cos, sin)
-        h = flash_attention(q, k, v, causal=True, kv_mask=attention_mask)
+        h = flash_attention(q, k, v.contiguous(), causal=True,
+                            kv_mask=attention_mask)
         x = x + linear(lp.attn.o, h.reshape(b, s, -1))
         h = rms_norm(lp.post_ln, x, cfg.rms_norm_eps)
         x = x + _mlp(lp, h, act)

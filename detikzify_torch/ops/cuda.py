@@ -127,6 +127,9 @@ KERNELS: Dict[str, CudaKernel] = {
     "paged_decode": CudaKernel(
         "paged_decode", "paged_decode.cu", "detikzify_paged_decode",
         [P, P, P, P, P, P, I, I, I, I, I, I, I, F, P]),
+    "int8_gemv": CudaKernel(
+        "int8_gemv", "int8_gemv.cu", "detikzify_int8_gemv",
+        [P, P, P, P, I, I, I, I, I, P]),
 }
 
 

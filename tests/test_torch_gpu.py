@@ -1,4 +1,4 @@
-"""Kernels K1 and K2 against their plain versions on a CUDA card.
+"""Kernels K1, K2 and K5 against their plain versions on a CUDA card.
 
 Marked ``gpu``: they need a card, nvcc and sm_90a, and skip elsewhere (the
 CPU suite holds the plain versions against the JAX package instead). Run
@@ -9,7 +9,9 @@ full shapes.
 import pytest
 import torch
 
-from detikzify_torch.ops import attention, flash, paged
+from detikzify_torch.models import llama
+from detikzify_torch.ops import attention, flash, paged, quant_matmul
+from detikzify_torch.ops.quant import QuantLinear, quantize_kernel
 
 pytestmark = pytest.mark.gpu
 
@@ -88,6 +90,100 @@ def test_paged_kernel_matches_plain(cuda, nh, nkv, hd):
         q, pool_k, pool_v.abs(), tab, lengths))
 
 
+# (K, N) of every K5 product on the int8 v2-8b path: fused qkv, o, fused
+# gateup, down, lm_head (fp32 out), the MAP head's q and o
+K5_SHAPES = [(4096, 6144, "bf16"), (4096, 4096, "bf16"),
+             (4096, 28672, "bf16"), (14336, 4096, "bf16"),
+             (4096, 128256, "fp32"), (1152, 1152, "bf16")]
+
+
+def _k5_inputs(gen, dev, rows, k, n, x_dtype=torch.bfloat16):
+    x = torch.randn((rows, k), generator=gen, device=dev).to(x_dtype)
+    w = torch.randn((n, k), generator=gen, device=dev) * k ** -0.5
+    q, scale = quantize_kernel(w)
+    return x, q, scale
+
+
+def _k5_bound(x, q, scale, out_dtype):
+    """The plain product and the elementwise bound on |kernel - plain|,
+    with mag = plain(|x|, |q|). A bf16 output: 2^-7 |plain| (one rounding
+    of the output, a whole ulp when the two sums fall on either side of a
+    rounding boundary) + K 2^-23 mag (two fp32 sums of K terms in different
+    orders, worst case). An fp32 output: 2 sqrt(K) 2^-24 mag, the
+    random-walk size of the two sums' rounding errors, tight enough that an
+    output rounded through bf16 fails it."""
+    want = quant_matmul.int8_matmul_plain(x, q, scale, out_dtype).float()
+    mag = quant_matmul.int8_matmul_plain(x.abs(), q.abs(), scale,
+                                         torch.float32)
+    k = x.shape[1]
+    if out_dtype == torch.bfloat16:
+        return want, 2.0 ** -7 * want.abs() + k * 2.0 ** -23 * mag
+    return want, 2 * k ** 0.5 * 2.0 ** -24 * mag
+
+
+def _k5_close(got, x, q, scale, out_dtype):
+    want, bound = _k5_bound(x, q, scale, out_dtype)
+    err = (got.float() - want).abs()
+    assert bool(torch.isfinite(got.float()).all())
+    assert bool((err <= bound).all()), float((err / bound).max())
+
+
+@pytest.mark.parametrize("rows", [1, 8, 64])
+@pytest.mark.parametrize("k,n,out", K5_SHAPES)
+def test_int8_gemv_matches_plain(cuda, rows, k, n, out):
+    gen = torch.Generator(device=cuda).manual_seed(rows + k + n)
+    x, q, scale = _k5_inputs(gen, cuda, rows, k, n)
+    out_dtype = torch.float32 if out == "fp32" else torch.bfloat16
+    before = quant_matmul.KERNEL.launches
+    got = quant_matmul.int8_matmul(x, q, scale, out_dtype)
+    assert quant_matmul.KERNEL.launches == before + 1
+    assert got.dtype == out_dtype and got.shape == (rows, n)
+    _k5_close(got, x, q, scale, out_dtype)
+    if out_dtype == torch.float32:
+        # control: the fp32 bound refuses the same output rounded to bf16
+        want, bound = _k5_bound(x, q, scale, out_dtype)
+        assert bool(((got.to(torch.bfloat16).float() - want).abs()
+                     > bound).any())
+
+
+@pytest.mark.parametrize("rows", [3, 64])
+def test_int8_gemv_fp32_input_matches_plain(cuda, rows):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x, q, scale = _k5_inputs(gen, cuda, rows, 1152, 1152, torch.float32)
+    got = quant_matmul.int8_gemv(x, q, scale)
+    _k5_close(got, x, q, scale, torch.float32)
+
+
+def test_unembed_logits_not_rounded_through_bf16(cuda):
+    """At the v2-8b head (4096 x 128256, bf16 weights, 8 rows) the old
+    ``F.linear(h, W).float()`` rounds the logits to bf16; ``unembed`` now
+    stays within fp32-accumulation error, sqrt(K) 2^-23 plain(|h|, |W|), of
+    an fp32 product on the CPU. The int8 head is K5 with an fp32 output."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    d, vocab = 4096, 128256
+    h = torch.randn((8, d), generator=gen, device=cuda).to(torch.bfloat16)
+    w = (torch.randn((vocab, d), generator=gen, device=cuda)
+         * d ** -0.5).to(torch.bfloat16)
+    head = torch.nn.Module()
+    head.lm_head = torch.nn.Linear(d, vocab, bias=False, device="meta")
+    head.lm_head.weight = torch.nn.Parameter(w, requires_grad=False)
+    hc, wc = h.float().cpu(), w.float().cpu()
+    want = hc @ wc.t()
+    bound = d ** 0.5 * 2.0 ** -23 * (hc.abs() @ wc.abs().t())
+    before = (torch.nn.functional.linear(h, w).float().cpu() - want).abs()
+    assert bool((before > bound).any())          # the fault it repairs
+    got = llama.unembed(head, h)
+    assert got.dtype == torch.float32
+    assert bool(((got.cpu() - want).abs() <= bound).all())
+    qh = QuantLinear(d, vocab, device=cuda)
+    qh.q, qh.scale = quantize_kernel(w)
+    head.lm_head = qh
+    before = quant_matmul.KERNEL.launches
+    got = llama.unembed(head, h)
+    assert quant_matmul.KERNEL.launches == before + 1
+    _k5_close(got, h, qh.q, qh.scale, torch.float32)
+
+
 def test_wrappers_raise_instead_of_falling_back(cuda):
     q = torch.zeros((1, 4, 2, 24), device=cuda)          # fp32: refused
     with pytest.raises(ValueError, match="bfloat16"):
@@ -101,3 +197,17 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     lengths = torch.ones((1,), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         paged.decode_attend_paged(qb, pool, pool, tab, lengths)
+    q8 = torch.zeros((256, 256), dtype=torch.int8, device=cuda)
+    scale = torch.ones((256,), device=cuda)
+    xh = torch.zeros((4, 256), dtype=torch.float16, device=cuda)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        quant_matmul.int8_gemv(xh, q8, scale)            # fp16: refused
+    xb = torch.zeros((4, 256), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="int8"):
+        quant_matmul.int8_gemv(xb, q8.float(), scale)    # not int8
+    # an eligible product on the card launches K5 or raises, never the
+    # plain version: a refused launch (K not a multiple of 128) is an error
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        quant_matmul.KERNEL.launch(
+            xb.data_ptr(), q8.data_ptr(), scale.data_ptr(), xb.data_ptr(),
+            4, 256, 200, 0, 0, paged.stream_handle(cuda))

@@ -2,12 +2,17 @@
 
 At temperature 0 with the hermetic ``FakeBackend`` compiler, ``sample()``
 and ``sample_batch()`` must return the same ``TikzDocument.code`` as the
-JAX package from the same weights. Also: the port and ``chip_smoke.py``
-import neither JAX nor ``detikzify_tpu``, and ``chip_smoke.py`` rehearses
-its phases on the CPU and refuses to run without a card.
+JAX package from the same weights, and MCTS ``simulate()`` scored by
+SelfSim the same solution stream and search tree, on the fp32 tree and on
+the int8 + fused tree. The MCTS behaviour tests mirror
+``tests/test_pipeline.py``. Also: the port and ``chip_smoke.py`` import
+neither JAX nor ``detikzify_tpu``, and ``chip_smoke.py`` rehearses its
+phases on the CPU and refuses to run without a card.
 """
+import concurrent.futures as cf
 import json
 import os
+import random
 import subprocess
 import sys
 from pathlib import Path
@@ -19,15 +24,21 @@ import torch
 from PIL import Image, ImageDraw
 
 from detikzify_tpu.config import tiny_test_config
+from detikzify_tpu.evaluate.imagesim import ImageSim as JImageSim
 from detikzify_tpu.infer import DetikzifyPipeline as JPipeline
 from detikzify_tpu.infer import FakeBackend as JFake
 from detikzify_tpu.infer import set_backend as j_set_backend
 from detikzify_tpu.models import detikzify as jdet
+from detikzify_tpu.ops import quant as jquant
 from detikzify_tpu.processing import ByteTokenizer as JTok
 from detikzify_tpu.processing import DetikzifyProcessor as JProc
 from detikzify_torch.config import tiny_test_config as t_tiny_test_config
+from detikzify_torch.evaluate import ImageSim as TImageSim
+from detikzify_torch.infer import DetikzifyGenerator as TGenerator
 from detikzify_torch.infer import DetikzifyPipeline as TPipeline
 from detikzify_torch.infer import FakeBackend as TFake
+from detikzify_torch.infer import CompileService as TCompileService
+from detikzify_torch.infer import TikzDocument as TDoc
 from detikzify_torch.infer import set_backend as t_set_backend
 from detikzify_torch.models import convert
 from detikzify_torch.processing import ByteTokenizer as TTok
@@ -125,13 +136,282 @@ def test_generator_rollout_matches_jax(pipelines):
     assert hits == [1, 1]
 
 
-def test_model_metric_and_simulate_not_ported(pipelines):
+# ---------------------------------------------------------------------------
+# MCTS simulate() with SelfSim (mirrors tests/test_pipeline.py)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def selfsim_pipe(pipelines):
+    """The port's pipeline with its default metric (SelfSim) on the same
+    engine as the fast-mode one."""
     _, tpipe = pipelines
-    with pytest.raises(NotImplementedError, match="SelfSim"):
-        TPipeline(tpipe.engine.params, tpipe.cfg, tpipe.processor,
-                  engine=tpipe.engine)           # default metric="model"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        next(iter(tpipe.simulate(image=_figures()[0])))
+    pipe = TPipeline(tpipe.engine.params, tpipe.cfg, tpipe.processor,
+                     engine=tpipe.engine)
+    assert isinstance(pipe.metric, TImageSim)
+    yield pipe
+    pipe.close()
+
+
+def _walk(node):
+    yield node
+    for c in node.children:
+        yield from _walk(c)
+
+
+def _free(engine):
+    return engine.num_active == 0 and engine.num_free_slots == \
+        engine.num_slots
+
+
+def test_simulate_yields_scored_documents(selfsim_pipe):
+    results = list(selfsim_pipe.simulate(image=_figures()[0], expansions=3,
+                                         max_new_tokens=20))
+    assert len(results) == 3
+    for score, doc in results:
+        assert isinstance(doc, TDoc) and isinstance(score, (int, float))
+        if doc.is_rasterizable:
+            assert -1.0 <= score <= 1.0           # SelfSim cosine range
+        else:
+            assert score == -1
+    assert _free(selfsim_pipe.engine)
+
+
+def test_simulate_fast_mode(pipelines):
+    """metric='fast' scores from compiler diagnostics in {-1, 0, 1}."""
+    _, tpipe = pipelines
+    results = list(tpipe.simulate(image=_figures()[0], expansions=2,
+                                  max_new_tokens=20))
+    assert len(results) == 2
+    assert all(score in (-1, 0, 1) for score, _ in results)
+
+
+def test_mcts_grows_tree_and_reuses_prefixes(selfsim_pipe):
+    gen = selfsim_pipe.generator(image=_figures()[1],
+                                 metric=selfsim_pipe.metric,
+                                 max_new_tokens=20)
+    try:
+        for _ in gen.simulate(expansions=4):
+            pass
+        root = gen.root
+        assert len(root.children) >= 1
+        assert gen.montecarlo.stats_expansion_count == 4
+        assert gen.stats["rollouts"] >= 1
+        if any(not c.is_widen_node for c in root.children):
+            assert gen.stats["prefix_hits"] >= 1
+        assert len(gen.score.cache) >= 1          # SelfSim scored renders
+    finally:
+        gen.close()
+    assert selfsim_pipe.engine.prefix_pages_used == 0
+
+
+def test_sequential_abort_stops_search(selfsim_pipe):
+    """control.abort() ends the whole sequential search."""
+    gen = selfsim_pipe.generator(image=_figures()[0],
+                                 metric=selfsim_pipe.metric,
+                                 max_new_tokens=20)
+    try:
+        results = []
+        for item in gen.simulate(expansions=50):
+            results.append(item)
+            gen.control.abort()
+        assert len(results) == 1
+    finally:
+        gen.close()
+    assert _free(selfsim_pipe.engine)
+
+
+def test_simulate_respects_timeout(selfsim_pipe):
+    for par in (1, 3):
+        results = list(selfsim_pipe.simulate(
+            image=_figures()[0], expansions=50, timeout=1e-6,
+            parallelism=par, max_new_tokens=20))
+        assert len(results) <= 1
+    assert _free(selfsim_pipe.engine)
+
+
+def test_simulate_parallel(selfsim_pipe):
+    """Parallel expansions give scored results, grow the tree and free
+    every slot afterwards."""
+    engine = selfsim_pipe.engine
+    results = list(selfsim_pipe.simulate(image=_figures()[0], expansions=6,
+                                         parallelism=3, max_new_tokens=20))
+    assert len(results) == 6
+    for score, doc in results:
+        assert isinstance(score, (int, float))
+        if doc.is_rasterizable:
+            assert -1.0 <= score <= 1.0
+    assert _free(engine) and not engine._rollouts
+
+
+def test_simulate_parallel_virtual_loss_reverted(selfsim_pipe):
+    gen = selfsim_pipe.generator(image=_figures()[2],
+                                 metric=selfsim_pipe.metric,
+                                 max_new_tokens=20)
+    try:
+        results = list(gen.simulate(expansions=4, parallelism=2))
+        assert len(results) == 4
+        root = gen.root
+        # root visits equal the real backprops: virtual loss reverted
+        assert root.visits == len(root._rewards)
+        assert gen.montecarlo.stats_expansion_count == 4
+    finally:
+        gen.close()
+
+
+def test_parallel_abort_cleans_up_inflight_stages(selfsim_pipe):
+    """Aborting a parallel search with expansions in every stage (decoding,
+    compiling, score-dispatched) frees all slots, finishes all rollouts and
+    reverts the virtual losses of expansions that never completed."""
+    backend = TFake(latency=0.2)
+    t_set_backend(backend)
+    try:
+        compiler = TCompileService(workers=3, backend=backend)
+        gen = TGenerator(engine=selfsim_pipe.engine,
+                         processor=selfsim_pipe.processor,
+                         image=selfsim_pipe.load(_figures()[0], True),
+                         metric=selfsim_pipe.metric,
+                         compile_service=compiler, max_new_tokens=20)
+        completed = 0
+        for _ in gen.simulate(expansions=30, parallelism=3):
+            completed += 1
+            if completed == 2:
+                gen.control.abort()
+        assert completed < 30
+        assert _free(selfsim_pipe.engine)
+        assert not selfsim_pipe.engine._rollouts
+        for node in _walk(gen.root):
+            assert node.visits >= 0
+        assert gen.root.visits == len(gen.root._rewards)
+        gen.close()
+        compiler.shutdown()
+    finally:
+        t_set_backend(TFake())
+
+
+def test_wave_scoring_shares_score_memo_and_dedups(selfsim_pipe):
+    """The batched wave scorer shares the sequential path's score memo:
+    memoised renders are skipped, in-wave duplicates encode once, and the
+    resolved values are written back to the memo."""
+    gen = selfsim_pipe.generator(image=_figures()[0],
+                                 metric=selfsim_pipe.metric)
+    try:
+        class _Doc:
+            is_rasterizable = True
+            compiled_with_errors = False
+
+            def __init__(self, img):
+                self._img = img
+
+            def rasterize(self):
+                return self._img
+
+        def _exp(img):
+            e = type("_E", (), {})()
+            fut = cf.Future()
+            fut.set_result(_Doc(img))
+            e.future = fut
+            return e
+
+        red = Image.new("RGB", (64, 64), "red")
+        blue = Image.new("RGB", (64, 64), "blue")
+        exps = [_exp(red), _exp(blue), _exp(red)]   # in-wave duplicate
+        pending = gen._dispatch_scores(exps)
+        assert pending is not None
+        assert pending[1] == 2              # red encoded once, not twice
+        out = gen._resolve_scores(pending)
+        assert len(out) == 3
+        assert out[id(exps[0])] == out[id(exps[2])]
+        memo = gen.score.cache
+        assert memo[red.tobytes()] == out[id(exps[0])]
+        assert blue.tobytes() in memo
+        hits0 = gen.stats["score_memo_hits"]
+        assert gen._dispatch_scores([_exp(red), _exp(blue)]) is None
+        assert gen.stats["score_memo_hits"] == hits0 + 2
+        assert gen.score(red) == out[id(exps[0])]
+    finally:
+        gen.close()
+
+
+# ---------------------------------------------------------------------------
+# simulate() parity with the JAX package
+# ---------------------------------------------------------------------------
+
+def _sync_compiles(pipe):
+    """Compile on submit and hand back a finished future, so the parallel
+    loop sees every compile done at its first check, in both packages."""
+    def submit_doc(doc):
+        doc.compile()
+        fut = cf.Future()
+        fut.set_result(doc)
+        return fut
+
+    pipe.compiler.submit_doc = submit_doc
+
+
+@pytest.fixture(scope="module", params=["fp32", "int8"])
+def parity_pipes(request):
+    """JAX and port pipelines on the same tree (fp32, or int8 + fused),
+    8 slots, temperature 0, SelfSim in EMD mode (the v2 default)."""
+    cfg = tiny_test_config(vocab_size=512)
+    jp = jdet.init(jax.random.PRNGKey(7), cfg)
+    if request.param == "int8":
+        jp = jquant.fuse_projections(jquant.quantize_params(jp))
+    tcfg = t_tiny_test_config(vocab_size=512)
+    tp = convert.params_from_numpy(jax.tree.map(np.asarray, jp._asdict()),
+                                   tcfg, device="cpu")
+    kw = dict(num_slots=8, max_len=96, temperature=0.0)
+    jproc, tproc = JProc(_tok(JTok, cfg), cfg), TProc(_tok(TTok, tcfg), tcfg)
+    # a greedy byte stream from random weights rarely holds a newline: cut
+    # a line at every third token id instead, in both packages, so that the
+    # search grows a deep tree and restores stored prefixes
+    for proc in (jproc, tproc):
+        proc.tokenizer._detikzify_newline_table = {
+            i: (1, True) for i in range(0, 512, 3)}
+    jsim = JImageSim.from_detikzify(jp, cfg, processor=jproc, mode="emd")
+    dispatch = jsim.score_against_async
+
+    def ready_dispatch(*a, **k):       # results ready before the next check
+        dev, n = dispatch(*a, **k)
+        return jax.block_until_ready(dev), n
+
+    jsim.score_against_async = ready_dispatch
+    jpipe = JPipeline(jp, cfg, jproc, metric=jsim, **kw)
+    tpipe = TPipeline(tp, tcfg, tproc, device="cpu", metric=TImageSim.
+                      from_detikzify(tp, tcfg, processor=tproc, mode="emd"),
+                      **kw)
+    for pipe in (jpipe, tpipe):
+        _sync_compiles(pipe)
+    yield jpipe, tpipe
+    tpipe.close()
+
+
+def _tree(node):
+    return (len(node.token_ids), node.is_widen_node, node.visits,
+            tuple(_tree(c) for c in node.children))
+
+
+@pytest.mark.parametrize("parallelism", [1, 8])
+def test_simulate_matches_jax(parity_pipes, parallelism):
+    """Greedy simulate(): the same solution stream (codes), scores within
+    1e-4, the same tree, the same prefix reuse. Twelve expansions: the
+    parallel search runs a second wave from restored prefixes."""
+    runs = []
+    for pipe in parity_pipes:
+        random.seed(0)                      # UCT ties break at random
+        gen = pipe.generator(image=_figures()[1], metric=pipe.metric,
+                             max_new_tokens=24)
+        try:
+            out = list(gen.simulate(12, parallelism=parallelism))
+            runs.append(([sc for sc, _ in out], [d.code for _, d in out],
+                         _tree(gen.root), gen.stats["prefix_hits"]))
+        finally:
+            gen.close()
+    (jscores, jcodes, jtree, jhits), (tscores, tcodes, ttree, thits) = runs
+    assert len(tcodes) == 12 and tcodes == jcodes
+    np.testing.assert_allclose(tscores, jscores, rtol=0, atol=1e-4)
+    assert ttree == jtree and thits == jhits and thits > 0
+    assert any(sc > -1 for sc in tscores)   # some renders were scored
+    assert _free(parity_pipes[1].engine)
 
 
 def test_port_imports_no_jax():
@@ -166,8 +446,16 @@ def test_chip_smoke_cpu_rehearsal():
     assert json.loads(lines[-1]) == {"ok": True, "rehearsal": "cpu"}
     kernels = json.loads(lines[-2])["kernels"]
     names = {row["kernel"] for row in kernels}
-    assert names == {"flash_attention", "paged_decode"}
-    main = json.loads(lines[-3])
+    assert names == {"flash_attention", "paged_decode", "int8_gemv"}
+    assert all(set(row["launches_by_path"]) == {"sample", "simulate"}
+               for row in kernels)
+    sim = json.loads(lines[-3])
+    assert sim["phase"] == "simulate" and sim["rollouts"] == 16
+    assert sim["selfsim_scored_renders"] > 0
+    assert max(sim["selfsim_wave_sizes"]) > 1
+    assert sim["distinct_programs"] > 1
+    assert all(np.isfinite(sim["scores"]))
+    main = json.loads(lines[-4])
     assert main["phase"] == "main" and main["requests"]["figures"] == 6
 
 

@@ -1,0 +1,262 @@
+"""The port's int8 weight-only path against the JAX package, on the CPU.
+
+``ops/quant.py`` (quantize, fuse, host quantize), the plain version of K5
+(``int8_matmul_plain``) against JAX ``int8_matmul`` on its XLA branch and
+its Pallas kernel in interpret mode, ``params_from_numpy`` of a JAX
+``fuse_projections(quantize_params(...))`` tree, and the int8 + fused model
+and engine against the JAX ones at ``tiny-test`` in fp32. K5 itself is held
+against ``int8_matmul_plain`` on the card (``tests/test_torch_gpu.py``).
+"""
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from detikzify_tpu.config import tiny_test_config
+from detikzify_tpu.engine import DecodeEngine as JEngine
+from detikzify_tpu.models import detikzify as jdet
+from detikzify_tpu.ops import quant as jquant
+from detikzify_tpu.ops.quant_matmul import int8_matmul as j_int8_matmul
+from detikzify_tpu.ops.sampling import SamplingParams as JSampling
+from detikzify_torch.config import tiny_test_config as t_tiny_test_config
+from detikzify_torch.engine import DecodeEngine as TEngine
+from detikzify_torch.models import convert
+from detikzify_torch.models import detikzify as tdet
+from detikzify_torch.ops import quant as tquant
+from detikzify_torch.ops.quant import QuantLinear
+from detikzify_torch.ops.quant_matmul import int8_matmul, int8_matmul_plain
+from detikzify_torch.ops.sampling import SamplingParams as TSampling
+
+torch.set_num_threads(1)
+
+TOL = 3e-4
+
+
+def _numpy(tree):
+    return jax.tree.map(np.asarray, tree._asdict())
+
+
+@pytest.fixture(scope="module")
+def trees():
+    """(cfg, JAX fp32 params, JAX int8 + fused params, port int8 + fused
+    params carried over from the JAX tree)."""
+    cfg = tiny_test_config(vocab_size=512)
+    jp = jdet.init(jax.random.PRNGKey(3), cfg)
+    jq = jquant.fuse_projections(jquant.quantize_params(jp))
+    tcfg = t_tiny_test_config(vocab_size=512)
+    tq = convert.params_from_numpy(_numpy(jq), tcfg, device="cpu")
+    return cfg, tcfg, jp, jq, tq
+
+
+@pytest.mark.parametrize("shape", [(96, 80), (128, 384)])
+def test_quantize_kernel_matches_jax(shape):
+    """q equal element for element (both round half to even after one fp32
+    division), scale within one fp32 ulp."""
+    w = np.random.default_rng(shape[0]).standard_normal(shape).astype(
+        np.float32)
+    want = jquant.quantize_kernel(jnp.asarray(w))        # [in, out] layout
+    q, scale = tquant.quantize_kernel(torch.from_numpy(w.T.copy()))
+    assert q.dtype == torch.int8 and scale.dtype == torch.float32
+    np.testing.assert_array_equal(q.numpy(), np.asarray(want["q"]).T)
+    np.testing.assert_array_max_ulp(scale.numpy(), np.asarray(want["scale"]),
+                                    maxulp=1)
+
+
+def test_quantize_params_structure_matches_jax(trees):
+    cfg, tcfg, jp, _, _ = trees
+    tp = convert.params_from_numpy(_numpy(jp), tcfg, device="cpu")
+    n_fp = tquant.params_nbytes(tp)
+    tquant.quantize_params(tp)
+    jq = jquant.quantize_params(jp)
+    # the JAX keys: text and vision projections, the MAP head, lm_head;
+    # not the connector, the patch embedding or the token embedding
+    for mod in (tp.text.layers[1].attn.q, tp.text.layers[0].mlp.down,
+                tp.vision.layers[1].mlp.fc1, tp.vision.head.attn.o,
+                tp.vision.head.mlp.fc2, tp.text.lm_head):
+        assert isinstance(mod, QuantLinear)
+    for mod in (tp.connector.proj, tp.vision.embeddings.patch):
+        assert type(mod) is torch.nn.Linear
+    assert tp.text.embed_tokens.dtype == torch.float32
+    assert tquant.params_nbytes(tp) < n_fp
+    np.testing.assert_array_equal(
+        tp.vision.layers[1].attn.v.q.numpy(),
+        np.asarray(jq.vision["layers"]["attn"]["v"]["kernel_q"]["q"][1]).T)
+    np.testing.assert_array_equal(
+        tp.text.lm_head.q.numpy(),
+        np.asarray(jq.text["lm_head"]["kernel_q"]["q"]).T)
+    # the fp32 scale survives a cast of the model; q stays int8
+    tp.to(torch.bfloat16)
+    assert tp.text.lm_head.scale.dtype == torch.float32
+    assert tp.text.lm_head.q.dtype == torch.int8
+    assert tp.text.embed_tokens.dtype == torch.bfloat16
+
+
+def test_quantize_params_host_matches_device(trees):
+    _, tcfg, jp, _, _ = trees
+    dev = tquant.quantize_params(
+        convert.params_from_numpy(_numpy(jp), tcfg, device="cpu"))
+    host = tquant.quantize_params_host(
+        convert.params_from_numpy(_numpy(jp), tcfg, device="cpu"))
+    for a, b in ((dev.text.layers[0].attn.k, host.text.layers[0].attn.k),
+                 (dev.vision.head.mlp.fc1, host.vision.head.mlp.fc1)):
+        np.testing.assert_array_equal(a.q.numpy(), b.q.numpy())
+        np.testing.assert_allclose(a.scale.numpy(), b.scale.numpy(),
+                                   rtol=1e-6)
+        np.testing.assert_array_equal(a.bias.numpy() if a.bias is not None
+                                      else 0, b.bias.numpy()
+                                      if b.bias is not None else 0)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_fuse_projections_exact(trees, int8):
+    """Fused and unfused layouts give the same logits; int8 scales
+    concatenate, so quantize-then-fuse == fuse-then-quantize."""
+    cfg, tcfg, jp, _, _ = trees
+
+    def build():
+        p = convert.params_from_numpy(_numpy(jp), tcfg, device="cpu")
+        return tquant.quantize_params(p) if int8 else p
+
+    plain, fused = build(), tquant.fuse_projections(build())
+    layer = fused.text.layers[1]
+    assert hasattr(layer.attn, "qkv") and not hasattr(layer.attn, "q")
+    assert hasattr(layer.mlp, "gateup") and not hasattr(layer.mlp, "gate")
+    ids = np.full((1, cfg.image_seq_len + 6), cfg.image_token_id, np.int32)
+    ids[0, cfg.image_seq_len:] = [cfg.bos_token_id, 5, 6, 7, 8, 9]
+    pix = np.random.default_rng(0).standard_normal(
+        (1, cfg.vision.image_size, cfg.vision.image_size, 3)).astype(
+            np.float32)
+    l0, _ = tdet.forward(plain, tcfg, torch.from_numpy(ids),
+                         torch.from_numpy(pix))
+    l1, _ = tdet.forward(fused, tcfg, torch.from_numpy(ids),
+                         torch.from_numpy(pix))
+    np.testing.assert_allclose(l1.numpy(), l0.numpy(), atol=1e-5, rtol=1e-4)
+    if int8:
+        fq = tquant.quantize_params(tquant.fuse_projections(
+            convert.params_from_numpy(_numpy(jp), tcfg, device="cpu")))
+        for a, b in ((fused.text.layers[0].attn.qkv,
+                      fq.text.layers[0].attn.qkv),
+                     (fused.text.layers[1].mlp.gateup,
+                      fq.text.layers[1].mlp.gateup)):
+            np.testing.assert_array_equal(a.q.numpy(), b.q.numpy())
+            np.testing.assert_array_equal(a.scale.numpy(), b.scale.numpy())
+
+
+@pytest.mark.parametrize("rows", [1, 8, 64, 65])
+@pytest.mark.parametrize("k,n", [(256, 256), (256, 384), (384, 256),
+                                 (384, 384), (256, 272)])
+def test_int8_matmul_plain_matches_jax(rows, k, n):
+    """The plain version against JAX int8_matmul on its XLA branch and
+    through the Pallas kernel in interpret mode (rows 65 and N=272 are
+    ineligible: JAX takes its XLA branch there).
+
+    fp32 x, XLA branch: the same fp32 products summed in fp32, so within
+    1e-5 of the output's scale. bf16 x (the Pallas kernel computes in bf16
+    and writes bf16 whatever x was), XLA branch and Pallas kernel: the same
+    exact products, fp32 sums in either order, one rounding to bf16, so at
+    most one bf16 ulp (2^-7 relative) apart, and equal nearly everywhere."""
+    rng = np.random.default_rng(rows * 1000 + k + n)
+    xb = jnp.asarray(rng.standard_normal((rows, k)), jnp.bfloat16)
+    x = np.array(xb.astype(jnp.float32))
+    qd = jquant.quantize_kernel(jnp.asarray(
+        rng.standard_normal((k, n)), jnp.float32))
+    xt = torch.from_numpy(x)
+    qt = torch.from_numpy(np.asarray(qd["q"]).T.copy())
+    st = torch.from_numpy(np.array(qd["scale"]))
+    got = int8_matmul_plain(xt, qt, st).numpy()
+    assert torch.equal(int8_matmul(xt, qt, st), torch.from_numpy(got))
+    want = np.asarray(j_int8_matmul(jnp.asarray(x), qd["q"], qd["scale"]))
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+    got_b = int8_matmul_plain(xt.to(torch.bfloat16), qt, st).float().numpy()
+    for kw in ({}, {"force_pallas": True, "interpret": True}):
+        want_b = np.asarray(j_int8_matmul(xb, qd["q"], qd["scale"], **kw)
+                            .astype(jnp.float32))
+        np.testing.assert_array_less(np.abs(got_b - want_b),
+                                     2.0 ** -7 * np.abs(want_b) + 1e-30)
+        assert (got_b == want_b).mean() >= 0.99
+    # an fp32 output from a bf16 input (the int8 lm_head): no bf16 rounding
+    f32 = int8_matmul(xt.to(torch.bfloat16), qt, st,
+                      out_dtype=torch.float32)
+    assert f32.dtype == torch.float32
+    np.testing.assert_allclose(f32.numpy(), got, rtol=0,
+                               atol=1e-6 * np.abs(got).max())
+
+
+def test_params_from_numpy_int8_fused_tree(trees):
+    _, _, _, jq, tq = trees
+    lj = jq.text["layers"]
+    for i in range(2):
+        qkv = tq.text.layers[i].attn.qkv
+        assert isinstance(qkv, QuantLinear)
+        np.testing.assert_array_equal(
+            qkv.q.numpy(), np.asarray(lj["attn"]["qkv"]["kernel_q"]["q"][i]).T)
+        np.testing.assert_array_equal(
+            qkv.scale.numpy(),
+            np.asarray(lj["attn"]["qkv"]["kernel_q"]["scale"][i]))
+        gu = tq.text.layers[i].mlp.gateup
+        np.testing.assert_array_equal(
+            gu.q.numpy(), np.asarray(lj["mlp"]["gateup"]["kernel_q"]["q"][i]).T)
+    assert isinstance(tq.vision.layers[0].attn.q, QuantLinear)
+    np.testing.assert_array_equal(
+        tq.vision.layers[0].attn.q.bias.numpy(),
+        np.asarray(jq.vision["layers"]["attn"]["q"]["bias"][0]))
+
+
+def test_int8_fused_forward_matches_jax(trees):
+    """Logits of the int8 + fused model within 3e-4 of JAX, with the
+    vision tower (int8 too) in the loop."""
+    cfg, tcfg, _, jq, tq = trees
+    rng = np.random.default_rng(4)
+    ids = np.full((2, cfg.image_seq_len + 7), cfg.image_token_id, np.int32)
+    ids[:, cfg.image_seq_len] = cfg.bos_token_id
+    ids[:, cfg.image_seq_len + 1:] = rng.integers(0, 500, (2, 6))
+    size = cfg.vision.image_size
+    pix = rng.standard_normal((2, size, size, 3)).astype(np.float32)
+    want, _ = jdet.forward(jq, cfg, jnp.asarray(ids), jnp.asarray(pix),
+                           attn_impl="xla")
+    got, _ = tdet.forward(tq, tcfg, torch.from_numpy(ids),
+                          torch.from_numpy(pix))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
+                               rtol=TOL)
+
+
+def test_int8_engine_greedy_matches_jax(trees):
+    """The engine's greedy streams on the int8 + fused tree equal the JAX
+    engine's: a fresh start, an image prompt, and a burst of two."""
+    cfg, tcfg, _, jq, tq = trees
+    kw = dict(num_slots=3, max_len=128, page_size=16)
+    jeng = JEngine(jq, cfg, cache_dtype=jnp.float32,
+                   sampling=JSampling(temperature=0.0), **kw)
+    teng = TEngine(tq, tcfg, cache_dtype=torch.float32,
+                   sampling=TSampling(temperature=0.0), device="cpu", **kw)
+    size = cfg.vision.image_size
+    pix = np.random.default_rng(5).standard_normal(
+        (1, size, size, 3)).astype(np.float32)
+    image_prompt = [cfg.image_token_id] * cfg.image_seq_len + [
+        cfg.bos_token_id]
+
+    def run(eng, emb):
+        out = []
+        for prompt, e in (([cfg.bos_token_id, 5, 6, 7], None),
+                          (image_prompt, emb)):
+            ro = eng.start(prompt, image_embeds=e, max_new_tokens=12)
+            while not ro.finished:
+                eng.step()
+            out.append(list(ro.token_ids))
+            eng.release(ro)
+        ros = eng.start_many([[cfg.bos_token_id, 9], [cfg.bos_token_id, 11,
+                                                      12]],
+                             max_new_tokens=10)
+        while not all(ro.finished for ro in ros):
+            eng.step()
+        out.extend(list(ro.token_ids) for ro in ros)
+        for ro in ros:
+            eng.release(ro)
+        return out
+
+    want = run(jeng, jeng.encode_image(jnp.asarray(pix)))
+    got = run(teng, teng.encode_image(pix))
+    assert got == want
+    assert all(len(s) > 3 for s in got)
