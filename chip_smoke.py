@@ -8,33 +8,42 @@ Phases, each printing one JSON line:
 1. device  -- the card's name and power limit as nvidia-smi reports them;
 2. build   -- compile every hand-written kernel (one nvcc per source, all
               at once) and time it;
-3. kernels -- hold each kernel (K1, K2, K5) against its plain PyTorch
-              version on the card, in bf16, at the main path's shapes (K5:
-              every int8 product of the simulate path at 1, 8 and 64
-              rows), and time kernel, plain version and the PyTorch
-              library call (CUDA events, median of many launches, L2
-              flushed before each), next to the least time the card needs
-              for the same work;
+3. kernels -- hold each kernel (K1-K5) against its plain PyTorch version on
+              the card, in bf16, at the main path's shapes (K4: the verify
+              window of speculate=4 with a dead slot and one past the table
+              edge; K3: a 2048-row cache and a 1024-row kv_limit view; K5:
+              every int8 product of the simulate paths at 1, 8, 40 and 64
+              rows), and time kernel, plain version and the PyTorch library
+              call (CUDA events, median of many launches, L2 flushed before
+              each), next to the least time the card needs for the same
+              work; mutants of the plain versions of K3 and K4 must fail;
 4. reference -- the model path on the card (bf16, kernels) against the
               same weights on the host CPU (fp32, plain versions) at full
               width and 2+2 layers, with bf16 and with int8 + fused weights;
 5. main    -- random-weight ``detikzify-v2-8b`` at full width and depth in
               bf16: three ``DetikzifyPipeline.sample()`` requests and one
-              ``sample_batch()`` of three figures, 128 new tokens each, with
-              the kernels' launch counters reset just before and read just
-              after;
+              ``sample_batch()`` of three figures, 128 new tokens each;
 6. profile -- one more ``sample()`` request of 32 tokens under
               torch.profiler: the card's busy time and idle share;
-7. simulate -- the same weights made int8 + fused
+7. contiguous -- the same bf16 weights through the contiguous-cache API:
+              ``detikzify.prefill`` of eight figures into a ``KVCache`` of
+              8 x 2048 rows, greedy ``decode_step`` (K3), one
+              ``decode_verify_step``, held against a greedy engine run;
+8. spec_greedy -- plain greedy against ``speculate=4`` (K4) on the same
+              eight figures, divergence allowed only at a near-tie; one
+              rollout hinted with its own greedy continuation;
+9. simulate -- the same weights made int8 + fused
               (``fuse_projections(quantize_params(...))``), then
               ``DetikzifyPipeline`` with SelfSim (``metric="model"``, EMD)
               runs ``simulate()``: 16 expansions, parallelism 8, 128 new
-              tokens, counters reset just before and read just after;
-              rollouts/min, tokens/s, the renders in each SelfSim wave,
-              launches, memory;
-8. profile -- one wave of 8 expansions under torch.profiler;
-9. the ``kernels`` JSON line (launches on the simulate path, and per
-   path), the nvidia-smi line, and as the last line
+              tokens; rollouts/min, tokens/s, SelfSim waves, memory, and
+              one wave of 8 expansions under torch.profiler;
+10. simulate_spec -- the same ``simulate()`` on a speculative engine
+              (speculate=4), with every draft class kept on and then with
+              the default gating (spec_min_rate 1.3);
+11. the ``kernels`` JSON line (launches on each path above, each counted
+   from 0 just before the path ran and read just after, and their sum),
+   the nvidia-smi line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -67,6 +76,15 @@ K1_CASES = (
 )
 K2_CASE = dict(B=8, NH=32, NKV=8, Hd=128, page=128, m=16,
                lengths=(300, 517, 800, 1024, 1311, 1600, 1900, 2048))
+# K4: the verify window of speculate=4 (K1 = 5 rows a slot) at v2-8b;
+# starts spread as K2's lengths, one slot past the table edge (2045 + 5 >
+# 16 * 128) and one dead slot (start 0)
+K4_CASE = dict(B=8, K1=5, NH=32, NKV=8, Hd=128, page=128, m=16,
+               starts=(300, 517, 800, 1024, 1311, 1600, 2045, 0))
+# K3: a contiguous cache of 2048 rows with K2's lengths, read whole and
+# through a kv_limit view of 1024 rows
+K3_CASE = dict(B=8, L=2048, NH=32, NKV=8, Hd=128,
+               lengths=K2_CASE["lengths"], limits=(None, 1024))
 # (name, K, N, output) for K5: every int8 product of the simulate path that
 # K5 takes (fused qkv, o, fused gateup, down, the fp32 lm_head, the MAP
 # head's q and o), each at 1, 8 (the engine's slots) and 64 rows
@@ -75,10 +93,12 @@ K5_CASES = (
     ("gateup", 4096, 28672, "bf16"), ("down", 14336, 4096, "bf16"),
     ("lm_head", 4096, 128256, "fp32"), ("map_head_q_o", 1152, 1152, "bf16"),
 )
-K5_ROWS = (1, 8, 64)
+K5_ROWS = (1, 8, 40, 64)  # 40 = 8 slots x 5 rows of the verify forward
 K5_FP32_SUMS = 2        # fp32 sums whose rounding errors an fp32 K5 check
 #                         allows for: the kernel's and the plain version's
-SIM_EXPANSIONS = 16     # MCTS expansions of the simulate phase
+SIM_EXPANSIONS = 16     # MCTS expansions of the simulate phases
+SPECULATE = 4           # draft tokens per verify step (K1 = 5)
+CONTIG_NEW_TOKENS = 64  # greedy tokens of the contiguous phase
 
 
 def emit(obj) -> None:
@@ -166,6 +186,26 @@ def tolerance_check(torch, got, want, pv_abs) -> dict:
             "ok": ok}
 
 
+def control_check(torch, got, mutant, pv_abs, what: str) -> float:
+    """A mutant of the plain version (one causal row too many, one block too
+    few) held against the kernel's output must FAIL the tolerance, or the
+    tolerance is too loose to see such a fault. Returns its max error over
+    the tolerance."""
+    ctl = tolerance_check(torch, got, mutant, pv_abs)
+    if ctl["ok"]:
+        raise SystemExit(f"{what}: the tolerance passes a mutant: {ctl}")
+    return ctl["max_err_over_tol"]
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card needs: bytes over the HBM rate, or bf16
+    operations over the tensor-core peak, whichever is larger."""
+    by_bytes = nbytes / PEAK_BYTES >= flops / PEAK_BF16_FLOPS
+    return {"bound_ms": max(nbytes / PEAK_BYTES,
+                            flops / PEAK_BF16_FLOPS) * 1e3,
+            "bound_by": "bytes" if by_bytes else "operations"}
+
+
 def k5_tolerance_check(torch, got, want, mag, k: int, out_dtype) -> dict:
     """|kernel - plain| <= u_out |plain| + acc elementwise, mag =
     plain(|x|, |q|) the sum of the products' magnitudes.
@@ -239,11 +279,7 @@ def k5_rows(torch, gen, device, rehearsal: bool, timer) -> list:
                    "source": "detikzify_torch/csrc/int8_gemv.cu",
                    "replaces": "detikzify_tpu/ops/quant_matmul.py:40",
                    "shape": {"M": m, "K": k, "N": n, "out": out}, **tol,
-                   "bound_ms": max(nbytes / PEAK_BYTES,
-                                   flops / PEAK_BF16_FLOPS) * 1e3,
-                   "bound_by": ("bytes" if nbytes / PEAK_BYTES
-                                >= flops / PEAK_BF16_FLOPS
-                                else "operations")}
+                   **bound(nbytes, flops)}
             if timer is not None:
                 row["ms"] = timer(lambda: quant_matmul.int8_gemv(
                     x, q, scale, out_dtype))
@@ -282,12 +318,8 @@ def kernel_phase(torch, device, rehearsal: bool, iters: int):
                "shape": {"B": b, "S": s, "T": t, "NH": nh, "NKV": nkv,
                          "Hd": hd, "mode": mode},
                **tol}
-        flops = 4 * nh * hd * vis
-        nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel())
-        row["bound_ms"] = max(flops / PEAK_BF16_FLOPS,
-                              nbytes / PEAK_BYTES) * 1e3
-        row["bound_by"] = ("operations" if flops / PEAK_BF16_FLOPS
-                           >= nbytes / PEAK_BYTES else "bytes")
+        row.update(bound(2 * (q.numel() * 2 + k.numel() + v.numel()),
+                         4 * nh * hd * vis))
         if timer is not None:
             import torch.nn.functional as F
 
@@ -336,11 +368,7 @@ def kernel_phase(torch, device, rehearsal: bool, iters: int):
            "replaces": "detikzify_tpu/ops/paged.py:194",
            "shape": {"B": b, "NH": nh, "NKV": nkv, "Hd": hd, "page": page,
                      "m": m, "lengths": list(c["lengths"])},
-           **tol,
-           "bound_ms": max(nbytes / PEAK_BYTES,
-                           flops / PEAK_BF16_FLOPS) * 1e3,
-           "bound_by": ("bytes" if nbytes / PEAK_BYTES
-                        >= flops / PEAK_BF16_FLOPS else "operations")}
+           **tol, **bound(nbytes, flops)}
     if timer is not None:
         import torch.nn.functional as F
 
@@ -358,7 +386,137 @@ def kernel_phase(torch, device, rehearsal: bool, iters: int):
         row["library_ms"] = timer(lambda: F.scaled_dot_product_attention(
             qs, kg, vg, attn_mask=mask, enable_gqa=True))
     rows.append(row)
+    rows.append(k4_row(torch, gen, device, rehearsal, timer))
+    rows.extend(k3_rows(torch, gen, device, rehearsal, timer))
     rows.extend(k5_rows(torch, gen, device, rehearsal, timer))
+    return rows
+
+
+def k4_row(torch, gen, device, rehearsal: bool, timer) -> dict:
+    """K4, the speculative verify window, against its plain version at the
+    v2-8b shapes of speculate=4; SDPA with a per-row boolean mask over
+    pre-gathered pages is the library yardstick."""
+    import torch.nn.functional as F
+
+    from detikzify_torch.ops import paged
+
+    c = dict(K4_CASE)
+    if rehearsal:
+        c.update(B=3, NH=4, NKV=2, Hd=64, page=64, m=2, starts=(5, 124, 0))
+    b, k1, nh, nkv, hd, page, m = (c[x] for x in ("B", "K1", "NH", "NKV",
+                                                  "Hd", "page", "m"))
+    n_pages = b * m + 1
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen,
+                           device=device).to(torch.bfloat16)
+
+    pool_k, pool_v = rnd(n_pages, page, nkv, hd), rnd(n_pages, page, nkv, hd)
+    perm = torch.randperm(n_pages, generator=gen, device=device)[:b * m]
+    tab = perm.reshape(b, m).to(torch.int32).contiguous()
+    starts = torch.tensor(c["starts"], dtype=torch.int32, device=device)
+    q = rnd(b, k1, nh, hd)
+    got = paged.decode_verify_attend_paged(q, pool_k, pool_v, tab, starts)
+    want = paged.decode_verify_attend_paged_plain(q, pool_k, pool_v, tab,
+                                                  starts)
+    pv_abs = paged.decode_verify_attend_paged_plain(q, pool_k, pool_v.abs(),
+                                                    tab, starts)
+    tol = tolerance_check(torch, got, want, pv_abs)
+    if not tol.pop("ok"):
+        raise SystemExit(f"K4: kernel disagrees with its plain version: "
+                         f"{tol}")
+    tol["control_late_limit_max_err_over_tol"] = control_check(
+        torch, got, paged.decode_verify_attend_paged_plain(
+            q, pool_k, pool_v, tab, starts + 1), pv_abs,
+        "K4 with every causal limit one row late")
+    width = m * page
+    rows_read = sum(min(s0 + k1, width) for s0 in c["starts"])
+    visible = sum(min(s0 + j + 1, width) for s0 in c["starts"]
+                  for j in range(k1))
+    row = {"name": "paged_verify", "kernel": "paged_verify", "route": "cuda",
+           "source": "detikzify_torch/csrc/paged_verify.cu",
+           "replaces": "detikzify_tpu/ops/paged.py:363",
+           "shape": {"B": b, "K1": k1, "NH": nh, "NKV": nkv, "Hd": hd,
+                     "page": page, "m": m, "starts": list(c["starts"])},
+           **tol, **bound(rows_read * nkv * hd * 2 * 2 + 2 * q.numel() * 2,
+                          4 * nh * hd * visible)}
+    if timer is not None:
+        row["ms"] = timer(lambda: paged.decode_verify_attend_paged(
+            q, pool_k, pool_v, tab, starts))
+        row["plain_ms"] = timer(lambda: paged.decode_verify_attend_paged_plain(
+            q, pool_k, pool_v, tab, starts))
+        # library yardstick: SDPA on pre-gathered pages with the per-row
+        # causal mask (the gather itself is not in the timing)
+        kg = paged.gather_pages(pool_k, tab).transpose(1, 2).contiguous()
+        vg = paged.gather_pages(pool_v, tab).transpose(1, 2).contiguous()
+        limit = (starts[:, None] + torch.arange(k1, device=device)[None]
+                 + 1)[:, None, :, None]
+        mask = torch.arange(width, device=device)[None, None, None] < limit
+        qs = q.transpose(1, 2).contiguous()
+        row["library_ms"] = timer(lambda: F.scaled_dot_product_attention(
+            qs, kg, vg, attn_mask=mask, enable_gqa=True))
+    return row
+
+
+def k3_rows(torch, gen, device, rehearsal: bool, timer) -> list:
+    """K3, decode over a contiguous cache, against its plain version: the
+    whole 2048-row cache, then a kv_limit view of 1024 rows read in place;
+    SDPA with a length mask is the library yardstick."""
+    import torch.nn.functional as F
+
+    from detikzify_torch.ops import attention
+
+    c = dict(K3_CASE)
+    if rehearsal:
+        c.update(B=2, L=96, NH=4, NKV=2, Hd=64, lengths=(70, 96),
+                 limits=(None, 80))
+    b, length, nh, nkv, hd = (c[x] for x in ("B", "L", "NH", "NKV", "Hd"))
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen,
+                           device=device).to(torch.bfloat16)
+
+    q = rnd(b, nh, hd)
+    k_full, v_full = rnd(b, length, nkv, hd), rnd(b, length, nkv, hd)
+    rows = []
+    for limit in c["limits"]:
+        k, v = k_full, v_full
+        lens = torch.tensor(c["lengths"], dtype=torch.int32, device=device)
+        if limit is not None:       # a view, not a copy: read in place
+            k, v, lens = k[:, :limit], v[:, :limit], lens.clamp(max=limit)
+        got = attention.decode_attend(q, k, v, lens)
+        want = attention.decode_attend_plain(q, k, v, lens)
+        pv_abs = attention.decode_attend_plain(q, k, v.abs(), lens)
+        tol = tolerance_check(torch, got, want, pv_abs)
+        if not tol.pop("ok"):
+            raise SystemExit(f"K3 (limit {limit}): kernel disagrees with "
+                             f"its plain version: {tol}")
+        tol["control_block_short_max_err_over_tol"] = control_check(
+            torch, got, attention.decode_attend_plain(q, k, v, lens - 64),
+            pv_abs, "K3 reading one 64-row block short")
+        live = int(lens.sum())
+        row = {"name": "decode_contig" + ("" if limit is None
+                                          else f"/kv_limit{limit}"),
+               "kernel": "decode_contig", "route": "cuda",
+               "source": "detikzify_torch/csrc/decode_contig.cu",
+               "replaces": "detikzify_tpu/ops/decode_flash.py:183",
+               "shape": {"B": b, "L": k.shape[1], "NH": nh, "NKV": nkv,
+                         "Hd": hd, "lengths": lens.tolist(),
+                         "view_of_rows": length if limit else None},
+               **tol, **bound(live * nkv * hd * 2 * 2 + 2 * q.numel() * 2,
+                              4 * nh * hd * live)}
+        if timer is not None:
+            row["ms"] = timer(lambda: attention.decode_attend(q, k, v, lens))
+            row["plain_ms"] = timer(lambda: attention.decode_attend_plain(
+                q, k, v, lens))
+            kt = k.transpose(1, 2).contiguous()
+            vt = v.transpose(1, 2).contiguous()
+            mask = (torch.arange(k.shape[1], device=device)[None, :]
+                    < lens[:, None])[:, None, None, :]
+            qs = q[:, :, None, :]
+            row["library_ms"] = timer(lambda: F.scaled_dot_product_attention(
+                qs, kt, vt, attn_mask=mask, enable_gqa=True))
+        rows.append(row)
     return rows
 
 
@@ -805,6 +963,419 @@ def simulate_phase(torch, device, rehearsal: bool, seed: int, params,
     return counts
 
 
+def _engine(torch, params, cfg, device, seed, temperature=0.0, **kw):
+    """A decode engine of 8 slots over 2048 rows, greedy by default."""
+    from detikzify_torch.engine import DecodeEngine
+    from detikzify_torch.ops.sampling import SamplingParams
+
+    return DecodeEngine(params, cfg, num_slots=8, max_len=2048,
+                        sampling=SamplingParams(temperature=temperature),
+                        device=device, seed=seed, **kw)
+
+
+def _free(torch, rehearsal: bool) -> None:
+    gc.collect()
+    if not rehearsal:
+        torch.cuda.empty_cache()
+
+
+def _greedy_prompts(torch, device, params, processor, seed: int):
+    """Eight synthetic figures as the engine's greedy runs see them: their
+    root prompts (image tokens) and their projected image tokens."""
+    from detikzify_torch.models import detikzify
+
+    figs = synthetic_figures(8, seed + 3)
+    out = processor(images=figs)
+    with torch.inference_mode():
+        emb = detikzify.encode_image(params, processor.cfg, torch.as_tensor(
+            out.pixel_values, device=device))
+    return [[int(t) for t in row] for row in out.input_ids], emb
+
+
+def _compare_logits(torch, got, want) -> dict:
+    got, want = got.float(), want.float()
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
+    return {"max_abs_diff_over_std": float((got - want).abs().max()
+                                           / want.std()),
+            "min_cosine": float(cos.min()),
+            "argmax_agree": f"{int((got.argmax(-1) == want.argmax(-1)).sum())}"
+                            f"/{got.numel() // got.shape[-1]}"}
+
+
+def contiguous_phase(torch, device, rehearsal: bool, seed: int, params,
+                     processor, prompts, emb, n_new: int) -> dict:
+    """The contiguous-cache model API on bf16 weights: ``detikzify.prefill``
+    of eight figure prompts into a ``KVCache`` of 8 slots x 2048 rows, then
+    greedy ``detikzify.decode_step`` (K3 over a kv_limit view), held
+    against a greedy engine run (page pool, K2) on the same prompts; then
+    one ``detikzify.decode_verify_step`` over the last 5 tokens, held
+    against the decode steps that produced them."""
+    from detikzify_torch.engine import BUCKETS
+    from detikzify_torch.models import detikzify, llama
+    from detikzify_torch.ops import launch_counts, reset_launch_counts
+    from detikzify_torch.ops.sampling import sample
+
+    cfg = processor.cfg
+    dev = device
+    eng = _engine(torch, params, cfg, device, seed)
+    captured = {}
+    prefill_paged = detikzify.prefill_paged
+
+    def capture(*a, **kw):      # the engine's first-step logits
+        logits, pool = prefill_paged(*a, **kw)
+        captured["logits"] = logits.clone()
+        return logits, pool
+
+    detikzify.prefill_paged = capture
+    try:
+        ros = eng.start_many(prompts, image_embeds=emb, max_new_tokens=n_new)
+        while not all(ro.finished for ro in ros):
+            eng.step()
+    finally:
+        detikzify.prefill_paged = prefill_paged
+    engine_new = [ro.token_ids[ro.prompt_len:] for ro in ros]
+    for ro in ros:
+        eng.release(ro)
+    del eng
+    _free(torch, rehearsal)
+
+    b, lens = len(prompts), [len(p) for p in prompts]
+    s = 1 << (max(lens) - 1).bit_length()
+    ids = torch.zeros((b, s), dtype=torch.int32, device=dev)
+    for i, p in enumerate(prompts):
+        ids[i, :len(p)] = torch.tensor(p, dtype=torch.int32, device=dev)
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa
+    banned, eos = (cfg.image_token_id,), cfg.eos_token_id
+    cache = llama.init_cache(cfg.text, b, 2048, dtype=params.dtype,
+                             device=dev)
+    reset_launch_counts()
+    if not rehearsal:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        logits, _ = detikzify.prefill(params, cfg, ids, emb, i32([0] * b),
+                                      i32(lens), cache)
+        first = _compare_logits(torch, logits, captured["logits"])
+        tok = sample(logits, None, temperature=0.0, banned_tokens=banned,
+                     suppress_begin_tokens=(eos,),
+                     is_first=torch.ones((b,), dtype=torch.bool,
+                                         device=dev))
+        stream, last = [tok], []
+        pos = i32(lens)
+        for step in range(n_new - 1):
+            need = max(lens) + step + 1
+            limit = next((x for x in BUCKETS if need <= x <= 2048), 2048)
+            logits, _ = detikzify.decode_step(params, cfg, tok, pos, cache,
+                                              kv_limit=limit)
+            last = (last + [logits])[-(SPECULATE + 1):]
+            tok = sample(logits, None, temperature=0.0,
+                         banned_tokens=banned)
+            stream.append(tok)
+            pos = pos + 1
+        # the verify forward over the last K+1 inputs, at their positions
+        block = torch.stack(stream[-(SPECULATE + 2):-1], dim=1)
+        vlogits, _ = detikzify.decode_verify_step(
+            params, cfg, block, pos - (SPECULATE + 1), cache)
+    if not rehearsal:
+        torch.cuda.synchronize()
+    contig_s = time.perf_counter() - t0
+    counts = launch_counts()
+    verify = _compare_logits(torch, vlogits, torch.stack(last, dim=1))
+    contig_new = torch.stack(stream, dim=1).tolist()
+
+    same, total, diverge = 0, 0, []
+    for i, (e, c) in enumerate(zip(engine_new, contig_new)):
+        e = e[:e.index(eos) + 1] if eos in e else e    # the engine freezes
+        n = len(e)
+        same += sum(x == y for x, y in zip(e, c[:n]))
+        total += n
+        diverge.append(next((j for j in range(n) if e[j] != c[j]), None))
+    result = {
+        "phase": "contiguous", "weights": str(params.dtype).replace(
+            "torch.", ""), "slots": b, "cache_rows": 2048,
+        "prompt_tokens": lens[0], "new_tokens": n_new,
+        "first_step_logits_vs_engine": first,
+        "first_step_tolerance": "cosine >= 0.9999 and max|diff| <= "
+                                "0.05 std",
+        "identical_token_share": same / max(total, 1),
+        "first_divergence_per_slot": diverge,
+        "verify_vs_decode_logits": verify,
+        "verify_tolerance": "cosine >= 0.999",
+        "wall_s": contig_s, "tokens_per_s": b * n_new / contig_s,
+        "launches": counts}
+    emit(result)
+    if not (first["min_cosine"] >= 0.9999
+            and first["max_abs_diff_over_std"] <= 0.05):
+        raise SystemExit("contiguous prefill disagrees with the engine's "
+                         f"first step: {first}")
+    if tuple(vlogits.shape) != (b, SPECULATE + 1, cfg.text.vocab_size) or \
+            not bool(torch.isfinite(vlogits).all()) or \
+            verify["min_cosine"] < 0.999:
+        raise SystemExit(f"decode_verify_step disagrees with the decode "
+                         f"steps: {verify}")
+    if not rehearsal:
+        for name in ("flash_attention", "decode_contig"):
+            if counts[name] <= 0:
+                raise SystemExit(f"the contiguous path never launched {name}")
+    del cache
+    _free(torch, rehearsal)
+    return counts
+
+
+def spec_greedy_phase(torch, device, rehearsal: bool, seed: int, params,
+                      processor, prompts, emb, n_new: int) -> dict:
+    """Speculative greedy decoding on bf16 weights: a plain greedy engine
+    and a speculative one (speculate=4, spec_min_rate=0, K4) on the same
+    eight figures. Their streams may part only at a near-tie: at the first
+    differing token the plain run's top-1 - top-2 logit gap must be at most
+    tau = 2 max|verify - plain| over the positions both runs computed from
+    the same tokens. Then one rollout hinted with the plain continuation
+    must accept more than 2 tokens a step."""
+    from detikzify_torch.models import detikzify
+    from detikzify_torch.ops import launch_counts, reset_launch_counts
+
+    cfg = processor.cfg
+    reset_launch_counts()
+    plain_rows = {}                       # (slot, input position) -> logits
+    decode_step_paged = detikzify.decode_step_paged
+
+    def record_plain(params_, cfg_, tokens, positions, *a, **kw):
+        logits, pool = decode_step_paged(params_, cfg_, tokens, positions,
+                                         *a, **kw)
+        for slot, p in enumerate(positions.tolist()):
+            plain_rows[(slot, p)] = logits[slot]
+        return logits, pool
+
+    def run(eng, **kw):
+        ros = eng.start_many(prompts, image_embeds=emb, max_new_tokens=n_new,
+                             **kw)
+        t0 = time.perf_counter()
+        while not all(ro.finished for ro in ros):
+            eng.step()
+        if not rehearsal:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out = [(ro.slot, list(ro.token_ids), ro.prompt_len) for ro in ros]
+        for ro in ros:
+            eng.release(ro)
+        return out, wall
+
+    detikzify.decode_step_paged = record_plain
+    try:
+        plain, plain_s = run(_engine(torch, params, cfg, device, seed))
+    finally:
+        detikzify.decode_step_paged = decode_step_paged
+    _free(torch, rehearsal)
+
+    calls = []
+    verify = detikzify.decode_verify_step_paged_zerocopy
+
+    def record_verify(params_, cfg_, block, start, *a, dead=None, **kw):
+        logits, pool = verify(params_, cfg_, block, start, *a, dead=dead,
+                              **kw)
+        calls.append((block.tolist(), start.tolist(), dead.tolist(), logits))
+        return logits, pool
+
+    eng = _engine(torch, params, cfg, device, seed, speculate=SPECULATE,
+                  spec_min_rate=0.0)
+    detikzify.decode_verify_step_paged_zerocopy = record_verify
+    try:
+        spec, spec_s = run(eng)
+    finally:
+        detikzify.decode_verify_step_paged_zerocopy = verify
+    if [x[0] for x in spec] != [x[0] for x in plain]:
+        raise SystemExit("the two engines placed the figures on different "
+                         "slots")
+    spec_counters = dict(eng.counters)
+    del eng
+    _free(torch, rehearsal)
+
+    # |verify - plain| at every position whose input tokens the two runs
+    # share (before the first differing token, and at it)
+    diverge, same, total = [], 0, 0
+    for (slot, want, plen), (_, got, _) in zip(plain, spec):
+        n = min(len(want), len(got))
+        same += sum(x == y for x, y in zip(want[plen:n], got[plen:n]))
+        total += len(want) - plen
+        d = next((j for j in range(plen, n) if want[j] != got[j]), None)
+        diverge.append(d)
+    diffs, at = [], {}
+    for block, starts, dead, logits in calls:
+        for (slot, want, plen), d in zip(plain, diverge):
+            if dead[slot]:
+                continue
+            for j in range(SPECULATE + 1):
+                p = starts[slot] + j           # input position of column j
+                hi = len(want) - 1 if d is None else d - 1
+                if p < plen or p > hi or block[slot][:j + 1] != \
+                        want[starts[slot]:p + 1]:
+                    continue
+                row = plain_rows.get((slot, p))
+                if row is None:
+                    continue
+                err = float((logits[slot, j].float() - row.float()).abs()
+                            .max())
+                diffs.append(err)
+                at[(slot, p)] = err
+    tau = 2 * max(diffs) if diffs else 0.0
+    gaps = []
+    for (slot, want, plen), d in zip(plain, diverge):
+        if d is None:
+            continue
+        row = plain_rows.get((slot, d - 1))
+        if row is None:                   # the first token: prefill logits
+            raise SystemExit(f"slot {slot}: speculative and plain streams "
+                             "differ at their first token")
+        top = row.float().clone()
+        top[cfg.image_token_id] = -float("inf")
+        v2 = torch.topk(top, 2).values
+        gaps.append({"slot": slot, "token_index": d - plen,
+                     "top1_top2_gap": float(v2[0] - v2[1]),
+                     "verify_minus_plain_there": at.get((slot, d - 1))})
+    plain_rows.clear()
+    calls.clear()
+    _free(torch, rehearsal)
+
+    # one rollout hinted with the plain greedy continuation of figure 0
+    hint = plain[0][1][plain[0][2]:]
+    eng = _engine(torch, params, cfg, device, seed, speculate=SPECULATE,
+                  spec_min_rate=0.0)
+    ro = eng.start(prompts[0], image_embeds=emb[:1], max_new_tokens=n_new,
+                   hint=hint)
+    while not ro.finished:
+        eng.step()
+    hinted = {"spec_rate": eng.spec_rate,
+              "spec_steps": eng.counters["spec_steps"],
+              "same_as_plain": list(ro.token_ids) == plain[0][1],
+              "hint_tokens": len(hint),
+              "hint_distinct_tokens": len(set(hint))}
+    eng.release(ro)
+    del eng
+    _free(torch, rehearsal)
+    counts = launch_counts()
+    result = {
+        "phase": "spec_greedy", "weights": str(params.dtype).replace(
+            "torch.", ""), "slots": len(prompts), "new_tokens": n_new,
+        "speculate": SPECULATE, "spec_min_rate": 0.0,
+        "identical_token_share": same / max(total, 1),
+        "first_divergence_per_slot": [None if d is None else d - p[2]
+                                      for d, p in zip(diverge, plain)],
+        "matched_positions": len(diffs),
+        "max_abs_verify_minus_plain": max(diffs) if diffs else None,
+        "tau": tau, "tau_rule": "2 max|verify - plain| over matched "
+                                "positions",
+        "divergences": gaps,
+        "plain_s": plain_s, "spec_s": spec_s,
+        "spec_rate": spec_counters["spec_tokens"]
+        / max(spec_counters["spec_steps"], 1),
+        "spec_counters": {k: v for k, v in spec_counters.items()
+                          if k.startswith("spec_") or k.startswith("decode")},
+        "hinted": hinted, "launches": counts}
+    emit(result)
+    for g in gaps:
+        if not g["top1_top2_gap"] <= tau:
+            raise SystemExit(f"speculative greedy parted from plain greedy "
+                             f"at a gap above tau={tau}: {g}")
+    if hinted["spec_rate"] <= 2.0:
+        raise SystemExit(f"a rollout hinted with its own greedy "
+                         f"continuation accepted {hinted['spec_rate']} "
+                         "tokens a step, expected more than 2")
+    if not rehearsal:
+        for name in ("paged_decode", "paged_verify"):
+            if counts[name] <= 0:
+                raise SystemExit(f"spec_greedy never launched {name}")
+    return counts
+
+
+def simulate_spec_phase(torch, device, rehearsal: bool, seed: int, params,
+                        processor, max_new_tokens: int) -> dict:
+    """``simulate()`` on a speculative engine (speculate=4) over the int8 +
+    fused weights of the simulate phase, the same figure and SelfSim:
+    first with every draft class kept on (spec_min_rate=0), then with the
+    default gating (1.3). Counters reset just before each and read just
+    after."""
+    import math
+
+    from detikzify_torch.infer import DetikzifyPipeline, TikzDocument
+    from detikzify_torch.ops import launch_counts, reset_launch_counts
+    from detikzify_torch.ops.sampling import SamplingParams
+
+    cfg = processor.cfg
+    fig = synthetic_figures(1, seed + 1)[0]
+    paths = {}
+    for path, min_rate in (("simulate_spec", 0.0),
+                           ("simulate_spec_gated", 1.3)):
+        _free(torch, rehearsal)
+        eng = _engine(torch, params, cfg, device, seed,
+                      temperature=SamplingParams().temperature,
+                      speculate=SPECULATE, spec_min_rate=min_rate)
+        pipe = DetikzifyPipeline(params, cfg, processor, engine=eng,
+                                 device=device, seed=seed)
+        free0 = eng.num_free_pages
+        reset_launch_counts()
+        if not rehearsal:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = list(pipe.simulate(image=fig, expansions=SIM_EXPANSIONS,
+                                     parallelism=8,
+                                     max_new_tokens=max_new_tokens))
+        if not rehearsal:
+            torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = launch_counts()
+        c = dict(eng.counters)
+        if len(results) != SIM_EXPANSIONS or not all(
+                isinstance(d, TikzDocument) and math.isfinite(float(sc))
+                for sc, d in results):
+            raise SystemExit(f"{path}: simulate yielded {len(results)} "
+                             "results or non-finite scores")
+        if eng.num_active or eng.num_free_slots != eng.num_slots:
+            raise SystemExit(f"{path}: slots still held after simulate")
+        if eng.num_free_pages != free0 - eng.prefix_pages_used:
+            raise SystemExit(f"{path}: pool leak after simulate")
+        if c["spec_steps"] <= 0:
+            raise SystemExit(f"{path}: no speculative step ran")
+        if not rehearsal:
+            for name in ("flash_attention", "paged_verify", "int8_gemv"):
+                if counts[name] <= 0:
+                    raise SystemExit(f"{path} never launched {name}")
+        result = {
+            "phase": path, "weights": "int8 + fused",
+            "metric": f"SelfSim {pipe.metric.mode}",
+            "speculate": SPECULATE, "spec_min_rate": min_rate,
+            "expansions": SIM_EXPANSIONS, "parallelism": 8,
+            "max_new_tokens": max_new_tokens, "wall_s": wall_s,
+            "rollouts": len(results),
+            "rollouts_per_min": len(results) / wall_s * 60,
+            "decode_tokens": c["decode_tokens"],
+            "decode_tokens_per_s": c["decode_tokens"] / wall_s,
+            "spec_rate": eng.spec_rate,
+            "spec_rate_hinted": c["spec_tokens_hint"]
+            / max(c["spec_steps_hint"], 1),
+            "spec_counters": {k: v for k, v in c.items()
+                              if k.startswith(("spec_", "decode_"))
+                              or k == "buf_resyncs"},
+            "classes_bailed_out": [k for k, st in eng._spec_cls.items()
+                                   if not st["on"]],
+            "distinct_programs": len({d.code for _, d in results}),
+            "launches": counts}
+        if not rehearsal and min_rate == 0.0:
+            prof = profile_call(torch, lambda: list(pipe.simulate(
+                image=fig, expansions=8, parallelism=8, max_new_tokens=32)),
+                "speculative simulate(), one wave of 8 expansions, 32 new "
+                "tokens")
+            result["wave_device_idle_share"] = prof["device_idle_share"]
+            emit(result)
+            emit(prof)
+        else:
+            emit(result)
+        paths[path] = counts
+        pipe.close()
+        del pipe, eng
+    _free(torch, rehearsal)
+    return paths
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -856,15 +1427,30 @@ def main(argv=None) -> int:
         emit({"kernels": rows})
         return 0
     reference_phase(torch, device, rehearsal, args.seed)
-    counts, params, processor = main_phase(torch, device, rehearsal,
-                                           args.seed, args.max_new_tokens)
-    sim_counts = simulate_phase(torch, device, rehearsal, args.seed, params,
-                                processor, args.max_new_tokens)
+    paths = {}
+    paths["sample"], params, processor = main_phase(
+        torch, device, rehearsal, args.seed, args.max_new_tokens)
+    # the phases on bf16 weights run before simulate quantizes them
+    prompts, emb = _greedy_prompts(torch, device, params, processor,
+                                   args.seed)
+    paths["contiguous"] = contiguous_phase(
+        torch, device, rehearsal, args.seed, params, processor, prompts, emb,
+        min(CONTIG_NEW_TOKENS, args.max_new_tokens))
+    paths["spec_greedy"] = spec_greedy_phase(
+        torch, device, rehearsal, args.seed, params, processor, prompts, emb,
+        args.max_new_tokens)
+    del emb
+    paths["simulate"] = simulate_phase(torch, device, rehearsal, args.seed,
+                                       params, processor,
+                                       args.max_new_tokens)
+    paths.update(simulate_spec_phase(torch, device, rehearsal, args.seed,
+                                     params, processor, args.max_new_tokens))
     for row in rows:
-        # launches on this slice's main path (simulate), and on each path
-        row["launches"] = sim_counts.get(row["kernel"])
-        row["launches_by_path"] = {"sample": counts.get(row["kernel"]),
-                                   "simulate": row["launches"]}
+        # launches on each path, each counted from 0 just before it ran;
+        # "launches" is their sum
+        row["launches_by_path"] = {path: counts.get(row["kernel"], 0)
+                                   for path, counts in paths.items()}
+        row["launches"] = sum(row["launches_by_path"].values())
     emit({"kernels": rows})
     if rehearsal:
         emit({"ok": True, "rehearsal": "cpu"})

@@ -1,5 +1,5 @@
 """Continuous-batching decode engine with tree-prefix KV reuse
-(counterpart of ``detikzify_tpu/engine/decode.py`` with ``speculate=0``).
+(counterpart of ``detikzify_tpu/engine/decode.py``).
 
   * a fixed pool of **slots** over a PAGED KV cache: one shared page pool
     read through per-slot page tables; rollouts join and leave mid-flight
@@ -13,12 +13,19 @@
   * **O(1) prefix store**: storing a prefix pins the slot's pool pages (+ at
     most one boundary-page copy); restoring splices them into the new slot's
     table (+ at most one copy-on-write boundary page);
-  * sampling on the device.
+  * sampling on the device;
+  * **speculative decoding** (``speculate=K``): each step drafts K tokens
+    by n-gram lookup in the slot's own history and in a reference hint,
+    verifies them in one K+1-token forward that reads the pool zero-copy
+    (kernel K4), and emits 1..K+1 tokens by distribution-preserving
+    acceptance; draft classes (hinted, unhinted) are gated by their
+    measured tokens per step.
 
 Per-slot token/position state lives on the device; the host keeps plain-int
-mirrors updated from fetched results. The host-side page accounting is the
-JAX engine's, line for line. Not ported here: speculative decoding, the
-gather/scatter decode views and the attention-backend pin (see ROADMAP).
+mirrors updated from fetched results. The host-side page accounting and the
+speculative gating are the JAX engine's, line for line. Not ported here:
+the ``pipelined`` dispatch mode, the gather/scatter decode and verify views
+and the attention-backend pin (see ROADMAP).
 """
 from __future__ import annotations
 
@@ -31,7 +38,7 @@ import torch
 from ..config import DetikzifyConfig
 from ..models import detikzify, llama
 from ..models.detikzify import Params
-from ..ops.sampling import SamplingParams, sample
+from ..ops.sampling import SamplingParams, sample, speculative_accept
 
 BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048)
 
@@ -71,6 +78,7 @@ class Rollout:
     finished: bool = False
     finish_reason: Optional[str] = None  # "eos" | "length" | "abort"
     aborted: bool = False
+    hinted: bool = False                 # draft class for spec gating
 
     @property
     def length(self) -> int:
@@ -91,12 +99,32 @@ class DecodeEngine:
         prefix_budget_bytes: int = 2 << 30,
         decode_block: int = 16,
         page_size: int = 128,
+        speculate: int = 0,
+        spec_min_rate: float = 1.3,
         device="cuda",
         seed: int = 0,
     ):
         """All engine state (page pool, page tables, per-slot tokens and
         positions, the sampling generator seeded with ``seed``) lives on
-        ``device``; ``params`` must already be there."""
+        ``device``; ``params`` must already be there.
+
+        ``speculate=K > 0`` turns on n-gram prompt-lookup speculative
+        decoding: each step drafts K tokens from the slot's own token
+        history (and from its reference ``hint``, e.g. the parent rollout's
+        continuation in MCTS), verifies them in ONE K+1-token forward over
+        the page pool, and emits 1..K+1 tokens via distribution-preserving
+        acceptance (``ops.sampling.speculative_accept``). Greedy slots emit
+        the plain greedy stream given identical logits; on the card the
+        verify forward and the plain step use different kernels, so a bf16
+        near-tie can flip an argmax. Sampled slots draw from the same
+        warped distribution.
+
+        ``spec_min_rate``: measured tokens-per-step floor below which a
+        DRAFT CLASS (hinted vs unhinted slots, gated independently) falls
+        back to plain decoding, with a recoverable exponential-backoff
+        probe (``_update_spec_gating``); 0 disables the bail-out. The 1.3
+        default is the JAX package's measured break-even of the verify
+        forward on the TPU, kept as it is."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("DecodeEngine: no CUDA device; pass "
@@ -109,11 +137,21 @@ class DecodeEngine:
         self.num_slots = num_slots
         self.decode_block = decode_block
         self.page = page_size
-        # the last cache row is the trash row for frozen/inactive slots'
-        # writes; rows are padded to a whole number of pages
-        want = (max_len or cfg.model_max_length) + 1
+        self.spec = int(speculate)
+        self.spec_min_rate = spec_min_rate
+        # per-CLASS speculation gating: hinted drafts (MCTS parent
+        # continuations) and unhinted own-history drafts each keep a
+        # sliding window, a bad streak and a recoverable cooldown
+        self._spec_cls = {
+            c: {"on": self.spec > 0, "win": [0, 0], "bad": 0,
+                "cool": 0, "backoff": 4096, "probe": False}
+            for c in ("hint", "plain")}
+        # the last spec+1 cache rows are trash rows for frozen/inactive
+        # slots' writes (one row when speculation is off); rows are padded
+        # to a whole number of pages
+        want = (max_len or cfg.model_max_length) + 1 + self.spec
         self.max_len = -(-want // page_size) * page_size
-        self._trash_start = self.max_len - 1
+        self._trash_start = self.max_len - 1 - self.spec
         self._m_cap = self.max_len // page_size   # pages per full slot
         self.sampling = sampling
         self.eos_token_id = (cfg.eos_token_id if eos_token_id is None
@@ -152,6 +190,23 @@ class DecodeEngine:
                                     device=dev)
         self._pos_dev = torch.zeros((num_slots,), dtype=torch.int32,
                                     device=dev)
+        # speculative decoding: device-side token history per slot (wider
+        # than the cache so K+1-token writes at the last position never
+        # clamp; -1 = empty, never matches a token id) and per-slot
+        # REFERENCE text (the hint) searched before the slot's own history
+        self._buf_dev = self._hint_dev = None
+        if self.spec > 0:
+            self._buf_dev = torch.full(
+                (num_slots, self.max_len + self.spec + 1), -1,
+                dtype=torch.int32, device=dev)
+            self._hint_dev = torch.full((num_slots, self.max_len), -1,
+                                        dtype=torch.int32, device=dev)
+        # whether the last dispatched block speculated (the JAX engine's
+        # pipelined slack reads it), and which slots' device histories went
+        # stale through plain blocks (resynced before the next speculative
+        # block)
+        self._last_dispatch_spec = False
+        self._buf_stale = np.zeros((num_slots,), bool)
         self._active = np.zeros((num_slots,), bool)       # host-controlled
         # per-slot (temperature, top_p, top_k), uploaded per dispatch
         self._samp_host = np.tile(
@@ -170,11 +225,15 @@ class DecodeEngine:
                          "prefix_starts": 0,
                          "decode_dispatches": 0, "decode_steps": 0,
                          "decode_tokens": 0,
+                         "spec_steps": 0, "spec_tokens": 0,
+                         "spec_steps_hint": 0, "spec_tokens_hint": 0,
                          "prefix_saves": 0, "prefill_tokens": 0,
                          "prefill_tokens_saved": 0,
                          # pool WRITE rows per start (copy-on-write boundary
                          # + tail) and boundary rows copied on store
-                         "restore_cow_rows": 0, "prefix_copy_rows": 0}
+                         "restore_cow_rows": 0, "prefix_copy_rows": 0,
+                         # plain->speculative history re-uploads
+                         "buf_resyncs": 0}
 
     # ------------------------------------------------------------------
     # device programs
@@ -239,6 +298,146 @@ class DecodeEngine:
             out.append(nxt)
         self._tok_dev, self._pos_dev = tokens, positions
         return torch.stack(out)
+
+    @torch.inference_mode()
+    def _start_wave_spec(self, slots, ids, image_embeds, starts, seq_lens,
+                         img_offsets, read_tab, write_tab, cow, samp,
+                         full_ids, hint_rows):
+        """``_start_wave`` plus the slots' token-history rows (the full
+        prompt and the first token) and reference-hint rows."""
+        firsts = self._start_wave(slots, ids, image_embeds, starts, seq_lens,
+                                  img_offsets, read_tab, write_tab, cow,
+                                  samp)
+        rows = slots.long()
+        self._buf_dev[rows] = full_ids
+        self._buf_dev[rows, (starts + seq_lens).long()] = firsts
+        self._hint_dev[rows] = hint_rows
+        return firsts
+
+    @staticmethod
+    def _lookup(hay: torch.Tensor, t_prev2, t_prev, tokens, tri_ok):
+        """n-gram matches of the two newest tokens in ``hay`` [S, W]:
+        ``match[:, i]`` iff hay[i:i+2] == (t_prev, token), ``match3[:, i]``
+        iff also hay[i-1] == t_prev2 (and ``tri_ok``). Both [S, W-1]."""
+        match = ((hay[:, :-1] == t_prev[:, None])
+                 & (hay[:, 1:] == tokens[:, None]))
+        match3 = match.clone()
+        match3[:, 1:] &= hay[:, :-2] == t_prev2[:, None]
+        match3[:, 0] = False
+        return match, match3 & tri_ok
+
+    @staticmethod
+    def _last(mask: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        """Most recent True column of mask [S, W] (-1 when none): the JAX
+        ``where(mask, idx, -1).max(axis=1)``."""
+        return torch.where(mask, idx, torch.full_like(idx, -1)).amax(dim=1)
+
+    @torch.inference_mode()
+    def _decode_many_spec(self, active: torch.Tensor, samp: torch.Tensor,
+                          k: int, kv_pages: int):
+        """k speculative steps for all slots, zero-copy.
+
+        Per step and slot: draft ``spec`` tokens by n-gram lookup over the
+        slot's token history and its reference hint, verify them in ONE
+        K+1-token forward whose K/V rows write through the page table and
+        whose attention reads the pool (K4), and emit 1..spec+1 tokens via
+        distribution-preserving acceptance. Frozen slots write to the trash
+        page and re-emit EOS. Returns token blocks [k, S, spec+1] and emit
+        counts [k, S]."""
+        spec, k1, eos = self.spec, self.spec + 1, self.eos_token_id
+        trash = self._trash_start
+        dev = self.device
+        buf, hint = self._buf_dev, self._hint_dev
+        tokens, positions = self._tok_dev, self._pos_dev
+        done = ~active | (tokens == eos)
+        cols = self._samp_cols(samp)
+        w, hw = buf.shape[1], hint.shape[1]
+        iidx = torch.arange(w - 1, device=dev)[None, :]
+        hidx = torch.arange(hw - 1, device=dev)[None, :]
+        ar_spec = torch.arange(spec, device=dev)[None, :]
+        ar_k1 = torch.arange(k1, device=dev)[None, :]
+        # hint matches whose continuation starts with a REAL token
+        good = torch.cat([hint[:, 2:] != -1,
+                          torch.zeros((hint.shape[0], 1), dtype=torch.bool,
+                                      device=dev)], dim=1)
+        out_toks, out_counts = [], []
+        for _ in range(k):
+            # --- draft: prefer (1) the most recent TRIGRAM match with a
+            # full continuation in history, then (2) the most recent
+            # full-continuation bigram match, then (3) the most recent
+            # bigram match of any kind
+            pos_l = positions.long()
+            t_prev = buf.gather(1, (pos_l - 1).clamp(min=0)[:, None])[:, 0]
+            t_prev2 = buf.gather(1, (pos_l - 2).clamp(min=0)[:, None])[:, 0]
+            # trigram context only meaningful with >= 2 tokens back
+            tri_ok = (positions >= 2)[:, None]
+            match, match3 = self._lookup(buf, t_prev2, t_prev, tokens,
+                                         tri_ok)
+            earlier = match & (iidx + 1 < pos_l[:, None])
+            in_full = iidx + 1 + spec <= pos_l[:, None]
+            j_tri = self._last(match3 & earlier & in_full, iidx)
+            j_full = self._last(earlier & in_full, iidx)
+            j_any = self._last(earlier, iidx)
+            jstar = torch.where(j_tri >= 0, j_tri,
+                                torch.where(j_full >= 0, j_full, j_any))
+            src = (jstar + 2).clamp(0, w - spec)
+            idx = src[:, None] + ar_spec
+            in_hist = (jstar >= 0)[:, None] & (idx <= pos_l[:, None])
+            drafts = torch.where(in_hist, buf.gather(1, idx),
+                                 torch.full_like(buf[:, :spec], -1))
+            # --- reference-hint lookup: a hint trigram match outranks the
+            # slot's own history; only matches whose continuation starts
+            # with a real token may displace an own-history draft
+            hmatch, hmatch3 = self._lookup(hint, t_prev2, t_prev, tokens,
+                                           tri_ok)
+            jh3 = self._last(hmatch3 & good, hidx)
+            jh2 = self._last(hmatch & good, hidx)
+            jh_any = self._last(hmatch, hidx)
+            jh = torch.where(jh3 >= 0, jh3,
+                             torch.where(jh2 >= 0, jh2, jh_any))
+            use_hint = ((jh3 >= 0) | ((j_tri < 0) & (jh2 >= 0))
+                        | ((jstar < 0) & (jh_any >= 0)))
+            hsrc = (jh + 2).clamp(0, hw - spec)
+            drafts = torch.where(use_hint[:, None],
+                                 hint.gather(1, hsrc[:, None] + ar_spec),
+                                 drafts)
+            # --- verify forward over [last, d_1..d_spec]: dead slots clamp
+            # start to 0 (cheap attention, outputs discarded) and divert
+            # their writes to the trash page
+            block = torch.cat([tokens[:, None], drafts.clamp(min=0)], dim=1)
+            start_abs = torch.where(done, torch.zeros_like(positions),
+                                    positions.clamp(max=trash))
+            logits, _ = detikzify.decode_verify_step_paged_zerocopy(
+                self.params, self.cfg, block, start_abs, self.cache,
+                self._tab_dev, dead=done, kv_pages=kv_pages,
+                trash_row=trash, trash_page=self._trash_page)
+            emitted, counts = speculative_accept(
+                logits, drafts, self.generator, **cols,
+                banned_tokens=self._banned())
+            # --- EOS truncation + frozen-slot forcing
+            hit = (emitted == eos) & (ar_k1 < counts[:, None])
+            has_eos = hit.any(dim=1)
+            first_eos = hit.to(torch.int32).argmax(dim=1).to(torch.int32)
+            counts = torch.where(has_eos, first_eos + 1, counts)
+            emitted = torch.where(
+                done[:, None],
+                torch.where(ar_k1 == 0, torch.full_like(emitted, eos),
+                            torch.zeros_like(emitted)), emitted)
+            counts = torch.where(done, torch.ones_like(counts), counts)
+            adv = torch.where(done, torch.zeros_like(counts), counts)
+            # --- token history update at positions + 1, the start clamped
+            # into the row as jax.lax.dynamic_update_slice clamps it
+            # (entries beyond the accepted count are masked by positions)
+            at = (pos_l + 1).clamp(0, w - k1)[:, None] + ar_k1
+            buf.scatter_(1, at, emitted)
+            tokens = emitted.gather(
+                1, (counts.long() - 1).clamp(min=0)[:, None])[:, 0]
+            positions = positions + adv
+            done = done | has_eos
+            out_toks.append(emitted)
+            out_counts.append(adv)
+        self._tok_dev, self._pos_dev = tokens, positions
+        return torch.stack(out_toks), torch.stack(out_counts)
 
     @torch.inference_mode()
     def _copy_page(self, dst: int, src: int) -> None:
@@ -398,9 +597,12 @@ class DecodeEngine:
 
     def _launch_group(self, rollouts: List[Rollout],
                       prefixes: List[Optional[StoredPrefix]],
-                      image_embeds: Optional[torch.Tensor]) -> None:
+                      image_embeds: Optional[torch.Tensor],
+                      hints: Optional[List[Optional[Sequence[int]]]] = None,
+                      ) -> None:
         """Run ONE fused start for these rollouts. Each row may carry its
-        own stored prefix (or none); first tokens arrive lazily."""
+        own stored prefix (or none) and, on a speculative engine, its own
+        draft hint; first tokens arrive lazily."""
         b = len(rollouts)
         page, m_cap = self.page, self._m_cap
         starts_l: List[int] = []
@@ -508,11 +710,26 @@ class DecodeEngine:
         self.counters["prefill_tokens"] += sum(len(t) for t in tails)
         self.counters["prefill_tokens_saved"] += sum(starts_l)
         put = self._put
-        firsts = self._start_wave(
-            put(slots), put(ids), image_embeds, put(starts_l),
-            put([len(t) for t in tails]), put(img_offsets), put(read_tab),
-            put(write_tab), put(cow),
-            put(self._samp_host[slots], torch.float32))
+        args = (put(slots), put(ids), image_embeds, put(starts_l),
+                put([len(t) for t in tails]), put(img_offsets), put(read_tab),
+                put(write_tab), put(cow),
+                put(self._samp_host[slots], torch.float32))
+        if self.spec > 0:
+            full_ids = np.full((b, self._buf_dev.shape[1]), -1, np.int32)
+            hint_rows = np.full((b, self._hint_dev.shape[1]), -1, np.int32)
+            for i, ro in enumerate(rollouts):
+                full_ids[i, :len(ro.token_ids)] = ro.token_ids
+                h = hints[i] if hints is not None else None
+                if h:
+                    n = min(len(h), hint_rows.shape[1])
+                    hint_rows[i, :n] = list(h)[:n]
+                    ro.hinted = True
+            firsts = self._start_wave_spec(*args, put(full_ids),
+                                           put(hint_rows))
+            # the start wave rewrote these slots' history rows in full
+            self._buf_stale[np.asarray(slots)] = False
+        else:
+            firsts = self._start_wave(*args)
         for i, ro in enumerate(rollouts):
             self._rollouts[ro.slot] = ro
             self._active[ro.slot] = True
@@ -555,10 +772,13 @@ class DecodeEngine:
         prefix: Optional[StoredPrefix] = None,
         lazy: bool = False,
         sampling: Optional[SamplingParams] = None,
+        hint: Optional[Sequence[int]] = None,
     ) -> Rollout:
         """Begin generating after ``token_ids``; returns a Rollout handle.
         With ``lazy=True`` the first token is fetched at the next
-        ``step()``/``flush()``."""
+        ``step()``/``flush()``. ``hint`` (speculative engines only) is
+        reference text for draft lookup -- e.g. the parent rollout's
+        continuation in MCTS."""
         if not self._free_slots:
             raise RuntimeError("no free slots")
         token_ids = list(token_ids)
@@ -566,7 +786,7 @@ class DecodeEngine:
         ro = self._make_rollout(token_ids, max_new_tokens, sampling,
                                 on_token)
         try:
-            self._launch_group([ro], [prefix], image_embeds)
+            self._launch_group([ro], [prefix], image_embeds, hints=[hint])
         except BaseException:
             self._free_slots.append(ro.slot)   # never launched: return it
             raise
@@ -584,9 +804,11 @@ class DecodeEngine:
         prefixes: Optional[Sequence[Optional[StoredPrefix]]] = None,
         sampling: Optional[SamplingParams] = None,
         on_token: Optional[Callable[[int], None]] = None,
+        hints: Optional[Sequence[Optional[Sequence[int]]]] = None,
     ) -> List[Rollout]:
         """Start a BURST of rollouts, chunked into power-of-two groups (one
-        fused start each). Starts are lazy."""
+        fused start each), with per-prompt draft ``hints`` on a speculative
+        engine. Starts are lazy."""
         b = len(prompts)
         assert b >= 1
         if b > len(self._free_slots):
@@ -619,7 +841,9 @@ class DecodeEngine:
                     n *= 2
                 emb = (None if image_embeds is None
                        else image_embeds[i:i + n])
-                self._launch_group(rollouts[i:i + n], pfs[i:i + n], emb)
+                self._launch_group(
+                    rollouts[i:i + n], pfs[i:i + n], emb,
+                    hints=None if hints is None else list(hints[i:i + n]))
                 i += n
         except BaseException:
             for ro in rollouts[i:]:    # never launched: return their slots
@@ -701,39 +925,107 @@ class DecodeEngine:
     # stepping
     # ------------------------------------------------------------------
 
-    def _kv_pages(self, k: int) -> int:
-        """Attended-page bound for a k-step block: the smallest bucket
-        covering every live slot's rows after k more steps, in pages."""
+    def _kv_limit(self, k: int) -> int:
+        """Smallest bucket covering every live slot's rows after k more
+        steps. (The JAX engine adds slack here for its ``pipelined`` mode,
+        which the port does not have.)"""
         live = [len(ro.token_ids) for slot, ro in self._rollouts.items()
                 if self._active[slot]]
-        limit = self.max_len
-        if live:
-            need = max(live) + k + 1
-            for b in BUCKETS:
-                if need <= b <= self.max_len:
-                    limit = b
-                    break
-        return -(-limit // self.page)
+        if not live:
+            return self.max_len
+        need = max(live) + k
+        for b in BUCKETS:
+            if need <= b <= self.max_len:
+                return b
+        return self.max_len
 
-    def step(self, k: Optional[int] = None) -> List[Rollout]:
-        """Advance decoding by one block of k steps (default
-        ``decode_block``); one host sync fetches the block's tokens and any
-        pending first tokens. Returns rollouts that finished."""
-        k = self.decode_block if k is None else k
-        toks = None
-        owners: Dict[int, Rollout] = {}
-        if self._active.any():
-            self.counters["decode_dispatches"] += 1
-            self.counters["decode_steps"] += k
-            kv_pages = self._kv_pages(k)
-            toks_dev = self._decode_many(
-                self._put(self._active, torch.bool),
-                self._put(self._samp_host, torch.float32), k, kv_pages)
-            owners = {slot: ro for slot, ro in self._rollouts.items()
-                      if self._active[slot]}
+    def _kv_pages(self, k: int, speculative: bool) -> int:
+        """Attended-page bound for a k-step block: the bucketed token limit
+        in pages. Speculative blocks advance up to spec+1 tokens a step and
+        also need the verify window's spec+1 rows clear of the bound."""
+        per_step = 1 + (self.spec if speculative else 0)
+        return -(-self._kv_limit(k * per_step + per_step) // self.page)
+
+    @property
+    def _spec_on(self) -> bool:
+        """Whether ANY draft class currently speculates."""
+        return self.spec > 0 and any(st["on"]
+                                     for st in self._spec_cls.values())
+
+    def _use_spec(self) -> bool:
+        """Dispatch decision: run the speculative block iff some ACTIVE
+        slot's draft class is enabled. The verify forward's cost is per
+        dispatch, not per slot, so once one slot justifies it, slots of a
+        disabled class draft too -- their accepted tokens are free upside
+        and keep their class's window measured (how a recovered class
+        re-enables without an explicit probe)."""
+        if self.spec <= 0:
+            return False
+        return any(self._spec_cls["hint" if ro.hinted else "plain"]["on"]
+                   for slot, ro in self._rollouts.items()
+                   if self._active[slot])
+
+    def _resync_buf(self) -> None:
+        """Re-upload the device token-history rows of slots whose history
+        went stale: plain blocks (dispatched while every class was bailed
+        out) advance positions without writing ``_buf_dev``, so a later
+        speculative block would draft against holes. The host's accepted
+        ``token_ids`` are the truth for live slots."""
+        stale = [s for s in np.flatnonzero(self._buf_stale)
+                 if self._active[s] and s in self._rollouts]
+        if not stale:
+            return
+        width = self._buf_dev.shape[1]
+        rows = np.full((len(stale), width), -1, np.int32)
+        for i, s in enumerate(stale):
+            ids = self._rollouts[s].token_ids[:width]
+            rows[i, :len(ids)] = ids
+        self._buf_dev[self._put(stale).long()] = self._put(rows)
+        self._buf_stale[np.asarray(stale)] = False
+        self.counters["buf_resyncs"] += 1
+
+    def _dispatch(self, k: int):
+        """Launch one decode block (speculative or plain) and snapshot which
+        rollout owned each slot. Returns (tokens, counts or None, k,
+        owners) for ``_consume``."""
+        self.counters["decode_dispatches"] += 1
+        self.counters["decode_steps"] += k
+        use_spec = self._use_spec()
+        active = self._put(self._active, torch.bool)
+        samp = self._put(self._samp_host, torch.float32)
+        if use_spec:
+            self._resync_buf()
+            toks_dev, counts_dev = self._decode_many_spec(
+                active, samp, k, self._kv_pages(k, True))
+        else:
+            counts_dev = None
+            toks_dev = self._decode_many(active, samp, k,
+                                         self._kv_pages(k, False))
+            if self.spec > 0:
+                # positions advanced without history writes: these rows
+                # must be resynced before the next speculative block
+                self._buf_stale[self._active] = True
+        self._last_dispatch_spec = use_spec
+        owners = {slot: ro for slot, ro in self._rollouts.items()
+                  if self._active[slot]}
+        return toks_dev, counts_dev, k, owners
+
+    def _consume(self, inflight) -> List[Rollout]:
+        """Fetch a dispatched block's tokens (one host sync, shared with any
+        pending first tokens) and deliver them to their rollouts."""
         firsts = self._fetch_firsts()
-        if owners:
-            toks = toks_dev.cpu().numpy()            # [k, S]
+        spec_run = False
+        if inflight is None:
+            toks, counts, k, owners = None, None, 0, {}
+        else:
+            toks_dev, counts_dev, k, owners = inflight
+            toks = toks_dev.cpu().numpy()        # [k, S] or [k, S, spec+1]
+            if counts_dev is None:               # plain: 1 token a step
+                toks = toks[:, :, None]
+                counts = np.ones(toks.shape[:2], np.int32)
+            else:
+                spec_run = True
+                counts = counts_dev.cpu().numpy()
 
         finished = []
         for slot, tok in firsts:
@@ -744,15 +1036,104 @@ class DecodeEngine:
             if ro.finished:
                 finished.append(ro)
         for slot, ro in owners.items():
+            # skip slots whose rollout was replaced/finished since dispatch
             if self._rollouts.get(slot) is not ro or ro.finished:
                 continue
+            cls = self._spec_cls["hint" if ro.hinted else "plain"] \
+                if self.spec > 0 else None
             for i in range(k):
-                self.counters["decode_tokens"] += 1
-                self._accept_token(ro, int(toks[i, slot]))
+                if spec_run:
+                    # acceptance accounting uses the DEVICE counts, not the
+                    # host-truncated token loop below: budget cutoffs would
+                    # otherwise report rate 1.0 for high-acceptance slots
+                    n = int(counts[i, slot])
+                    self.counters["spec_steps"] += 1
+                    self.counters["spec_tokens"] += n
+                    if ro.hinted:
+                        self.counters["spec_steps_hint"] += 1
+                        self.counters["spec_tokens_hint"] += n
+                    cls["win"][0] += 1
+                    cls["win"][1] += n
+                    if not cls["on"]:
+                        # ride-along slot-step while bailed out: the
+                        # recovery clock ticks on ANY slot-step
+                        cls["cool"] += 1
+                elif cls is not None and not cls["on"]:
+                    # plain slot-step while this class is bailed out
+                    cls["cool"] += 1
+                for j in range(int(counts[i, slot])):
+                    self.counters["decode_tokens"] += 1
+                    self._accept_token(ro, int(toks[i, slot, j]))
+                    if ro.finished:
+                        finished.append(ro)
+                        break
                 if ro.finished:
-                    finished.append(ro)
                     break
+        self._update_spec_gating()
         return finished
+
+    @property
+    def spec_rate(self) -> float:
+        """Measured speculative tokens per step (1 = no draft ever
+        accepted, spec+1 = every draft accepted)."""
+        steps = self.counters["spec_steps"]
+        return self.counters["spec_tokens"] / steps if steps else 0.0
+
+    def _update_spec_gating(self) -> None:
+        """Per-class draft gating on SLIDING windows of 1024 slot-steps.
+
+        A class falls back to plain decoding after TWO consecutive
+        below-``spec_min_rate`` windows (a single cold-start window must
+        not bail a class out), and each class decides alone. Bail-outs are
+        RECOVERABLE: after ``backoff`` plain slot-steps the class
+        re-enables for a probe; one bad probe window re-disables it and
+        doubles the backoff (capped), a good window resets both streak and
+        backoff."""
+        if self.spec <= 0 or self.spec_min_rate <= 0:
+            return
+        for st in self._spec_cls.values():
+            if not st["on"]:
+                steps, toks = st["win"]
+                if steps >= 1024:
+                    # ride-along window (this class's slots kept drafting
+                    # because ANOTHER class held _use_spec() true): a
+                    # clearing rate re-enables with a clean slate; a failing
+                    # one is DISCARDED, and the class stays off
+                    st["win"] = [0, 0]
+                    if toks / steps >= self.spec_min_rate:
+                        st["on"], st["cool"], st["bad"] = True, 0, 0
+                        st["backoff"], st["probe"] = 4096, False
+                        continue
+                if st["cool"] >= st["backoff"]:
+                    # probe re-enable: bad=1 so a single failing window
+                    # re-disables; the window starts EMPTY so the probe is
+                    # judged on fresh data
+                    st["on"], st["cool"], st["bad"] = True, 0, 1
+                    st["probe"], st["win"] = True, [0, 0]
+                continue
+            steps, toks = st["win"]
+            if steps < 1024:
+                continue
+            st["win"] = [0, 0]
+            if toks / steps < self.spec_min_rate:
+                st["bad"] += 1
+                if st["bad"] >= 2:
+                    st["on"] = False
+                    st["cool"] = 0
+                    if st["probe"]:     # failed probe: wait longer next time
+                        st["backoff"] = min(st["backoff"] * 2, 65536)
+            else:
+                st["bad"] = 0
+                st["backoff"] = 4096
+                st["probe"] = False
+
+    def step(self, k: Optional[int] = None) -> List[Rollout]:
+        """Advance decoding by one block of k steps (default
+        ``decode_block``); one host sync fetches the block's tokens and any
+        pending first tokens. Returns rollouts that finished."""
+        k = self.decode_block if k is None else k
+        inflight = self._dispatch(k) if self._active.any() else None
+        return self._consume(inflight)
 
     def run(self, max_steps: Optional[int] = None) -> List[Rollout]:
         """Step until every rollout finishes; returns them all."""

@@ -14,10 +14,11 @@ score normalisation), executed the JAX package's way:
 
 ``simulate(parallelism=1)`` keeps the reference's sequential order;
 ``parallelism > 1`` runs that many expansions at once over the engine's
-slots, with virtual loss to spread the selections. Not ported yet: the
-speculative draft hints (they need ``speculate > 0``), the shared-engine
-mode and per-iteration hook of the serving scheduler, and TikZero text
-conditioning (ROADMAP).
+slots, with virtual loss to spread the selections. On a speculative engine
+each child rollout drafts from the continuation of the rollout its node was
+cut from (``_hint_for``). Not ported yet: the shared-engine mode and
+per-iteration hook of the serving scheduler, and TikZero text conditioning
+(ROADMAP).
 """
 from __future__ import annotations
 
@@ -65,6 +66,10 @@ class WideNode(Node):
                  is_widen_node: bool = False):
         super().__init__(state, exploration)
         self.is_widen_node = is_widen_node
+        # full token sequence of the rollout this node was cut from: the
+        # suffix beyond the node's own prefix is REFERENCE TEXT for
+        # speculative draft lookup in child rollouts (engine hints)
+        self.rollout_tokens: Optional[Tuple[int, ...]] = None
         self.update_policy_value(1.0)
         if not is_widen_node:
             self.add_child(WideNode(state, exploration, is_widen_node=True))
@@ -200,17 +205,19 @@ class DetikzifyGenerator:
     def root(self) -> WideNode:
         return self.montecarlo.root_node  # type: ignore[return-value]
 
-    def _start(self, ids: List[int]):
+    def _start(self, ids: List[int], hint=None):
         found = self.engine.best_prefix(ids, namespace=self.namespace)
         prefix = found[1] if found else None
         if prefix is not None:
             self.stats["prefix_hits"] += 1
             self.stats["prefix_tokens_saved"] += prefix.length
+        # pass `hint` only when set: duck-typed engine doubles predate it
+        hint_kw = {} if hint is None else {"hint": hint}
         ro = self.engine.start(
             ids, image_embeds=self.image_embeds,
             max_new_tokens=self.max_length - len(ids),
             prefix=prefix, on_token=self.on_token, lazy=True,
-            sampling=self.sampling)
+            sampling=self.sampling, **hint_kw)
         self._pending_rollout = ro
         return ro
 
@@ -218,7 +225,40 @@ class DetikzifyGenerator:
     # rollout: stream tokens from the engine, yield line-boundary prefixes
     # ------------------------------------------------------------------
 
-    def rollout(self, state: NodeState
+    @staticmethod
+    def _record_rollout_tokens(new_nodes, origin=None) -> None:
+        """Record the full rollout on each node cut from it AND on the node
+        it was rolled out from (``origin``, e.g. the root, which is never
+        itself cut from a rollout): the suffix beyond a node's prefix
+        becomes the speculative draft hint for its future child rollouts
+        (the sequential and parallel paths share this)."""
+        if not new_nodes:
+            return
+        full = new_nodes[-1].token_ids
+        for n in new_nodes:
+            if n.rollout_tokens is None:
+                n.rollout_tokens = full
+        if origin is not None:
+            o = origin.parent if origin.is_widen_node else origin
+            if o is not None and o.rollout_tokens is None:
+                o.rollout_tokens = full
+
+    def _hint_for(self, node) -> Optional[Tuple[int, ...]]:
+        """Reference text for speculative draft lookup: the suffix of the
+        rollout this node was cut from (child rollouts re-generate much of
+        the parent's continuation). None when the engine is not
+        speculative or no source rollout is recorded."""
+        # duck-typed engines (test doubles) may not expose `spec`
+        if getattr(self.engine, "spec", 0) <= 0 or node is None:
+            return None
+        n = node.parent if getattr(node, "is_widen_node", False) else node
+        full = getattr(n, "rollout_tokens", None)
+        ids = n.token_ids
+        if full and len(full) > len(ids) and full[:len(ids)] == tuple(ids):
+            return full[len(ids):]
+        return None
+
+    def rollout(self, state: NodeState, hint=None
                 ) -> Generator[Tuple[Tuple[int, ...], int], None, None]:
         ids = list(state.token_ids)
         eos = self.engine.eos_token_id
@@ -228,7 +268,7 @@ class DetikzifyGenerator:
             return  # aborted before this rollout started: leave the engine
 
         t0 = time.time()
-        ro = self._start(ids)
+        ro = self._start(ids, hint)
         boundary: List[int] = list(ids)   # cumulative prefix at last boundary
         line: List[int] = []
         num_lines, continuation = state.num_lines, False
@@ -357,7 +397,7 @@ class DetikzifyGenerator:
 
     def child_finder(self, node: WideNode, montecarlo: MonteCarlo) -> None:
         new_nodes: List[WideNode] = []
-        rollout_gen = self.rollout(node.state)
+        rollout_gen = self.rollout(node.state, hint=self._hint_for(node))
         for token_ids, num_lines in rollout_gen:
             new_node = WideNode(NodeState(token_ids, num_lines),
                                 exploration=self.exploration)
@@ -371,6 +411,7 @@ class DetikzifyGenerator:
             # aborted before producing anything: do not compile and score
             # the parent as if it were a fresh rollout
             return
+        self._record_rollout_tokens(new_nodes, origin=node)
 
         if node.is_widen_node:
             node.visits += 1
@@ -482,7 +523,8 @@ class DetikzifyGenerator:
     class _Expansion:
         __slots__ = ("node", "path", "ro", "boundary", "line", "num_lines",
                      "continuation", "processed", "new_nodes", "stopped",
-                     "future", "t0", "prompt", "prefix", "stored_keys")
+                     "future", "t0", "prompt", "prefix", "stored_keys",
+                     "hint")
 
         def __init__(self, node, path):
             self.node = node
@@ -494,6 +536,7 @@ class DetikzifyGenerator:
             self.t0 = time.time()
             self.prompt = None      # token ids to roll out from (None: leaf)
             self.prefix = None      # StoredPrefix to restore, if any
+            self.hint = None        # speculative draft reference text
             self.stored_keys: List = []   # speculative prefix stores
 
     def _select_leaf(self) -> WideNode:
@@ -530,17 +573,20 @@ class DetikzifyGenerator:
             self.stats["prefix_tokens_saved"] += prefix.length
         exp.prompt = ids
         exp.prefix = prefix
+        exp.hint = self._hint_for(node)
         return exp
 
     def _launch_wave(self, wave: List["_Expansion"]) -> None:
         """Start a wave of prepared expansions as fused starts."""
+        hints = [exp.hint for exp in wave]
+        hint_kw = {} if all(h is None for h in hints) else {"hints": hints}
         ros = self.engine.start_many(
             [exp.prompt for exp in wave],
             image_embeds=self.image_embeds,
             max_new_tokens=[self.max_length - len(exp.prompt)
                             for exp in wave],
             prefixes=[exp.prefix for exp in wave],
-            sampling=self.sampling, on_token=self.on_token)
+            sampling=self.sampling, on_token=self.on_token, **hint_kw)
         for exp, ro in zip(wave, ros):
             exp.ro = ro
             exp.boundary = list(exp.prompt)
@@ -588,6 +634,7 @@ class DetikzifyGenerator:
         self.stats["rollouts"] += 1
         self.stats["rollout_tokens"] += ro.new_tokens
         self.stats["rollout_time"] += time.time() - exp.t0
+        self._record_rollout_tokens(exp.new_nodes, origin=exp.node)
         # only the first sqrt(n) nodes can be attached. They are stored
         # before the compile resolves (the slot must be freed first);
         # _complete_expansion drops whatever ends up unattached

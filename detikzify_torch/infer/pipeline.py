@@ -7,9 +7,10 @@ vision pass for the batch; ``simulate()`` refines with MCTS and yields
 (score, TikzDocument) per rollout. Default hyperparameters are the
 reference's (T=0.8, top-p 0.95, top-k 0; compile timeout 60 s; exploration
 0.6). One ``DecodeEngine`` (page pool + sampling state) is shared across
-calls. ``metric="model"`` (the default) scores with SelfSim on the model's
-own vision tower (``evaluate.ImageSim``, EMD for v2); ``metric="fast"``
-with compiler diagnostics only.
+calls; ``speculate=K`` makes it a speculative engine (n-gram drafts of K
+tokens, verified on kernel K4). ``metric="model"`` (the default) scores
+with SelfSim on the model's own vision tower (``evaluate.ImageSim``, EMD
+for v2); ``metric="fast"`` with compiler diagnostics only.
 """
 from __future__ import annotations
 
@@ -48,6 +49,7 @@ class DetikzifyPipeline:
         max_len: Optional[int] = None,
         exploration: float = 0.6,
         compile_workers: int = 4,
+        speculate: int = 0,                # n-gram speculative decoding
         engine: Optional[DecodeEngine] = None,
         device="cuda",
         seed: int = 0,
@@ -60,6 +62,7 @@ class DetikzifyPipeline:
             params, cfg, num_slots=num_slots,
             max_len=max_len or min(processor.model_max_length,
                                    cfg.model_max_length),
+            speculate=speculate,
             sampling=SamplingParams(temperature=temperature, top_p=top_p,
                                     top_k=top_k),
             device=device, seed=seed)

@@ -6,8 +6,12 @@
                           (a masked gather, with ``image_offsets`` for
                           prefill blocks that are the tail of a prompt);
   * ``forward``        -- logits and the masked shifted-CE loss;
-  * ``encode_image`` / ``prefill_paged`` / ``decode_step_paged`` -- the
-    decode engine's entry points.
+  * ``prefill`` / ``decode_step`` / ``decode_verify_step`` -- prefill,
+    decode and the speculative verify forward over a contiguous
+    ``llama.KVCache``;
+  * ``encode_image`` / ``prefill_paged`` / ``decode_step_paged`` /
+    ``decode_verify_step_paged_zerocopy`` -- the decode engine's entry
+    points over its page pool.
 """
 from __future__ import annotations
 
@@ -136,6 +140,55 @@ def _last_valid(hidden: torch.Tensor, seq_len: torch.Tensor) -> torch.Tensor:
     return hidden[torch.arange(hidden.shape[0], device=hidden.device), idx]
 
 
+def prefill(params: Params, cfg: DetikzifyConfig,
+            input_ids: torch.Tensor,                # [B, S] (padded block)
+            image_embeds: Optional[torch.Tensor],   # [B, image_seq_len, Dt]
+            start: torch.Tensor,                    # [B] write offsets
+            seq_len: torch.Tensor,                  # [B] valid lengths
+            cache: llama.KVCache,
+            *, image_offsets: Optional[torch.Tensor] = None):
+    """Prefill a token block into a contiguous cache; returns
+    (last-valid-token logits [B, V] fp32, cache)."""
+    embeds = llama.embed(params.text, input_ids)
+    if image_embeds is not None:
+        embeds = merge_inputs(cfg, input_ids, embeds, image_embeds,
+                              image_offsets)
+    hidden, cache = llama.prefill(params.text, cfg.text, embeds, start,
+                                  seq_len, cache)
+    return llama.unembed(params.text, _last_valid(hidden, seq_len)), cache
+
+
+def decode_step(params: Params, cfg: DetikzifyConfig,
+                token_ids: torch.Tensor,      # [B]
+                positions: torch.Tensor,      # [B]
+                cache: llama.KVCache,
+                kv_limit: Optional[int] = None):
+    """One decode step over a contiguous cache; returns (logits [B, V]
+    fp32, cache)."""
+    embeds = llama.embed(params.text, token_ids)
+    hidden, cache = llama.decode_step(params.text, cfg.text, embeds,
+                                      positions, cache, kv_limit=kv_limit)
+    return llama.unembed(params.text, hidden), cache
+
+
+def decode_verify_step(params: Params, cfg: DetikzifyConfig,
+                       token_block: torch.Tensor,   # [B, K+1]: [last, drafts]
+                       start: torch.Tensor,         # [B] row of column 0
+                       cache: llama.KVCache):
+    """Speculative verify forward over a contiguous cache: K+1 tokens per
+    slot in one offset prefill, logits at EVERY position ([B, K+1, V]
+    fp32); ``logits[:, i]`` is the distribution of the token following
+    input i. Rows beyond the eventually accepted count stay invisible to
+    later steps, whose attention is bounded by per-slot positions."""
+    b, k1 = token_block.shape
+    embeds = llama.embed(params.text, token_block)
+    hidden, cache = llama.prefill(
+        params.text, cfg.text, embeds, start,
+        torch.full((b,), k1, dtype=torch.int32, device=token_block.device),
+        cache)
+    return llama.unembed(params.text, hidden), cache
+
+
 def prefill_paged(params: Params, cfg: DetikzifyConfig,
                   input_ids: torch.Tensor,          # [B, S] (padded block)
                   image_embeds: Optional[torch.Tensor],
@@ -168,5 +221,22 @@ def decode_step_paged(params: Params, cfg: DetikzifyConfig,
     embeds = llama.embed(params.text, token_ids)
     hidden, pool = llama.decode_step_paged(
         params.text, cfg.text, embeds, positions, pool, tab,
+        kv_pages=kv_pages, trash_row=trash_row, trash_page=trash_page)
+    return llama.unembed(params.text, hidden), pool
+
+
+def decode_verify_step_paged_zerocopy(
+        params: Params, cfg: DetikzifyConfig,
+        token_block: torch.Tensor,    # [B, K+1]
+        start: torch.Tensor,          # [B] pool row of token_block[:, 0]
+        pool: llama.PagedKV,
+        tab: torch.Tensor,            # [B, m_cap]
+        *, dead=None, kv_pages=None, trash_row=None, trash_page=None):
+    """Zero-copy speculative verify: K+1 logits per slot ([B, K+1, V] fp32)
+    with the block's K/V written through the page table and attention read
+    by the verify-window kernel K4."""
+    embeds = llama.embed(params.text, token_block)
+    hidden, pool = llama.verify_step_paged_zerocopy(
+        params.text, cfg.text, embeds, start, pool, tab, dead=dead,
         kv_pages=kv_pages, trash_row=trash_row, trash_page=trash_page)
     return llama.unembed(params.text, hidden), pool

@@ -3,6 +3,12 @@
 Entry points:
 
   * ``forward``            -- full-sequence causal pass (evaluation / loss);
+  * ``prefill``            -- offset prefill of a token block into a
+                              contiguous ``KVCache`` (attention: the
+                              per-batch window of kernel K1);
+  * ``decode_step``        -- one token for every slot over a contiguous
+                              ``KVCache``, attending at most ``kv_limit``
+                              rows in place (kernel K3);
   * ``prefill_paged``      -- offset prefill of a token block against the
                               engine's page pool: restored prefix pages are
                               gathered into a per-layer work cache, attention
@@ -13,7 +19,11 @@ Entry points:
                               are written into the pool through the page
                               table and attention reads the pool through it
                               (kernel K2). This is the JAX package's
-                              ``_decode_step_paged_zerocopy``.
+                              ``_decode_step_paged_zerocopy``;
+  * ``verify_step_paged_zerocopy`` -- the speculative verify forward of
+                              K+1 tokens per slot, zero-copy: rows written
+                              through the page table, attention by the
+                              verify-window kernel K4.
 
 Projections may be int8 (``ops.quant.QuantLinear``, kernel K5 in the
 decode regime) and q/k/v and gate/up may be fused (``fuse_projections``);
@@ -22,7 +32,9 @@ the layer bodies take either layout.
 The pool is ``PagedKV [L, P, page, NKV, Hd]``; rows at or beyond the
 engine's ``trash_row`` are written to the shared trash page, never through
 a (possibly stale) page table -- do not simplify that routing. Where JAX
-donated the pool buffers, the port updates the pool in place.
+donated the cache or pool buffers, the port updates them in place. The
+contiguous writes clamp their start into the cache as
+``jax.lax.dynamic_update_slice`` does.
 """
 from __future__ import annotations
 
@@ -32,8 +44,9 @@ import torch
 from torch import nn
 
 from ..config import TextConfig
+from ..ops.attention import decode_attend
 from ..ops.flash import flash_attention
-from ..ops.paged import decode_attend_paged
+from ..ops.paged import decode_attend_paged, decode_verify_attend_paged
 from ..ops.quant import QuantLinear
 from ..ops.quant_matmul import int8_matmul, matmul_f32
 from .layers import (ACTIVATIONS, RMSNorm, apply_rope, linear, rms_norm,
@@ -165,6 +178,117 @@ def forward(params: Llama, cfg: TextConfig, inputs_embeds: torch.Tensor, *,
 
 
 # ---------------------------------------------------------------------------
+# contiguous KV cache: prefill and decode
+# ---------------------------------------------------------------------------
+
+class KVCache(NamedTuple):
+    k: torch.Tensor  # [n_layers, B, T, n_kv_heads, head_dim]
+    v: torch.Tensor
+
+    @property
+    def max_len(self) -> int:
+        return self.k.shape[2]
+
+    @property
+    def batch(self) -> int:
+        return self.k.shape[1]
+
+
+def init_cache(cfg: TextConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device="cuda") -> KVCache:
+    shape = (cfg.num_hidden_layers, batch, max_len,
+             cfg.num_key_value_heads, cfg.head_dim)
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device))
+
+
+def _write_block(cache_x: torch.Tensor, new: torch.Tensor,
+                 start: torch.Tensor) -> None:
+    """cache_x [B, T, N, H] <- new [B, S, N, H] at rows start[b] .. +S, in
+    place. The start is clamped into [0, T - S], as
+    ``jax.lax.dynamic_update_slice`` clamps it: a block that would run past
+    the cache lands on its last S rows."""
+    b, s = new.shape[:2]
+    s0 = start.long().clamp(0, cache_x.shape[1] - s)
+    rows = s0[:, None] + torch.arange(s, device=new.device)[None, :]
+    cache_x[torch.arange(b, device=new.device)[:, None], rows] = \
+        new.to(cache_x.dtype)
+
+
+def prefill(
+    params: Llama,
+    cfg: TextConfig,
+    inputs_embeds: torch.Tensor,     # [B, S, D]
+    start: torch.Tensor,             # [B] int32 -- write offset per slot
+    seq_len: torch.Tensor,           # [B] int32 -- valid tokens in block
+    cache: KVCache,
+) -> Tuple[torch.Tensor, KVCache]:
+    """Process a (padded) token block against ``cache[:, :, :start]`` plus
+    causal attention within the block (K1's per-batch window: key t is
+    visible to query i iff ``t <= start + i and t < start + seq_len``).
+    Invalid tail rows (i >= seq_len) are written too and stay masked.
+    Returns (hidden [B, S, D], cache updated in place)."""
+    b, s, _ = inputs_embeds.shape
+    dev = inputs_embeds.device
+    act = ACTIVATIONS[cfg.hidden_act]
+    start = start.to(torch.int32)
+    positions = start[:, None] + torch.arange(s, device=dev)[None, :]
+    cos, sin = rope_cos_sin(positions, _inv_freq(cfg, dev))
+    q_offsets = start.contiguous()
+    kv_limits = (start + seq_len.to(torch.int32)).contiguous()
+    x = inputs_embeds
+    for li, lp in enumerate(params.layers):
+        h = rms_norm(lp.input_ln, x, cfg.rms_norm_eps)
+        q, k, v = _qkv(lp, h, cfg, cos, sin)
+        kc, vc = cache.k[li], cache.v[li]
+        _write_block(kc, k, start)
+        _write_block(vc, v, start)
+        h = flash_attention(q, kc, vc, q_offsets=q_offsets,
+                            kv_limits=kv_limits)
+        x = x + linear(lp.attn.o, h.reshape(b, s, -1))
+        h = rms_norm(lp.post_ln, x, cfg.rms_norm_eps)
+        x = x + _mlp(lp, h, act)
+    return rms_norm(params.norm, x, cfg.rms_norm_eps), cache
+
+
+def decode_step(
+    params: Llama,
+    cfg: TextConfig,
+    inputs_embeds: torch.Tensor,     # [B, D] -- the newest token's embedding
+    positions: torch.Tensor,         # [B] int32 -- its position
+    cache: KVCache,
+    kv_limit: Optional[int] = None,  # attend rows [0, kv_limit) only
+) -> Tuple[torch.Tensor, KVCache]:
+    """One decode step for all slots; returns (hidden [B, D], cache updated
+    in place). ``kv_limit`` bounds the ATTENDED rows: attention (kernel K3)
+    reads the view ``kc[:, :kv_limit]`` in place with lengths clamped to
+    it, while writes land in the full cache. Callers guarantee every
+    attending slot's position < kv_limit."""
+    act = ACTIVATIONS[cfg.hidden_act]
+    dev = inputs_embeds.device
+    positions = positions.to(torch.int32)
+    cos, sin = rope_cos_sin(positions, _inv_freq(cfg, dev))
+    lengths = positions + 1
+    limit = cache.max_len
+    if kv_limit is not None and kv_limit < limit:
+        limit = kv_limit
+        lengths = lengths.clamp(max=kv_limit)
+    lengths = lengths.contiguous()
+    x = inputs_embeds
+    for li, lp in enumerate(params.layers):
+        h = rms_norm(lp.input_ln, x, cfg.rms_norm_eps)
+        q, k, v = _qkv(lp, h, cfg, cos, sin)
+        kc, vc = cache.k[li], cache.v[li]
+        _write_block(kc, k[:, None], positions)
+        _write_block(vc, v[:, None], positions)
+        h = decode_attend(q, kc[:, :limit], vc[:, :limit], lengths)
+        x = x + linear(lp.attn.o, h.reshape(x.shape[0], -1))
+        h = rms_norm(lp.post_ln, x, cfg.rms_norm_eps)
+        x = x + _mlp(lp, h, act)
+    return rms_norm(params.norm, x, cfg.rms_norm_eps), cache
+
+
+# ---------------------------------------------------------------------------
 # paged KV cache: shared page pool + per-slot page tables
 # ---------------------------------------------------------------------------
 
@@ -284,21 +408,52 @@ def prefill_paged(
 
 
 def _route_pool_writes(tab: torch.Tensor, positions: torch.Tensor, page: int,
-                       trash_row: Optional[int], trash_page
+                       trash_row: Optional[int], trash_page,
+                       dead: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Resolve each slot's write position [B] to a pool (page, row) through
-    its page table, DIVERTING rows at/beyond ``trash_row`` to the shared
-    trash page. Diverted writes must never go through a (possibly stale)
-    released slot's table: do not simplify this routing."""
+    """Resolve each write position to a pool (page, row) through the slot's
+    page table, DIVERTING rows at/beyond ``trash_row`` -- and ``dead``
+    slots entirely -- to the shared trash page. Diverted writes must never
+    go through a (possibly stale) released slot's table: do not simplify
+    this routing. ``positions`` may be [B] (1-row decode) or [B, K1]
+    (verify window). Only trash-page rows can ever be written twice in one
+    write (several diverted rows share them)."""
     m_cap = tab.shape[1]
-    pos2 = positions[:, None].long()
+    pos2 = (positions if positions.dim() == 2 else positions[:, None]).long()
     entry = (pos2 // page).clamp(0, m_cap - 1)
     pid = torch.gather(tab.long(), 1, entry)
+    divert = None
     if trash_row is not None:
-        divert = (torch.full_like(pid, trash_page) if trash_page is not None
+        divert = pos2 >= trash_row
+    if dead is not None:
+        divert = (dead[:, None] if divert is None
+                  else divert | dead[:, None])
+    if divert is not None:
+        target = (torch.full_like(pid, trash_page) if trash_page is not None
                   else tab[:, -1:].long().expand_as(pid))
-        pid = torch.where(pos2 >= trash_row, divert, pid)
-    return pid[:, 0], positions.long() % page
+        pid = torch.where(divert, target, pid)
+    if positions.dim() == 1:
+        pid = pid[:, 0]
+    return pid, positions.long() % page
+
+
+def _paged_block(cfg: TextConfig, act, lp: DecoderLayer, x: torch.Tensor,
+                 pool_k: torch.Tensor, pool_v: torch.Tensor,
+                 pid: torch.Tensor, rid: torch.Tensor, cos, sin,
+                 attend) -> torch.Tensor:
+    """Per-layer body shared by the zero-copy paged paths (1-row decode and
+    K+1-row speculative verify): qkv + rope, the K/V rows written straight
+    into this layer's pool through the pre-routed ``pid``/``rid``,
+    attention ``attend(q, pool_k, pool_v)``, o-proj, SwiGLU. The two paths
+    differ only in their attention window."""
+    h = rms_norm(lp.input_ln, x, cfg.rms_norm_eps)
+    q, k, v = _qkv(lp, h, cfg, cos, sin)
+    pool_k[pid, rid] = k.to(pool_k.dtype)
+    pool_v[pid, rid] = v.to(pool_v.dtype)
+    h = attend(q, pool_k, pool_v)
+    x = x + linear(lp.attn.o, h.reshape(*x.shape[:-1], -1))
+    h = rms_norm(lp.post_ln, x, cfg.rms_norm_eps)
+    return x + _mlp(lp, h, act)
 
 
 def decode_step_paged(
@@ -329,15 +484,59 @@ def decode_step_paged(
     pid, rid = _route_pool_writes(tab, positions, page, trash_row,
                                   trash_page)
     sub = tab[:, :m]
+
+    def attend(q, pk, pv):
+        return decode_attend_paged(q, pk, pv, sub, lengths)
+
     x = inputs_embeds
     for li, lp in enumerate(params.layers):
-        h = rms_norm(lp.input_ln, x, cfg.rms_norm_eps)
-        q, k, v = _qkv(lp, h, cfg, cos, sin)
-        pk, pv = pool.k[li], pool.v[li]
-        pk[pid, rid] = k.to(pk.dtype)
-        pv[pid, rid] = v.to(pv.dtype)
-        h = decode_attend_paged(q, pk, pv, sub, lengths)
-        x = x + linear(lp.attn.o, h.reshape(x.shape[0], -1))
-        h = rms_norm(lp.post_ln, x, cfg.rms_norm_eps)
-        x = x + _mlp(lp, h, act)
+        x = _paged_block(cfg, act, lp, x, pool.k[li], pool.v[li], pid, rid,
+                         cos, sin, attend)
+    return rms_norm(params.norm, x, cfg.rms_norm_eps), pool
+
+
+def verify_step_paged_zerocopy(
+    params: Llama,
+    cfg: TextConfig,
+    inputs_embeds: torch.Tensor,   # [B, K1, D] -- [last, draft_1..draft_K]
+    start: torch.Tensor,           # [B] int32 absolute pool row of column 0
+    pool: PagedKV,
+    tab: torch.Tensor,             # [B, m_cap] int32 page tables
+    *,
+    dead: Optional[torch.Tensor] = None,   # [B] bool: writes to the trash
+    kv_pages: Optional[int] = None,
+    trash_row: Optional[int] = None,
+    trash_page: Optional[int] = None,
+) -> Tuple[torch.Tensor, PagedKV]:
+    """Zero-copy speculative verify step: the K+1 block's K/V rows write
+    straight into the pool through the page table, then the verify-window
+    kernel K4 reads the pool with per-row causal limits (row j sees pool
+    rows ``[0, start + j + 1)``). ``dead`` slots (frozen or inactive, their
+    ``start`` clamped small by the caller) divert ALL their writes to the
+    trash page, so a released slot's stale table is never written through.
+    Returns (hidden [B, K1, D], pool updated in place)."""
+    k1 = inputs_embeds.shape[1]
+    act = ACTIVATIONS[cfg.hidden_act]
+    page = pool.page
+    m_cap = tab.shape[1]
+    m = min(kv_pages or m_cap, m_cap)
+    dev = inputs_embeds.device
+
+    start = start.to(torch.int32).contiguous()
+    positions = start[:, None] + torch.arange(k1, device=dev,
+                                              dtype=torch.int32)[None, :]
+    cos, sin = rope_cos_sin(positions, _inv_freq(cfg, dev))
+    pid, rid = _route_pool_writes(
+        tab, positions, page,
+        trash_row if trash_row is not None else m_cap * page,
+        trash_page, dead=dead)
+    sub = tab[:, :m]
+
+    def attend(q, pk, pv):
+        return decode_verify_attend_paged(q, pk, pv, sub, start)
+
+    x = inputs_embeds
+    for li, lp in enumerate(params.layers):
+        x = _paged_block(cfg, act, lp, x, pool.k[li], pool.v[li], pid, rid,
+                         cos, sin, attend)
     return rms_norm(params.norm, x, cfg.rms_norm_eps), pool

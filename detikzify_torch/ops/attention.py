@@ -1,12 +1,17 @@
-"""Attention: the plain PyTorch versions.
+"""Attention: the plain PyTorch versions, and the contiguous decode
+dispatcher.
 
 Counterpart of ``detikzify_tpu/ops/attention.py``:
 
   * ``attend_plain``        -- copy of the JAX ``attend_xla``: the plain
                                version of kernel K1 (``ops.flash``);
   * ``decode_attend_plain`` -- copy of the XLA branch of ``decode_attend``:
-                               with ``ops.paged.gather_pages`` the plain
-                               version of kernel K2 (``ops.paged``).
+                               the plain version of kernel K3
+                               (``ops.decode_flash``) and, with
+                               ``ops.paged.gather_pages``, of kernel K2;
+  * ``decode_attend``       -- the JAX dispatcher: CPU tensors take
+                               ``decode_attend_plain``, CUDA tensors launch
+                               K3 at every cache length.
 
 The JAX ``attend`` dispatcher has one counterpart here, the kernel wrapper
 ``ops.flash.flash_attention``: CPU tensors take ``attend_plain``, CUDA
@@ -20,6 +25,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from .decode_flash import decode_attend_contiguous
 
 #: mask sentinel shared with the JAX package (``ops/pallas_common.py``):
 #: large-negative but finite, so masked rows never produce inf - inf
@@ -103,3 +110,19 @@ def decode_attend_plain(
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bngl,blnh->bngh", probs.to(v_cache.dtype), v_cache)
     return out.reshape(b, nh, hd).to(q.dtype)
+
+
+def decode_attend(
+    q: torch.Tensor,          # [B, NH, Hd] -- one new token per slot
+    k_cache: torch.Tensor,    # [B, L, NKV, Hd] (may be a [:, :kv_limit] view)
+    v_cache: torch.Tensor,
+    lengths: torch.Tensor,    # [B] int32 -- valid rows per slot (incl. new)
+    *,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Single-token decode attention over a contiguous KV cache: the plain
+    version for CPU tensors, kernel K3 for CUDA tensors (or it raises)."""
+    if q.device.type == "cpu":
+        return decode_attend_plain(q, k_cache, v_cache, lengths, scale=scale)
+    return decode_attend_contiguous(q, k_cache, v_cache, lengths,
+                                    scale=scale)

@@ -4,7 +4,8 @@ Each ``.cu`` file exposes a plain C entry point. It is compiled with
 ``nvcc -gencode arch=compute_90a,code=sm_90a`` into its own shared library
 at first use and loaded with ``ctypes``. The library goes into
 ``build/kernels/`` beside the package, under a name that carries a hash of
-the source and flags, so an edited source never loads a stale build.
+the source, the headers it includes and the flags, so an edited source
+never loads a stale build.
 ``build_all()`` starts one ``nvcc`` per source, all at once.
 
 Every kernel has a :class:`CudaKernel` handle with a plain integer
@@ -46,9 +47,10 @@ class CudaKernel:
     """One hand-written kernel: its source, its C symbol and its counter."""
 
     def __init__(self, name: str, source: str, symbol: str,
-                 argtypes: Sequence):
+                 argtypes: Sequence, headers: Sequence[str] = ()):
         self.name = name
         self.source = CSRC / source
+        self.headers = [CSRC / h for h in headers]
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.launches = 0
@@ -58,8 +60,9 @@ class CudaKernel:
 
     @property
     def library(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes()
-                                + " ".join(NVCC_FLAGS).encode()).hexdigest()
+        text = b"".join(f.read_bytes() for f in [self.source, *self.headers])
+        digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()
+                                ).hexdigest()
         return BUILD_DIR / f"lib{self.source.stem}-{digest[:16]}.so"
 
     def _compile_cmd(self, out: Path) -> List[str]:
@@ -118,6 +121,7 @@ class CudaKernel:
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+L = ctypes.c_longlong
 F = ctypes.c_float
 
 KERNELS: Dict[str, CudaKernel] = {
@@ -126,7 +130,15 @@ KERNELS: Dict[str, CudaKernel] = {
         [P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, I, P]),
     "paged_decode": CudaKernel(
         "paged_decode", "paged_decode.cu", "detikzify_paged_decode",
-        [P, P, P, P, P, P, I, I, I, I, I, I, I, F, P]),
+        [P, P, P, P, P, P, I, I, I, I, I, I, I, F, P],
+        headers=["decode_attn.cuh"]),
+    "decode_contig": CudaKernel(
+        "decode_contig", "decode_contig.cu", "detikzify_decode_contig",
+        [P, P, P, P, P, I, I, I, I, I, L, F, P],
+        headers=["decode_attn.cuh"]),
+    "paged_verify": CudaKernel(
+        "paged_verify", "paged_verify.cu", "detikzify_paged_verify",
+        [P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, P]),
     "int8_gemv": CudaKernel(
         "int8_gemv", "int8_gemv.cu", "detikzify_int8_gemv",
         [P, P, P, P, I, I, I, I, I, P]),

@@ -7,7 +7,9 @@ set -> Gumbel-max draw. Gumbel noise comes from an explicit
 ``torch.Generator`` on the logits' device; greedy rows (temperature <= 0)
 take the plain argmax and no noise. Philox and threefry give different
 bits, so sampled draws match the JAX package in distribution, not token
-for token; greedy draws match exactly.
+for token; greedy draws match exactly. ``speculative_accept`` is the
+distribution-preserving acceptance of speculative decoding under the same
+warp.
 """
 from __future__ import annotations
 
@@ -107,14 +109,101 @@ def sample(
                                         candidates)
     # noise is drawn for every row (no host sync to test for all-greedy)
     # and zeroed on greedy rows
-    u = torch.rand(top_logits.shape, generator=generator, device=dev,
-                   dtype=torch.float32)
-    gumbel = -torch.log(-torch.log(u.clamp(
-        min=torch.finfo(torch.float32).tiny)))
+    gumbel = _gumbel(top_logits.shape, generator, dev)
     noisy = top_logits + torch.where(greedy[:, None],
                                      torch.zeros_like(gumbel), gumbel)
     choice = torch.argmax(noisy, dim=-1)
     return torch.gather(top_idx, 1, choice[:, None])[:, 0].to(torch.int32)
+
+
+def _gumbel(shape, generator, device) -> torch.Tensor:
+    u = torch.rand(shape, generator=generator, device=device,
+                   dtype=torch.float32)
+    return -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
+
+
+def speculative_accept(
+    logits: torch.Tensor,           # [B, K+1, V] fp32 -- verify logits
+    drafts: torch.Tensor,           # [B, K] int32 drafted tokens (<0: none)
+    generator: Optional[torch.Generator],
+    *,
+    temperature,                    # float or [B]
+    top_p,
+    top_k,
+    candidates: int = CANDIDATES,
+    banned_tokens: Tuple[int, ...] = (),
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Distribution-preserving acceptance of deterministic drafts (n-gram
+    speculative decoding), the JAX ``speculative_accept``.
+
+    ``logits[:, i]`` is the distribution of the token following input i of
+    ``[last_token, d_1 .. d_K]``. Draft ``d_{i+1}`` is accepted with
+    probability ``p_i(d_{i+1})`` under the warp ``sample`` uses; at the first
+    rejection one token is drawn from ``p_i`` with the draft removed, and
+    when every draft is accepted a bonus token is drawn from ``p_K``. Greedy
+    rows (temperature <= 0) accept exactly the argmax chain. Random numbers,
+    in this order: one uniform [B, K], one Gumbel [B, candidates].
+
+    Returns (emitted [B, K+1] int32, counts [B] int32): row b emits
+    ``emitted[b, :counts[b]]``, 1 <= counts <= K+1."""
+    b, k1, v = logits.shape
+    k = k1 - 1
+    assert tuple(drafts.shape) == (b, k)
+    dev = logits.device
+    drafts = drafts.long()
+    logits = logits.float().clone()
+    for tok in banned_tokens:
+        logits[:, :, tok] = _NEG_INF
+    temperature = _per_row(temperature, b, torch.float32, dev)
+    top_p = _per_row(top_p, b, torch.float32, dev)
+    top_k = _per_row(top_k, b, torch.int32, dev)
+    top_logits, top_idx, greedy = _warp(
+        logits.reshape(b * k1, v), temperature.repeat_interleave(k1),
+        top_p.repeat_interleave(k1), top_k.repeat_interleave(k1), candidates)
+    top_logits = top_logits.reshape(b, k1, -1)
+    top_idx = top_idx.reshape(b, k1, -1)
+    greedy = greedy.reshape(b, k1)[:, 0]
+    probs = torch.softmax(top_logits, dim=-1)                    # [B,K1,C]
+
+    # p_i(d_{i+1}) under the warped distribution; 0 when the draft is
+    # outside the candidate set, filtered or invalid (< 0)
+    is_draft = top_idx[:, :k] == drafts[:, :, None]              # [B,K,C]
+    p_draft = torch.where(is_draft, probs[:, :k],
+                          torch.zeros_like(probs[:, :k])).sum(-1)
+    # greedy rows: accept iff the draft IS the argmax (warped top choice)
+    argmax_tok = top_idx[..., 0]                                 # [B,K1]
+    p_draft = torch.where(greedy[:, None],
+                          (drafts == argmax_tok[:, :k]).float(), p_draft)
+
+    u = torch.rand((b, k), generator=generator, device=dev,
+                   dtype=torch.float32)
+    acc = u < p_draft
+    m = torch.cumprod(acc.long(), dim=-1).sum(-1)                # [B] 0..K
+
+    # final token: residual of p_m with the rejected draft removed when
+    # m < K, plain p_K (bonus) when every draft was accepted
+    rows = torch.arange(b, device=dev)
+    final_logits = top_logits[rows, m]                           # [B,C]
+    final_idx = top_idx[rows, m]
+    if k > 0:
+        rej_draft = drafts.gather(1, m.clamp(max=k - 1)[:, None])[:, 0]
+    else:
+        rej_draft = torch.full((b,), -1, dtype=torch.long, device=dev)
+    drop = (m < k)[:, None] & (final_idx == rej_draft[:, None])
+    final_logits = final_logits.masked_fill(drop, _NEG_INF)
+    gumbel = _gumbel(final_logits.shape, generator, dev)
+    noisy = final_logits + torch.where(greedy[:, None],
+                                       torch.zeros_like(gumbel), gumbel)
+    choice = torch.argmax(noisy, dim=-1)
+    final_tok = final_idx.gather(1, choice[:, None])[:, 0]
+
+    pos = torch.arange(k1, device=dev)[None, :]
+    padded = torch.cat([drafts, torch.zeros((b, 1), dtype=torch.long,
+                                            device=dev)], dim=1)
+    emitted = torch.where(pos < m[:, None], padded,
+                          torch.where(pos == m[:, None], final_tok[:, None],
+                                      torch.zeros_like(padded)))
+    return emitted.to(torch.int32), (m + 1).to(torch.int32)
 
 
 def make_newline_table(tokenizer, vocab_size: int):

@@ -1,4 +1,4 @@
-"""Kernels K1, K2 and K5 against their plain versions on a CUDA card.
+"""Kernels K1-K5 against their plain versions on a CUDA card.
 
 Marked ``gpu``: they need a card, nvcc and sm_90a, and skip elsewhere (the
 CPU suite holds the plain versions against the JAX package instead). Run
@@ -25,15 +25,20 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _close(got, want, pv_abs):
+def _within(got, want, pv_abs) -> bool:
     """Both sides round the output to bf16 once and round probabilities to
     bf16 at different points, each at most u times the mass that reaches
     the element: |diff| <= 2u (pv_abs + |want|), pv_abs the plain version
     run on |v|."""
     err = (got.float() - want.float()).abs()
     bound = 2 * BF16_U * (pv_abs.float() + want.float().abs())
-    assert bool(torch.isfinite(got.float()).all())
-    assert bool((err <= bound).all()), float(err.max())
+    return bool(torch.isfinite(got.float()).all()) and bool(
+        (err <= bound).all())
+
+
+def _close(got, want, pv_abs):
+    assert _within(got, want, pv_abs), float(
+        (got.float() - want.float()).abs().max())
 
 
 def _rnd(gen, dev, *shape):
@@ -90,6 +95,83 @@ def test_paged_kernel_matches_plain(cuda, nh, nkv, hd):
         q, pool_k, pool_v.abs(), tab, lengths))
 
 
+def _verify_inputs(gen, dev, b, k1, nh, nkv, hd, page, m):
+    n_pages = b * m + 2
+    pool_k = _rnd(gen, dev, n_pages, page, nkv, hd)
+    pool_v = _rnd(gen, dev, n_pages, page, nkv, hd)
+    tab = torch.randperm(n_pages, generator=gen, device=dev)[:b * m]
+    tab = tab.reshape(b, m).to(torch.int32)
+    return _rnd(gen, dev, b, k1, nh, hd), pool_k, pool_v, tab
+
+
+@pytest.mark.parametrize("b,k1,nh,nkv,hd,page,m", [
+    (4, 5, 8, 2, 64, 64, 5),
+    (3, 3, 4, 4, 128, 128, 3),
+    (8, 5, 32, 8, 128, 128, 16),       # v2-8b, speculate=4
+    (2, 8, 16, 2, 128, 128, 4),        # 64 query rows per KV head
+])
+def test_paged_verify_kernel_matches_plain(cuda, b, k1, nh, nkv, hd, page,
+                                           m):
+    """K4 against its plain version, with a dead slot (start 0), a slot
+    whose window runs past the table edge (start + K1 > m * page), and a
+    column slice of a wider table. Control: the plain version with every
+    causal limit one row later (start + 1) must fail the tolerance."""
+    gen = torch.Generator(device=cuda).manual_seed(b + k1 + hd)
+    q, pool_k, pool_v, tab = _verify_inputs(gen, cuda, b, k1, nh, nkv, hd,
+                                            page, m)
+    edge = m * page - k1 + 2
+    starts = torch.randint(1, m * page - k1, (b,), generator=gen,
+                           device=cuda).to(torch.int32)
+    starts[0], starts[-1] = 0, edge
+    wide = torch.cat([tab, tab[:, :2]], dim=1)
+    before = paged.VERIFY_KERNEL.launches
+    got = paged.decode_verify_attend_paged(q, pool_k, pool_v, wide[:, :m],
+                                           starts)
+    assert paged.VERIFY_KERNEL.launches == before + 1
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    want = paged.decode_verify_attend_paged_plain(q, pool_k, pool_v, tab,
+                                                  starts)
+    pv_abs = paged.decode_verify_attend_paged_plain(q, pool_k, pool_v.abs(),
+                                                    tab, starts)
+    _close(got, want, pv_abs)
+    late = paged.decode_verify_attend_paged_plain(q, pool_k, pool_v, tab,
+                                                  starts + 1)
+    assert not _within(got, late, pv_abs)
+
+
+@pytest.mark.parametrize("b,nh,nkv,hd,L,limit", [
+    (3, 8, 2, 64, 512, None),
+    (5, 32, 8, 128, 700, None),
+    (8, 32, 8, 128, 2048, None),       # v2-8b, the full cache
+    (8, 32, 8, 128, 2048, 1024),       # v2-8b, a kv_limit view in place
+])
+def test_decode_contig_kernel_matches_plain(cuda, b, nh, nkv, hd, L, limit):
+    """K3 (through ``ops.attention.decode_attend``) against its plain
+    version, on the full cache and on a ``[:, :kv_limit]`` view read in
+    place with lengths clamped to it. Control: the plain version reading
+    one 64-row block short must fail the tolerance."""
+    from detikzify_torch.ops import decode_flash
+
+    gen = torch.Generator(device=cuda).manual_seed(b + L)
+    q = _rnd(gen, cuda, b, nh, hd)
+    k, v = _rnd(gen, cuda, b, L, nkv, hd), _rnd(gen, cuda, b, L, nkv, hd)
+    lengths = torch.randint(65, L + 1, (b,), generator=gen,
+                            device=cuda).to(torch.int32)
+    lengths[0] = L
+    if limit is not None:
+        k, v = k[:, :limit], v[:, :limit]
+        lengths = lengths.clamp(max=limit)
+        assert not k.is_contiguous()
+    before = decode_flash.KERNEL.launches
+    got = attention.decode_attend(q, k, v, lengths)
+    assert decode_flash.KERNEL.launches == before + 1
+    want = attention.decode_attend_plain(q, k, v, lengths)
+    pv_abs = attention.decode_attend_plain(q, k, v.abs(), lengths)
+    _close(got, want, pv_abs)
+    short = attention.decode_attend_plain(q, k, v, lengths - 64)
+    assert not _within(got, short, pv_abs)
+
+
 # (K, N) of every K5 product on the int8 v2-8b path: fused qkv, o, fused
 # gateup, down, lm_head (fp32 out), the MAP head's q and o
 K5_SHAPES = [(4096, 6144, "bf16"), (4096, 4096, "bf16"),
@@ -128,7 +210,7 @@ def _k5_close(got, x, q, scale, out_dtype):
     assert bool((err <= bound).all()), float((err / bound).max())
 
 
-@pytest.mark.parametrize("rows", [1, 8, 64])
+@pytest.mark.parametrize("rows", [1, 8, 40, 64])
 @pytest.mark.parametrize("k,n,out", K5_SHAPES)
 def test_int8_gemv_matches_plain(cuda, rows, k, n, out):
     gen = torch.Generator(device=cuda).manual_seed(rows + k + n)
@@ -197,6 +279,18 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     lengths = torch.ones((1,), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         paged.decode_attend_paged(qb, pool, pool, tab, lengths)
+    qv = torch.zeros((1, 9, 8, 128), dtype=torch.bfloat16, device=cuda)
+    pool = torch.zeros((2, 128, 8, 128), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="K1 <= 8"):
+        paged.decode_verify_attend_paged(qv, pool, pool, tab, lengths)
+    kc = torch.zeros((1, 64, 2, 96), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        attention.decode_attend(qb, kc, kc, lengths)
+    kc = torch.zeros((1, 64, 2, 128), dtype=torch.bfloat16, device=cuda)
+    qc = torch.zeros((1, 4, 128), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="strides"):
+        attention.decode_attend(qc, kc.transpose(1, 2), kc.transpose(1, 2),
+                                lengths)
     q8 = torch.zeros((256, 256), dtype=torch.int8, device=cuda)
     scale = torch.ones((256,), device=cuda)
     xh = torch.zeros((4, 256), dtype=torch.float16, device=cuda)

@@ -1,9 +1,10 @@
 """The port's kernel modules against the JAX package, on the CPU.
 
-K1 (``detikzify_torch.ops.flash``) and K2 (``detikzify_torch.ops.paged``)
-take their plain PyTorch versions for CPU tensors; these are held against
-the Pallas kernels run in interpret mode and against the JAX XLA paths, at
-the tolerances of ``tests/test_kernels.py`` (fp32). Sampling is held
+K1 (``detikzify_torch.ops.flash``), K2 and K4 (``detikzify_torch.ops.paged``)
+and K3 (``detikzify_torch.ops.attention.decode_attend``) take their plain
+PyTorch versions for CPU tensors; these are held against the Pallas kernels
+run in interpret mode and against the JAX XLA paths, at the tolerances of
+``tests/test_kernels.py`` (fp32). Sampling is held
 exactly on greedy rows and on the warped candidate logits, and by support
 on sampled rows (threefry and Philox draw different bits).
 """
@@ -15,8 +16,13 @@ import torch
 
 from detikzify_tpu.ops import sampling as jsampling
 from detikzify_tpu.ops.attention import attend_xla, decode_attend
+from detikzify_tpu.ops.decode_flash import decode_attend_pallas
 from detikzify_tpu.ops.flash import flash_attention as jflash
-from detikzify_tpu.ops.paged import decode_attend_paged_pallas, gather_pages
+from detikzify_tpu.ops.paged import (decode_attend_paged_pallas,
+                                     decode_verify_attend_paged,
+                                     decode_verify_attend_paged_pallas,
+                                     gather_pages)
+from detikzify_torch.ops import attention as tattention
 from detikzify_torch.ops import flash as tflash
 from detikzify_torch.ops import paged as tpaged
 from detikzify_torch.ops import sampling as tsampling
@@ -142,6 +148,110 @@ def test_paged_plain_matches_pallas(nh, nkv, hd):
     got_w = tpaged.decode_attend_paged(_t(q), _t(pool_k), _t(pool_v),
                                        _t(wide)[:, :m], _t(lengths)).numpy()
     np.testing.assert_array_equal(got_w, got)
+
+
+@pytest.mark.parametrize("nh,nkv,hd,L", [(8, 2, 64, 512), (4, 4, 48, 300),
+                                         (8, 2, 128, 512)])
+def test_decode_contiguous_plain_matches_pallas(nh, nkv, hd, L):
+    """K3's plain version (``decode_attend`` on CPU tensors) == the Pallas
+    length-clamped kernel in interpret mode and the JAX XLA path; also on a
+    ``[:, :kv_limit]`` view of the cache with lengths clamped to it (the
+    contiguous ``decode_step``)."""
+    rng = np.random.default_rng(2)
+    b = 3
+    q = rng.standard_normal((b, nh, hd)).astype(np.float32)
+    k = rng.standard_normal((b, L, nkv, hd)).astype(np.float32)
+    v = rng.standard_normal((b, L, nkv, hd)).astype(np.float32)
+    lengths = np.asarray([5, L // 2, L], np.int32)
+    args = [jnp.asarray(x) for x in (q, k, v, lengths)]
+    want = np.asarray(decode_attend(*args, implementation="xla"))
+    pallas = np.asarray(decode_attend_pallas(*args, interpret=True))
+    got = tattention.decode_attend(_t(q), _t(k), _t(v), _t(lengths)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=1e-5)
+    np.testing.assert_allclose(got, pallas, atol=3e-5, rtol=3e-4)
+    lim = 200
+    clamped = np.minimum(lengths, lim)
+    pallas_v = np.asarray(decode_attend_pallas(
+        args[0], args[1][:, :lim], args[2][:, :lim], jnp.asarray(clamped),
+        interpret=True))
+    got_v = tattention.decode_attend(_t(q), _t(k)[:, :lim], _t(v)[:, :lim],
+                                     _t(clamped)).numpy()
+    np.testing.assert_allclose(got_v, pallas_v, atol=3e-5, rtol=3e-4)
+
+
+def _verify_case(rng, b, k1, nh, nkv, hd, page, m, n_pages):
+    pool_k = rng.standard_normal((n_pages, page, nkv, hd)).astype(np.float32)
+    pool_v = rng.standard_normal((n_pages, page, nkv, hd)).astype(np.float32)
+    tab = np.stack([rng.permutation(n_pages)[:m] for _ in range(b)]).astype(
+        np.int32)
+    q = rng.standard_normal((b, k1, nh, hd)).astype(np.float32)
+    return q, pool_k, pool_v, tab
+
+
+def _verify_dense(q, pool_k, pool_v, tab, starts, page):
+    """Dense reference: row j of slot b attends gathered rows below
+    min(starts[b] + j + 1, m * page)."""
+    b, k1, nh, hd = q.shape
+    groups = nh // pool_k.shape[2]
+    kg = np.repeat(np.asarray(gather_pages(jnp.asarray(pool_k),
+                                           jnp.asarray(tab))), groups, 2)
+    vg = np.repeat(np.asarray(gather_pages(jnp.asarray(pool_v),
+                                           jnp.asarray(tab))), groups, 2)
+    want = np.zeros_like(q)
+    for i in range(b):
+        for j in range(k1):
+            lim = min(int(starts[i]) + j + 1, tab.shape[1] * page)
+            logits = np.einsum("nh,pnh->np", q[i, j], kg[i, :lim]) * hd ** -0.5
+            p = np.exp(logits - logits.max(-1, keepdims=True))
+            p /= p.sum(-1, keepdims=True)
+            want[i, j] = np.einsum("np,pnh->nh", p, vg[i, :lim])
+    return want
+
+
+@pytest.mark.parametrize("nh,nkv,hd", [(8, 2, 64), (4, 4, 128)])
+def test_paged_verify_plain_matches_pallas(nh, nkv, hd):
+    """K4's plain version == the Pallas verify-window kernel in interpret
+    mode, the JAX XLA path and a dense reference (tests/test_kernels.py:243),
+    including a dead slot (start 0); also through a column slice of a wider
+    table."""
+    rng = np.random.default_rng(7)
+    b, k1, page, m, n_pages = 4, 5, 128, 4, 16
+    q, pool_k, pool_v, tab = _verify_case(rng, b, k1, nh, nkv, hd, page, m,
+                                          n_pages)
+    starts = np.asarray([0, 37, m * page - k1, 0], np.int32)
+    args = [jnp.asarray(x) for x in (q, pool_k, pool_v, tab, starts)]
+    want = _verify_dense(q, pool_k, pool_v, tab, starts, page)
+    xla = np.asarray(decode_verify_attend_paged(*args, implementation="xla"))
+    pallas = np.asarray(decode_verify_attend_paged_pallas(*args,
+                                                          interpret=True))
+    got = tpaged.decode_verify_attend_paged(
+        *[_t(x) for x in (q, pool_k, pool_v, tab, starts)]).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-4)
+    np.testing.assert_allclose(got, xla, atol=1e-5, rtol=1e-4)
+    np.testing.assert_allclose(got, pallas, atol=1e-5, rtol=1e-4)
+    wide = np.concatenate([tab, np.zeros((b, 2), np.int32)], axis=1)
+    got_w = tpaged.decode_verify_attend_paged(
+        _t(q), _t(pool_k), _t(pool_v), _t(wide)[:, :m], _t(starts)).numpy()
+    np.testing.assert_array_equal(got_w, got)
+
+
+def test_paged_verify_plain_clamps_to_table_edge():
+    """starts near the table edge (start + K1 > m * page): the window is
+    clamped to the m pages of the table, as the Pallas kernel clamps it
+    (tests/test_kernels.py:288)."""
+    rng = np.random.default_rng(11)
+    b, k1, page, m, n_pages = 2, 5, 128, 3, 8
+    q, pool_k, pool_v, tab = _verify_case(rng, b, k1, 4, 4, 64, page, m,
+                                          n_pages)
+    starts = np.asarray([m * page - 1, m * page - k1 + 1], np.int32)
+    args = [jnp.asarray(x) for x in (q, pool_k, pool_v, tab, starts)]
+    want = _verify_dense(q, pool_k, pool_v, tab, starts, page)
+    pallas = np.asarray(decode_verify_attend_paged_pallas(*args,
+                                                          interpret=True))
+    got = tpaged.decode_verify_attend_paged(
+        *[_t(x) for x in (q, pool_k, pool_v, tab, starts)]).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-4)
+    np.testing.assert_allclose(got, pallas, atol=1e-5, rtol=1e-4)
 
 
 # ---------------------------------------------------------------------------

@@ -278,3 +278,237 @@ def test_init_random_scales_and_device():
     if not torch.cuda.is_available():
         with pytest.raises((RuntimeError, AssertionError)):
             convert.init_random(tcfg)            # default device is cuda
+
+
+# ---------------------------------------------------------------------------
+# contiguous KVCache: prefill / decode_step / decode_verify_step against JAX
+# (mirrors tests/test_models_parity.py:104,140 and tests/test_paged.py:32)
+# ---------------------------------------------------------------------------
+
+def _contig_pair(models, batch, max_len):
+    cfg, _, tcfg, _ = models
+    return (jllama.init_cache(cfg.text, batch, max_len, jnp.float32),
+            tllama.init_cache(tcfg.text, batch, max_len, torch.float32,
+                              device="cpu"))
+
+
+def _check_cache(tcache, jcache):
+    np.testing.assert_allclose(tcache.k.numpy(), np.asarray(jcache.k),
+                               atol=1e-5, rtol=1e-4)
+    np.testing.assert_allclose(tcache.v.numpy(), np.asarray(jcache.v),
+                               atol=1e-5, rtol=1e-4)
+
+
+def _i32(x):
+    return np.asarray(x, np.int32)
+
+
+@pytest.mark.parametrize("kv_limit", [None, 24])
+def test_prefill_decode_contiguous_matches_jax(models, kv_limit):
+    """Contiguous prefill then decode steps (K1 window, K3's plain version)
+    == JAX, logits within 3e-4, and == the full causal forward."""
+    cfg, jparams, tcfg, tparams = models
+    rng = np.random.default_rng(8)
+    ids = rng.integers(0, 500, (2, 14)).astype(np.int32)
+    jcache, tcache = _contig_pair(models, 2, 32)
+    prefix = 8
+    start, seq = _i32([0, 0]), _i32([prefix, prefix])
+    jl, jcache = jdet.prefill(jparams, cfg, jnp.asarray(ids[:, :prefix]),
+                              None, jnp.asarray(start), jnp.asarray(seq),
+                              jcache, attn_impl="xla")
+    tl, tcache = tdet.prefill(tparams, tcfg, torch.from_numpy(ids[:, :prefix]),
+                              None, torch.from_numpy(start),
+                              torch.from_numpy(seq), tcache)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=TOL, rtol=TOL)
+    full, _ = tdet.forward(tparams, tcfg, torch.from_numpy(ids))
+    for i in range(prefix, ids.shape[1]):
+        pos = _i32([i, i])
+        jl, jcache = jdet.decode_step(jparams, cfg, jnp.asarray(ids[:, i]),
+                                      jnp.asarray(pos), jcache,
+                                      kv_limit=kv_limit, attn_impl="xla")
+        tl, tcache = tdet.decode_step(tparams, tcfg,
+                                      torch.from_numpy(ids[:, i]),
+                                      torch.from_numpy(pos), tcache,
+                                      kv_limit=kv_limit)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=TOL,
+                                   rtol=TOL)
+        np.testing.assert_allclose(tl.numpy(), full[:, i].numpy(), atol=TOL,
+                                   rtol=TOL)
+    _check_cache(tcache, jcache)
+
+
+def test_prefill_with_offset_matches_jax(models):
+    """Prefix restore + tail prefill at an offset == JAX == the full
+    forward's logits over the tail."""
+    cfg, jparams, tcfg, tparams = models
+    rng = np.random.default_rng(9)
+    ids = rng.integers(0, 500, (1, 14)).astype(np.int32)
+    full, _ = tdet.forward(tparams, tcfg, torch.from_numpy(ids))
+    jcache, tcache = _contig_pair(models, 1, 32)
+    jemb = jllama.embed(jparams.text, jnp.asarray(ids))
+    temb = tllama.embed(tparams.text, torch.from_numpy(ids))
+    for lo, hi in ((0, 6), (6, 14)):
+        jh, jcache = jllama.prefill(jparams.text, cfg.text, jemb[:, lo:hi],
+                                    jnp.asarray(_i32([lo])),
+                                    jnp.asarray(_i32([hi - lo])), jcache,
+                                    attn_impl="xla")
+        th, tcache = tllama.prefill(tparams.text, tcfg.text, temb[:, lo:hi],
+                                    torch.from_numpy(_i32([lo])),
+                                    torch.from_numpy(_i32([hi - lo])),
+                                    tcache)
+        np.testing.assert_allclose(th.numpy(), np.asarray(jh), atol=TOL,
+                                   rtol=TOL)
+    logits = tllama.unembed(tparams.text, th)
+    np.testing.assert_allclose(logits.numpy(), full[:, 6:].numpy(),
+                               atol=TOL, rtol=TOL)
+    _check_cache(tcache, jcache)
+
+
+def test_contiguous_writes_clamp_like_jax(models):
+    """``dynamic_update_slice`` clamps its start into the cache: a decode
+    write at the last row, one past it, and a prefill block that would run
+    past the end all land where JAX puts them."""
+    cfg, jparams, tcfg, tparams = models
+    rng = np.random.default_rng(10)
+    t = 16
+    jcache, tcache = _contig_pair(models, 2, t)
+    ids = rng.integers(0, 500, (2, 6)).astype(np.int32)
+    start, seq = _i32([3, t - 4]), _i32([6, 6])     # row 1 runs past the end
+    jl, jcache = jdet.prefill(jparams, cfg, jnp.asarray(ids), None,
+                              jnp.asarray(start), jnp.asarray(seq), jcache,
+                              attn_impl="xla")
+    tl, tcache = tdet.prefill(tparams, tcfg, torch.from_numpy(ids), None,
+                              torch.from_numpy(start), torch.from_numpy(seq),
+                              tcache)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=TOL, rtol=TOL)
+    _check_cache(tcache, jcache)
+    assert float(tcache.k[:, 1, t - 1].abs().sum()) > 0    # the last row
+    for pos in (_i32([t - 1, t - 1]), _i32([t - 1, t])):   # last, one past
+        tok = rng.integers(0, 500, (2,)).astype(np.int32)
+        jl, jcache = jdet.decode_step(jparams, cfg, jnp.asarray(tok),
+                                      jnp.asarray(pos), jcache,
+                                      attn_impl="xla")
+        tl, tcache = tdet.decode_step(tparams, tcfg, torch.from_numpy(tok),
+                                      torch.from_numpy(pos), tcache)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=TOL,
+                                   rtol=TOL)
+        _check_cache(tcache, jcache)
+
+
+def test_decode_verify_step_matches_jax(models):
+    """The contiguous verify forward: [B, K+1, V] fp32 logits == JAX, and
+    column j == a decode step at the same position."""
+    cfg, jparams, tcfg, tparams = models
+    rng = np.random.default_rng(11)
+    ids = rng.integers(0, 500, (2, 12)).astype(np.int32)
+    jcache, tcache = _contig_pair(models, 2, 32)
+    seq = _i32([7, 5])
+    args = (_i32([0, 0]), seq)
+    _, jcache = jdet.prefill(jparams, cfg, jnp.asarray(ids[:, :7]), None,
+                             *map(jnp.asarray, args), jcache, attn_impl="xla")
+    _, tcache = tdet.prefill(tparams, tcfg, torch.from_numpy(ids[:, :7]),
+                             None, *map(torch.from_numpy, args), tcache)
+    block = rng.integers(0, 500, (2, 4)).astype(np.int32)
+    jl, jcache = jdet.decode_verify_step(jparams, cfg, jnp.asarray(block),
+                                         jnp.asarray(seq), jcache,
+                                         attn_impl="xla")
+    tl, tcache = tdet.decode_verify_step(tparams, tcfg,
+                                         torch.from_numpy(block),
+                                         torch.from_numpy(seq), tcache)
+    assert tl.shape == (2, 4, 512) and tl.dtype == torch.float32
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=TOL, rtol=TOL)
+    _check_cache(tcache, jcache)
+    dl, _ = tdet.decode_step(tparams, tcfg, torch.from_numpy(block[:, 0]),
+                             torch.from_numpy(seq), tcache)
+    np.testing.assert_allclose(tl[:, 0].numpy(), dl.numpy(), atol=TOL,
+                               rtol=TOL)
+
+
+def test_verify_step_paged_zerocopy_matches_jax(models):
+    """Zero-copy verify over the page pool (K4's plain version) == JAX:
+    logits and pool, with one dead slot whose writes must all land on the
+    trash page, and one live slot whose window reaches the trash rows."""
+    cfg, jparams, tcfg, tparams = models
+    rng = np.random.default_rng(12)
+    b, k1 = 3, 4
+    jpool, tpool = _paged_pair(models, 26)
+    tabs = rng.permutation(24).reshape(b, M_CAP).astype(np.int32)
+    ids = rng.integers(0, 500, (b, 20)).astype(np.int32)
+    seq = _i32([20, 11, 20])
+    start = _i32([0, 0, 0])
+    empty = np.zeros((b, 0), np.int32)
+    _, jpool = jllama.prefill_paged(
+        jparams.text, cfg.text, jllama.embed(jparams.text, jnp.asarray(ids)),
+        jnp.asarray(start), jnp.asarray(seq), jpool, jnp.asarray(empty),
+        jnp.asarray(tabs), jnp.asarray(start), trash_row=TRASH_ROW,
+        trash_page=25, attn_impl="xla")
+    _, tpool = tllama.prefill_paged(
+        tparams.text, tcfg.text,
+        tllama.embed(tparams.text, torch.from_numpy(ids)),
+        torch.from_numpy(start), torch.from_numpy(seq), tpool,
+        torch.from_numpy(empty), torch.from_numpy(tabs),
+        torch.from_numpy(start), trash_row=TRASH_ROW, trash_page=25)
+    _check_pool(tpool, jpool)
+    before = tpool.k[:, tabs[1]].clone()
+    block = rng.integers(0, 500, (b, k1)).astype(np.int32)
+    vstart = _i32([20, 0, TRASH_ROW - 2])     # slot 1 dead: start clamped
+    dead = np.asarray([False, True, False])
+    kw = dict(kv_pages=M_CAP, trash_row=TRASH_ROW, trash_page=25)
+    jl, jpool = jdet.decode_verify_step_paged_zerocopy(
+        jparams, cfg, jnp.asarray(block), jnp.asarray(vstart), jpool,
+        jnp.asarray(tabs), dead=jnp.asarray(dead), **kw)
+    tl, tpool = tdet.decode_verify_step_paged_zerocopy(
+        tparams, tcfg, torch.from_numpy(block), torch.from_numpy(vstart),
+        tpool, torch.from_numpy(tabs), dead=torch.from_numpy(dead), **kw)
+    assert tl.shape == (b, k1, 512) and tl.dtype == torch.float32
+    ok = ~dead
+    np.testing.assert_allclose(tl.numpy()[ok], np.asarray(jl)[ok], atol=TOL,
+                               rtol=TOL)
+    assert bool(torch.isfinite(tl).all())
+    assert torch.equal(tpool.k[:, tabs[1]], before)   # dead slot: no writes
+    # live rows match; the trash page is written by several rows at once
+    keep = [p for p in range(26) if p != 25]
+    np.testing.assert_allclose(tpool.k[:, keep].numpy(),
+                               np.asarray(jpool.k)[:, keep], atol=1e-5,
+                               rtol=1e-4)
+    np.testing.assert_allclose(tpool.v[:, keep].numpy(),
+                               np.asarray(jpool.v)[:, keep], atol=1e-5,
+                               rtol=1e-4)
+
+
+def test_prefill_decode_paged_matches_contiguous(models):
+    """The port's paged pair (page tables, trash routing) == its contiguous
+    pair on the same tokens, hidden states within the tolerances of
+    tests/test_paged.py:32."""
+    _, _, tcfg, tparams = models
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, 500, (B, 13)).astype(np.int32)
+    start, seq = _i32([0, 0]), _i32([13, 9])
+    cache = tllama.init_cache(tcfg.text, B, M_CAP * PAGE, torch.float32,
+                              device="cpu")
+    pool = tllama.init_paged_cache(tcfg.text, 18, PAGE, torch.float32,
+                                   device="cpu")
+    tabs = torch.from_numpy(rng.permutation(16).reshape(B, M_CAP).astype(
+        np.int32))
+    emb = tllama.embed(tparams.text, torch.from_numpy(ids))
+    h_ref, cache = tllama.prefill(tparams.text, tcfg.text, emb,
+                                  torch.from_numpy(start),
+                                  torch.from_numpy(seq), cache)
+    h_pg, pool = tllama.prefill_paged(
+        tparams.text, tcfg.text, emb, torch.from_numpy(start),
+        torch.from_numpy(seq), pool, torch.zeros((B, 0), dtype=torch.int32),
+        tabs, torch.from_numpy(start), trash_row=TRASH_ROW, trash_page=17)
+    np.testing.assert_allclose(h_pg.numpy(), h_ref.numpy(), atol=1e-5,
+                               rtol=1e-4)
+    positions = torch.from_numpy(_i32([13, 9]))
+    for _ in range(6):
+        e = tllama.embed(tparams.text, torch.from_numpy(
+            rng.integers(0, 500, (B,)).astype(np.int32)))
+        h1, cache = tllama.decode_step(tparams.text, tcfg.text, e, positions,
+                                       cache)
+        h2, pool = tllama.decode_step_paged(
+            tparams.text, tcfg.text, e, positions, pool, tabs,
+            trash_row=TRASH_ROW, trash_page=17)
+        np.testing.assert_allclose(h2.numpy(), h1.numpy(), atol=1e-5,
+                                   rtol=1e-4)
+        positions = positions + 1

@@ -446,17 +446,30 @@ def test_chip_smoke_cpu_rehearsal():
     assert json.loads(lines[-1]) == {"ok": True, "rehearsal": "cpu"}
     kernels = json.loads(lines[-2])["kernels"]
     names = {row["kernel"] for row in kernels}
-    assert names == {"flash_attention", "paged_decode", "int8_gemv"}
-    assert all(set(row["launches_by_path"]) == {"sample", "simulate"}
-               for row in kernels)
-    sim = json.loads(lines[-3])
-    assert sim["phase"] == "simulate" and sim["rollouts"] == 16
+    assert names == {"flash_attention", "paged_decode", "paged_verify",
+                     "decode_contig", "int8_gemv"}
+    paths = {"sample", "contiguous", "spec_greedy", "simulate",
+             "simulate_spec", "simulate_spec_gated"}
+    assert all(set(row["launches_by_path"]) == paths for row in kernels)
+    phases = {}
+    for line in lines[:-2]:
+        obj = json.loads(line)
+        phases.setdefault(obj.get("phase"), obj)
+    sim = phases["simulate"]
+    assert sim["rollouts"] == 16
     assert sim["selfsim_scored_renders"] > 0
     assert max(sim["selfsim_wave_sizes"]) > 1
     assert sim["distinct_programs"] > 1
     assert all(np.isfinite(sim["scores"]))
-    main = json.loads(lines[-4])
-    assert main["phase"] == "main" and main["requests"]["figures"] == 6
+    assert phases["main"]["requests"]["figures"] == 6
+    contig = phases["contiguous"]
+    assert contig["first_step_logits_vs_engine"]["min_cosine"] >= 0.9999
+    spec = phases["spec_greedy"]
+    assert spec["hinted"]["spec_rate"] > 2.0
+    assert all(g["top1_top2_gap"] <= spec["tau"] for g in spec["divergences"])
+    for path in ("simulate_spec", "simulate_spec_gated"):
+        assert phases[path]["rollouts"] == 16
+        assert phases[path]["spec_counters"]["spec_steps"] > 0
 
 
 def test_chip_smoke_refuses_without_card(tmp_path):
