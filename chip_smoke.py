@@ -96,6 +96,16 @@ K5_CASES = (
 K5_ROWS = (1, 8, 40, 64)  # 40 = 8 slots x 5 rows of the verify forward
 K5_FP32_SUMS = 2        # fp32 sums whose rounding errors an fp32 K5 check
 #                         allows for: the kernel's and the plain version's
+# the device functions of each hand-written kernel, as the profiler names
+# them (K1 and K2 launch a merge after their split-key blocks)
+KERNEL_FUNCTIONS = {
+    "flash_attention": ("flash_fwd_kernel", "flash_split_kernel",
+                        "flash_split_merge_kernel"),
+    "paged_decode": ("paged_split_kernel", "paged_merge_kernel"),
+    "decode_contig": ("contig_decode_kernel",),
+    "paged_verify": ("paged_verify_kernel",),
+    "int8_gemv": ("int8_gemv_kernel",),
+}
 SIM_EXPANSIONS = 16     # MCTS expansions of the simulate phases
 SPECULATE = 4           # draft tokens per verify step (K1 = 5)
 CONTIG_NEW_TOKENS = 64  # greedy tokens of the contiguous phase
@@ -690,9 +700,14 @@ def profile_call(torch, fn, label: str) -> dict:
     if busy_ms <= 0:
         raise SystemExit("torch.profiler recorded no device time")
     rows.sort(key=lambda r: -r[1])
+    # device time of each hand-written kernel, over all of its functions
+    kernel_ms = {name: sum(us for k, us, _ in rows
+                           if any(f in k for f in funcs)) / 1e3
+                 for name, funcs in KERNEL_FUNCTIONS.items()}
     return {"phase": "profile", "request": label, "wall_ms": wall_ms,
             "device_busy_ms": busy_ms,
             "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
+            "kernel_ms": kernel_ms,
             "top": [{"name": k[:80], "device_ms": us / 1e3, "calls": n}
                     for k, us, n in rows[:10]]}
 
@@ -1417,7 +1432,8 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         logs = build_all()
         ptxas = {name: [ln.strip() for ln in log.splitlines()
-                        if "registers" in ln or "spill" in ln][:24]
+                        if "registers" in ln or "spill" in ln
+                        or "entry function" in ln][:64]
                  for name, log in logs.items()}
         emit({"phase": "build", "seconds": time.perf_counter() - t0,
               "ptxas": ptxas})

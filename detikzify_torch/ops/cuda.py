@@ -127,11 +127,12 @@ F = ctypes.c_float
 KERNELS: Dict[str, CudaKernel] = {
     "flash_attention": CudaKernel(
         "flash_attention", "flash_attn.cu", "detikzify_flash_attention",
-        [P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, I, P]),
+        [P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, I, P],
+        headers=["sm90.cuh"]),
     "paged_decode": CudaKernel(
         "paged_decode", "paged_decode.cu", "detikzify_paged_decode",
-        [P, P, P, P, P, P, I, I, I, I, I, I, I, F, P],
-        headers=["decode_attn.cuh"]),
+        [P, P, P, P, P, P, P, L, I, I, I, I, I, I, I, F, P],
+        headers=["decode_split.cuh", "sm90.cuh"]),
     "decode_contig": CudaKernel(
         "decode_contig", "decode_contig.cu", "detikzify_decode_contig",
         [P, P, P, P, P, I, I, I, I, I, L, F, P],

@@ -1,10 +1,13 @@
 """Kernel K1: fused attention forward (``csrc/flash_attn.cu``).
 
 Port of the Pallas TPU kernel ``detikzify_tpu/ops/flash.py::flash_attention``.
-The CUDA kernel streams K/V tiles through shared memory with an online
-softmax (see the header of ``flash_attn.cu`` for its design). The plain
-version is ``ops.attention.attend_plain``: a tensor on the CPU takes it, a
-CUDA tensor launches the kernel or raises. There is no backward yet.
+For S > 16 the CUDA kernel streams K/V tiles through shared memory with an
+online softmax on ``wgmma``; for S <= ``SMALL_S`` (the MAP head) a cluster
+of ``CLUSTER`` blocks splits the keys (``split_keys`` each) and merges their
+fp32 partials (see the header of ``flash_attn.cu``). ``attend_split_plain``
+repeats the split arithmetic in PyTorch for the tests. The plain version is
+``ops.attention.attend_plain``: a tensor on the CPU takes it, a CUDA tensor
+launches the kernel or raises. There is no backward yet.
 """
 from __future__ import annotations
 
@@ -12,12 +15,65 @@ from typing import Optional
 
 import torch
 
-from .attention import attend_plain
+from .attention import NEG_INF, _repeat_kv, attend_plain
 from .cuda import KERNELS, stream_handle
+from .paged import merge_partials
 
 KERNEL = KERNELS["flash_attention"]
 #: head dims the kernel is built for: Llama-3.1 (128), SigLIP (72) and 64
 HEAD_DIMS = (64, 72, 128)
+#: query rows at or below which the kernel splits the keys across a
+#: cluster of blocks, and the blocks in it (``SMALL_S``, ``CLUSTER`` in
+#: flash_attn.cu)
+SMALL_S, CLUSTER = 16, 8
+
+
+def split_keys(t: int) -> int:
+    """Keys per block of the split-key path: ceil(T / CLUSTER) rounded up
+    to the kernel's 64-key chunk."""
+    return -(-(-(-t // CLUSTER)) // 64) * 64
+
+
+def attend_split_plain(q, k, v, *, causal: bool = False, kv_mask=None,
+                       scale: Optional[float] = None, q_offsets=None,
+                       kv_limits=None, split: Optional[int] = None
+                       ) -> torch.Tensor:
+    """The kernel's split-key arithmetic in PyTorch (for the tests): the
+    masked logits of ``attend_plain`` in fp32, cut into blocks of ``split``
+    keys (the kernel's ``split_keys(T)`` by default), each giving (max, sum
+    of exp, unnormalised P V), combined by ``merge_partials``. Returns
+    [B, S, NH, Hd] in q.dtype."""
+    b, s, nh, hd = q.shape
+    t = k.shape[1]
+    split = split_keys(t) if split is None else split
+    scale = (hd ** -0.5) if scale is None else float(scale)
+    kr = _repeat_kv(k.float(), nh // k.shape[2])
+    vr = _repeat_kv(v.float(), nh // k.shape[2])
+    logits = torch.einsum("bsnh,btnh->bnst", q.float(), kr) * scale
+    visible = torch.ones((b, 1, s, t), dtype=torch.bool, device=q.device)
+    if kv_mask is not None:
+        visible = visible & kv_mask[:, None, None, :]
+    ar_s = torch.arange(s, device=q.device)[None, None, :, None]
+    ar_t = torch.arange(t, device=q.device)[None, None, None, :]
+    if q_offsets is not None:
+        visible = visible & (ar_t <= q_offsets[:, None, None, None] + ar_s)
+        if kv_limits is not None:
+            visible = visible & (ar_t < kv_limits[:, None, None, None])
+    if causal:
+        visible = visible & (ar_t <= ar_s + (t - s))
+    logits = logits.masked_fill(~visible, NEG_INF)
+    ms, ls, accs = [], [], []
+    for t0 in range(0, t, split):
+        x = logits[..., t0:t0 + split]                 # [B, NH, S, n]
+        mx = x.amax(dim=-1)
+        p = torch.exp(x - mx[..., None])
+        ms.append(mx)
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("bnst,btnh->bnsh", p,
+                                 vr[:, t0:t0 + split]))
+    out = merge_partials(torch.stack(ms, -1), torch.stack(ls, -1),
+                         torch.stack(accs, -2))          # [B, NH, S, Hd]
+    return out.transpose(1, 2).to(q.dtype)
 
 
 def flash_attention(

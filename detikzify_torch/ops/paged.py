@@ -8,7 +8,10 @@ through the table (zero-copy):
 
   * K2 ``decode_attend_paged`` (``decode_attend_paged_pallas``): one query
     row per slot; plain version: gather the attended pages into a contiguous
-    view (``gather_pages``) and run ``decode_attend_plain``;
+    view (``gather_pages``) and run ``decode_attend_plain``. The kernel
+    splits each slot's rows into blocks of ``SPLIT_ROWS`` and merges their
+    fp32 partials; ``merge_partials`` and ``decode_attend_paged_split``
+    repeat that arithmetic in PyTorch for the tests;
   * K4 ``decode_verify_attend_paged`` (``decode_verify_attend_paged_pallas``):
     the speculative verify window, K+1 query rows per slot with per-row
     causal limits; plain version: the JAX gather + masked einsum path.
@@ -27,6 +30,9 @@ from .cuda import KERNELS, stream_handle
 
 KERNEL = KERNELS["paged_decode"]
 VERIFY_KERNEL = KERNELS["paged_verify"]
+#: rows of one (slot, KV head) per K2 block, and the most blocks per slot
+#: (``SPLIT``, ``MAX_SPLITS`` in decode_split.cuh)
+SPLIT_ROWS, MAX_SPLITS = 128, 256
 #: verify-window rows per slot, and query rows per (slot, KV head), that K4
 #: is built for
 MAX_K1, MAX_VERIFY_ROWS = 8, 64
@@ -44,6 +50,56 @@ def decode_attend_paged_plain(q, pool_k, pool_v, tab, lengths, *,
     return decode_attend_plain(q, gather_pages(pool_k, tab),
                                gather_pages(pool_v, tab), lengths,
                                scale=scale)
+
+
+def merge_partials(m: torch.Tensor, l: torch.Tensor,
+                   acc: torch.Tensor) -> torch.Tensor:
+    """Combine split-softmax partials: m, l [..., n] (a split's max and
+    sum of exp(x - max); m = -inf for a split with nothing to add) and
+    acc [..., n, H] (its unnormalised P V) -> [..., H], in fp32, summed in
+    split order: sum_s w_s acc_s / max(sum_s w_s l_s, 1e-30) with
+    w_s = exp(m_s - max_s m_s), as the merge kernels compute it."""
+    dead = m == float("-inf")          # never read, as in the kernels
+    w = torch.exp(m - m.amax(dim=-1, keepdim=True)).masked_fill(dead, 0.0)
+    den = (w * l.masked_fill(dead, 0.0)).sum(dim=-1).clamp_min(1e-30)
+    num = (w[..., None] * acc.masked_fill(dead[..., None], 0.0)).sum(dim=-2)
+    return num / den[..., None]
+
+
+def decode_attend_paged_split(q, pool_k, pool_v, tab, lengths, *,
+                              split: int = SPLIT_ROWS,
+                              scale: Optional[float] = None) -> torch.Tensor:
+    """K2's arithmetic in PyTorch (for the tests): each slot's rows, its
+    length clamped to ``[0, m * page]``, cut into splits of ``split`` rows;
+    a split at or past the length adds nothing (m = -inf), a live one gives
+    (max, sum, acc) over its rows below the length in fp32; then
+    ``merge_partials``. Returns [B, NH, Hd] in q.dtype."""
+    b, nh, hd = q.shape
+    nkv = pool_k.shape[2]
+    g = nh // nkv
+    scale = (hd ** -0.5) if scale is None else float(scale)
+    k = gather_pages(pool_k, tab).float()              # [B, L, NKV, Hd]
+    v = gather_pages(pool_v, tab).float()
+    n_rows = k.shape[1]
+    length = lengths.long().clamp(0, n_rows)
+    qg = q.float().reshape(b, nkv, g, hd)
+    logits = torch.einsum("bngh,blnh->bngl", qg, k) * scale
+    rows = torch.arange(n_rows, device=q.device)
+    logits = logits.masked_fill(~(rows[None, :] < length[:, None])[:, None,
+                                                                   None],
+                                NEG_INF)
+    ms, ls, accs = [], [], []
+    for r0 in range(0, n_rows, split):
+        x = logits[..., r0:r0 + split]
+        mx = x.amax(dim=-1)
+        p = torch.exp(x - mx[..., None])
+        dead = (length <= r0)[:, None, None]
+        ms.append(mx.masked_fill(dead, float("-inf")))
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("bngl,blnh->bngh", p, v[:, r0:r0 + split]))
+    out = merge_partials(torch.stack(ms, -1), torch.stack(ls, -1),
+                         torch.stack(accs, -2))
+    return out.reshape(b, nh, hd).to(q.dtype)
 
 
 def _check_pool(name: str, q: torch.Tensor, pool_k: torch.Tensor,
@@ -107,11 +163,21 @@ def decode_attend_paged(
                          "KV head")
     _check_rows("paged_decode: lengths", lengths, b, q.device)
     scale = (hd ** -0.5) if scale is None else float(scale)
+    m = tab.shape[1]
+    # fp32 partials of every split the table allows; sized from m alone, so
+    # the host never reads lengths
+    n_split = -(-m * page // SPLIT_ROWS)
+    if n_split > MAX_SPLITS:
+        raise ValueError(f"paged_decode: a table of {m} pages of {page} rows "
+                         f"exceeds {MAX_SPLITS * SPLIT_ROWS} rows")
+    scratch = torch.empty(b * nh * n_split * (hd + 2), dtype=torch.float32,
+                          device=q.device)
     out = torch.empty_like(q)
     KERNEL.launch(
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), tab.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), b, nh, nkv, hd, page,
-        tab.shape[1], tab.stride(0), scale, stream_handle(q.device))
+        lengths.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        scratch.numel(), b, nh, nkv, hd, page, m, tab.stride(0), scale,
+        stream_handle(q.device))
     return out
 
 

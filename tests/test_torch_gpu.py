@@ -95,6 +95,83 @@ def test_paged_kernel_matches_plain(cuda, nh, nkv, hd):
         q, pool_k, pool_v.abs(), tab, lengths))
 
 
+def _k1_case_inputs(gen, dev, s, hd, mode):
+    """Three batch rows at S queries over T = S + 70 keys (or 900 for the
+    vision shape), SigLIP heads at head_dim 72, GQA 8:2 at 64 and 128.
+    "mask" has a fully masked row (uniform average), "window" a zero key
+    limit."""
+    b, t = 3, (900 if s == 900 else s + 70)
+    nh, nkv = (16, 16) if hd == 72 else (8, 2)
+    q, k, v = (_rnd(gen, dev, b, s, nh, hd), _rnd(gen, dev, b, t, nkv, hd),
+               _rnd(gen, dev, b, t, nkv, hd))
+    kw = {}
+    if mode == "causal":
+        kw["causal"] = True
+    elif mode == "mask":
+        mask = torch.ones((b, t), dtype=torch.bool, device=dev)
+        mask[0, 40:] = False
+        mask[1, :] = False
+        kw["kv_mask"] = mask
+    elif mode == "window":
+        kw["q_offsets"] = torch.tensor([0, 5, 0], dtype=torch.int32,
+                                       device=dev)
+        kw["kv_limits"] = torch.tensor([min(t, 300), 0, t],
+                                       dtype=torch.int32, device=dev)
+    return q, k, v, kw
+
+
+@pytest.mark.parametrize("mode", ["full", "causal", "mask", "window"])
+@pytest.mark.parametrize("hd", [64, 72, 128])
+@pytest.mark.parametrize("s", [1, 2, 16, 17, 63, 64, 65, 129, 900])
+def test_flash_kernel_paths_match_plain(cuda, s, hd, mode):
+    """Both paths of K1 (split keys for S <= 16, wgmma tiles above), at the
+    tile edges of S, with every mask kind; one launch counted per call."""
+    gen = torch.Generator(device=cuda).manual_seed(s * 7 + hd)
+    q, k, v, kw = _k1_case_inputs(gen, cuda, s, hd, mode)
+    before = flash.KERNEL.launches
+    got = flash.flash_attention(q, k, v, **kw)
+    assert flash.KERNEL.launches == before + 1
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    _close(got, attention.attend_plain(q, k, v, **kw),
+           attention.attend_plain(q, k, v.abs(), **kw))
+
+
+# K2's length edges around its 64-row chunks and 256-row splits, at m = 4
+# pages of 128 rows: the full table and one past it (clamped)
+K2_LENGTHS = (1, 63, 64, 65, 255, 256, 257, 512, 517)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("g", [1, 4, 8])
+@pytest.mark.parametrize("b", [1, 8])
+def test_paged_kernel_split_edges(cuda, b, g, hd):
+    """K2 at every length edge, read through a column slice of a wider
+    table; one launch counted per call, and a repeated call gives the same
+    bits (the merge sums splits in a fixed order)."""
+    gen = torch.Generator(device=cuda).manual_seed(b * 100 + g * 10 + hd)
+    nkv, page, m = 4, 128, 4
+    nh = g * nkv
+    n_pages = b * (m + 2) + 3
+    pool_k = _rnd(gen, cuda, n_pages, page, nkv, hd)
+    pool_v = _rnd(gen, cuda, n_pages, page, nkv, hd)
+    perm = torch.randperm(n_pages, generator=gen, device=cuda)
+    wide = perm[:b * (m + 2)].reshape(b, m + 2).to(torch.int32)
+    tab = wide[:, :m]
+    q = _rnd(gen, cuda, b, nh, hd)
+    for start in range(0, len(K2_LENGTHS), b):
+        picked = [K2_LENGTHS[(start + i) % len(K2_LENGTHS)] for i in range(b)]
+        lengths = torch.tensor(picked, dtype=torch.int32, device=cuda)
+        before = paged.KERNEL.launches
+        got = paged.decode_attend_paged(q, pool_k, pool_v, tab, lengths)
+        assert paged.KERNEL.launches == before + 1
+        again = paged.decode_attend_paged(q, pool_k, pool_v, tab, lengths)
+        assert torch.equal(got, again)
+        want = paged.decode_attend_paged_plain(q, pool_k, pool_v,
+                                               tab.contiguous(), lengths)
+        _close(got, want, paged.decode_attend_paged_plain(
+            q, pool_k, pool_v.abs(), tab.contiguous(), lengths))
+
+
 def _verify_inputs(gen, dev, b, k1, nh, nkv, hd, page, m):
     n_pages = b * m + 2
     pool_k = _rnd(gen, dev, n_pages, page, nkv, hd)

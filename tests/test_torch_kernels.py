@@ -150,6 +150,93 @@ def test_paged_plain_matches_pallas(nh, nkv, hd):
     np.testing.assert_array_equal(got_w, got)
 
 
+# tiny-test's decoder heads (4 query, 2 KV, head_dim 16) on a 64-row page
+TINY_NH, TINY_NKV, TINY_HD, TINY_PAGE, TINY_M = 4, 2, 16, 64, 4
+
+
+@pytest.mark.parametrize("split", [64, tpaged.SPLIT_ROWS, 256])
+def test_paged_split_merge_matches_plain(split):
+    """K2's split-and-merge arithmetic (``decode_attend_paged_split``, the
+    kernel's blocks of ``split`` rows merged by ``merge_partials``) equals
+    the plain version in fp32 within 1e-6: lengths whose later splits lie
+    wholly past them (1, 65, 130), exactly one split, the full table
+    (m * page) and one above it (clamped to m * page)."""
+    rng = np.random.default_rng(21)
+    nh, nkv, hd, page, m = TINY_NH, TINY_NKV, TINY_HD, TINY_PAGE, TINY_M
+    n_pages = 8 * m + 2
+    pool_k = rng.standard_normal((n_pages, page, nkv, hd)).astype(np.float32)
+    pool_v = rng.standard_normal((n_pages, page, nkv, hd)).astype(np.float32)
+    lengths = np.asarray([1, 65, 130, split, 64, m * page, m * page + 5,
+                          255], np.int32)
+    b = len(lengths)
+    tab = np.stack([rng.permutation(n_pages)[:m] for _ in range(b)]).astype(
+        np.int32)
+    q = rng.standard_normal((b, nh, hd)).astype(np.float32)
+    args = (_t(q), _t(pool_k), _t(pool_v), _t(tab), _t(lengths))
+    want = tpaged.decode_attend_paged_plain(*args).numpy()
+    got = tpaged.decode_attend_paged_split(*args, split=split).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+    # and the plain version itself against JAX's (clamped) contiguous decode
+    jl = np.minimum(lengths, m * page)
+    jk, jv, jt = jnp.asarray(pool_k), jnp.asarray(pool_v), jnp.asarray(tab)
+    ref = np.asarray(decode_attend(jnp.asarray(q), gather_pages(jk, jt),
+                                   gather_pages(jv, jt), jnp.asarray(jl),
+                                   implementation="xla"))
+    np.testing.assert_allclose(got, ref, atol=1e-6, rtol=1e-5)
+
+
+def test_merge_partials_ignores_dead_splits():
+    """A split marked dead (max -inf) adds nothing, whatever its sum and
+    accumulator hold; the live ones merge as one softmax."""
+    rng = np.random.default_rng(22)
+    x = torch.from_numpy(rng.standard_normal((3, 10)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((10, 5)).astype(np.float32))
+    want = torch.softmax(x, -1) @ v
+    halves = [x[:, :6], x[:, 6:]]
+    m = torch.stack([h.amax(-1) for h in halves] + [torch.full((3,),
+                                                               float("-inf"))],
+                    -1)
+    p = [torch.exp(h - h.amax(-1, keepdim=True)) for h in halves]
+    l = torch.stack([pi.sum(-1) for pi in p] + [torch.full((3,), 7.0)], -1)
+    acc = torch.stack([p[0] @ v[:6], p[1] @ v[6:],
+                       torch.full((3, 5), float("nan"))], -2)
+    got = tpaged.merge_partials(m, l, acc)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("mode", ["full", "causal", "mask", "window"])
+@pytest.mark.parametrize("s", [1, 2, tflash.SMALL_S])
+def test_flash_split_keys_matches_plain(mode, s):
+    """K1's small-S path (keys split in blocks of ``split_keys(T)``,
+    partials merged by ``merge_partials``) equals ``attend_plain`` in fp32
+    within 1e-6, at tiny-test's vision heads (4 heads, head_dim 12) over 150
+    keys (three blocks of 64, the last ragged): no mask, causal, a key mask
+    with a fully masked row (which averages V uniformly), and the per-batch
+    window with a zero limit."""
+    rng = np.random.default_rng(23 + s)
+    b, t, nh, nkv, hd = 3, 150, 4, 4, 12
+    q, k, v = _qkv(rng, b, s, t, nh, nkv, hd)
+    kw = {}
+    if mode == "causal":
+        kw["causal"] = True
+    elif mode == "mask":
+        mask = np.ones((b, t), bool)
+        mask[0, 70:] = False
+        mask[1, :] = False
+        kw["kv_mask"] = _t(mask)
+    elif mode == "window":
+        kw["q_offsets"] = _t(np.asarray([0, 3, 100], np.int32))
+        kw["kv_limits"] = _t(np.asarray([40, 0, 140], np.int32))
+    assert tflash.split_keys(t) == 64
+    want = tflash.attend_split_plain(_t(q), _t(k), _t(v), **kw).numpy()
+    got = tflash.flash_attention(_t(q), _t(k), _t(v), **kw).numpy()
+    np.testing.assert_allclose(want, got, atol=1e-6, rtol=0)
+    if mode == "mask":      # the fully masked row: the mean of V
+        np.testing.assert_allclose(
+            want[1], np.broadcast_to(v[1].mean(0), want[1].shape),
+            atol=1e-6, rtol=0)
+
+
 @pytest.mark.parametrize("nh,nkv,hd,L", [(8, 2, 64, 512), (4, 4, 48, 300),
                                          (8, 2, 128, 512)])
 def test_decode_contiguous_plain_matches_pallas(nh, nkv, hd, L):
