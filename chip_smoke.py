@@ -97,13 +97,13 @@ K5_ROWS = (1, 8, 40, 64)  # 40 = 8 slots x 5 rows of the verify forward
 K5_FP32_SUMS = 2        # fp32 sums whose rounding errors an fp32 K5 check
 #                         allows for: the kernel's and the plain version's
 # the device functions of each hand-written kernel, as the profiler names
-# them (K1 and K2 launch a merge after their split-key blocks)
+# them (K1-K4 launch a merge after their split blocks)
 KERNEL_FUNCTIONS = {
     "flash_attention": ("flash_fwd_kernel", "flash_split_kernel",
                         "flash_split_merge_kernel"),
     "paged_decode": ("paged_split_kernel", "paged_merge_kernel"),
-    "decode_contig": ("contig_decode_kernel",),
-    "paged_verify": ("paged_verify_kernel",),
+    "decode_contig": ("contig_split_kernel", "contig_merge_kernel"),
+    "paged_verify": ("verify_split_kernel", "verify_merge_kernel"),
     "int8_gemv": ("int8_gemv_kernel",),
 }
 SIM_EXPANSIONS = 16     # MCTS expansions of the simulate phases

@@ -5,56 +5,90 @@
 // detikzify_tpu/ops/decode_flash.py::decode_attend_pallas (-> _decode_kernel).
 // Each slot b has one query row per head (q [B, NH, Hd]) and attends rows
 // [0, lengths[b]) of its cache k/v [B, L, NKV, Hd]; lengths are clamped to
-// [0, L]. Online softmax in fp32, out = acc / max(l, 1e-30).
+// [0, L]. Scores and softmax in fp32, p rounded to bf16 for the PV product
+// with fp32 sums, out = acc / max(l, 1e-30).
 //
 // What bounds it on the H100: as K2, device-memory bytes,
 // sum_b min(lengths[b], L) * NKV * Hd * 2 (K and V) * 2 bytes; the rows
 // beyond a slot's length are never read.
 //
-// What the design does about it: the body of K2 (decode_attn.cuh) with
-// contiguous addressing. One block per (slot, KV head) walks
-// ceil(len / 64) chunks of 64 rows and computes the whole GQA group per
-// loaded row. The per-slot batch stride is an argument, so a view
+// What the design does about it: K2's split-and-merge body
+// (decode_split.cuh) with contiguous addressing. The rows of each (slot, KV
+// head) are cut into 128-row splits, one block each, their count sized
+// from L (the host never reads lengths); splits past a slot's length leave
+// at once; fp32 partials go to scratch that the wrapper allocates, and a
+// merge kernel launched as a programmatic dependent combines them in a
+// fixed order. The per-slot batch stride is an argument, so a view
 // kc[:, :kv_limit] of a longer cache is read in place: the caller never
-// copies the cache to make it contiguous.
+// copies the cache to make it contiguous. Any L: the merge stages the split
+// weights in chunks.
 //
-// Interface: plain C, launched on the caller's stream; returns
-// cudaGetLastError() so the Python wrapper can raise on a refused launch.
+// Interface: plain C, launched on the caller's stream; returns a
+// cudaError_t so the Python wrapper can raise on a refused launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "decode_attn.cuh"
+#include "decode_split.cuh"
 
 namespace {
 
-using detikzify_decode::MAXG;
-using detikzify_decode::THREADS;
+namespace ds = detikzify_decode_split;
 
-// Element offset of row row0 of KV head h of one slot.
-struct ContigRows {
+constexpr int WARPS = 4;                     // 128-row splits
+constexpr int SPLIT = WARPS * ds::WROWS;
+constexpr int MAXG = 8;                      // query rows per KV head
+
+struct Args {
+  const __nv_bfloat16 *q, *k, *v;
+  const int* lengths;
+  __nv_bfloat16* out;
+  int NH, NKV, L;
+  long long stride_b;
+};
+
+// KV head h of slot b: the GQA group's G rows, all seeing the slot's
+// length (clamped to L); row r of the slot at r * NKV * Hd past its base.
+struct ContigSlot {
+  int b, h, nkv, R, length;
   size_t base;
-  int rs;
-  __device__ __forceinline__ size_t operator()(int row0) const {
+  int rs, NH;
+  __device__ __forceinline__ size_t qrow(int r) const {
+    return (size_t)b * NH + h * R + r;
+  }
+  __device__ __forceinline__ int limit(int) const { return length; }
+  __device__ __forceinline__ size_t kv(int row0) const {
     return base + (size_t)row0 * rs;
   }
 };
 
 template <int HD>
-__global__ void __launch_bounds__(THREADS)
-contig_decode_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     const int* __restrict__ lengths,
-                     __nv_bfloat16* __restrict__ out,
-                     int NH, int NKV, int L, long long stride_b, float scale) {
-  const int b = blockIdx.x, h = blockIdx.y;
-  const int length = max(0, min(lengths[b], L));
-  const ContigRows rows{(size_t)b * (size_t)stride_b + (size_t)h * HD,
-                        NKV * HD};
-  detikzify_decode::decode_group<HD>(q, k, v, out, b, h, NH, NKV, length,
-                                     scale, rows);
+__device__ __forceinline__ ContigSlot slot(const Args& a, int b, int h) {
+  return {b, h, a.NKV, a.NH / a.NKV, max(0, min(a.lengths[b], a.L)),
+          (size_t)b * (size_t)a.stride_b + (size_t)h * HD, a.NKV * HD, a.NH};
+}
+
+template <int HD>
+__global__ void __launch_bounds__(WARPS * 32, ds::min_blocks(1, WARPS))
+contig_split_kernel(Args a, ds::Partials part, int nsplit, int, float sl) {
+  ds::split_partial<HD, 1, WARPS>(a.q, a.k, a.v, part, blockIdx.x, nsplit,
+                                  0, sl, slot<HD>(a, blockIdx.z, blockIdx.y));
+}
+
+template <int HD>
+__global__ void __launch_bounds__(HD)
+contig_merge_kernel(Args a, ds::Partials part, int nsplit) {
+  ds::merge_partials<HD, WARPS>(part, a.out, nsplit, blockIdx.x,
+                                slot<HD>(a, blockIdx.z, blockIdx.y));
+}
+
+template <int HD>
+int launch(const Args& a, ds::Partials part, int B, int nsplit, float sl,
+           cudaStream_t st) {
+  return ds::launch_split_merge<HD, 1, WARPS>(
+      contig_split_kernel<HD>, contig_merge_kernel<HD>, a, part, B, a.NKV,
+      a.NH / a.NKV, nsplit, 1, sl, st);
 }
 
 }  // namespace
@@ -63,32 +97,34 @@ extern "C" {
 
 // q [B,NH,Hd] bf16 contiguous; k/v [B,L,NKV,Hd] bf16 with strides
 // (stride_b, NKV*Hd, Hd, 1) in elements, 16-byte aligned rows;
-// lengths [B] int32; out [B,NH,Hd] bf16. Hd in {64, 128}; NH / NKV at
-// most 8.
+// lengths [B] int32; out [B,NH,Hd] bf16; scratch fp32 of at least
+// B * NKV * ceil(L / 128) * NH / NKV * (Hd + 2) floats (`scratch_floats`).
+// Hd in {64, 128}; NH / NKV at most 8.
 int detikzify_decode_contig(const void* q, const void* k, const void* v,
-                            const void* lengths, void* out, int B, int NH,
-                            int NKV, int Hd, int L, long long stride_b,
-                            float scale, void* stream) {
+                            const void* lengths, void* out, void* scratch,
+                            long long scratch_floats, int B, int NH, int NKV,
+                            int Hd, int L, long long stride_b, float scale,
+                            void* stream) {
   if (B <= 0) return (int)cudaSuccess;
   if (NKV <= 0 || NH % NKV != 0 || NH / NKV > MAXG || L <= 0 ||
       stride_b % 8 != 0)
     return (int)cudaErrorInvalidValue;
-  dim3 grid(B, NKV);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const __nv_bfloat16* qq = static_cast<const __nv_bfloat16*>(q);
-  const __nv_bfloat16* kk = static_cast<const __nv_bfloat16*>(k);
-  const __nv_bfloat16* vv = static_cast<const __nv_bfloat16*>(v);
-  const int* ln = static_cast<const int*>(lengths);
-  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
-  if (Hd == 128)
-    contig_decode_kernel<128><<<grid, THREADS, 0, st>>>(
-        qq, kk, vv, ln, o, NH, NKV, L, stride_b, scale);
-  else if (Hd == 64)
-    contig_decode_kernel<64><<<grid, THREADS, 0, st>>>(
-        qq, kk, vv, ln, o, NH, NKV, L, stride_b, scale);
-  else
+  const int nsplit = (L + SPLIT - 1) / SPLIT;
+  const long long recs = (long long)B * NH * nsplit;
+  if (scratch == nullptr || scratch_floats < recs * (Hd + 2))
     return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  float* f = static_cast<float*>(scratch);
+  const ds::Partials part{f, f + recs * Hd};
+  const Args a{static_cast<const __nv_bfloat16*>(q),
+               static_cast<const __nv_bfloat16*>(k),
+               static_cast<const __nv_bfloat16*>(v),
+               static_cast<const int*>(lengths),
+               static_cast<__nv_bfloat16*>(out), NH, NKV, L, stride_b};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float sl = scale * ds::LOG2E;
+  if (Hd == 128) return launch<128>(a, part, B, nsplit, sl, st);
+  if (Hd == 64) return launch<64>(a, part, B, nsplit, sl, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* detikzify_decode_contig_error_string(int err) {

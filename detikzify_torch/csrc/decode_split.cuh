@@ -1,31 +1,50 @@
-// Split-sequence body of the one-row decode kernel K2 (paged_decode.cu), for
-// Hopper (sm_90a).
+// Split-sequence body of the decode kernels K2 (paged_decode.cu), K3
+// (decode_contig.cu) and K4 (paged_verify.cu), for Hopper (sm_90a).
 //
-// The rows of one (slot, KV head) are cut into splits of SPLIT rows, one
-// thread block each (flash-decoding). A block computes the G = NH / NKV
-// query rows of its head's GQA group, one query row per head, against the
-// rows of its split below `length`, and writes a partial result in fp32:
+// One (slot, KV head) has R query rows, each with its own key limit: row r
+// sees keys [0, limit(r)). K2 and K3 have R = G = NH / NKV (the GQA group,
+// one row per head) and every limit equal to the slot's length; K4 has
+// R = G * K1 (flat row r = g * K1 + j, as the TPU kernel lays them out)
+// and row r's limit start + j + 1, clamped to the table. The slot's length
+// is the largest limit.
+//
+// The keys of one (slot, KV head) are cut into splits of SPLIT = WARPS * 32
+// rows, one thread block each (flash-decoding). A block computes its query
+// rows against the keys of its split and writes a partial result in fp32:
 // per query row the row max (log2 domain), the sum of exp2(x - max) and the
-// unnormalised acc = sum_j p_j V_j. A split that starts at or beyond
-// `length` leaves at once and writes nothing; the merge reads only the
-// ceil(length / SPLIT) live splits. The merge kernel combines the partials
-// of one (slot, KV head) in split order with no atomics, so repeated runs
-// give the same bits, and writes out = acc / max(l, 1e-30) in bf16, as the
-// TPU kernel does.
+// unnormalised acc = sum_j p_j V_j. A split that starts at or beyond the
+// length leaves at once and writes nothing; the merge reads only the
+// ceil(length / SPLIT) live splits. A row that sees no key of a live split
+// writes max = -inf, sum 0 and acc 0, and the merge gives it weight 0, so
+// nothing of a split it cannot see reaches its output. The merge kernel
+// combines the partials of one query row in split order with no atomics,
+// so repeated runs give the same bits, and writes out = acc / max(l, 1e-30)
+// in bf16, as the TPU kernels do.
 //
-// Inside a block each of the 4 warps owns 32 rows of the split. A warp
-// issues its own cp.async copies of its K rows, then of its V rows (two
-// groups, all of the block's rows in flight at once), computes the scores
-// as soon as its K rows land while its V rows are still in flight, and
-// needs no barrier with the other warps until the end. Both products run
-// on the tensor cores (mma.sync m16n8k16, bf16 in, fp32 out) with the GQA
-// group as the 8-wide side: S^T[key, g] = K q^T with q held in registers,
-// and acc^T[d, g] = V^T P^T with V read transposed by ldmatrix. P is
-// rounded to bf16 for the second product, as the plain version rounds it.
-// The 4 warps' partials are combined in shared memory into the block's
-// one partial. Where a row lives is the caller's business: `row_base(row0)`
-// gives the element offset of row `row0` of this head (32 rows from a
-// 32-aligned row0 are contiguous with a stride of NKV * HD elements).
+// Inside a block each warp owns 32 rows of the split. A warp issues its own
+// cp.async copies of its K rows, then of its V rows (two groups, all of the
+// block's rows in flight at once), computes the scores as soon as its K
+// rows land while its V rows are still in flight, and needs no barrier
+// with the other warps until the end. Both products run on the tensor
+// cores (mma.sync m16n8k16, bf16 in, fp32 out) with the query rows as the
+// 8-wide side, NTP tiles of 8 rows held in registers: S^T[key, r] = K q^T,
+// and acc^T[d, r] = V^T P^T with V read transposed by ldmatrix. P is
+// rounded to bf16 for the second product, as the plain versions round it.
+// More than MAX_TILES tiles (K4 above 24 rows) do not fit in registers:
+// the rows are then cut into passes of NTP tiles, one block per pass, each
+// reading the split's K/V rows (the second reader finds them in L2). The
+// warps' partials are combined in shared memory into the block's one
+// partial.
+//
+// The caller describes one (slot, KV head) with a Slot: members b, h, nkv,
+// R and length, and
+//   size_t qrow(int r)   row index of query row r in q and out (rows of HD);
+//   int limit(int r)     row r sees keys [0, limit(r)), limit(r) <= length;
+//   size_t kv(int row0)  element offset of K/V row row0 of this head (32
+//                        rows from a 32-aligned row0 are contiguous with a
+//                        stride of nkv * HD elements).
+// The grids are sized from the table width or the cache length, never from
+// the values of lengths or starts, so the host never reads them.
 
 #pragma once
 
@@ -46,66 +65,85 @@ using detikzify_sm90::ldmatrix_x4_trans;
 using detikzify_sm90::mma_16816;
 using detikzify_sm90::smem_u32;
 
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
-constexpr int WROWS = 32;                  // rows per warp
-constexpr int SPLIT = WARPS * WROWS;       // rows per block
+constexpr int WROWS = 32;                  // key rows per warp
 constexpr int ROW_ALIGN = WROWS;           // the page size must divide by it
-constexpr int MAXG = 8;                    // query rows per KV head
-constexpr int MAX_SPLITS = 256;            // table rows up to 32768
+constexpr int MAX_TILES = 3;               // 8-row query tiles per block
+constexpr int MERGE_CHUNK = 256;           // split weights staged at once
 constexpr float NEG_SENTINEL = -2.3819765e38f;   // -0.7 * FLT_MAX
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int HD>
+// blocks an SM should hold: 3 of K2's and K3's (one query tile), 2 with
+// more tiles (their accumulators take up to ~200 registers), 1 of 8 warps
+__host__ __device__ constexpr int min_blocks(int ntp, int warps) {
+  return warps > 4 ? 1 : (ntp == 1 ? 3 : 2);
+}
+
+template <int HD, int NTP, int WARPS>
 struct Smem {
   // rows padded by 8 bf16: the 8 row addresses of an ldmatrix fall on
   // distinct banks
-  __nv_bfloat16 k[SPLIT][HD + 8];
-  __nv_bfloat16 v[SPLIT][HD + 8];
-  __nv_bfloat16 pt[WARPS][MAXG][WROWS + 8];  // P^T of each warp
-  float m[WARPS][MAXG], l[WARPS][MAXG];
+  __nv_bfloat16 k[WARPS * WROWS][HD + 8];
+  __nv_bfloat16 v[WARPS * WROWS][HD + 8];
+  __nv_bfloat16 pt[WARPS][8 * NTP][WROWS + 8];   // P^T of each warp
+  float m[WARPS][8 * NTP], l[WARPS][8 * NTP];
 };
 
-// Partials of (slot b, KV head h, split s): acc [G, HD] at float offset
-// ((b * NKV + h) * nsplit + s) * G * HD, then (max, sum) pairs at
-// ml + ((b * NKV + h) * nsplit + s) * G * 2.
+// Partials of (slot b, KV head h, split s, query row r): acc [HD] at float
+// offset ((((b * NKV + h) * nsplit + s) * R + r) * HD, then (max, sum) at
+// ml + (((b * NKV + h) * nsplit + s) * R + r) * 2.
 struct Partials {
   float* acc;
   float* ml;
 };
 
-// One block: query rows of KV head h of slot b against rows
-// [split * SPLIT, min((split + 1) * SPLIT, length)).
-template <int HD, class RowBase>
+// How a Slot's R rows are cut into passes of ntp tiles of 8 rows.
+struct RowPlan {
+  int ntp, npass;
+};
+
+inline RowPlan plan_rows(int R) {
+  const int nt = (R + 7) / 8;
+  const int npass = (nt + MAX_TILES - 1) / MAX_TILES;
+  return {(nt + npass - 1) / npass, npass};
+}
+
+// One block: query rows [rp0, rp0 + 8 * NTP) of the slot against keys
+// [split * SPLIT, (split + 1) * SPLIT), each row below its limit.
+template <int HD, int NTP, int WARPS, class Slot>
 __device__ __forceinline__ void split_partial(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const Partials& part, int b, int h,
-    int split, int nsplit, int NH, int NKV, int length, float scale_log2,
-    const RowBase& row_base) {
+    const __nv_bfloat16* __restrict__ v, const Partials& part, int split,
+    int nsplit, int rp0, float scale_log2, const Slot& s) {
+  constexpr int SPLIT = WARPS * WROWS, THREADS = WARPS * 32, NR = 8 * NTP;
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   const int r0 = split * SPLIT;
-  if (r0 >= length) return;                  // a dead split: no partial
+  if (r0 >= s.length) return;                // a dead split: no partial
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem<HD>& sm = *reinterpret_cast<Smem<HD>*>(smem_raw);
+  Smem<HD, NTP, WARPS>& sm = *reinterpret_cast<Smem<HD, NTP, WARPS>*>(smem_raw);
 
   constexpr int CH = HD / 8;                 // 16-byte chunks per row
   constexpr int DT = HD / 16;                // 16-wide head-dim tiles
-  const int G = NH / NKV;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int r1 = min(r0 + SPLIT, length);
+  const int r1 = min(r0 + SPLIT, s.length);
   const int w0 = warp * WROWS;               // this warp's rows in the split
   const bool live = r0 + w0 < r1;
   const int g_own = lane >> 2, c_own = 2 * (lane & 3);
 
-  float acc[DT][4];
+  float acc[NTP][DT][4];
 #pragma unroll
-  for (int dt = 0; dt < DT; ++dt)
-    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-  float m2[2] = {-INFINITY, -INFINITY}, l2[2] = {0.f, 0.f};
+  for (int t = 0; t < NTP; ++t)
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt)
+      acc[t][dt][0] = acc[t][dt][1] = acc[t][dt][2] = acc[t][dt][3] = 0.f;
+  float m2[NTP][2], l2[NTP][2];
+#pragma unroll
+  for (int t = 0; t < NTP; ++t)
+    m2[t][0] = m2[t][1] = -INFINITY, l2[t][0] = l2[t][1] = 0.f;
 
   if (live) {
     // this warp's 32 rows: K, then V, as two copy groups
-    const size_t base0 = row_base(r0 + w0);
-    const int rs = NKV * HD;
+    const size_t base0 = s.kv(r0 + w0);
+    const int rs = s.nkv * HD;
 #pragma unroll
     for (int kv = 0; kv < 2; ++kv) {
       const __nv_bfloat16* src = kv ? v : k;
@@ -122,84 +160,116 @@ __device__ __forceinline__ void split_partial(
       cp_async_commit();
     }
 
-    // q^T as the B operand: b0 = q[g][16ks + c_own ..], b1 = 8 further
-    uint32_t qb[DT][2];
-    const __nv_bfloat16* qrow = q + ((size_t)b * NH + h * G + g_own) * HD;
+    // q^T as the B operand: in tile t, column g_own is query row
+    // rp0 + 8t + g_own; b0 = q[row][16ks + c_own ..], b1 = 8 further
+    uint32_t qb[NTP][DT][2];
+    // key limits of this lane's accumulator columns 8t + c_own + j
+    int lim[NTP][2];
 #pragma unroll
-    for (int ks = 0; ks < DT; ++ks) {
-      qb[ks][0] = g_own < G ? *reinterpret_cast<const uint32_t*>(
-                                  qrow + 16 * ks + c_own) : 0u;
-      qb[ks][1] = g_own < G ? *reinterpret_cast<const uint32_t*>(
-                                  qrow + 16 * ks + 8 + c_own) : 0u;
+    for (int t = 0; t < NTP; ++t) {
+      const int r = rp0 + 8 * t + g_own;
+      const bool has = r < s.R;
+      const __nv_bfloat16* qrow = q + (has ? s.qrow(r) * HD : 0);
+#pragma unroll
+      for (int ks = 0; ks < DT; ++ks) {
+        qb[t][ks][0] = has ? *reinterpret_cast<const uint32_t*>(
+                                 qrow + 16 * ks + c_own) : 0u;
+        qb[t][ks][1] = has ? *reinterpret_cast<const uint32_t*>(
+                                 qrow + 16 * ks + 8 + c_own) : 0u;
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int rc = rp0 + 8 * t + c_own + j;
+        lim[t][j] = rc < s.R ? s.limit(rc) : s.length;
+      }
     }
 
     cp_async_wait<1>();                      // K rows landed
     __syncwarp();
-    // S^T [32 keys, 8 g] as two 16-key tiles
-    float st[2][4];
+    // S^T [32 keys, 8 rows] per tile, as two 16-key tiles
+    float st[NTP][2][4];
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt) {
-      st[mt][0] = st[mt][1] = st[mt][2] = st[mt][3] = 0.f;
+#pragma unroll
+      for (int t = 0; t < NTP; ++t)
+        st[t][mt][0] = st[t][mt][1] = st[t][mt][2] = st[t][mt][3] = 0.f;
       const int row = w0 + 16 * mt + (lane & 7) + 8 * ((lane >> 3) & 1);
 #pragma unroll
       for (int ks = 0; ks < DT; ++ks) {
         uint32_t a[4];
         ldmatrix_x4(a, smem_u32(&sm.k[row][16 * ks + 8 * (lane >> 4)]));
-        mma_16816(st[mt], a, qb[ks]);
+#pragma unroll
+        for (int t = 0; t < NTP; ++t) mma_16816(st[t][mt], a, qb[t][ks]);
       }
     }
-    // scores in the log2 domain; rows at or past the length get the
-    // sentinel (weight 0 beside any live row)
+    // scores in the log2 domain; keys at or past a row's limit get the
+    // sentinel
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int key = r0 + w0 + 16 * mt + g_own + 8 * (u >> 1);
-        st[mt][u] = key < r1 ? st[mt][u] * scale_log2 : NEG_SENTINEL;
-      }
-    }
-    // per query column c_own + j: max and sum over the warp's 32 rows
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      float mx = fmaxf(fmaxf(st[0][j], st[0][j + 2]),
-                       fmaxf(st[1][j], st[1][j + 2]));
-#pragma unroll
-      for (int o = 4; o < 32; o <<= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      float sum = 0.f;
+    for (int t = 0; t < NTP; ++t) {
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt) {
-        st[mt][j] = ex2(st[mt][j] - mx);
-        st[mt][j + 2] = ex2(st[mt][j + 2] - mx);
-        sum += st[mt][j] + st[mt][j + 2];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int key = r0 + w0 + 16 * mt + g_own + 8 * (u >> 1);
+          st[t][mt][u] = key < lim[t][u & 1] ? st[t][mt][u] * scale_log2
+                                             : NEG_SENTINEL;
+        }
       }
-#pragma unroll
-      for (int o = 4; o < 32; o <<= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      m2[j] = mx;
-      l2[j] = sum;
     }
-    // P^T [g, key] in bf16 through this warp's shared buffer
+    // per query column c_own + j: max and sum over the warp's 32 rows; a
+    // column that sees none of them gets max -inf, sum 0 and p = 0
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
+    for (int t = 0; t < NTP; ++t) {
 #pragma unroll
-      for (int u = 0; u < 4; ++u)
-        sm.pt[warp][c_own + (u & 1)][16 * mt + g_own + 8 * (u >> 1)] =
-            __float2bfloat16(st[mt][u]);
+      for (int j = 0; j < 2; ++j) {
+        float mx = fmaxf(fmaxf(st[t][0][j], st[t][0][j + 2]),
+                         fmaxf(st[t][1][j], st[t][1][j + 2]));
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        const bool seen = mx != NEG_SENTINEL;
+        const float base = seen ? mx : 0.f;  // sentinel keys give ex2 = 0
+        float sum = 0.f;
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          st[t][mt][j] = ex2(st[t][mt][j] - base);
+          st[t][mt][j + 2] = ex2(st[t][mt][j + 2] - base);
+          sum += st[t][mt][j] + st[t][mt][j + 2];
+        }
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1)
+          sum += __shfl_xor_sync(0xffffffffu, sum, o);
+        m2[t][j] = seen ? mx : -INFINITY;
+        l2[t][j] = sum;
+      }
+    }
+    // P^T [row, key] in bf16 through this warp's shared buffer
+#pragma unroll
+    for (int t = 0; t < NTP; ++t) {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          sm.pt[warp][8 * t + c_own + (u & 1)][16 * mt + g_own + 8 * (u >> 1)] =
+              __float2bfloat16(st[t][mt][u]);
+      }
     }
     __syncwarp();
-    uint32_t pb[2][2];
+    uint32_t pb[NTP][2][2];
 #pragma unroll
-    for (int kk = 0; kk < 2; ++kk) {
-      pb[kk][0] = *reinterpret_cast<const uint32_t*>(
-          &sm.pt[warp][g_own][16 * kk + c_own]);
-      pb[kk][1] = *reinterpret_cast<const uint32_t*>(
-          &sm.pt[warp][g_own][16 * kk + 8 + c_own]);
+    for (int t = 0; t < NTP; ++t) {
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        pb[t][kk][0] = *reinterpret_cast<const uint32_t*>(
+            &sm.pt[warp][8 * t + g_own][16 * kk + c_own]);
+        pb[t][kk][1] = *reinterpret_cast<const uint32_t*>(
+            &sm.pt[warp][8 * t + g_own][16 * kk + 8 + c_own]);
+      }
     }
 
     cp_async_wait<0>();                      // V rows landed
     __syncwarp();
-    // acc^T [HD, 8 g] += V^T P^T over the warp's two 16-key steps
+    // acc^T [HD, 8 rows] += V^T P^T over the warp's two 16-key steps
 #pragma unroll
     for (int kk = 0; kk < 2; ++kk) {
       const int row = w0 + 16 * kk + (lane & 7) + 8 * (lane >> 4);
@@ -208,91 +278,156 @@ __device__ __forceinline__ void split_partial(
         uint32_t a[4];
         ldmatrix_x4_trans(
             a, smem_u32(&sm.v[row][16 * dt + 8 * ((lane >> 3) & 1)]));
-        mma_16816(acc[dt], a, pb[kk]);
+#pragma unroll
+        for (int t = 0; t < NTP; ++t) mma_16816(acc[t][dt], a, pb[t][kk]);
       }
     }
   }
   if (g_own == 0) {                          // lanes 0-3 hold the row stats
-    sm.m[warp][c_own] = m2[0];
-    sm.m[warp][c_own + 1] = m2[1];
-    sm.l[warp][c_own] = l2[0];
-    sm.l[warp][c_own + 1] = l2[1];
+#pragma unroll
+    for (int t = 0; t < NTP; ++t) {
+      sm.m[warp][8 * t + c_own] = m2[t][0];
+      sm.m[warp][8 * t + c_own + 1] = m2[t][1];
+      sm.l[warp][8 * t + c_own] = l2[t][0];
+      sm.l[warp][8 * t + c_own + 1] = l2[t][1];
+    }
   }
-  __syncthreads();                           // every warp is done with K
+  __syncthreads();                           // every warp is done with K, V
 
-  // the warps' accumulators, [WARPS][G][HD] fp32, over the K rows
+  // the warps' accumulators, [WARPS][nr][HD] fp32, over the K and V rows
+  const int nr = min(NR, s.R - rp0);         // query rows of this pass
   float* red = reinterpret_cast<float*>(&sm.k[0][0]);
-  static_assert(sizeof(float) * WARPS * MAXG * HD <= sizeof(sm.k),
-                "the accumulators fit in the K rows");
+  static_assert(sizeof(float) * WARPS * NR * HD <= sizeof(sm.k) + sizeof(sm.v),
+                "the accumulators fit in the K and V rows");
 #pragma unroll
-  for (int dt = 0; dt < DT; ++dt) {
+  for (int t = 0; t < NTP; ++t) {
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int g = c_own + (u & 1), d = 16 * dt + g_own + 8 * (u >> 1);
-      if (g < G) red[(warp * G + g) * HD + d] = acc[dt][u];
+    for (int dt = 0; dt < DT; ++dt) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int c = 8 * t + c_own + (u & 1);
+        const int d = 16 * dt + g_own + 8 * (u >> 1);
+        if (c < nr) red[(warp * nr + c) * HD + d] = acc[t][dt][u];
+      }
     }
   }
   __syncthreads();
-  const size_t rec = ((size_t)b * NKV + h) * nsplit + split;
-  for (int e = tid; e < G * HD; e += THREADS) {
-    const int g = e / HD;
+  const size_t rec = (((size_t)s.b * s.nkv + s.h) * nsplit + split) * s.R + rp0;
+  for (int e = tid; e < nr * HD; e += THREADS) {
+    const int c = e / HD;
     float mx = -INFINITY;
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, sm.m[w][g]);
+    for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, sm.m[w][c]);
     float l = 0.f, a = 0.f;
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) {
-      if (sm.m[w][g] == -INFINITY) continue;   // a warp past the length
-      const float wt = ex2(sm.m[w][g] - mx);
-      l += wt * sm.l[w][g];
-      a += wt * red[w * G * HD + e];
+      if (sm.m[w][c] == -INFINITY) continue;   // a warp the row cannot see
+      const float wt = ex2(sm.m[w][c] - mx);
+      l += wt * sm.l[w][c];
+      a += wt * red[w * nr * HD + e];
     }
-    part.acc[rec * G * HD + e] = a;
+    part.acc[rec * HD + e] = a;
     if (e % HD == 0) {
-      part.ml[(rec * G + g) * 2] = mx;
-      part.ml[(rec * G + g) * 2 + 1] = l;
+      part.ml[(rec + c) * 2] = mx;
+      part.ml[(rec + c) * 2 + 1] = l;
     }
   }
 }
 
-// One block per (query row g, KV head, slot), one thread per output
-// column: out row h * G + g of slot b from the ceil(length / SPLIT) live
-// splits. The split weights exp2(m_s - max) go to shared memory first, so
-// the sum over the splits issues independent loads; it runs in split order
-// (no atomics).
-template <int HD>
+// One block per (query row r, KV head, slot), one thread per output
+// column: out row r of the slot from the ceil(length / SPLIT) live splits.
+// The split weights exp2(m_s - max) go to shared memory first, MERGE_CHUNK
+// at a time, so the sum over the splits issues independent loads; it runs
+// in split order (no atomics). A split the row cannot see (m_s = -inf)
+// has weight 0.
+template <int HD, int WARPS, class Slot>
 __device__ __forceinline__ void merge_partials(
-    const Partials& part, __nv_bfloat16* __restrict__ out, int b, int h,
-    int g, int nsplit, int NH, int NKV, int length) {
-  __shared__ float sw[MAX_SPLITS];
+    const Partials& part, __nv_bfloat16* __restrict__ out, int nsplit, int r,
+    const Slot& s) {
+  constexpr int SPLIT = WARPS * WROWS;
+  __shared__ float sw[MERGE_CHUNK];
   __shared__ float s_inv;
-  const int G = NH / NKV;
-  const int live = (length + SPLIT - 1) / SPLIT;
-  const size_t rec0 = ((size_t)b * NKV + h) * nsplit;
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");   // the partials
+  const int live = (s.length + SPLIT - 1) / SPLIT;
   const int d = threadIdx.x;
-  if (d < 32) {                              // warp 0: max, weights, sum
-    float mx = -INFINITY;
-    for (int s = d; s < live; s += 32)
-      mx = fmaxf(mx, part.ml[((rec0 + s) * G + g) * 2]);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    float l = 0.f;
-    for (int s = d; s < live; s += 32) {
-      const float w = ex2(part.ml[((rec0 + s) * G + g) * 2] - mx);
-      sw[s] = w;
-      l += w * part.ml[((rec0 + s) * G + g) * 2 + 1];
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
-    if (d == 0) s_inv = 1.f / fmaxf(l, 1e-30f);
+  __nv_bfloat16* o = out + s.qrow(r) * HD + d;
+  if (live == 0) {                           // an empty slot
+    *o = __float2bfloat16(0.f);
+    return;
   }
-  __syncthreads();
-  const float* acc = part.acc + rec0 * G * HD + g * HD + d;
+  const size_t rec0 = ((size_t)s.b * s.nkv + s.h) * nsplit * s.R + r;
+  const float* ml = part.ml + rec0 * 2;      // split sp at ml[sp * R * 2]
+  const float* acc = part.acc + rec0 * HD + d;
+  const size_t ms = (size_t)s.R * 2, as = (size_t)s.R * HD;
+  float mx = -INFINITY, l = 0.f;
+  if (d < 32) {                              // warp 0: max, weights, sum
+    for (int sp = d; sp < live; sp += 32) mx = fmaxf(mx, ml[sp * ms]);
+#pragma unroll
+    for (int o2 = 16; o2 > 0; o2 >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o2));
+  }
   float a = 0.f;
+  for (int c0 = 0; c0 < live; c0 += MERGE_CHUNK) {
+    const int n = min(MERGE_CHUNK, live - c0);
+    const bool last = c0 + MERGE_CHUNK >= live;
+    if (d < 32) {
+      for (int i = d; i < n; i += 32) {
+        const float m = ml[(c0 + i) * ms];
+        const float w = m == -INFINITY ? 0.f : ex2(m - mx);
+        sw[i] = w;
+        l += w * ml[(c0 + i) * ms + 1];
+      }
+      if (last) {
+#pragma unroll
+        for (int o2 = 16; o2 > 0; o2 >>= 1)
+          l += __shfl_xor_sync(0xffffffffu, l, o2);
+        if (d == 0) s_inv = 1.f / fmaxf(l, 1e-30f);
+      }
+    }
+    __syncthreads();
 #pragma unroll 4
-  for (int s = 0; s < live; ++s) a += sw[s] * acc[(size_t)s * G * HD];
-  out[((size_t)b * NH + h * G + g) * HD + d] = __float2bfloat16(a * s_inv);
+    for (int i = 0; i < n; ++i) a += sw[i] * acc[(size_t)(c0 + i) * as];
+    if (!last) __syncthreads();              // sw is staged again
+  }
+  *o = __float2bfloat16(a * s_inv);
+}
+
+// Launch the split kernel over grid (nsplit, NKV * npass, B) and the merge
+// kernel over (R, NKV, B) as its programmatic dependent: the merge may be
+// scheduled as the split blocks start and waits for their grid to finish,
+// so its launch overlaps the split kernel's tail. Returns a cudaError_t.
+template <int HD, int NTP, int WARPS, class Args>
+int launch_split_merge(void (*split_kernel)(Args, Partials, int, int, float),
+                       void (*merge_kernel)(Args, Partials, int),
+                       const Args& args, Partials part, int B, int NKV,
+                       int R, int nsplit, int npass, float scale_log2,
+                       cudaStream_t st) {
+  constexpr size_t smem = sizeof(Smem<HD, NTP, WARPS>);
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nsplit, NKV * npass, B);
+  cfg.blockDim = dim3(WARPS * 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, split_kernel, args, part, nsplit,
+                                       npass, scale_log2);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t mcfg = {};
+  mcfg.gridDim = dim3(R, NKV, B);
+  mcfg.blockDim = dim3(HD);
+  mcfg.stream = st;
+  mcfg.attrs = attr;
+  mcfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&mcfg, merge_kernel, args, part, nsplit);
 }
 
 }  // namespace detikzify_decode_split

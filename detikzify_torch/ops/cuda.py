@@ -135,15 +135,33 @@ KERNELS: Dict[str, CudaKernel] = {
         headers=["decode_split.cuh", "sm90.cuh"]),
     "decode_contig": CudaKernel(
         "decode_contig", "decode_contig.cu", "detikzify_decode_contig",
-        [P, P, P, P, P, I, I, I, I, I, L, F, P],
-        headers=["decode_attn.cuh"]),
+        [P, P, P, P, P, P, L, I, I, I, I, I, L, F, P],
+        headers=["decode_split.cuh", "sm90.cuh"]),
     "paged_verify": CudaKernel(
         "paged_verify", "paged_verify.cu", "detikzify_paged_verify",
-        [P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, P]),
+        [P, P, P, P, P, P, P, L, I, I, I, I, I, I, I, I, F, P],
+        headers=["decode_split.cuh", "sm90.cuh"]),
     "int8_gemv": CudaKernel(
         "int8_gemv", "int8_gemv.cu", "detikzify_int8_gemv",
         [P, P, P, P, I, I, I, I, I, P]),
 }
+
+
+#: key rows of one (slot, KV head) per block of the split body that K2, K3
+#: and K4 share (``csrc/decode_split.cuh``)
+SPLIT_ROWS = 128
+
+
+def split_scratch(rows: int, n_keys: int, hd: int, device):
+    """fp32 scratch for the split body's partials, (acc [hd], max, sum) for
+    each of ``rows`` query rows (over all slots and KV heads) and each of
+    the ceil(n_keys / SPLIT_ROWS) splits. Sized from the key capacity
+    alone, so the host never reads lengths or starts."""
+    import torch
+
+    n_split = -(-n_keys // SPLIT_ROWS)
+    return torch.empty(rows * n_split * (hd + 2), dtype=torch.float32,
+                       device=device)
 
 
 def build_all() -> Dict[str, str]:

@@ -1,5 +1,6 @@
 """Kernel K3: single-token decode attention over a contiguous KV cache
-that reads only the rows each slot holds (``csrc/decode_contig.cu``).
+that reads only the rows each slot holds (``csrc/decode_contig.cu``, on
+the split-and-merge body ``csrc/decode_split.cuh`` that K2 and K4 share).
 
 Port of the Pallas TPU kernel
 ``detikzify_tpu/ops/decode_flash.py::decode_attend_pallas``. The caller is
@@ -10,7 +11,11 @@ caches shorter than 1024 rows on XLA, a choice made for the TPU's launch
 cost; here the kernel runs at every length.
 
 The cache may be a view ``kc[:, :kv_limit]`` of a longer cache: its batch
-stride is passed to the kernel, which reads it in place.
+stride is passed to the kernel, which reads it in place. The kernel cuts
+each slot's rows into blocks of ``SPLIT_ROWS`` and merges their fp32
+partials, in scratch sized from L (never from ``lengths``);
+``ops.paged.decode_attend_contiguous_split`` repeats that arithmetic in
+PyTorch for the tests.
 """
 from __future__ import annotations
 
@@ -18,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from .cuda import KERNELS, stream_handle
+from .cuda import KERNELS, split_scratch, stream_handle
 
 KERNEL = KERNELS["decode_contig"]
 #: head dims the kernel is built for (the JAX kernel takes 128 only)
@@ -73,8 +78,10 @@ def decode_attend_contiguous(
         raise ValueError(f"decode_contig: lengths must be a contiguous "
                          f"int32 [{b}] tensor on {q.device}")
     scale = (hd ** -0.5) if scale is None else float(scale)
+    scratch = split_scratch(b * nh, length, hd, q.device)
     out = torch.empty_like(q)
     KERNEL.launch(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                  lengths.data_ptr(), out.data_ptr(), b, nh, nkv, hd, length,
-                  k_cache.stride(0), scale, stream_handle(q.device))
+                  lengths.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                  scratch.numel(), b, nh, nkv, hd, length, k_cache.stride(0),
+                  scale, stream_handle(q.device))
     return out

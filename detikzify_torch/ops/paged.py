@@ -8,13 +8,18 @@ through the table (zero-copy):
 
   * K2 ``decode_attend_paged`` (``decode_attend_paged_pallas``): one query
     row per slot; plain version: gather the attended pages into a contiguous
-    view (``gather_pages``) and run ``decode_attend_plain``. The kernel
-    splits each slot's rows into blocks of ``SPLIT_ROWS`` and merges their
-    fp32 partials; ``merge_partials`` and ``decode_attend_paged_split``
-    repeat that arithmetic in PyTorch for the tests;
+    view (``gather_pages``) and run ``decode_attend_plain``;
   * K4 ``decode_verify_attend_paged`` (``decode_verify_attend_paged_pallas``):
     the speculative verify window, K+1 query rows per slot with per-row
     causal limits; plain version: the JAX gather + masked einsum path.
+
+Both run on the split-and-merge body of ``csrc/decode_split.cuh``, which
+K3 (``ops.decode_flash``) shares: each slot's keys are cut into blocks of
+``SPLIT_ROWS`` whose fp32 partials a second kernel merges, in scratch that
+the wrappers allocate. ``split_attend`` repeats that arithmetic in PyTorch
+with a key limit per query row, and ``decode_attend_contiguous_split``
+(K3), ``decode_attend_paged_split`` (K2) and
+``decode_verify_attend_paged_split`` (K4) apply it for the tests.
 
 A tensor on the CPU takes the plain version, a CUDA tensor launches the
 kernel or raises.
@@ -26,13 +31,10 @@ from typing import Optional
 import torch
 
 from .attention import NEG_INF, decode_attend_plain
-from .cuda import KERNELS, stream_handle
+from .cuda import KERNELS, SPLIT_ROWS, split_scratch, stream_handle
 
 KERNEL = KERNELS["paged_decode"]
 VERIFY_KERNEL = KERNELS["paged_verify"]
-#: rows of one (slot, KV head) per K2 block, and the most blocks per slot
-#: (``SPLIT``, ``MAX_SPLITS`` in decode_split.cuh)
-SPLIT_ROWS, MAX_SPLITS = 128, 256
 #: verify-window rows per slot, and query rows per (slot, KV head), that K4
 #: is built for
 MAX_K1, MAX_VERIFY_ROWS = 8, 64
@@ -66,40 +68,83 @@ def merge_partials(m: torch.Tensor, l: torch.Tensor,
     return num / den[..., None]
 
 
-def decode_attend_paged_split(q, pool_k, pool_v, tab, lengths, *,
-                              split: int = SPLIT_ROWS,
-                              scale: Optional[float] = None) -> torch.Tensor:
-    """K2's arithmetic in PyTorch (for the tests): each slot's rows, its
-    length clamped to ``[0, m * page]``, cut into splits of ``split`` rows;
-    a split at or past the length adds nothing (m = -inf), a live one gives
-    (max, sum, acc) over its rows below the length in fp32; then
-    ``merge_partials``. Returns [B, NH, Hd] in q.dtype."""
-    b, nh, hd = q.shape
-    nkv = pool_k.shape[2]
-    g = nh // nkv
-    scale = (hd ** -0.5) if scale is None else float(scale)
-    k = gather_pages(pool_k, tab).float()              # [B, L, NKV, Hd]
-    v = gather_pages(pool_v, tab).float()
+def split_attend(q_rows: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 limits: torch.Tensor, *, split: int = SPLIT_ROWS,
+                 scale: float) -> torch.Tensor:
+    """The split body's arithmetic in PyTorch (for the tests): q_rows
+    [B, NKV, R, Hd] against k, v [B, L, NKV, Hd], query row r of slot b
+    seeing keys ``[0, limits[b, r])``. The keys are cut into splits of
+    ``split`` rows; in each split a row that sees no key adds nothing
+    (m = -inf), the others give (max, sum, acc) over the keys they see, in
+    fp32; then ``merge_partials``. Returns [B, NKV, R, Hd] in fp32."""
     n_rows = k.shape[1]
-    length = lengths.long().clamp(0, n_rows)
-    qg = q.float().reshape(b, nkv, g, hd)
-    logits = torch.einsum("bngh,blnh->bngl", qg, k) * scale
-    rows = torch.arange(n_rows, device=q.device)
-    logits = logits.masked_fill(~(rows[None, :] < length[:, None])[:, None,
-                                                                   None],
-                                NEG_INF)
+    logits = torch.einsum("bnrh,blnh->bnrl", q_rows.float(), k.float()) * scale
+    pos = torch.arange(n_rows, device=q_rows.device)
+    seen = pos[None, None, :] < limits.long()[:, :, None]     # [B, R, L]
+    logits = logits.masked_fill(~seen[:, None], NEG_INF)
     ms, ls, accs = [], [], []
     for r0 in range(0, n_rows, split):
         x = logits[..., r0:r0 + split]
         mx = x.amax(dim=-1)
         p = torch.exp(x - mx[..., None])
-        dead = (length <= r0)[:, None, None]
+        dead = ~seen[:, None, :, r0:r0 + split].any(dim=-1)
         ms.append(mx.masked_fill(dead, float("-inf")))
         ls.append(p.sum(dim=-1))
-        accs.append(torch.einsum("bngl,blnh->bngh", p, v[:, r0:r0 + split]))
-    out = merge_partials(torch.stack(ms, -1), torch.stack(ls, -1),
-                         torch.stack(accs, -2))
+        accs.append(torch.einsum("bnrl,blnh->bnrh", p,
+                                 v[:, r0:r0 + split].float()))
+    return merge_partials(torch.stack(ms, -1), torch.stack(ls, -1),
+                          torch.stack(accs, -2))
+
+
+def decode_attend_contiguous_split(q, k_cache, v_cache, lengths, *,
+                                   split: int = SPLIT_ROWS,
+                                   scale: Optional[float] = None
+                                   ) -> torch.Tensor:
+    """K3's arithmetic (and K2's on gathered pages): the G query rows of
+    each KV head all see the slot's length, clamped to ``[0, L]``.
+    Returns [B, NH, Hd] in q.dtype."""
+    b, nh, hd = q.shape
+    n_rows, nkv = k_cache.shape[1], k_cache.shape[2]
+    g = nh // nkv
+    scale = (hd ** -0.5) if scale is None else float(scale)
+    limits = lengths.long().clamp(0, n_rows)[:, None].expand(b, g)
+    out = split_attend(q.reshape(b, nkv, g, hd), k_cache, v_cache, limits,
+                       split=split, scale=scale)
     return out.reshape(b, nh, hd).to(q.dtype)
+
+
+def decode_attend_paged_split(q, pool_k, pool_v, tab, lengths, *,
+                              split: int = SPLIT_ROWS,
+                              scale: Optional[float] = None) -> torch.Tensor:
+    """K2's arithmetic: ``decode_attend_contiguous_split`` on the gathered
+    pages, lengths clamped to ``[0, m * page]``. Returns [B, NH, Hd]."""
+    return decode_attend_contiguous_split(
+        q, gather_pages(pool_k, tab), gather_pages(pool_v, tab), lengths,
+        split=split, scale=scale)
+
+
+def decode_verify_attend_paged_split(q, pool_k, pool_v, tab, starts, *,
+                                     split: int = SPLIT_ROWS,
+                                     scale: Optional[float] = None
+                                     ) -> torch.Tensor:
+    """K4's arithmetic: query rows r = g * K1 + j of each KV head, row j
+    seeing keys ``[0, min(max(start, 0) + j + 1, m * page))``. Returns
+    [B, K1, NH, Hd] in q.dtype."""
+    b, k1, nh, hd = q.shape
+    nkv = pool_k.shape[2]
+    g = nh // nkv
+    scale = (hd ** -0.5) if scale is None else float(scale)
+    k = gather_pages(pool_k, tab)
+    v = gather_pages(pool_v, tab)
+    j = torch.arange(k1, device=q.device)
+    lim = (starts.long().clamp_min(0)[:, None] + j[None] + 1).clamp_max(
+        k.shape[1])                                          # [B, K1]
+    limits = lim[:, None, :].expand(b, g, k1).reshape(b, g * k1)
+    q_rows = q.reshape(b, k1, nkv, g, hd).permute(0, 2, 3, 1, 4).reshape(
+        b, nkv, g * k1, hd)
+    out = split_attend(q_rows, k, v, limits, split=split, scale=scale)
+    out = out.reshape(b, nkv, g, k1, hd).permute(0, 3, 1, 2, 4)
+    return out.reshape(b, k1, nh, hd).to(q.dtype)
 
 
 def _check_pool(name: str, q: torch.Tensor, pool_k: torch.Tensor,
@@ -164,14 +209,7 @@ def decode_attend_paged(
     _check_rows("paged_decode: lengths", lengths, b, q.device)
     scale = (hd ** -0.5) if scale is None else float(scale)
     m = tab.shape[1]
-    # fp32 partials of every split the table allows; sized from m alone, so
-    # the host never reads lengths
-    n_split = -(-m * page // SPLIT_ROWS)
-    if n_split > MAX_SPLITS:
-        raise ValueError(f"paged_decode: a table of {m} pages of {page} rows "
-                         f"exceeds {MAX_SPLITS * SPLIT_ROWS} rows")
-    scratch = torch.empty(b * nh * n_split * (hd + 2), dtype=torch.float32,
-                          device=q.device)
+    scratch = split_scratch(b * nh, m * page, hd, q.device)
     out = torch.empty_like(q)
     KERNEL.launch(
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), tab.data_ptr(),
@@ -230,9 +268,12 @@ def decode_verify_attend_paged(
                          f"(NH / NKV) * K1 <= {MAX_VERIFY_ROWS}")
     _check_rows("paged_verify: starts", starts, b, q.device)
     scale = (hd ** -0.5) if scale is None else float(scale)
+    m = tab.shape[1]
+    scratch = split_scratch(b * k1 * nh, m * page, hd, q.device)
     out = torch.empty_like(q)
     VERIFY_KERNEL.launch(
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), tab.data_ptr(),
-        starts.data_ptr(), out.data_ptr(), b, k1, nh, nkv, hd, page,
-        tab.shape[1], tab.stride(0), scale, stream_handle(q.device))
+        starts.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        scratch.numel(), b, k1, nh, nkv, hd, page, m, tab.stride(0), scale,
+        stream_handle(q.device))
     return out

@@ -191,7 +191,10 @@ def test_paged_verify_kernel_matches_plain(cuda, b, k1, nh, nkv, hd, page,
                                            m):
     """K4 against its plain version, with a dead slot (start 0), a slot
     whose window runs past the table edge (start + K1 > m * page), and a
-    column slice of a wider table. Control: the plain version with every
+    column slice of a wider table; then at the split edges: windows across
+    a split boundary and row 0's limit on a split's first row. One launch
+    counted per call, and a repeated call gives the same bits (the merge
+    sums splits in a fixed order). Control: the plain version with every
     causal limit one row later (start + 1) must fail the tolerance."""
     gen = torch.Generator(device=cuda).manual_seed(b + k1 + hd)
     q, pool_k, pool_v, tab = _verify_inputs(gen, cuda, b, k1, nh, nkv, hd,
@@ -200,20 +203,33 @@ def test_paged_verify_kernel_matches_plain(cuda, b, k1, nh, nkv, hd, page,
     starts = torch.randint(1, m * page - k1, (b,), generator=gen,
                            device=cuda).to(torch.int32)
     starts[0], starts[-1] = 0, edge
+    split = paged.SPLIT_ROWS
+    # windows across a boundary, row 0's limit on one, a window ending on
+    # one, and the dead and edge slots again
+    edges = [split - 2, split - 1, split - k1, 2 * split - 3, 2 * split - 1,
+             0, edge]
+    edge_sets = [[edges[(i + j) % len(edges)] for j in range(b)]
+                 for i in range(0, len(edges), b)]
     wide = torch.cat([tab, tab[:, :2]], dim=1)
-    before = paged.VERIFY_KERNEL.launches
-    got = paged.decode_verify_attend_paged(q, pool_k, pool_v, wide[:, :m],
-                                           starts)
-    assert paged.VERIFY_KERNEL.launches == before + 1
-    assert got.shape == q.shape and got.dtype == torch.bfloat16
-    want = paged.decode_verify_attend_paged_plain(q, pool_k, pool_v, tab,
-                                                  starts)
-    pv_abs = paged.decode_verify_attend_paged_plain(q, pool_k, pool_v.abs(),
-                                                    tab, starts)
-    _close(got, want, pv_abs)
-    late = paged.decode_verify_attend_paged_plain(q, pool_k, pool_v, tab,
-                                                  starts + 1)
-    assert not _within(got, late, pv_abs)
+    for n, picked in enumerate([starts.tolist()] + edge_sets):
+        starts = torch.tensor(picked, dtype=torch.int32, device=cuda)
+        before = paged.VERIFY_KERNEL.launches
+        got = paged.decode_verify_attend_paged(q, pool_k, pool_v,
+                                               wide[:, :m], starts)
+        assert paged.VERIFY_KERNEL.launches == before + 1
+        assert got.shape == q.shape and got.dtype == torch.bfloat16
+        again = paged.decode_verify_attend_paged(q, pool_k, pool_v,
+                                                 wide[:, :m], starts)
+        assert torch.equal(got, again)
+        want = paged.decode_verify_attend_paged_plain(q, pool_k, pool_v, tab,
+                                                      starts)
+        pv_abs = paged.decode_verify_attend_paged_plain(
+            q, pool_k, pool_v.abs(), tab, starts)
+        _close(got, want, pv_abs)
+        if n == 0:
+            late = paged.decode_verify_attend_paged_plain(
+                q, pool_k, pool_v, tab, starts + 1)
+            assert not _within(got, late, pv_abs)
 
 
 @pytest.mark.parametrize("b,nh,nkv,hd,L,limit", [
@@ -225,7 +241,9 @@ def test_paged_verify_kernel_matches_plain(cuda, b, k1, nh, nkv, hd, page,
 def test_decode_contig_kernel_matches_plain(cuda, b, nh, nkv, hd, L, limit):
     """K3 (through ``ops.attention.decode_attend``) against its plain
     version, on the full cache and on a ``[:, :kv_limit]`` view read in
-    place with lengths clamped to it. Control: the plain version reading
+    place with lengths clamped to it; then at lengths 1, 127, 128 and 129
+    (around the first 128-row split). One launch counted per call, and a
+    repeated call gives the same bits. Control: the plain version reading
     one 64-row block short must fail the tolerance."""
     from detikzify_torch.ops import decode_flash
 
@@ -239,14 +257,38 @@ def test_decode_contig_kernel_matches_plain(cuda, b, nh, nkv, hd, L, limit):
         k, v = k[:, :limit], v[:, :limit]
         lengths = lengths.clamp(max=limit)
         assert not k.is_contiguous()
+    edges = torch.tensor([(1, 127, 128, 129)[i % 4] for i in range(b)],
+                         dtype=torch.int32, device=cuda)
+    for n, lens in enumerate((lengths, edges)):
+        before = decode_flash.KERNEL.launches
+        got = attention.decode_attend(q, k, v, lens)
+        assert decode_flash.KERNEL.launches == before + 1
+        assert torch.equal(got, attention.decode_attend(q, k, v, lens))
+        want = attention.decode_attend_plain(q, k, v, lens)
+        pv_abs = attention.decode_attend_plain(q, k, v.abs(), lens)
+        _close(got, want, pv_abs)
+        if n == 0:
+            short = attention.decode_attend_plain(q, k, v, lens - 64)
+            assert not _within(got, short, pv_abs)
+
+
+def test_decode_contig_kernel_long_cache(cuda):
+    """K3 over a cache longer than 256 splits of 128 rows (33,000 rows,
+    259 splits): the merge stages the split weights in two chunks, and
+    lengths on either side of the chunk edge (32,768 rows) and at L hold
+    against the plain version."""
+    from detikzify_torch.ops import decode_flash
+
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    b, nh, nkv, hd, L = 3, 8, 2, 64, 33000
+    q = _rnd(gen, cuda, b, nh, hd)
+    k, v = _rnd(gen, cuda, b, L, nkv, hd), _rnd(gen, cuda, b, L, nkv, hd)
+    lengths = torch.tensor([32768, 32769, L], dtype=torch.int32, device=cuda)
     before = decode_flash.KERNEL.launches
     got = attention.decode_attend(q, k, v, lengths)
     assert decode_flash.KERNEL.launches == before + 1
-    want = attention.decode_attend_plain(q, k, v, lengths)
-    pv_abs = attention.decode_attend_plain(q, k, v.abs(), lengths)
-    _close(got, want, pv_abs)
-    short = attention.decode_attend_plain(q, k, v, lengths - 64)
-    assert not _within(got, short, pv_abs)
+    _close(got, attention.decode_attend_plain(q, k, v, lengths),
+           attention.decode_attend_plain(q, k, v.abs(), lengths))
 
 
 # (K, N) of every K5 product on the int8 v2-8b path: fused qkv, o, fused

@@ -341,6 +341,103 @@ def test_paged_verify_plain_clamps_to_table_edge():
     np.testing.assert_allclose(got, pallas, atol=1e-5, rtol=1e-4)
 
 
+def _verify_split_starts(split, page, m, k1):
+    """Starts that put K4's window on the split edges: crossing a boundary
+    (rows split-2 .. split+2), row 0's limit exactly on a split's first row
+    (start split-1), a dead slot (start 0), a slot clamped at the table
+    edge (start + K1 > m * page), a window ending on a boundary, and one
+    inside a split."""
+    return np.asarray([split - 2, split - 1, 0, m * page - 2, split - k1,
+                       split + 17], np.int32)
+
+
+@pytest.mark.parametrize("nh,nkv,hd", [(TINY_NH, TINY_NKV, TINY_HD),
+                                       (8, 2, 32), (16, 2, 16)])
+@pytest.mark.parametrize("split", [64, tpaged.SPLIT_ROWS])
+def test_verify_split_merge_matches_plain(split, nh, nkv, hd):
+    """K4's split-and-merge arithmetic with a key limit per query row
+    (``decode_verify_attend_paged_split``) equals the plain version in fp32
+    within 1e-6 at every split edge of the window; (16, 2) gives 40 query
+    rows per KV head, more than one pass of the kernel."""
+    rng = np.random.default_rng(31 + split + hd)
+    k1, page, m = 5, TINY_PAGE, TINY_M
+    starts = _verify_split_starts(split, page, m, k1)
+    b = len(starts)
+    q, pool_k, pool_v, tab = _verify_case(rng, b, k1, nh, nkv, hd, page, m,
+                                          b * m + 2)
+    args = [_t(x) for x in (q, pool_k, pool_v, tab, starts)]
+    want = tpaged.decode_verify_attend_paged_plain(*args).numpy()
+    got = tpaged.decode_verify_attend_paged_split(*args, split=split).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+    np.testing.assert_allclose(
+        got, _verify_dense(q, pool_k, pool_v, tab, starts, page), atol=1e-6,
+        rtol=1e-5)
+
+
+def test_verify_split_row_sees_nothing_of_a_live_split():
+    """Row 0 of a window starting at split - 1 sees keys [0, split) and
+    nothing of the next split, which is live for rows 1..K1-1: that split's
+    keys, however large their scores, must not reach row 0."""
+    rng = np.random.default_rng(33)
+    k1, split, page, m = 5, 64, TINY_PAGE, TINY_M
+    q, pool_k, pool_v, tab = _verify_case(rng, 1, k1, 4, 2, 16, page, m,
+                                          m + 1)
+    # keys of split 1 aligned with row 0's query, and huge values there
+    pid = tab[0, split // page]
+    pool_k[pid, :, :, :] = 50 * q[0, 0, ::2][None]
+    pool_v[pid] = 1e4
+    starts = np.asarray([split - 1], np.int32)
+    args = [_t(x) for x in (q, pool_k, pool_v, tab, starts)]
+    got = tpaged.decode_verify_attend_paged_split(*args, split=split).numpy()
+    want = tpaged.decode_verify_attend_paged_plain(*args).numpy()
+    np.testing.assert_allclose(got[0, 0], want[0, 0], atol=1e-6, rtol=0)
+    assert np.abs(got[0, 0]).max() < 10         # nothing of the 1e4 rows
+    assert np.abs(got[0, 1:]).max() > 100       # the later rows see them
+
+
+@pytest.mark.parametrize("nh,nkv,hd", [(8, 2, 64), (4, 4, 128)])
+def test_verify_split_matches_pallas(nh, nkv, hd):
+    """K4's split arithmetic == the Pallas verify-window kernel in
+    interpret mode, with a window across a split boundary, row 0's limit on
+    a boundary, a dead slot and a slot at the table edge."""
+    rng = np.random.default_rng(34)
+    k1, page, m = 5, 128, 4
+    starts = np.asarray([126, 127, 0, m * page - 2], np.int32)
+    b = len(starts)
+    q, pool_k, pool_v, tab = _verify_case(rng, b, k1, nh, nkv, hd, page, m,
+                                          b * m + 1)
+    pallas = np.asarray(decode_verify_attend_paged_pallas(
+        *[jnp.asarray(x) for x in (q, pool_k, pool_v, tab, starts)],
+        interpret=True))
+    got = tpaged.decode_verify_attend_paged_split(
+        *[_t(x) for x in (q, pool_k, pool_v, tab, starts)]).numpy()
+    np.testing.assert_allclose(got, pallas, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("nh,nkv,hd", [(8, 2, 64), (TINY_NH, TINY_NKV,
+                                                     TINY_HD), (8, 8, 128)])
+@pytest.mark.parametrize("limit", [None, 200])
+def test_decode_contig_split_matches_plain(nh, nkv, hd, limit):
+    """K3's split arithmetic (``decode_attend_contiguous_split``, the body
+    K2 shares) equals the plain version in fp32 within 1e-6 at lengths 1,
+    127, 128, 129 and L over a 300-row cache (a ragged last split), and on a
+    ``[:, :kv_limit]`` view with lengths clamped to it."""
+    rng = np.random.default_rng(35 + hd)
+    L = 300
+    lengths = np.asarray([1, 127, 128, 129, L], np.int32)
+    b = len(lengths)
+    q = _t(rng.standard_normal((b, nh, hd)).astype(np.float32))
+    k = _t(rng.standard_normal((b, L, nkv, hd)).astype(np.float32))
+    v = _t(rng.standard_normal((b, L, nkv, hd)).astype(np.float32))
+    lens = _t(lengths)
+    if limit is not None:
+        k, v, lens = k[:, :limit], v[:, :limit], lens.clamp(max=limit)
+        assert not k.is_contiguous()
+    want = tattention.decode_attend_plain(q, k, v, lens).numpy()
+    got = tpaged.decode_attend_contiguous_split(q, k, v, lens).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+
+
 # ---------------------------------------------------------------------------
 # sampling
 # ---------------------------------------------------------------------------

@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
-"""Time two builds of the port's kernels K1 and K2 on one card, in turns.
+"""Time two builds of the port's attention kernels K1-K4 on one card, in
+turns.
 
     python3 tools/kernel_ab.py --old DIR [--iters 30]
 
 DIR holds an earlier ``detikzify_torch/csrc`` whose K1 (``flash_attn.cu``)
-has the current C interface and whose K2 (``paged_decode.cu`` with
-``decode_attn.cuh``) has the one before the split partials (no scratch
-argument), for example the sources of an earlier commit unpacked with
-``git archive <commit> detikzify_torch/csrc | tar -x``.
+and K2 (``paged_decode.cu``) have the current C interfaces and whose K3
+(``decode_contig.cu``) and K4 (``paged_verify.cu``) have the ones before the
+split partials (no scratch argument), for example the sources of an earlier
+commit unpacked with ``git archive <commit> detikzify_torch/csrc | tar -x``.
 Those sources are built with nvcc beside the package's own kernels, each
-build is held against the plain version at ``chip_smoke.py``'s K1 and K2
+build is held against the plain version at ``chip_smoke.py``'s K1-K4
 shapes with ``chip_smoke.py``'s tolerance, and both are timed in the order
 old, new, new, old (CUDA events, L2 flushed before each launch, median of
-``--iters``). Prints the card as nvidia-smi names it, then one JSON line per
+``--iters``). One more row times K4 with 256-row splits (as "old") against
+the package's 128-row build: a copy of ``paged_verify.cu`` with 8 warps per
+split block instead of 4, written with copies of its headers to
+``build/ab/`` and built from there. Prints the card as nvidia-smi names it, then one JSON line per
 shape; exits non-zero if a build disagrees with the plain version or there
 is no card.
 """
@@ -20,10 +24,28 @@ from __future__ import annotations
 
 import argparse
 import json
+import shutil
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+
+
+def split256_source(csrc: Path, out: Path) -> Path:
+    """Copy K4's source into ``out`` with 8 warps (256 key rows) per split
+    block instead of 4, beside copies of the headers it includes; returns
+    the copied source."""
+    line = "constexpr int WARPS = 4;"
+    text = (csrc / "paged_verify.cu").read_text()
+    if text.count(line) != 1:
+        raise SystemExit(f"kernel_ab.py: {line!r} not found once in "
+                         "paged_verify.cu")
+    out.mkdir(parents=True, exist_ok=True)
+    for h in csrc.glob("*.cuh"):
+        shutil.copyfile(h, out / h.name)
+    src = out / "paged_verify.cu"
+    src.write_text(text.replace(line, "constexpr int WARPS = 8;"))
+    return src
 
 
 def main(argv=None) -> int:
@@ -41,17 +63,32 @@ def main(argv=None) -> int:
         return 1
     import chip_smoke as cs
     from detikzify_torch.ops import attention, flash, paged
-    from detikzify_torch.ops.cuda import F, I, KERNELS, P, CudaKernel
+    from detikzify_torch.ops.cuda import (CSRC, KERNELS, CudaKernel, F, I, L,
+                                          P, split_scratch)
 
     old = Path(args.old).resolve()
+    old_headers = sorted(old.glob("*.cuh"))
     old_k1 = CudaKernel("flash_attention_old", old / "flash_attn.cu",
                         "detikzify_flash_attention",
-                        [P] * 7 + [I] * 6 + [F, I, I, P])
+                        [P] * 7 + [I] * 6 + [F, I, I, P],
+                        headers=old_headers)
     old_k2 = CudaKernel("paged_decode_old", old / "paged_decode.cu",
-                        "detikzify_paged_decode", [P] * 6 + [I] * 7 + [F, P],
-                        headers=[old / "decode_attn.cuh"])
-    kernels = [old_k1, old_k2, KERNELS["flash_attention"],
-               KERNELS["paged_decode"]]
+                        "detikzify_paged_decode",
+                        [P] * 7 + [L] + [I] * 7 + [F, P], headers=old_headers)
+    old_k3 = CudaKernel("decode_contig_old", old / "decode_contig.cu",
+                        "detikzify_decode_contig",
+                        [P] * 5 + [I] * 5 + [L, F, P], headers=old_headers)
+    old_k4 = CudaKernel("paged_verify_old", old / "paged_verify.cu",
+                        "detikzify_paged_verify", [P] * 6 + [I] * 8 + [F, P],
+                        headers=old_headers)
+    src256 = split256_source(CSRC, ROOT / "build" / "ab" / "split256")
+    k4_256 = CudaKernel("paged_verify_split256", src256,
+                        "detikzify_paged_verify",
+                        KERNELS["paged_verify"].argtypes,
+                        headers=sorted(src256.parent.glob("*.cuh")))
+    kernels = [old_k1, old_k2, old_k3, old_k4, k4_256,
+               *(KERNELS[n] for n in ("flash_attention", "paged_decode",
+                                      "decode_contig", "paged_verify"))]
     started = [(k, k._start_build()) for k in kernels]
     for k, st in started:
         if st is not None:
@@ -64,10 +101,12 @@ def main(argv=None) -> int:
     print(cs.nvidia_smi(), flush=True)
     timer = cs.Timer(torch, dev, args.iters)
     gen = torch.Generator(device=dev).manual_seed(1234)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     failed = []
 
-    def report(name, shape, old_fn, new_fn, want, pv_abs, bound):
-        row = {"name": name, "shape": shape, **bound}
+    def report(name, shape, old_fn, new_fn, want, pv_abs, bound,
+               old_tag="old"):
+        row = {"name": name, "shape": shape, "old": old_tag, **bound}
         for tag, fn in (("old", old_fn), ("new", new_fn)):
             tol = cs.tolerance_check(torch, fn(), want, pv_abs)
             row[f"{tag}_max_err_over_tol"] = tol["max_err_over_tol"]
@@ -78,7 +117,11 @@ def main(argv=None) -> int:
         row["speedup"] = (t[0] + t[3]) / (t[1] + t[2])
         cs.emit(row)
 
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen,
+                           device=dev).to(torch.bfloat16)
+
+    # K1: the same C interface in both builds
     for name, b, s, t, nh, nkv, hd, mode in cs.K1_CASES:
         q, k, v, kw, vis = cs.k1_inputs(torch, gen, dev, b, s, t, nh, nkv,
                                         hd, mode)
@@ -105,25 +148,24 @@ def main(argv=None) -> int:
                cs.bound(2 * (q.numel() * 2 + k.numel() + v.numel()),
                         4 * nh * hd * vis))
 
+    # K2: the same C interface in both builds
     c = cs.K2_CASE
     b, nh, nkv, hd, page, m = (c[x] for x in ("B", "NH", "NKV", "Hd", "page",
                                               "m"))
     n_pages = b * m + 1
-    pool_k = torch.randn((n_pages, page, nkv, hd), generator=gen,
-                         device=dev).to(torch.bfloat16)
-    pool_v = torch.randn((n_pages, page, nkv, hd), generator=gen,
-                         device=dev).to(torch.bfloat16)
+    pool_k, pool_v = rnd(n_pages, page, nkv, hd), rnd(n_pages, page, nkv, hd)
     perm = torch.randperm(n_pages, generator=gen, device=dev)[:b * m]
     tab = perm.reshape(b, m).to(torch.int32).contiguous()
     lengths = torch.tensor(c["lengths"], dtype=torch.int32, device=dev)
-    q = torch.randn((b, nh, hd), generator=gen, device=dev).to(torch.bfloat16)
+    q = rnd(b, nh, hd)
 
     def old_k2_fn():
         out = torch.empty_like(q)
+        scratch = split_scratch(b * nh, m * page, hd, dev)
         old_k2.launch(q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
-                      tab.data_ptr(), lengths.data_ptr(), out.data_ptr(), b,
-                      nh, nkv, hd, page, m, tab.stride(0), hd ** -0.5,
-                      stream)
+                      tab.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                      scratch.data_ptr(), scratch.numel(), b, nh, nkv, hd,
+                      page, m, tab.stride(0), hd ** -0.5, stream)
         return out
 
     live = sum(c["lengths"])
@@ -137,6 +179,84 @@ def main(argv=None) -> int:
                                            lengths),
            cs.bound(live * nkv * hd * 2 * 2 + 2 * q.numel() * 2,
                     4 * nh * hd * live))
+
+    # K4: the old interface has no scratch; then 256- against 128-row splits
+    c = cs.K4_CASE
+    b, k1, nh, nkv, hd, page, m = (c[x] for x in ("B", "K1", "NH", "NKV",
+                                                  "Hd", "page", "m"))
+    n_pages = b * m + 1
+    pool_k, pool_v = rnd(n_pages, page, nkv, hd), rnd(n_pages, page, nkv, hd)
+    perm = torch.randperm(n_pages, generator=gen, device=dev)[:b * m]
+    tab = perm.reshape(b, m).to(torch.int32).contiguous()
+    starts = torch.tensor(c["starts"], dtype=torch.int32, device=dev)
+    qv = rnd(b, k1, nh, hd)
+
+    def old_k4_fn():
+        out = torch.empty_like(qv)
+        old_k4.launch(qv.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+                      tab.data_ptr(), starts.data_ptr(), out.data_ptr(), b,
+                      k1, nh, nkv, hd, page, m, tab.stride(0), hd ** -0.5,
+                      stream)
+        return out
+
+    def k4_256_fn():
+        out = torch.empty_like(qv)
+        scratch = split_scratch(b * k1 * nh, m * page, hd, dev)
+        k4_256.launch(qv.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+                      tab.data_ptr(), starts.data_ptr(), out.data_ptr(),
+                      scratch.data_ptr(), scratch.numel(), b, k1, nh, nkv,
+                      hd, page, m, tab.stride(0), hd ** -0.5, stream)
+        return out
+
+    width = m * page
+    rows_read = sum(min(s0 + k1, width) for s0 in c["starts"])
+    visible = sum(min(s0 + j + 1, width) for s0 in c["starts"]
+                  for j in range(k1))
+    k4_args = (qv, pool_k, pool_v, tab, starts)
+    k4_shape = {"B": b, "K1": k1, "NH": nh, "NKV": nkv, "Hd": hd,
+                "page": page, "m": m, "starts": list(c["starts"])}
+    k4_want = paged.decode_verify_attend_paged_plain(*k4_args)
+    k4_pv = paged.decode_verify_attend_paged_plain(qv, pool_k, pool_v.abs(),
+                                                   tab, starts)
+    k4_bound = cs.bound(rows_read * nkv * hd * 2 * 2 + 2 * qv.numel() * 2,
+                        4 * nh * hd * visible)
+    for name, old_fn, tag in (("paged_verify", old_k4_fn, "old"),
+                              ("paged_verify/split256_vs_128", k4_256_fn,
+                               "split256")):
+        report(name, k4_shape, old_fn,
+               lambda: paged.decode_verify_attend_paged(*k4_args), k4_want,
+               k4_pv, k4_bound, old_tag=tag)
+
+    # K3: the old interface has no scratch; the whole cache and a view
+    c = cs.K3_CASE
+    b, length, nh, nkv, hd = (c[x] for x in ("B", "L", "NH", "NKV", "Hd"))
+    q = rnd(b, nh, hd)
+    k_full, v_full = rnd(b, length, nkv, hd), rnd(b, length, nkv, hd)
+    for limit in c["limits"]:
+        k, v = k_full, v_full
+        lens = torch.tensor(c["lengths"], dtype=torch.int32, device=dev)
+        if limit is not None:
+            k, v, lens = k[:, :limit], v[:, :limit], lens.clamp(max=limit)
+
+        def old_k3_fn(k=k, v=v, lens=lens):
+            out = torch.empty_like(q)
+            old_k3.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          lens.data_ptr(), out.data_ptr(), b, nh, nkv, hd,
+                          k.shape[1], k.stride(0), hd ** -0.5, stream)
+            return out
+
+        live = int(lens.sum())
+        report("decode_contig" + ("" if limit is None
+                                  else f"/kv_limit{limit}"),
+               {"B": b, "L": k.shape[1], "NH": nh, "NKV": nkv, "Hd": hd,
+                "lengths": lens.tolist()},
+               old_k3_fn,
+               lambda k=k, v=v, lens=lens: attention.decode_attend(
+                   q, k, v, lens),
+               attention.decode_attend_plain(q, k, v, lens),
+               attention.decode_attend_plain(q, k, v.abs(), lens),
+               cs.bound(live * nkv * hd * 2 * 2 + 2 * q.numel() * 2,
+                        4 * nh * hd * live))
     if failed:
         print(json.dumps({"ok": False, "disagree": failed}), flush=True)
         return 1
