@@ -97,14 +97,16 @@ K5_ROWS = (1, 8, 40, 64)  # 40 = 8 slots x 5 rows of the verify forward
 K5_FP32_SUMS = 2        # fp32 sums whose rounding errors an fp32 K5 check
 #                         allows for: the kernel's and the plain version's
 # the device functions of each hand-written kernel, as the profiler names
-# them (K1-K4 launch a merge after their split blocks)
+# them (K1-K4 launch a merge after their split blocks; K5 narrow blocks up
+# to 8 rows, wide ones above, and a reduce after wide blocks split over K)
 KERNEL_FUNCTIONS = {
     "flash_attention": ("flash_fwd_kernel", "flash_split_kernel",
                         "flash_split_merge_kernel"),
     "paged_decode": ("paged_split_kernel", "paged_merge_kernel"),
     "decode_contig": ("contig_split_kernel", "contig_merge_kernel"),
     "paged_verify": ("verify_split_kernel", "verify_merge_kernel"),
-    "int8_gemv": ("int8_gemv_kernel",),
+    "int8_gemv": ("int8_gemv_narrow_kernel", "int8_gemv_kernel",
+                  "int8_gemv_reduce_kernel"),
 }
 SIM_EXPANSIONS = 16     # MCTS expansions of the simulate phases
 SPECULATE = 4           # draft tokens per verify step (K1 = 5)
@@ -253,6 +255,8 @@ def k5_rows(torch, gen, device, rehearsal: bool, timer) -> list:
     from detikzify_torch.ops import quant_matmul
     from detikzify_torch.ops.quant import quantize_kernel
 
+    sms = (torch.cuda.get_device_properties(device).multi_processor_count
+           if device.type == "cuda" else 132)
     rows = []
     for name, k, n, out in K5_CASES:
         if rehearsal:       # tiny shapes: the CPU only checks the wiring
@@ -284,12 +288,13 @@ def k5_rows(torch, gen, device, rehearsal: bool, timer) -> list:
             nbytes = n * k + m * k * 2 + n * 4 + m * n * (
                 4 if out == "fp32" else 2)
             flops = 2 * m * n * k
+            plan = quant_matmul.gemv_plan(m, n, k, sms)
             row = {"name": f"int8_gemv/{name}/rows{m}",
                    "kernel": "int8_gemv", "route": "cuda",
                    "source": "detikzify_torch/csrc/int8_gemv.cu",
                    "replaces": "detikzify_tpu/ops/quant_matmul.py:40",
-                   "shape": {"M": m, "K": k, "N": n, "out": out}, **tol,
-                   **bound(nbytes, flops)}
+                   "shape": {"M": m, "K": k, "N": n, "out": out},
+                   "plan": plan._asdict(), **tol, **bound(nbytes, flops)}
             if timer is not None:
                 row["ms"] = timer(lambda: quant_matmul.int8_gemv(
                     x, q, scale, out_dtype))

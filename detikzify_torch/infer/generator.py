@@ -110,6 +110,7 @@ class DetikzifyGenerator:
         max_new_tokens: Optional[int] = None,
         on_token=None,                  # per-token streaming callback
         sampling=None,                  # SamplingParams override (per-call)
+        on_tick=None,                   # per-iteration scheduler hook
         image_embeds=None,              # precomputed [1, N, D] image tokens
     ):
         if text is not None:
@@ -131,6 +132,10 @@ class DetikzifyGenerator:
         self._own_compiler = compile_service is None
         self.on_token = on_token
         self.sampling = sampling        # None -> engine defaults
+        # host-side scheduler hook, called at the head of each sequential
+        # expansion and of each loop trip of the parallel search, as the
+        # JAX generator calls it; an exception it raises ends the search
+        self.on_tick = on_tick
         # batched wave scoring needs score_against_async; other metrics
         # keep the per-render score() path
         self._wave_scoring_ok = hasattr(metric, "score_against_async")
@@ -489,20 +494,34 @@ class DetikzifyGenerator:
     # ------------------------------------------------------------------
 
     def simulate(self, expansions: Optional[float] = 1,
-                 parallelism: int = 1
+                 parallelism: int = 1, *, shared_engine: bool = False
                  ) -> Generator[Tuple[Numeric, TikzDocument], None, None]:
         """Run MCTS expansions, yielding every rollout's (score, document).
 
         ``parallelism > 1`` runs that many expansions concurrently on the
         engine's slots (virtual loss spreads the selections; LaTeX compiles
         and SelfSim waves overlap decode); ``parallelism=1`` keeps the
-        reference's strictly sequential order."""
+        reference's strictly sequential order. ``shared_engine=True`` (a
+        timesliced scheduler sharing the engine with sibling searches)
+        raises ``NotImplementedError``: the serving layer is not ported."""
+        if shared_engine:
+            raise NotImplementedError(
+                "simulate(shared_engine=True) serves timesliced schedulers, "
+                "which are not ported yet (ROADMAP queue 1, serving)")
         if parallelism > 1:
-            yield from self._simulate_parallel(expansions, parallelism)
-            return
+            return self._simulate_parallel(expansions, parallelism)
+        return self._simulate_sequential(expansions)
+
+    __call__ = simulate
+
+    def _simulate_sequential(self, expansions: Optional[float]
+                             ) -> Generator[Tuple[Numeric, TikzDocument],
+                                            None, None]:
         start = time.time()
         budget = expansions
         while budget is None or (budget := budget - 1) >= 0:
+            if self.on_tick is not None:
+                self.on_tick()
             self.montecarlo.simulate()
             if self.solution:
                 yield self.solution.pop()
@@ -513,8 +532,6 @@ class DetikzifyGenerator:
             if (self.mcts_timeout is not None
                     and time.time() - start > self.mcts_timeout):
                 return
-
-    __call__ = simulate
 
     # ------------------------------------------------------------------
     # parallel MCTS: K concurrent expansions over engine slots
@@ -756,6 +773,8 @@ class DetikzifyGenerator:
 
         try:
             while target is None or completed < target:
+                if self.on_tick is not None:
+                    self.on_tick()
                 t_ph = time.time()
                 wave: List = []
                 # ``parallelism`` bounds concurrent DECODING rollouts;

@@ -143,7 +143,7 @@ KERNELS: Dict[str, CudaKernel] = {
         headers=["decode_split.cuh", "sm90.cuh"]),
     "int8_gemv": CudaKernel(
         "int8_gemv", "int8_gemv.cu", "detikzify_int8_gemv",
-        [P, P, P, P, I, I, I, I, I, P]),
+        [P, P, P, P, P, I, I, I, I, I, I, P], headers=["sm90.cuh"]),
 }
 
 

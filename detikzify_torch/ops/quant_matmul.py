@@ -12,10 +12,17 @@ compiler. A tensor on the CPU always takes the plain version.
 Weights are ``q`` int8 ``[N, K]`` (``nn.Linear``'s ``[out, in]``, the
 transpose of the JAX ``[K, N]``) with one fp32 ``scale`` per output
 channel.
+
+The kernel's launch is planned here (:func:`gemv_plan`): narrow blocks of
+16 output channels up to 8 rows (the kernel takes them from M), wide
+blocks of 128 above; ``ceil(M / 8)`` tiles of 8 rows; K split over
+several wide blocks when they are fewer than the card's SMs.
+:func:`int8_gemv_split_plain` repeats that split arithmetic in PyTorch for
+the CPU tests.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -24,6 +31,48 @@ from .cuda import KERNELS, stream_handle
 
 KERNEL = KERNELS["int8_gemv"]
 MAX_GEMV_ROWS = 64    # beyond this the product is compute-bound
+CHANNELS = 128        # output channels of a wide K5 block (csrc/int8_gemv.cu)
+CHUNK_K = 128         # K per warp and ring stage
+BLOCKS_PER_SM = 2     # wide K5 blocks an SM (__launch_bounds__)
+
+
+class GemvPlan(NamedTuple):
+    n_tiles: int      # tiles of 8 rows, ceil(M / 8): the kernel's NT
+    warps_k: int      # warps along K: 1 (wide blocks) or 8 (narrow)
+    splits: int       # blocks over K (the grid's y)
+    blocks: int       # blocks over N times splits
+    scratch: int      # fp32 partials, splits * M * N when split, else 0
+
+
+def gemv_plan(m: int, n: int, k: int, sms: int) -> GemvPlan:
+    """The launch of K5 on ``x [m, k] @ q [n, k]^T`` on a card with ``sms``
+    SMs. Up to 8 rows (one tile) the kernel takes narrow blocks: 16
+    channels, the block's 8 warps along K streaming the weights into
+    registers, never split; they read x once per 16 channels, which costs
+    little at 8 rows. More rows take wide blocks (128 channels, 8 warps along N); where they
+    are fewer than the SMs (qkv, o, down, the MAP head), K is split so
+    that the card holds ``BLOCKS_PER_SM`` blocks an SM, each split at
+    least one 128-wide chunk."""
+    n_tiles = -(-m // 8)
+    warps_k = 8 if n_tiles == 1 else 1
+    n_blocks = -(-n // (CHANNELS // warps_k))
+    splits = 1
+    if warps_k == 1 and n_blocks < sms:
+        splits = max(1, min(k // CHUNK_K, BLOCKS_PER_SM * sms // n_blocks))
+    return GemvPlan(n_tiles=n_tiles, warps_k=warps_k, splits=splits,
+                    blocks=n_blocks * splits,
+                    scratch=splits * m * n if splits > 1 else 0)
+
+
+_SMS: Dict[int, int] = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
 
 
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -47,6 +96,25 @@ def int8_matmul_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     weights in x's type, summed in fp32, scaled in fp32, cast once to
     ``out_dtype`` (x's type by default)."""
     acc = matmul_f32(x, q.to(x.dtype))
+    return (acc * scale).to(out_dtype or x.dtype)
+
+
+def int8_gemv_split_plain(x: torch.Tensor, q: torch.Tensor,
+                          scale: torch.Tensor, splits: int,
+                          out_dtype: Optional[torch.dtype] = None
+                          ) -> torch.Tensor:
+    """K5's split arithmetic in PyTorch: split ``s`` of ``splits`` sums the
+    128-wide chunks ``[s C / splits, (s + 1) C / splits)`` of the ``C = K /
+    128`` into an fp32 partial; the partials are added in split order, then
+    scaled once and cast once."""
+    k = q.shape[1]
+    chunks = k // CHUNK_K
+    acc = None
+    for s in range(splits):
+        a = s * chunks // splits * CHUNK_K
+        b = (s + 1) * chunks // splits * CHUNK_K
+        p = matmul_f32(x[..., a:b], q[:, a:b].to(x.dtype))
+        acc = p if acc is None else acc + p
     return (acc * scale).to(out_dtype or x.dtype)
 
 
@@ -83,9 +151,13 @@ def int8_gemv(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     if not 1 <= m <= MAX_GEMV_ROWS or k % 128 or n % 16:
         raise ValueError(f"int8_gemv: M={m} K={k} N={n}; needs 1 <= M <= "
                          f"{MAX_GEMV_ROWS}, K % 128 == 0, N % 16 == 0")
+    plan = gemv_plan(m, n, k, _sm_count(x.device))
     y = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    scratch = (torch.empty(plan.scratch, dtype=torch.float32, device=x.device)
+               if plan.splits > 1 else None)
     KERNEL.launch(x.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(),
-                  m, n, k, int(x.dtype == torch.float32),
+                  None if scratch is None else scratch.data_ptr(), m, n, k,
+                  plan.splits, int(x.dtype == torch.float32),
                   int(out_dtype == torch.float32), stream_handle(x.device))
     return y
 

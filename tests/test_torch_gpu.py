@@ -329,7 +329,9 @@ def _k5_close(got, x, q, scale, out_dtype):
     assert bool((err <= bound).all()), float((err / bound).max())
 
 
-@pytest.mark.parametrize("rows", [1, 8, 40, 64])
+# narrow blocks (1, 8) and every tile count of the wide kernel, 2 to 8
+# (10, 20, 25, 40, 48, 50 and 56, 64), split (qkv, o, down, MAP) or not
+@pytest.mark.parametrize("rows", [1, 8, 10, 20, 25, 40, 48, 50, 56, 64])
 @pytest.mark.parametrize("k,n,out", K5_SHAPES)
 def test_int8_gemv_matches_plain(cuda, rows, k, n, out):
     gen = torch.Generator(device=cuda).manual_seed(rows + k + n)
@@ -345,6 +347,39 @@ def test_int8_gemv_matches_plain(cuda, rows, k, n, out):
         want, bound = _k5_bound(x, q, scale, out_dtype)
         assert bool(((got.to(torch.bfloat16).float() - want).abs()
                      > bound).any())
+
+
+@pytest.mark.parametrize("rows", [8, 40])
+@pytest.mark.parametrize("k,n,out", [(4096, 4096, "bf16"),
+                                     (4096, 28672, "bf16"),
+                                     (4096, 128256, "fp32")])
+def test_int8_gemv_repeat_is_bit_identical(cuda, rows, k, n, out):
+    """Split partials (o at 40 rows, in the reduce kernel), unsplit wide
+    blocks (gateup, lm_head at 40 rows) and the 8 warps of a narrow block
+    (8 rows) meet in a fixed order, so two launches on the same inputs
+    agree bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    x, q, scale = _k5_inputs(gen, cuda, rows, k, n)
+    out_dtype = torch.float32 if out == "fp32" else torch.bfloat16
+    first = quant_matmul.int8_gemv(x, q, scale, out_dtype)
+    for _ in range(3):
+        assert torch.equal(quant_matmul.int8_gemv(x, q, scale, out_dtype),
+                           first)
+
+
+@pytest.mark.parametrize("rows", [5, 40])
+@pytest.mark.parametrize("k,n", [(4096, 4096), (4096, 28672), (1152, 1152)])
+def test_int8_gemv_reads_only_its_rows(cuda, rows, k, n):
+    """Rows taken from a 64-row buffer whose other rows hold 1e30: the
+    kernel (40 rows: 5 tiles of 8 in wide blocks; 5 rows: one tile in
+    narrow blocks) reads none of them, split or not."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    buf, q, scale = _k5_inputs(gen, cuda, 64, k, n)
+    buf[rows:] = 1e30
+    x = buf[:rows]
+    assert quant_matmul.gemv_plan(rows, n, k, 132).n_tiles == -(-rows // 8)
+    got = quant_matmul.int8_gemv(x, q, scale)
+    _k5_close(got, x, q, scale, torch.bfloat16)
 
 
 @pytest.mark.parametrize("rows", [3, 64])
@@ -423,4 +458,4 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(RuntimeError, match="CUDA error"):
         quant_matmul.KERNEL.launch(
             xb.data_ptr(), q8.data_ptr(), scale.data_ptr(), xb.data_ptr(),
-            4, 256, 200, 0, 0, paged.stream_handle(cuda))
+            None, 4, 256, 200, 1, 0, 0, paged.stream_handle(cuda))

@@ -414,6 +414,43 @@ def test_simulate_matches_jax(parity_pipes, parallelism):
     assert _free(parity_pipes[1].engine)
 
 
+@pytest.mark.parametrize("parallelism", [1, 8])
+def test_on_tick_calls_match_jax(parity_pipes, parallelism):
+    """The scheduler hook runs at the head of each sequential expansion and
+    of each loop trip of the parallel search: as many calls as the JAX
+    generator makes on the same greedy simulate()."""
+    runs = []
+    for pipe in parity_pipes:
+        random.seed(0)
+        calls = []
+        gen = pipe.generator(image=_figures()[1], metric=pipe.metric,
+                             max_new_tokens=24,
+                             on_tick=lambda calls=calls: calls.append(1))
+        try:
+            n = len(list(gen.simulate(6, parallelism=parallelism)))
+        finally:
+            gen.close()
+        runs.append((len(calls), n))
+    assert runs[1] == runs[0]
+    assert runs[1][1] == 6
+    if parallelism == 1:
+        assert runs[1][0] == 6
+
+
+def test_simulate_shared_engine_not_ported(pipelines):
+    """simulate(shared_engine=True), the serving layer's timesliced search,
+    raises NotImplementedError (not TypeError) until serving is ported."""
+    _, tpipe = pipelines
+    gen = tpipe.generator(image=_figures()[0], max_new_tokens=8)
+    try:
+        with pytest.raises(NotImplementedError, match="serving"):
+            gen.simulate(2, shared_engine=True)
+        assert len(list(gen.simulate(1, shared_engine=False))) == 1
+    finally:
+        gen.close()
+    assert _free(tpipe.engine)
+
+
 def test_port_imports_no_jax():
     """Importing every module of the port, and chip_smoke.py, leaves jax
     and detikzify_tpu out of sys.modules."""

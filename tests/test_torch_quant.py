@@ -7,6 +7,9 @@ its Pallas kernel in interpret mode, ``params_from_numpy`` of a JAX
 and engine against the JAX ones at ``tiny-test`` in fp32. K5 itself is held
 against ``int8_matmul_plain`` on the card (``tests/test_torch_gpu.py``).
 """
+import sys
+from pathlib import Path
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -25,7 +28,8 @@ from detikzify_torch.models import convert
 from detikzify_torch.models import detikzify as tdet
 from detikzify_torch.ops import quant as tquant
 from detikzify_torch.ops.quant import QuantLinear
-from detikzify_torch.ops.quant_matmul import int8_matmul, int8_matmul_plain
+from detikzify_torch.ops.quant_matmul import (gemv_plan, int8_gemv_split_plain,
+                                              int8_matmul, int8_matmul_plain)
 from detikzify_torch.ops.sampling import SamplingParams as TSampling
 
 torch.set_num_threads(1)
@@ -182,6 +186,88 @@ def test_int8_matmul_plain_matches_jax(rows, k, n):
     assert f32.dtype == torch.float32
     np.testing.assert_allclose(f32.numpy(), got, rtol=0,
                                atol=1e-6 * np.abs(got).max())
+
+
+def _k5_bound(want, mag, k, out_dtype):
+    """K5's tolerance (chip_smoke.py): a bf16 output within 2^-7 |want| +
+    K 2^-23 mag (one output rounding, two fp32 sums of K products in
+    different orders, worst case); an fp32 output within 2 sqrt(K) 2^-24
+    mag, mag = plain(|x|, |q|)."""
+    if out_dtype == torch.bfloat16:
+        return 2.0 ** -7 * want.abs() + k * 2.0 ** -23 * mag
+    return 2 * k ** 0.5 * 2.0 ** -24 * mag
+
+
+@pytest.mark.parametrize("rows", [1, 8, 40, 64])
+@pytest.mark.parametrize("k,splits", [(384, 1), (384, 3), (1152, 4),
+                                      (1152, 9)])
+def test_int8_gemv_split_matches_plain_and_jax(rows, k, splits):
+    """K5's split over K in PyTorch (per-split fp32 partials added in split
+    order, then scaled once) against the plain version and JAX int8_matmul,
+    on its XLA branch and through the Pallas kernel in interpret mode, with
+    K5's tolerance; the fp32 output (the lm_head's) against the plain fp32
+    product. One split is the plain product itself."""
+    n = 256
+    rng = np.random.default_rng(rows * 100 + k + splits)
+    xb = jnp.asarray(rng.standard_normal((rows, k)), jnp.bfloat16)
+    qd = jquant.quantize_kernel(jnp.asarray(
+        rng.standard_normal((k, n)), jnp.float32))
+    xt = torch.from_numpy(np.array(xb.astype(jnp.float32))).to(
+        torch.bfloat16)
+    qt = torch.from_numpy(np.asarray(qd["q"]).T.copy())
+    st = torch.from_numpy(np.array(qd["scale"]))
+    mag = int8_matmul_plain(xt.abs(), qt.abs(), st, torch.float32)
+    for out in (torch.bfloat16, torch.float32):
+        got = int8_gemv_split_plain(xt, qt, st, splits, out)
+        want = int8_matmul_plain(xt, qt, st, out)
+        assert got.dtype == out and got.shape == (rows, n)
+        if splits == 1:
+            assert torch.equal(got, want)
+        bound = _k5_bound(want.float(), mag, k, out)
+        assert bool(((got.float() - want.float()).abs() <= bound).all())
+    got = int8_gemv_split_plain(xt, qt, st, splits).float()
+    for kw in ({}, {"force_pallas": True, "interpret": True}):
+        want = torch.from_numpy(np.array(
+            j_int8_matmul(xb, qd["q"], qd["scale"], **kw).astype(
+                jnp.float32)))
+        bound = _k5_bound(want, mag, k, torch.bfloat16)
+        assert bool(((got - want).abs() <= bound).all())
+
+
+def _k5_cases():
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    return [(name, k, n, m) for name, k, n, _ in chip_smoke.K5_CASES
+            for m in chip_smoke.K5_ROWS]
+
+
+# the launch K5 gets at each chip_smoke.py product on 132 SMs: (warps
+# along K, splits, blocks) at <= 8 rows and above
+K5_PLANS = {"qkv": ((8, 1, 384), (1, 5, 240)),
+            "o": ((8, 1, 256), (1, 8, 256)),
+            "gateup": ((8, 1, 1792), (1, 1, 224)),
+            "down": ((8, 1, 256), (1, 8, 256)),
+            "lm_head": ((8, 1, 8016), (1, 1, 1002)),
+            "map_head_q_o": ((8, 1, 72), (1, 9, 81))}
+
+
+@pytest.mark.parametrize("name,k,n,m", _k5_cases())
+def test_gemv_plan_at_chip_smoke_shapes(name, k, n, m):
+    """The wrapper's host-side plan: ceil(M / 8) tiles of 8 rows; narrow
+    blocks (16 channels, 8 warps along K, never split) up to 8 rows; wide
+    blocks (128 channels) above, K split where they are fewer than the
+    SMs, so that 2 blocks an SM fill the card, each split at least one
+    128-wide chunk; fp32 scratch of splits * M * N partials when split."""
+    plan = gemv_plan(m, n, k, 132)
+    assert plan.n_tiles == -(-m // 8)
+    warps_k, splits, blocks = K5_PLANS[name][m > 8]
+    assert (plan.warps_k, plan.splits, plan.blocks) == (warps_k, splits,
+                                                        blocks)
+    assert plan.scratch == (splits * m * n if splits > 1 else 0)
+    assert 1 <= plan.splits <= k // 128
+    if plan.splits > 1:
+        assert plan.blocks <= 2 * 132
 
 
 def test_params_from_numpy_int8_fused_tree(trees):

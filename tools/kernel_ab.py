@@ -1,24 +1,30 @@
 #!/usr/bin/env python3
-"""Time two builds of the port's attention kernels K1-K4 on one card, in
-turns.
+"""Time two builds of the port's kernels K1-K5 on one card, in turns.
 
-    python3 tools/kernel_ab.py --old DIR [--iters 30]
+    python3 tools/kernel_ab.py --old DIR [--iters 30] [--only k5] [--profile]
 
-DIR holds an earlier ``detikzify_torch/csrc`` whose K1 (``flash_attn.cu``)
-and K2 (``paged_decode.cu``) have the current C interfaces and whose K3
-(``decode_contig.cu``) and K4 (``paged_verify.cu``) have the ones before the
-split partials (no scratch argument), for example the sources of an earlier
-commit unpacked with ``git archive <commit> detikzify_torch/csrc | tar -x``.
+DIR holds an earlier ``detikzify_torch/csrc`` whose K1-K4 have the current
+C interfaces and whose K5 (``int8_gemv.cu``) has either the current one
+(run at the package's plan) or the one before the split over K (no split
+count), for example the sources of an earlier commit unpacked with
+``git archive <commit> detikzify_torch/csrc | tar -x``.
 Those sources are built with nvcc beside the package's own kernels, each
-build is held against the plain version at ``chip_smoke.py``'s K1-K4
-shapes with ``chip_smoke.py``'s tolerance, and both are timed in the order
-old, new, new, old (CUDA events, L2 flushed before each launch, median of
+build is held against the plain version at ``chip_smoke.py``'s shapes with
+``chip_smoke.py``'s tolerance, and both are timed in the order old, new,
+new, old (CUDA events, L2 flushed before each launch, median of
 ``--iters``). One more row times K4 with 256-row splits (as "old") against
 the package's 128-row build: a copy of ``paged_verify.cu`` with 8 warps per
 split block instead of 4, written with copies of its headers to
-``build/ab/`` and built from there. Prints the card as nvidia-smi names it, then one JSON line per
-shape; exits non-zero if a build disagrees with the plain version or there
-is no card.
+``build/ab/`` and built from there.
+
+K5 runs at every ``chip_smoke.py`` product (``K5_CASES``) and 1, 8, 40 and
+64 rows, with the bf16 ``F.linear`` on the dequantised weight timed beside
+both builds; the new kernel is also timed at other split counts where the
+package's plan splits K (``alt_ms``). Each K5 row also reports the host time of one call of the
+package's K5 wrapper (median over 200 calls, no synchronisation) and, with
+``--profile``, each K5 device function's profiled time. Prints the card
+as nvidia-smi names it, then one JSON line per shape; exits non-zero if a
+build disagrees with the plain version or there is no card.
 """
 from __future__ import annotations
 
@@ -53,6 +59,11 @@ def main(argv=None) -> int:
     ap.add_argument("--old", required=True,
                     help="directory with the earlier csrc sources")
     ap.add_argument("--iters", type=int, default=30)
+    ap.add_argument("--only", choices=("k5",),
+                    help="time only K5 (skip K1-K4)")
+    ap.add_argument("--profile", action="store_true",
+                    help="K5: also the device time of each of its device "
+                         "functions under torch.profiler, old and new")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(ROOT))
     import torch
@@ -63,32 +74,37 @@ def main(argv=None) -> int:
         return 1
     import chip_smoke as cs
     from detikzify_torch.ops import attention, flash, paged
-    from detikzify_torch.ops.cuda import (CSRC, KERNELS, CudaKernel, F, I, L,
-                                          P, split_scratch)
+    from detikzify_torch.ops.cuda import (CSRC, KERNELS, CudaKernel, I, P,
+                                          split_scratch)
 
     old = Path(args.old).resolve()
     old_headers = sorted(old.glob("*.cuh"))
-    old_k1 = CudaKernel("flash_attention_old", old / "flash_attn.cu",
-                        "detikzify_flash_attention",
-                        [P] * 7 + [I] * 6 + [F, I, I, P],
+
+    def old_kernel(name, source):
+        return CudaKernel(name + "_old", old / source, KERNELS[name].symbol,
+                          KERNELS[name].argtypes, headers=old_headers)
+
+    # an old K5 with the split over K takes the package's interface and plan
+    old_k5_split = "nsplit" in (old / "int8_gemv.cu").read_text()
+    old_k5 = CudaKernel("int8_gemv_old", old / "int8_gemv.cu",
+                        "detikzify_int8_gemv",
+                        KERNELS["int8_gemv"].argtypes if old_k5_split
+                        else [P, P, P, P, I, I, I, I, I, P],
                         headers=old_headers)
-    old_k2 = CudaKernel("paged_decode_old", old / "paged_decode.cu",
-                        "detikzify_paged_decode",
-                        [P] * 7 + [L] + [I] * 7 + [F, P], headers=old_headers)
-    old_k3 = CudaKernel("decode_contig_old", old / "decode_contig.cu",
-                        "detikzify_decode_contig",
-                        [P] * 5 + [I] * 5 + [L, F, P], headers=old_headers)
-    old_k4 = CudaKernel("paged_verify_old", old / "paged_verify.cu",
-                        "detikzify_paged_verify", [P] * 6 + [I] * 8 + [F, P],
-                        headers=old_headers)
-    src256 = split256_source(CSRC, ROOT / "build" / "ab" / "split256")
-    k4_256 = CudaKernel("paged_verify_split256", src256,
-                        "detikzify_paged_verify",
-                        KERNELS["paged_verify"].argtypes,
-                        headers=sorted(src256.parent.glob("*.cuh")))
-    kernels = [old_k1, old_k2, old_k3, old_k4, k4_256,
-               *(KERNELS[n] for n in ("flash_attention", "paged_decode",
-                                      "decode_contig", "paged_verify"))]
+    kernels = [old_k5, KERNELS["int8_gemv"]]
+    if args.only is None:
+        old_k1 = old_kernel("flash_attention", "flash_attn.cu")
+        old_k2 = old_kernel("paged_decode", "paged_decode.cu")
+        old_k3 = old_kernel("decode_contig", "decode_contig.cu")
+        old_k4 = old_kernel("paged_verify", "paged_verify.cu")
+        src256 = split256_source(CSRC, ROOT / "build" / "ab" / "split256")
+        k4_256 = CudaKernel("paged_verify_split256", src256,
+                            "detikzify_paged_verify",
+                            KERNELS["paged_verify"].argtypes,
+                            headers=sorted(src256.parent.glob("*.cuh")))
+        kernels += [old_k1, old_k2, old_k3, old_k4, k4_256,
+                    *(KERNELS[n] for n in ("flash_attention", "paged_decode",
+                                           "decode_contig", "paged_verify"))]
     started = [(k, k._start_build()) for k in kernels]
     for k, st in started:
         if st is not None:
@@ -105,21 +121,29 @@ def main(argv=None) -> int:
     failed = []
 
     def report(name, shape, old_fn, new_fn, want, pv_abs, bound,
-               old_tag="old"):
+               old_tag="old", check=None, extra=None):
         row = {"name": name, "shape": shape, "old": old_tag, **bound}
         for tag, fn in (("old", old_fn), ("new", new_fn)):
-            tol = cs.tolerance_check(torch, fn(), want, pv_abs)
+            tol = (check(fn()) if check is not None else
+                   cs.tolerance_check(torch, fn(), want, pv_abs))
             row[f"{tag}_max_err_over_tol"] = tol["max_err_over_tol"]
             if not tol["ok"]:
                 failed.append(f"{name} {tag}")
         t = [timer(old_fn), timer(new_fn), timer(new_fn), timer(old_fn)]
         row["old_ms"], row["new_ms"] = [t[0], t[3]], [t[1], t[2]]
         row["speedup"] = (t[0] + t[3]) / (t[1] + t[2])
+        row.update(extra() if extra is not None else {})
         cs.emit(row)
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen,
                            device=dev).to(torch.bfloat16)
+
+    # K5: the interface before the split over K has no split count
+    k5_rows(torch, cs, timer, gen, dev, stream, old_k5, old_k5_split, report,
+            failed, args.profile)
+    if args.only == "k5":
+        return finish(failed)
 
     # K1: the same C interface in both builds
     for name, b, s, t, nh, nkv, hd, mode in cs.K1_CASES:
@@ -180,7 +204,8 @@ def main(argv=None) -> int:
            cs.bound(live * nkv * hd * 2 * 2 + 2 * q.numel() * 2,
                     4 * nh * hd * live))
 
-    # K4: the old interface has no scratch; then 256- against 128-row splits
+    # K4: the same C interface in both builds; then 256- against 128-row
+    # splits
     c = cs.K4_CASE
     b, k1, nh, nkv, hd, page, m = (c[x] for x in ("B", "K1", "NH", "NKV",
                                                   "Hd", "page", "m"))
@@ -191,18 +216,10 @@ def main(argv=None) -> int:
     starts = torch.tensor(c["starts"], dtype=torch.int32, device=dev)
     qv = rnd(b, k1, nh, hd)
 
-    def old_k4_fn():
-        out = torch.empty_like(qv)
-        old_k4.launch(qv.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
-                      tab.data_ptr(), starts.data_ptr(), out.data_ptr(), b,
-                      k1, nh, nkv, hd, page, m, tab.stride(0), hd ** -0.5,
-                      stream)
-        return out
-
-    def k4_256_fn():
+    def k4_fn(kernel):
         out = torch.empty_like(qv)
         scratch = split_scratch(b * k1 * nh, m * page, hd, dev)
-        k4_256.launch(qv.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+        kernel.launch(qv.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
                       tab.data_ptr(), starts.data_ptr(), out.data_ptr(),
                       scratch.data_ptr(), scratch.numel(), b, k1, nh, nkv,
                       hd, page, m, tab.stride(0), hd ** -0.5, stream)
@@ -220,14 +237,14 @@ def main(argv=None) -> int:
                                                    tab, starts)
     k4_bound = cs.bound(rows_read * nkv * hd * 2 * 2 + 2 * qv.numel() * 2,
                         4 * nh * hd * visible)
-    for name, old_fn, tag in (("paged_verify", old_k4_fn, "old"),
-                              ("paged_verify/split256_vs_128", k4_256_fn,
-                               "split256")):
+    for name, old_fn, tag in (("paged_verify", lambda: k4_fn(old_k4), "old"),
+                              ("paged_verify/split256_vs_128",
+                               lambda: k4_fn(k4_256), "split256")):
         report(name, k4_shape, old_fn,
                lambda: paged.decode_verify_attend_paged(*k4_args), k4_want,
                k4_pv, k4_bound, old_tag=tag)
 
-    # K3: the old interface has no scratch; the whole cache and a view
+    # K3: the same C interface in both builds; the whole cache and a view
     c = cs.K3_CASE
     b, length, nh, nkv, hd = (c[x] for x in ("B", "L", "NH", "NKV", "Hd"))
     q = rnd(b, nh, hd)
@@ -240,9 +257,11 @@ def main(argv=None) -> int:
 
         def old_k3_fn(k=k, v=v, lens=lens):
             out = torch.empty_like(q)
+            scratch = split_scratch(b * nh, k.shape[1], hd, dev)
             old_k3.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                          lens.data_ptr(), out.data_ptr(), b, nh, nkv, hd,
-                          k.shape[1], k.stride(0), hd ** -0.5, stream)
+                          lens.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                          scratch.numel(), b, nh, nkv, hd, k.shape[1],
+                          k.stride(0), hd ** -0.5, stream)
             return out
 
         live = int(lens.sum())
@@ -257,11 +276,132 @@ def main(argv=None) -> int:
                attention.decode_attend_plain(q, k, v.abs(), lens),
                cs.bound(live * nkv * hd * 2 * 2 + 2 * q.numel() * 2,
                         4 * nh * hd * live))
+    return finish(failed)
+
+
+def finish(failed) -> int:
     if failed:
         print(json.dumps({"ok": False, "disagree": failed}), flush=True)
         return 1
     print(json.dumps({"ok": True}), flush=True)
     return 0
+
+
+def k5_rows(torch, cs, timer, gen, dev, stream, old_k5, old_k5_split,
+            report, failed, profile: bool) -> None:
+    """K5 old against new at every K5_CASES product and K5_ROWS row count,
+    with chip_smoke.py's K5 tolerance, the bf16 F.linear yardstick, the new
+    kernel at other split counts where the plan splits, and the wrapper's
+    host time a call; with
+    ``profile``, the mean device time of each K5 device function a call
+    (L2 flushed before each), old and new."""
+    import time
+
+    import torch.nn.functional as F
+
+    from detikzify_torch.ops import quant_matmul as qm
+    from detikzify_torch.ops.quant import quantize_kernel
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name, k, n, out in cs.K5_CASES:
+        w = torch.randn((n, k), generator=gen, device=dev) * k ** -0.5
+        q, scale = quantize_kernel(w)
+        w_bf16 = (q.float() * scale[:, None]).to(torch.bfloat16)
+        del w
+        out_dtype = torch.float32 if out == "fp32" else torch.bfloat16
+        for m in cs.K5_ROWS:
+            x = torch.randn((m, k), generator=gen, device=dev,
+                            dtype=torch.float32).to(torch.bfloat16)
+            plan = qm.gemv_plan(m, n, k, sms)
+
+            def split_fn(splits, kernel=qm.KERNEL, x=x, q=q, scale=scale,
+                         m=m):
+                y = torch.empty((m, n), dtype=out_dtype, device=dev)
+                part = torch.empty(max(1, splits * m * n),
+                                   dtype=torch.float32, device=dev)
+                kernel.launch(x.data_ptr(), q.data_ptr(), scale.data_ptr(),
+                              y.data_ptr(), part.data_ptr(), m, n, k, splits,
+                              0, int(out_dtype == torch.float32), stream)
+                return y
+
+            def old_fn(x=x, q=q, scale=scale, m=m, plan=plan,
+                       split_fn=split_fn):
+                if old_k5_split:
+                    return split_fn(plan.splits, kernel=old_k5)
+                y = torch.empty((m, n), dtype=out_dtype, device=dev)
+                old_k5.launch(x.data_ptr(), q.data_ptr(), scale.data_ptr(),
+                              y.data_ptr(), m, n, k, 0,
+                              int(out_dtype == torch.float32), stream)
+                return y
+
+            def new_fn(x=x, q=q, scale=scale):
+                return qm.int8_gemv(x, q, scale, out_dtype)
+
+            want = qm.int8_matmul_plain(x, q, scale, out_dtype)
+            mag = qm.int8_matmul_plain(x.abs(), q.abs(), scale,
+                                       torch.float32)
+
+            def check(got, want=want, mag=mag):
+                return cs.k5_tolerance_check(torch, got, want, mag, k,
+                                             out_dtype)
+
+            def extra(x=x, plan=plan, split_fn=split_fn, new_fn=new_fn):
+                row = {"plan": plan._asdict(),
+                       "library_ms": timer(lambda: F.linear(x, w_bf16))}
+                row["alt_ms"] = {}
+                if plan.splits > 1:     # other split counts, same blocks
+                    for s in sorted({1, max(1, plan.splits // 2),
+                                     min(k // 128, plan.splits * 2)}):
+                        row["alt_ms"][f"splits{s}"] = timer(
+                            lambda s=s: split_fn(s))
+                        if not check(split_fn(s))["ok"]:
+                            failed.append(f"int8_gemv/{name}/rows{m} "
+                                          f"splits{s}")
+                torch.cuda.synchronize()
+                host = []
+                for _ in range(200):
+                    t0 = time.perf_counter()
+                    new_fn()
+                    host.append(time.perf_counter() - t0)
+                torch.cuda.synchronize()
+                host.sort()
+                row["wrapper_host_us"] = host[len(host) // 2] * 1e6
+                if profile:
+                    row["device_us"] = {tag: device_us(torch, timer, fn)
+                                        for tag, fn in (("old", old_fn),
+                                                        ("new", new_fn))}
+                return row
+
+            nbytes = n * k + m * k * 2 + n * 4 + m * n * (
+                4 if out == "fp32" else 2)
+            report(f"int8_gemv/{name}/rows{m}",
+                   {"M": m, "K": k, "N": n, "out": out}, old_fn, new_fn,
+                   None, None, cs.bound(nbytes, 2 * m * n * k), check=check,
+                   extra=extra)
+        del q, scale, w_bf16
+
+
+def device_us(torch, timer, fn, calls: int = 10) -> dict:
+    """Mean device time a call of each int8_gemv device function, over
+    ``calls`` calls under torch.profiler, each after the timer's L2 flush."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            timer.flush_buf.zero_()
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None) \
+            or getattr(e, "self_cuda_time_total", 0)
+        if e.device_type == DeviceType.CUDA and "int8_gemv" in e.key:
+            name = "reduce" if "reduce" in e.key else "main"
+            out[name] = out.get(name, 0.0) + us / calls
+    return out
 
 
 if __name__ == "__main__":
