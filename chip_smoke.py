@@ -13,13 +13,17 @@ Phases, each printing one JSON line:
               window of speculate=4 with a dead slot and one past the table
               edge; K3: a 2048-row cache and a 1024-row kv_limit view; K5:
               every int8 product of the simulate paths at 1, 8, 40 and 64
-              rows), and time kernel, plain version and the PyTorch library
+              rows) and at the v1 family's (K1 on the 729-patch tower, its
+              MAP head and a 243-token prefill window at head_dim 64; K2 at
+              8 query rows per KV head; K5 at TinyLlama's fused products),
+              and time kernel, plain version and the PyTorch library
               call (CUDA events, median of many launches, L2 flushed before
               each), next to the least time the card needs for the same
               work; mutants of the plain versions of K3 and K4 must fail;
 4. reference -- the model path on the card (bf16, kernels) against the
               same weights on the host CPU (fp32, plain versions) at full
-              width and 2+2 layers, with bf16 and with int8 + fused weights;
+              width and 2+2 layers, with bf16 and with int8 + fused weights,
+              for v2-8b and for the v1 model (tapped at layer 0);
 5. main    -- random-weight ``detikzify-v2-8b`` at full width and depth in
               bf16: three ``DetikzifyPipeline.sample()`` requests and one
               ``sample_batch()`` of three figures, 128 new tokens each;
@@ -32,16 +36,30 @@ Phases, each printing one JSON line:
 8. spec_greedy -- plain greedy against ``speculate=4`` (K4) on the same
               eight figures, divergence allowed only at a near-tie; one
               rollout hinted with its own greedy continuation;
-9. simulate -- the same weights made int8 + fused
-              (``fuse_projections(quantize_params(...))``), then
-              ``DetikzifyPipeline`` with SelfSim (``metric="model"``, EMD)
-              runs ``simulate()``: 16 expansions, parallelism 8, 128 new
-              tokens; rollouts/min, tokens/s, SelfSim waves, memory, and
-              one wave of 8 expansions under torch.profiler;
-10. simulate_spec -- the same ``simulate()`` on a speculative engine
+9. load    -- the same bf16 weights exported by ``save_pretrained`` into
+              a directory under ``build/`` and loaded back by
+              ``load_params(..., quantize=True)`` (each projection quantized
+              on the host, only int8 on the card), held bit for bit against
+              ``quantize_params`` of the same weights in place; GB written,
+              write and load seconds, host RSS, the card's peak memory;
+10. simulate -- the loaded int8 weights, fused, in ``DetikzifyPipeline``
+              with SelfSim (``metric="model"``, EMD) running ``simulate()``:
+              16 expansions, parallelism 8, 128 new tokens; rollouts/min,
+              tokens/s, SelfSim waves, memory, and one wave of 8 expansions
+              under torch.profiler;
+11. simulate_spec -- the same ``simulate()`` on a speculative engine
               (speculate=4), with every draft class kept on and then with
               the default gating (spec_min_rate 1.3);
-11. the ``kernels`` JSON line (launches on each path above, each counted
+12. v1_sample -- random-weight ``detikzify-tl-1.1b`` at full width and
+              depth (the timm SigLIP tower at 384 px tapped at its
+              second-to-last layer, TinyLlama) written as a v1 checkpoint
+              and timm tower in the reference's names, loaded back by
+              ``load_params(..., vision_tower=...)`` bit for bit, and driven
+              as ``main`` drives v2-8b;
+13. v1_simulate -- the same checkpoint loaded with ``quantize=True`` and
+              fused, ``simulate()`` with 8 expansions and SelfSim (cos, as
+              v1 pins it);
+14. the ``kernels`` JSON line (launches on each path above, each counted
    from 0 just before the path ran and read just after, and their sum),
    the nvidia-smi line, and as the last line
    ``{"ok": true, "device": {...}}``.
@@ -56,11 +74,13 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 
@@ -108,6 +128,27 @@ KERNEL_FUNCTIONS = {
     "int8_gemv": ("int8_gemv_narrow_kernel", "int8_gemv_kernel",
                   "int8_gemv_reduce_kernel"),
 }
+# the v1 family's shapes (detikzify-tl-1.1b: the timm SigLIP tower at 384
+# px, 729 patches, and TinyLlama, head_dim 64, 32/4 heads): K1 on the
+# tower, its MAP head and a prefill window of a 243-image-token prompt (a
+# bucket of 256 rows; the third row restored from a 128-row prefix)
+V1_PROMPT = 243
+K1_V1_CASES = (
+    ("v1_vision", 3, 729, 729, 16, 16, 72, "full"),
+    ("v1_map_head", 3, 1, 729, 16, 16, 72, "full"),
+    ("v1_prefill_window", 3, 256, 384, 32, 4, 64, "window"),
+)
+# K2 at 8 query rows per KV head (the wrapper's limit), lengths 243-2048
+K2_V1_CASE = dict(B=8, NH=32, NKV=4, Hd=64, page=128, m=16,
+                  lengths=(243, 517, 800, 1024, 1311, 1600, 1900, 2048))
+# K5 at TinyLlama's fused products; its lm_head (N = 32002, not a multiple
+# of 128) takes the plain dequant product by the JAX eligibility rule
+K5_V1_CASES = (
+    ("v1_qkv", 2048, 2560, "bf16"), ("v1_o", 2048, 2048, "bf16"),
+    ("v1_gateup", 2048, 11264, "bf16"), ("v1_down", 5632, 2048, "bf16"),
+)
+K5_V1_ROWS = (1, 8)
+V1_EXPANSIONS = 8       # MCTS expansions of the v1_simulate phase
 SIM_EXPANSIONS = 16     # MCTS expansions of the simulate phases
 SPECULATE = 4           # draft tokens per verify step (K1 = 5)
 CONTIG_NEW_TOKENS = 64  # greedy tokens of the contiguous phase
@@ -157,7 +198,7 @@ class Timer:
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def k1_inputs(torch, gen, device, b, s, t, nh, nkv, hd, mode):
+def k1_inputs(torch, gen, device, b, s, t, nh, nkv, hd, mode, prompt=300):
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=device,
                            dtype=torch.float32).to(torch.bfloat16)
@@ -166,10 +207,10 @@ def k1_inputs(torch, gen, device, b, s, t, nh, nkv, hd, mode):
     kw = {}
     visible_keys = b * s * t
     if mode == "window":
-        # two fresh 300-token prompts and one row restored from a 128-row
-        # prefix (q_offsets > 0), as the engine's fused start builds them
+        # two fresh prompts and one row restored from a 128-row prefix
+        # (q_offsets > 0), as the engine's fused start builds them
         offs = [0, 0, 128]
-        lims = [300, 300, 128 + 300]
+        lims = [prompt, prompt, 128 + prompt]
         kw = dict(q_offsets=torch.tensor(offs, dtype=torch.int32,
                                          device=device),
                   kv_limits=torch.tensor(lims, dtype=torch.int32,
@@ -258,7 +299,9 @@ def k5_rows(torch, gen, device, rehearsal: bool, timer) -> list:
     sms = (torch.cuda.get_device_properties(device).multi_processor_count
            if device.type == "cuda" else 132)
     rows = []
-    for name, k, n, out in K5_CASES:
+    for (name, k, n, out), row_counts in (
+            [(c, K5_ROWS) for c in K5_CASES]
+            + [(c, K5_V1_ROWS) for c in K5_V1_CASES]):
         if rehearsal:       # tiny shapes: the CPU only checks the wiring
             k, n = 256, 384
         w = torch.randn((n, k), generator=gen, device=device) * k ** -0.5
@@ -266,7 +309,7 @@ def k5_rows(torch, gen, device, rehearsal: bool, timer) -> list:
         w_bf16 = (q.float() * scale[:, None]).to(torch.bfloat16)
         del w
         out_dtype = torch.float32 if out == "fp32" else torch.bfloat16
-        for m in K5_ROWS:
+        for m in row_counts:
             x = torch.randn((m, k), generator=gen, device=device,
                             dtype=torch.float32).to(torch.bfloat16)
             got = quant_matmul.int8_matmul(x, q, scale, out_dtype)
@@ -310,16 +353,18 @@ def k5_rows(torch, gen, device, rehearsal: bool, timer) -> list:
 
 
 def kernel_phase(torch, device, rehearsal: bool, iters: int):
-    from detikzify_torch.ops import attention, flash, paged
+    from detikzify_torch.ops import attention, flash
 
     gen = torch.Generator(device=device).manual_seed(1234)
     timer = None if rehearsal else Timer(torch, device, iters)
     rows = []
-    for name, b, s, t, nh, nkv, hd, mode in K1_CASES:
+    for (name, b, s, t, nh, nkv, hd, mode), prompt in (
+            [(c, 300) for c in K1_CASES]
+            + [(c, V1_PROMPT) for c in K1_V1_CASES]):
         if rehearsal:   # tiny shapes: the CPU only checks the wiring
             s, t = min(s, 9), 12
         q, k, v, kw, vis = k1_inputs(torch, gen, device, b, s, t, nh, nkv,
-                                     hd, mode)
+                                     hd, mode, prompt)
         got = flash.flash_attention(q, k, v, **kw)
         want = attention.attend_plain(q, k, v, **kw)
         tol = tolerance_check(torch, got, want,
@@ -353,7 +398,23 @@ def kernel_phase(torch, device, rehearsal: bool, iters: int):
                 qt, kt, vt, attn_mask=mask, enable_gqa=nh != nkv))
         rows.append(row)
 
-    c = dict(K2_CASE)
+    rows.append(k2_row(torch, gen, device, rehearsal, timer, K2_CASE,
+                       "paged_decode"))
+    rows.append(k2_row(torch, gen, device, rehearsal, timer, K2_V1_CASE,
+                       "paged_decode/v1"))
+    rows.append(k4_row(torch, gen, device, rehearsal, timer))
+    rows.extend(k3_rows(torch, gen, device, rehearsal, timer))
+    rows.extend(k5_rows(torch, gen, device, rehearsal, timer))
+    return rows
+
+
+def k2_row(torch, gen, device, rehearsal: bool, timer, case: dict,
+           name: str) -> dict:
+    """K2, decode over the page pool, against its plain version; SDPA with
+    a length mask over pre-gathered pages is the library yardstick."""
+    from detikzify_torch.ops import paged
+
+    c = dict(case)
     if rehearsal:
         c.update(B=2, NH=4, NKV=2, Hd=64, page=16, m=3, lengths=(5, 40))
     b, nh, nkv, hd, page, m = (c[x] for x in ("B", "NH", "NKV", "Hd", "page",
@@ -373,12 +434,12 @@ def kernel_phase(torch, device, rehearsal: bool, iters: int):
     tol = tolerance_check(torch, got, want, paged.decode_attend_paged_plain(
         q, pool_k, pool_v.abs(), tab, lengths))
     if not tol.pop("ok"):
-        raise SystemExit(f"K2: kernel disagrees with its plain version: "
-                         f"{tol}")
+        raise SystemExit(f"K2 {name}: kernel disagrees with its plain "
+                         f"version: {tol}")
     live = sum(c["lengths"])
     nbytes = live * nkv * hd * 2 * 2 + 2 * q.numel() * 2
     flops = 4 * nh * hd * live
-    row = {"name": "paged_decode", "kernel": "paged_decode", "route": "cuda",
+    row = {"name": name, "kernel": "paged_decode", "route": "cuda",
            "source": "detikzify_torch/csrc/paged_decode.cu",
            "replaces": "detikzify_tpu/ops/paged.py:194",
            "shape": {"B": b, "NH": nh, "NKV": nkv, "Hd": hd, "page": page,
@@ -400,11 +461,7 @@ def kernel_phase(torch, device, rehearsal: bool, iters: int):
         qs = q[:, :, None, :]
         row["library_ms"] = timer(lambda: F.scaled_dot_product_attention(
             qs, kg, vg, attn_mask=mask, enable_gqa=True))
-    rows.append(row)
-    rows.append(k4_row(torch, gen, device, rehearsal, timer))
-    rows.extend(k3_rows(torch, gen, device, rehearsal, timer))
-    rows.extend(k5_rows(torch, gen, device, rehearsal, timer))
-    return rows
+    return row
 
 
 def k4_row(torch, gen, device, rehearsal: bool, timer) -> dict:
@@ -535,12 +592,64 @@ def k3_rows(torch, gen, device, rehearsal: bool, timer) -> list:
     return rows
 
 
-def reference_phase(torch, device, rehearsal: bool, seed: int):
+def v1_config(rehearsal: bool, feature_layer=None):
+    """The v1 model of the v1 phases: ``detikzify-tl-1.1b`` as its
+    ``config.json`` describes it (the timm so400m tower at 384 px, 729
+    patches, 243 image tokens; TinyLlama), tapped at ``feature_layer`` (the
+    second-to-last of the tower's layers by default). The rehearsal's is
+    tiny-test with v1's wiring: bos 1, eos 2, the image and pad tokens at
+    the top of the vocabulary, a biased projector, SelfSim pinned to cos,
+    and an image size that leaves pixels past the last whole patch (44 px
+    at patch 14, as 384 px does)."""
+    from detikzify_torch.config import get_config, tiny_test_config
+    from detikzify_torch.models import import_hf
+
+    if rehearsal:
+        base = tiny_test_config(vocab_size=512)
+        cfg = base.replace(
+            vision=base.vision.replace(image_size=44),
+            image_token_id=510, pad_token_id=511, bos_token_id=1,
+            eos_token_id=2, projector_bias=True, pooling_mode="cos",
+            is_v1=True)
+    else:
+        cfg = import_hf.config_from_hf_json(
+            v1_hf_config(get_config("detikzify-tl-1.1b"), 0))
+    if feature_layer is None:
+        feature_layer = cfg.vision.num_hidden_layers - 2
+    return cfg.replace(feature_layer=feature_layer)
+
+
+def v1_hf_config(cfg, feature_layer: int) -> dict:
+    """A v1 checkpoint's flat ``config.json`` (reference ``model/v1/
+    configuration_detikzify.py``) for ``cfg``'s decoder."""
+    t = cfg.text
+    return {"architectures": ["DetikzifyForCausalLM"],
+            "model_type": "detikzify", "vocab_size": t.vocab_size,
+            "hidden_size": t.hidden_size,
+            "intermediate_size": t.intermediate_size,
+            "num_hidden_layers": t.num_hidden_layers,
+            "num_attention_heads": t.num_attention_heads,
+            "num_key_value_heads": t.num_key_value_heads,
+            "max_position_embeddings": t.max_position_embeddings,
+            "rms_norm_eps": t.rms_norm_eps, "rope_theta": t.rope_theta,
+            "hidden_act": t.hidden_act,
+            "tie_word_embeddings": t.tie_word_embeddings,
+            "patch_token_id": cfg.image_token_id,
+            "bos_token_id": cfg.bos_token_id,
+            "eos_token_id": cfg.eos_token_id,
+            "pad_token_id": cfg.pad_token_id,
+            "concat_patches": cfg.concat_factor,
+            "feature_layer": feature_layer}
+
+
+def reference_phase(torch, device, rehearsal: bool, seed: int,
+                    v1: bool = False):
     """The model path on the card (bf16, kernels) against the same weights
-    on the host CPU (fp32, plain versions): v2-8b at full width cut to 2
-    vision + 2 text layers; vision tower, a paged prefill of 300 image
-    tokens + 16 text tokens, then 4 zero-copy decode steps. Once with the
-    bf16 weights (K1, K2), once with their int8 + fused form (K5 too)."""
+    on the host CPU (fp32, plain versions) at full width cut to 2 vision +
+    2 text layers: v2-8b, or (``v1``) the v1 model tapped at layer 0;
+    vision tower, a paged prefill of the image tokens (300 for v2, 243 for
+    v1) + 16 text tokens, then 4 zero-copy decode steps. Once with the bf16
+    weights (K1, K2), once with their int8 + fused form (K5 too)."""
     import copy
 
     import numpy as np
@@ -549,7 +658,10 @@ def reference_phase(torch, device, rehearsal: bool, seed: int):
     from detikzify_torch.models import convert, detikzify, llama
     from detikzify_torch.ops.quant import fuse_projections, quantize_params
 
-    base = get_config("tiny-test" if rehearsal else "detikzify-v2-8b")
+    if v1:
+        base = v1_config(rehearsal, feature_layer=0)
+    else:
+        base = get_config("tiny-test" if rehearsal else "detikzify-v2-8b")
     cfg = base.replace(
         vision=base.vision.replace(num_hidden_layers=2),
         text=base.text.replace(num_hidden_layers=2))
@@ -604,8 +716,9 @@ def reference_phase(torch, device, rehearsal: bool, seed: int):
         emb_cos = float(torch.nn.functional.cosine_similarity(
             got_emb.flatten(1), want_emb.flatten(1)).min())
         agree = int((got.argmax(-1) == want.argmax(-1)).sum())
-        result = {"phase": "reference", "weights": weights,
-                  "layers": {"vision": 2, "text": 2},
+        result = {"phase": "reference", "model": "v1" if v1 else "v2",
+                  "weights": weights, "layers": {"vision": 2, "text": 2},
+                  "feature_layer": cfg.feature_layer,
                   "max_abs_err_over_std": rel, "min_cosine": cos,
                   "image_tokens_cosine": emb_cos,
                   "argmax_agree": f"{agree}/{got.shape[0]}",
@@ -719,29 +832,49 @@ def profile_call(torch, fn, label: str) -> dict:
 
 def main_phase(torch, device, rehearsal: bool, seed: int,
                max_new_tokens: int):
+    """Random-weight ``detikzify-v2-8b`` (bf16, full width and depth) drawn
+    on the card from ``seed``, driven by ``sample_drive``."""
     from detikzify_torch.config import get_config
-    from detikzify_torch.infer import (DetikzifyPipeline, FakeBackend,
-                                       TikzDocument, set_backend)
     from detikzify_torch.models import convert
-    from detikzify_torch.ops import launch_counts, reset_launch_counts
     from detikzify_torch.processing import ByteTokenizer, DetikzifyProcessor
 
-    def sync():
-        if not rehearsal:
-            torch.cuda.synchronize()
-
-    stages = {}
     t0 = time.perf_counter()
     cfg = get_config("tiny-test" if rehearsal else "detikzify-v2-8b")
     dtype = torch.float32 if rehearsal else torch.bfloat16
     gen = torch.Generator(device=device).manual_seed(seed)
     params = convert.init_random(cfg, device=device, dtype=dtype,
                                  generator=gen)
-    sync()
-    stages["init_weights_s"] = time.perf_counter() - t0
-
-    set_backend(FakeBackend())
+    if not rehearsal:
+        torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
     processor = DetikzifyProcessor(smoke_tokenizer(ByteTokenizer, cfg), cfg)
+    counts = sample_drive(torch, device, rehearsal, seed, params, processor,
+                          max_new_tokens, phase="main",
+                          preset="tiny-test" if rehearsal
+                          else "detikzify-v2-8b",
+                          stages={"init_weights_s": init_s})
+    return counts, params, processor
+
+
+def sample_drive(torch, device, rehearsal: bool, seed: int, params,
+                 processor, max_new_tokens: int, *, phase: str, preset: str,
+                 stages: dict, extra: Optional[dict] = None) -> dict:
+    """Three ``DetikzifyPipeline.sample()`` requests and one
+    ``sample_batch()`` of three figures, the launch counters reset just
+    before and read just after; then one profiled ``sample()``. Fails on a
+    pool leak, a held slot, a token outside the vocabulary, the banned
+    ``<image>`` token, or image tokens that are not finite or of the wrong
+    shape."""
+    from detikzify_torch.infer import DetikzifyPipeline, TikzDocument
+    from detikzify_torch.ops import launch_counts, reset_launch_counts
+
+    def sync():
+        if not rehearsal:
+            torch.cuda.synchronize()
+
+    cfg = processor.cfg
+    dtype = params.dtype
+    stages = dict(stages)
     t0 = time.perf_counter()
     pipe = DetikzifyPipeline(params, cfg, processor, metric="fast",
                              num_slots=8, device=device, seed=seed)
@@ -806,7 +939,7 @@ def main_phase(torch, device, rehearsal: bool, seed: int,
     if not rehearsal:
         for name in ("flash_attention", "paged_decode"):
             if counts[name] <= 0:
-                raise SystemExit(f"main path never launched {name}")
+                raise SystemExit(f"{phase} never launched {name}")
     if not seen or min(seen) < 0 or max(seen) >= cfg.text.vocab_size:
         raise SystemExit("generated ids outside the vocabulary")
     if cfg.image_token_id in seen:
@@ -820,8 +953,8 @@ def main_phase(torch, device, rehearsal: bool, seed: int,
                          "or of the wrong shape")
     decode_tokens = eng.counters["decode_tokens"] - tokens0
     result = {
-        "phase": "main", "preset": "tiny-test" if rehearsal
-        else "detikzify-v2-8b", "dtype": str(dtype).replace("torch.", ""),
+        "phase": phase, "preset": preset,
+        "dtype": str(dtype).replace("torch.", ""),
         "requests": {"sample": 3, "sample_batch": 1, "figures": 6,
                      "max_new_tokens": max_new_tokens},
         "stages_s": stages, "main_s": main_s,
@@ -829,51 +962,49 @@ def main_phase(torch, device, rehearsal: bool, seed: int,
         "decode_tokens_per_s": decode_tokens / max(decode["s"], 1e-9),
         "launches": counts, "engine_counters": dict(eng.counters),
         "pool_pages": int(eng._page_refs.shape[0]),
-        "code_chars": [len(d.code) for d in docs],
+        "code_chars": [len(d.code) for d in docs], **(extra or {}),
     }
     if not rehearsal:
         result["max_memory_allocated_bytes"] = \
             torch.cuda.max_memory_allocated()
     emit(result)
     if not rehearsal:
-        emit(profile_call(torch, lambda: pipe.sample(
-            image=figs[0], max_new_tokens=32), "sample(), 32 new tokens"))
+        prof = profile_call(torch, lambda: pipe.sample(
+            image=figs[0], max_new_tokens=32), "sample(), 32 new tokens")
+        emit(dict(prof, model=preset))
     pipe.close()
-    return counts, params, processor
+    return counts
 
 
 def simulate_phase(torch, device, rehearsal: bool, seed: int, params,
-                   processor, max_new_tokens: int) -> dict:
-    """MCTS ``simulate()`` scored by SelfSim on the int8 + fused weights:
-    the bf16 weights of the main phase go through ``quantize_params`` and
-    ``fuse_projections`` in place, then ``DetikzifyPipeline`` with its
-    default ``metric="model"`` (EMD for v2) runs ``SIM_EXPANSIONS``
-    expansions with parallelism 8 on one synthetic figure, the launch
-    counters reset just before and read just after. The smoke tokenizer
-    makes each rollout a distinct program, so SelfSim scores batched waves
-    of several renders inside the search."""
+                   processor, max_new_tokens: int, *,
+                   phase: str = "simulate", preset: str = "detikzify-v2-8b",
+                   expansions: int = SIM_EXPANSIONS) -> dict:
+    """MCTS ``simulate()`` scored by SelfSim on int8 + fused weights (those
+    ``load_params(quantize=True)`` loaded, fused): ``DetikzifyPipeline``
+    with its default ``metric="model"`` (EMD for v2, cos for v1) runs
+    ``expansions`` expansions with parallelism 8 on one synthetic figure,
+    the launch counters reset just before and read just after. The smoke
+    tokenizer makes each rollout a distinct program, so SelfSim scores
+    batched waves of several renders inside the search."""
     import math
 
     from detikzify_torch.infer import DetikzifyPipeline, TikzDocument
     from detikzify_torch.ops import launch_counts, reset_launch_counts
-    from detikzify_torch.ops.quant import (fuse_projections, params_nbytes,
-                                           quantize_params)
+    from detikzify_torch.ops.quant import params_nbytes
 
     def sync():
         if not rehearsal:
             torch.cuda.synchronize()
 
     cfg = processor.cfg
-    gc.collect()                # the main phase's engine and page pool
-    t0 = time.perf_counter()
-    fuse_projections(quantize_params(params))
-    if not rehearsal:
-        torch.cuda.empty_cache()
-    sync()
-    quantize_s = time.perf_counter() - t0
+    _free(torch, rehearsal)     # earlier phases' engines and page pools
     pipe = DetikzifyPipeline(params, cfg, processor, num_slots=8,
                              device=device, seed=seed)
     eng, metric = pipe.engine, pipe.metric
+    if cfg.is_v1 and metric.mode != "cos":
+        raise SystemExit(f"{phase}: SelfSim resolved to {metric.mode}; v1 "
+                         "pins cos")
     fig = synthetic_figures(1, seed + 1)[0]
 
     # the renders in each SelfSim wave enqueued by the search
@@ -900,7 +1031,7 @@ def simulate_phase(torch, device, rehearsal: bool, seed: int, params,
         torch.cuda.reset_peak_memory_stats()
     sync()
     t0 = time.perf_counter()
-    results = list(pipe.simulate(image=fig, expansions=SIM_EXPANSIONS,
+    results = list(pipe.simulate(image=fig, expansions=expansions,
                                  parallelism=8,
                                  max_new_tokens=max_new_tokens))
     sync()
@@ -909,35 +1040,32 @@ def simulate_phase(torch, device, rehearsal: bool, seed: int, params,
     del metric.score_against_async, metric.score   # the class's methods
     decode_tokens = eng.counters["decode_tokens"] - tokens0
 
-    if len(results) != SIM_EXPANSIONS or not all(
+    if len(results) != expansions or not all(
             isinstance(d, TikzDocument) for _, d in results):
-        raise SystemExit(f"simulate yielded {len(results)} results, "
-                         f"expected {SIM_EXPANSIONS} (score, document) "
-                         "pairs")
+        raise SystemExit(f"{phase} yielded {len(results)} results, "
+                         f"expected {expansions} (score, document) pairs")
     scores = [float(sc) for sc, _ in results]
     if not all(math.isfinite(sc) for sc in scores):
-        raise SystemExit(f"simulate gave non-finite scores: {scores}")
+        raise SystemExit(f"{phase} gave non-finite scores: {scores}")
     scored = sum(wave_sizes) + single["n"]
     if scored <= 0:
-        raise SystemExit("SelfSim scored no render during simulate")
+        raise SystemExit(f"SelfSim scored no render during {phase}")
     if max(wave_sizes, default=0) < 2:
         raise SystemExit(f"no SelfSim wave scored more than one render "
-                         f"during simulate: waves {wave_sizes}")
+                         f"during {phase}: waves {wave_sizes}")
     if eng.num_active or eng.num_free_slots != eng.num_slots:
-        raise SystemExit("slots still held after simulate")
+        raise SystemExit(f"slots still held after {phase}")
     if eng.num_free_pages != free0 - eng.prefix_pages_used:
-        raise SystemExit("pool leak after simulate")
+        raise SystemExit(f"pool leak after {phase}")
     if not rehearsal:
         for name in ("flash_attention", "paged_decode", "int8_gemv"):
             if counts[name] <= 0:
-                raise SystemExit(f"simulate never launched {name}")
+                raise SystemExit(f"{phase} never launched {name}")
     result = {
-        "phase": "simulate",
-        "preset": "tiny-test" if rehearsal else "detikzify-v2-8b",
+        "phase": phase, "preset": preset,
         "weights": "int8 + fused", "metric": f"SelfSim {metric.mode}",
-        "expansions": SIM_EXPANSIONS, "parallelism": 8,
-        "max_new_tokens": max_new_tokens, "quantize_s": quantize_s,
-        "wall_s": wall_s, "rollouts": len(results),
+        "expansions": expansions, "parallelism": 8,
+        "max_new_tokens": max_new_tokens, "wall_s": wall_s, "rollouts": len(results),
         "rollouts_per_min": len(results) / wall_s * 60,
         "decode_tokens": decode_tokens,
         "decode_tokens_per_s": decode_tokens / wall_s,
@@ -978,9 +1106,312 @@ def simulate_phase(torch, device, rehearsal: bool, seed: int, params,
         result["wave_device_idle_share"] = prof["device_idle_share"]
     emit(result)
     if not rehearsal:
-        emit(prof)
+        emit(dict(prof, model=preset))
     pipe.close()
     return counts
+
+
+def host_rss() -> dict:
+    """This process's resident set now (``VmRSS``) and its peak over its
+    whole life (``ru_maxrss``), in bytes."""
+    import resource
+
+    now = -1
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                now = int(line.split()[1]) * 1024
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    return {"rss_bytes": now, "lifetime_peak_rss_bytes": peak}
+
+
+def state_diff(torch, a, b) -> dict:
+    """Two modules' state dicts compared bit for bit: the tensors and the
+    entries that differ, and the largest difference among them."""
+    sa, sb = a.state_dict(), b.state_dict()
+    if set(sa) != set(sb):
+        return {"keys_only_in_first": sorted(set(sa) - set(sb))[:10],
+                "keys_only_in_second": sorted(set(sb) - set(sa))[:10],
+                "differing_entries": -1}
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    bad, n_bad, worst = [], 0, 0.0
+    for k, x in sa.items():
+        y = sb[k]
+        if x.dtype != y.dtype or x.shape != y.shape:
+            bad.append(k)
+            n_bad += x.numel()
+            continue
+        y = y.to(x.device)
+        n = int((x.view(ints[x.element_size()])
+                 != y.view(ints[y.element_size()])).sum())
+        if n:
+            bad.append(k)
+            n_bad += n
+            worst = max(worst, float((x.float() - y.float()).abs().max()))
+    return {"tensors": len(sa), "differing_tensors": bad[:10],
+            "n_differing_tensors": len(bad), "differing_entries": n_bad,
+            "max_abs_diff": worst}
+
+
+def load_phase(torch, device, rehearsal: bool, params, processor):
+    """Checkpoint export and int8 load at full width and depth: the main
+    phase's bf16 weights go out through ``save_pretrained`` into a
+    directory under ``build/`` and come back through ``load_params(...,
+    quantize=True)`` (each projection quantized on the host, only int8 on
+    the card). The loaded weights must equal, bit for bit, the same bf16
+    weights quantized in place on the card (``quantize_params``): both do
+    the same fp32 arithmetic. Returns (launch counts, the loaded weights
+    fused)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from detikzify_torch.models import load as mload
+    from detikzify_torch.ops import launch_counts, reset_launch_counts
+    from detikzify_torch.ops.quant import (fuse_projections, params_nbytes,
+                                           quantize_params,
+                                           quantize_params_host)
+
+    def sync():
+        if not rehearsal:
+            torch.cuda.synchronize()
+
+    cfg = processor.cfg
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    need, free = params_nbytes(params), shutil.disk_usage(build).free
+    if free < need + (1 << 30):
+        raise SystemExit(f"load: {free} bytes free where build/ lives, the "
+                         f"export needs {need} and 1 GiB to spare")
+    _free(torch, rehearsal)
+    tmp = tempfile.mkdtemp(prefix="load_", dir=build)
+    reset_launch_counts()
+    try:
+        sync()
+        t0 = time.perf_counter()
+        nbytes = mload.save_pretrained(tmp, params, cfg)
+        write_s = time.perf_counter() - t0
+        rss0 = host_rss()
+        if not rehearsal:
+            torch.cuda.reset_peak_memory_stats()
+            card0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        loaded, lcfg = mload.load_params(tmp, dtype=params.dtype,
+                                         quantize=True, device=device)
+        sync()
+        load_s = time.perf_counter() - t0
+        rss1 = host_rss()
+        # the host quantization alone, in a call of its own, on the same
+        # weights viewed on the host (the file is in the page cache now)
+        host = mload.load_weights(tmp, lcfg, dtype=params.dtype,
+                                  device="cpu")
+        t0 = time.perf_counter()
+        quantize_params_host(host, device="cpu")
+        quantize_s = time.perf_counter() - t0
+        del host
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    counts = launch_counts()
+    card = {}
+    if not rehearsal:
+        card = {"card_bytes_before": card0,
+                "card_peak_above_before_bytes":
+                    torch.cuda.max_memory_allocated() - card0}
+    int8_bytes = params_nbytes(loaded)
+
+    # the reference: the same bf16 weights quantized in place on the card
+    t0 = time.perf_counter()
+    quantize_params(params)
+    sync()
+    in_place_s = time.perf_counter() - t0
+    diff = state_diff(torch, loaded, params)
+    same_cfg = dataclasses.replace(
+        lcfg, dtype=cfg.dtype, model_max_length=cfg.model_max_length) == cfg
+    result = {
+        "phase": "load", "preset": "tiny-test" if rehearsal
+        else "detikzify-v2-8b", "weights_written": str(params.dtype)
+        .replace("torch.", ""), "bytes_written": nbytes,
+        "gb_written": nbytes / 1e9, "write_s": write_s,
+        "write_gb_per_s": nbytes / 1e9 / write_s,
+        "load_quantized_s": load_s, "host_quantize_alone_s": quantize_s,
+        "load_gb_per_s": nbytes / 1e9 / load_s,
+        "host_before_load": rss0, "host_after_load": rss1,
+        "int8_weight_bytes": int8_bytes, **card,
+        "in_place_quantize_s": in_place_s, "config_round_trip": same_cfg,
+        "loaded_vs_in_place_quantized": diff,
+        "rule": "loaded int8 weights equal in-place quantize_params of the "
+                "same bf16 weights, bit for bit (q, scale and the rest)",
+        "launches": counts}
+    emit(result)
+    if not same_cfg:
+        raise SystemExit(f"load: config.json gave {lcfg}, expected {cfg}")
+    if diff["differing_entries"] != 0:
+        raise SystemExit(f"load: the loaded int8 weights differ from the "
+                         f"in-place quantized ones: {diff}")
+    fuse_projections(loaded)
+    _free(torch, rehearsal)
+    return counts, loaded
+
+
+def write_v1_checkpoint(torch, params, cfg, path: str, tower: str) -> int:
+    """Write ``params`` as a v1 checkpoint in the reference's names: the
+    LLaMA ``model.*`` keys, ``lm_head`` and the biased ``mm_projector``
+    with a flat ``config.json`` in ``path``; the vision tower in timm's
+    names (q/k/v packed into ``attn.qkv``, the MAP head as ``attn_pool``
+    with k/v packed into ``kv``) with a ``preprocessor_config.json`` in
+    ``tower``. Returns the bytes of the two safetensors files."""
+    from detikzify_torch.models.safetensors_io import save_file
+
+    t, v = params.text, params.vision
+    state = {"model.embed_tokens.weight": t.embed_tokens,
+             "model.norm.weight": t.norm.scale,
+             "lm_head.weight": t.lm_head.weight,
+             "model.mm_projector.weight": params.connector.proj.weight,
+             "model.mm_projector.bias": params.connector.proj.bias}
+    for i, lp in enumerate(t.layers):
+        b = f"model.layers.{i}"
+        state[f"{b}.input_layernorm.weight"] = lp.input_ln.scale
+        state[f"{b}.post_attention_layernorm.weight"] = lp.post_ln.scale
+        for ours in "qkvo":
+            state[f"{b}.self_attn.{ours}_proj.weight"] = \
+                getattr(lp.attn, ours).weight
+        for ours in ("gate", "up", "down"):
+            state[f"{b}.mlp.{ours}_proj.weight"] = \
+                getattr(lp.mlp, ours).weight
+
+    vc = cfg.vision
+    emb = v.embeddings
+    vstate = {"patch_embed.proj.weight": emb.patch.weight.reshape(
+                  vc.hidden_size, vc.num_channels, vc.patch_size,
+                  vc.patch_size),
+              "patch_embed.proj.bias": emb.patch.bias,
+              "pos_embed": emb.position[None],
+              "norm.weight": v.post_ln.scale, "norm.bias": v.post_ln.bias}
+
+    def put(name, lin):
+        vstate[f"{name}.weight"], vstate[f"{name}.bias"] = lin.weight, \
+            lin.bias
+
+    def packed(name, lins):
+        vstate[f"{name}.weight"] = torch.cat([x.weight for x in lins])
+        vstate[f"{name}.bias"] = torch.cat([x.bias for x in lins])
+
+    for i, lp in enumerate(v.layers):
+        b = f"blocks.{i}"
+        for ours, theirs in (("ln1", "norm1"), ("ln2", "norm2")):
+            norm = getattr(lp, ours)
+            vstate[f"{b}.{theirs}.weight"] = norm.scale
+            vstate[f"{b}.{theirs}.bias"] = norm.bias
+        packed(f"{b}.attn.qkv", (lp.attn.q, lp.attn.k, lp.attn.v))
+        put(f"{b}.attn.proj", lp.attn.o)
+        put(f"{b}.mlp.fc1", lp.mlp.fc1)
+        put(f"{b}.mlp.fc2", lp.mlp.fc2)
+    h = v.head
+    vstate["attn_pool.latent"] = h.probe
+    put("attn_pool.q", h.attn.q)
+    packed("attn_pool.kv", (h.attn.k, h.attn.v))
+    put("attn_pool.proj", h.attn.o)
+    vstate["attn_pool.norm.weight"] = h.ln.scale
+    vstate["attn_pool.norm.bias"] = h.ln.bias
+    put("attn_pool.mlp.fc1", h.mlp.fc1)
+    put("attn_pool.mlp.fc2", h.mlp.fc2)
+
+    os.makedirs(path, exist_ok=True)
+    os.makedirs(tower, exist_ok=True)
+    nbytes = save_file(state, os.path.join(path, "model.safetensors"))
+    nbytes += save_file(vstate, os.path.join(tower, "model.safetensors"))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(v1_hf_config(cfg, cfg.feature_layer), f, indent=2)
+    with open(os.path.join(tower, "preprocessor_config.json"), "w") as f:
+        json.dump({"image_mean": [0.5] * 3, "image_std": [0.5] * 3}, f)
+    return nbytes
+
+
+def v1_phases(torch, device, rehearsal: bool, seed: int,
+              max_new_tokens: int) -> dict:
+    """The v1 family at full width and depth (``detikzify-tl-1.1b``, the
+    tower tapped at its second-to-last layer): random weights drawn on the
+    card from ``seed`` are written as a v1 checkpoint and its timm tower
+    (``write_v1_checkpoint``) and loaded back through ``load_params(...,
+    vision_tower=...)`` (in the rehearsal, whose tiny tower config.json
+    cannot describe, through ``load_weights`` with the tiny config), bit
+    for bit equal to what was written. Then ``v1_sample``: ``sample_drive``
+    on the bf16 weights; and ``v1_simulate``: the same checkpoint loaded
+    with ``quantize=True`` and fused, ``simulate()`` with SelfSim (cos, as
+    v1 pins it). Returns the launch counts of both paths."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from detikzify_torch.models import convert
+    from detikzify_torch.models import load as mload
+    from detikzify_torch.ops.quant import fuse_projections
+    from detikzify_torch.processing import ByteTokenizer, DetikzifyProcessor
+
+    def sync():
+        if not rehearsal:
+            torch.cuda.synchronize()
+
+    cfg = v1_config(rehearsal)
+    preset = "tiny-test (v1)" if rehearsal else "detikzify-tl-1.1b"
+    dtype = torch.float32 if rehearsal else torch.bfloat16
+    src = convert.init_random(cfg, device=device, dtype=dtype,
+                              generator=torch.Generator(device=device)
+                              .manual_seed(seed + 101))
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="v1_", dir=build)
+    ckpt, tower = os.path.join(tmp, "ckpt"), os.path.join(tmp, "tower")
+
+    def load_v1(quantize: bool):
+        kw = dict(dtype=dtype, vision_tower=tower, quantize=quantize,
+                  device=device)
+        if rehearsal:
+            return mload.load_weights(ckpt, cfg, **kw)
+        params, lcfg = mload.load_params(ckpt, **kw)
+        if dataclasses.replace(lcfg, model_max_length=cfg.model_max_length,
+                               dtype=cfg.dtype) != cfg:
+            raise SystemExit(f"v1 config.json gave {lcfg}, expected {cfg}")
+        return params
+
+    try:
+        sync()
+        t0 = time.perf_counter()
+        nbytes = write_v1_checkpoint(torch, src, cfg, ckpt, tower)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        params = load_v1(False)
+        sync()
+        load_s = time.perf_counter() - t0
+        diff = state_diff(torch, params, src)
+        if diff["differing_entries"] != 0:
+            raise SystemExit(f"v1: the loaded weights differ from those "
+                             f"written: {diff}")
+        del src
+        t0 = time.perf_counter()
+        qparams = fuse_projections(load_v1(True))
+        sync()
+        load_q_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    processor = DetikzifyProcessor(smoke_tokenizer(ByteTokenizer, cfg), cfg)
+    paths = {"v1_sample": sample_drive(
+        torch, device, rehearsal, seed, params, processor, max_new_tokens,
+        phase="v1_sample", preset=preset,
+        stages={"write_checkpoint_s": write_s, "load_s": load_s,
+                "load_quantized_fused_s": load_q_s},
+        extra={"feature_layer": cfg.feature_layer,
+               "image_tokens": cfg.image_seq_len,
+               "checkpoint_bytes": nbytes,
+               "loaded_vs_written": diff})}
+    del params
+    paths["v1_simulate"] = simulate_phase(
+        torch, device, rehearsal, seed, qparams, processor, max_new_tokens,
+        phase="v1_simulate", preset=preset, expansions=V1_EXPANSIONS)
+    del qparams
+    _free(torch, rehearsal)
+    return paths
+
 
 
 def _engine(torch, params, cfg, device, seed, temperature=0.0, **kw):
@@ -1447,7 +1878,11 @@ def main(argv=None) -> int:
     if args.skip_main:      # a kernel-only run prints no result line
         emit({"kernels": rows})
         return 0
+    from detikzify_torch.infer import FakeBackend, set_backend
+
     reference_phase(torch, device, rehearsal, args.seed)
+    reference_phase(torch, device, rehearsal, args.seed, v1=True)
+    set_backend(FakeBackend())
     paths = {}
     paths["sample"], params, processor = main_phase(
         torch, device, rehearsal, args.seed, args.max_new_tokens)
@@ -1461,11 +1896,20 @@ def main(argv=None) -> int:
         torch, device, rehearsal, args.seed, params, processor, prompts, emb,
         args.max_new_tokens)
     del emb
-    paths["simulate"] = simulate_phase(torch, device, rehearsal, args.seed,
-                                       params, processor,
-                                       args.max_new_tokens)
+    # export the bf16 weights and load them back int8: what simulate runs
+    paths["load"], qparams = load_phase(torch, device, rehearsal, params,
+                                        processor)
+    del params
+    paths["simulate"] = simulate_phase(
+        torch, device, rehearsal, args.seed, qparams, processor,
+        args.max_new_tokens,
+        preset="tiny-test" if rehearsal else "detikzify-v2-8b")
     paths.update(simulate_spec_phase(torch, device, rehearsal, args.seed,
-                                     params, processor, args.max_new_tokens))
+                                     qparams, processor, args.max_new_tokens))
+    del qparams
+    _free(torch, rehearsal)
+    paths.update(v1_phases(torch, device, rehearsal, args.seed,
+                           args.max_new_tokens))
     for row in rows:
         # launches on each path, each counted from 0 just before it ran;
         # "launches" is their sum

@@ -1,4 +1,5 @@
-from . import convert, detikzify, layers, llama, siglip
+from . import convert, detikzify, import_hf, layers, llama, load, siglip
 from .detikzify import Params
 
-__all__ = ["convert", "detikzify", "layers", "llama", "siglip", "Params"]
+__all__ = ["convert", "detikzify", "import_hf", "layers", "llama", "load",
+           "siglip", "Params"]

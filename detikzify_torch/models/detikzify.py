@@ -1,5 +1,6 @@
 """Composite DeTikZify model: SigLIP vision + connector + LLaMA decoder
-(counterpart of ``detikzify_tpu/models/detikzify.py``, v2 family).
+(counterpart of ``detikzify_tpu/models/detikzify.py``; v2 and v1
+families, no adapter).
 
   * ``connector``      -- 3->1 patch concatenation + projection;
   * ``merge_inputs``   -- image embeddings into the ``<image>`` token slots
@@ -22,7 +23,7 @@ from torch import nn
 
 from ..config import DetikzifyConfig
 from . import llama, siglip
-from .layers import linear
+from .layers import layer_norm, linear
 
 
 class Connector(nn.Module):
@@ -69,12 +70,19 @@ def connector(params: Params, image_hidden: torch.Tensor,
 
 def vision_features(params: Params, cfg: DetikzifyConfig,
                     pixel_values: torch.Tensor) -> torch.Tensor:
-    """pixel_values [B,H,W,C] -> pre-connector features [B, N, Dv] (v2: the
-    final post-norm hidden state)."""
+    """pixel_values [B,H,W,C] -> pre-connector features
+    [B, image_seq_len*cf, Dv]. v2: the final post-norm hidden state. v1
+    (``cfg.feature_layer`` set): the output of an intermediate block
+    through the final norm (timm ``get_intermediate_layers(norm=True)``,
+    reference ``model/v1/modeling_detikzify.py:132-137``), front-truncated
+    when the patch count is not divisible by concat_factor; the blocks
+    after the tapped one are not run."""
     if cfg.feature_layer is not None:
-        raise NotImplementedError(
-            "v1 feature-layer taps are not ported yet (ROADMAP queue 1, "
-            "loading/export and v1)")
+        feats = siglip.hidden_state(params.vision, cfg.vision, pixel_values,
+                                    cfg.feature_layer)
+        feats = layer_norm(params.vision.post_ln, feats,
+                           cfg.vision.layer_norm_eps)
+        return feats[:, -cfg.image_seq_len * cfg.concat_factor:]
     return siglip.apply(params.vision, cfg.vision,
                         pixel_values)["last_hidden_state"]
 

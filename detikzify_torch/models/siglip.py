@@ -84,10 +84,15 @@ class SiglipVision(nn.Module):
 
 
 def patchify(pixel_values: torch.Tensor, patch: int) -> torch.Tensor:
-    """[B, H, W, C] -> [B, (H/p)*(W/p), p*p*C], per-patch order (C, ph, pw)."""
+    """[B, H, W, C] -> [B, (H/p)*(W/p), p*p*C], per-patch order (C, ph, pw).
+    Rows and columns past the last whole patch are dropped, as a torch
+    ``Conv2d`` of stride p drops them: the v1 tower takes 384 px at patch
+    14, 27 x 27 patches and 6 pixels left over (the JAX package's
+    ``patchify`` raises there)."""
     b, h, w, c = pixel_values.shape
     gh, gw = h // patch, w // patch
-    x = pixel_values.reshape(b, gh, patch, gw, patch, c)
+    x = pixel_values[:, :gh * patch, :gw * patch]
+    x = x.reshape(b, gh, patch, gw, patch, c)
     x = x.permute(0, 1, 3, 5, 2, 4)             # [B, gh, gw, C, ph, pw]
     return x.reshape(b, gh * gw, c * patch * patch)
 
@@ -104,10 +109,12 @@ def _mha(p: Attention, x_q: torch.Tensor, x_kv: torch.Tensor,
     return linear(p.o, out.reshape(b, s, d))
 
 
-def apply(params: SiglipVision, cfg: VisionConfig,
-          pixel_values: torch.Tensor) -> dict:
-    """pixel_values [B, H, W, C] (SigLIP-normalized) ->
-    {'last_hidden_state': [B, N, D], 'pooler_output': [B, D]}."""
+def _blocks(params: SiglipVision, cfg: VisionConfig,
+            pixel_values: torch.Tensor, num_layers: Optional[int] = None,
+            keep: bool = False):
+    """Patch embedding and the first ``num_layers`` encoder blocks (all by
+    default) -> (the last block's output, every block's output when
+    ``keep``, else [])."""
     act = ACTIVATIONS[cfg.hidden_act]
     eps = cfg.layer_norm_eps
     nh = cfg.num_attention_heads
@@ -116,11 +123,40 @@ def apply(params: SiglipVision, cfg: VisionConfig,
     x = linear(params.embeddings.patch,
                patchify(pixel_values.to(dtype), cfg.patch_size))
     x = x + params.embeddings.position
-    for lp in params.layers:
+    states = []
+    for lp in params.layers[:num_layers]:
         h = layer_norm(lp.ln1, x, eps)
         x = x + _mha(lp.attn, h, h, nh)
         h = layer_norm(lp.ln2, x, eps)
         x = x + linear(lp.mlp.fc2, act(linear(lp.mlp.fc1, h)))
+        if keep:
+            states.append(x)
+    return x, states
+
+
+def hidden_state(params: SiglipVision, cfg: VisionConfig,
+                 pixel_values: torch.Tensor, layer: int) -> torch.Tensor:
+    """``apply(..., output_hidden_states=True)["hidden_states"][layer]``
+    (Python indexing, negative values included), computing the blocks up
+    to ``layer`` and no further."""
+    n = len(params.layers)
+    if not -n <= layer < n:
+        raise IndexError(f"layer {layer} of a {n}-layer tower")
+    return _blocks(params, cfg, pixel_values, layer % n + 1)[0]
+
+
+def apply(params: SiglipVision, cfg: VisionConfig,
+          pixel_values: torch.Tensor,
+          output_hidden_states: bool = False) -> dict:
+    """pixel_values [B, H, W, C] (SigLIP-normalized) ->
+    {'last_hidden_state': [B, N, D], 'pooler_output': [B, D]}, plus
+    'hidden_states' (each block's output, before the final norm, one per
+    layer) when asked."""
+    act = ACTIVATIONS[cfg.hidden_act]
+    eps = cfg.layer_norm_eps
+    nh = cfg.num_attention_heads
+    x, states = _blocks(params, cfg, pixel_values,
+                        keep=output_hidden_states)
     x = layer_norm(params.post_ln, x, eps)
 
     hp: Optional[MAPHead] = params.head
@@ -132,4 +168,7 @@ def apply(params: SiglipVision, cfg: VisionConfig,
         pooled = (pooled + h)[:, 0]
     else:
         pooled = x.mean(dim=1)
-    return {"last_hidden_state": x, "pooler_output": pooled}
+    out = {"last_hidden_state": x, "pooler_output": pooled}
+    if output_hidden_states:
+        out["hidden_states"] = states
+    return out

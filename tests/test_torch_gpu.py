@@ -459,3 +459,94 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
         quant_matmul.KERNEL.launch(
             xb.data_ptr(), q8.data_ptr(), scale.data_ptr(), xb.data_ptr(),
             None, 4, 256, 200, 1, 0, 0, paged.stream_handle(cuda))
+
+
+# ---------------------------------------------------------------------------
+# the v1 family's shapes (detikzify-tl-1.1b: the timm SigLIP tower at 384 px,
+# 729 patches; TinyLlama, head_dim 64, 32 query heads over 4 KV heads)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,s,t,nh,nkv,hd,mode", [
+    (3, 729, 729, 16, 16, 72, "full"),      # the tower: a last partial tile
+    (3, 1, 729, 16, 16, 72, "full"),        # its MAP head
+    (3, 256, 384, 32, 4, 64, "window"),     # a 243-token prefill window
+])
+def test_flash_kernel_v1_shapes(cuda, b, s, t, nh, nkv, hd, mode):
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    q, k, v = (_rnd(gen, cuda, b, s, nh, hd), _rnd(gen, cuda, b, t, nkv, hd),
+               _rnd(gen, cuda, b, t, nkv, hd))
+    kw = {}
+    if mode == "window":
+        kw["q_offsets"] = torch.tensor([0, 0, 128], dtype=torch.int32,
+                                       device=cuda)
+        kw["kv_limits"] = torch.tensor([243, 243, 128 + 243],
+                                       dtype=torch.int32, device=cuda)
+    before = flash.KERNEL.launches
+    got = flash.flash_attention(q, k, v, **kw)
+    assert flash.KERNEL.launches == before + 1
+    _close(got, attention.attend_plain(q, k, v, **kw),
+           attention.attend_plain(q, k, v.abs(), **kw))
+
+
+def test_paged_kernel_v1_eight_rows_per_kv_head(cuda):
+    """K2 at its limit of 8 query rows per KV head (32 over 4), head_dim
+    64, page 128, lengths 243-2048 over 16-page tables."""
+    gen = torch.Generator(device=cuda).manual_seed(22)
+    b, nh, nkv, hd, page, m = 8, 32, 4, 64, 128, 16
+    n_pages = b * m + 1
+    pool_k = _rnd(gen, cuda, n_pages, page, nkv, hd)
+    pool_v = _rnd(gen, cuda, n_pages, page, nkv, hd)
+    tab = torch.randperm(n_pages, generator=gen, device=cuda)[:b * m]
+    tab = tab.reshape(b, m).to(torch.int32).contiguous()
+    lengths = torch.tensor([243, 517, 800, 1024, 1311, 1600, 1900, 2048],
+                           dtype=torch.int32, device=cuda)
+    q = _rnd(gen, cuda, b, nh, hd)
+    before = paged.KERNEL.launches
+    got = paged.decode_attend_paged(q, pool_k, pool_v, tab, lengths)
+    assert paged.KERNEL.launches == before + 1
+    _close(got, paged.decode_attend_paged_plain(q, pool_k, pool_v, tab,
+                                                lengths),
+           paged.decode_attend_paged_plain(q, pool_k, pool_v.abs(), tab,
+                                           lengths))
+
+
+# TinyLlama's fused products: qkv, o, gateup, down
+K5_V1_SHAPES = [(2048, 2560), (2048, 2048), (2048, 11264), (5632, 2048)]
+
+
+@pytest.mark.parametrize("rows", [1, 8])
+@pytest.mark.parametrize("k,n", K5_V1_SHAPES)
+def test_int8_gemv_v1_shapes(cuda, rows, k, n):
+    gen = torch.Generator(device=cuda).manual_seed(rows + k + n)
+    x, q, scale = _k5_inputs(gen, cuda, rows, k, n)
+    before = quant_matmul.KERNEL.launches
+    got = quant_matmul.int8_matmul(x, q, scale)
+    assert quant_matmul.KERNEL.launches == before + 1
+    _k5_close(got, x, q, scale, torch.bfloat16)
+
+
+def test_v1_lm_head_takes_the_plain_product(cuda):
+    """TinyLlama's lm_head (N = 32002, not a multiple of 128) is outside
+    K5's eligibility rule: the plain dequant product, as the JAX package
+    leaves it to XLA, launching no kernel."""
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    x, q, scale = _k5_inputs(gen, cuda, 8, 2048, 32002)
+    before = quant_matmul.KERNEL.launches
+    got = quant_matmul.int8_matmul(x, q, scale, torch.float32)
+    assert quant_matmul.KERNEL.launches == before
+    assert torch.equal(got, quant_matmul.int8_matmul_plain(
+        x, q, scale, torch.float32))
+
+
+def test_quantize_kernel_card_matches_host(cuda):
+    """Quantization on the card equals the host's bit for bit: q equal,
+    scale bit-identical (both divide in IEEE fp32; a division by the
+    Python number 127 on the card went through its reciprocal and moved
+    scales by an ulp and q by one at rounding boundaries)."""
+    gen = torch.Generator(device=cuda).manual_seed(24)
+    w = (torch.randn((4096, 1152), generator=gen, device=cuda)
+         * 1152 ** -0.5).to(torch.bfloat16)
+    q, scale = quantize_kernel(w)
+    hq, hscale = quantize_kernel(w.cpu())
+    assert torch.equal(q.cpu(), hq)
+    assert torch.equal(scale.cpu().view(torch.int32), hscale.view(torch.int32))

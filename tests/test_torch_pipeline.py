@@ -453,7 +453,10 @@ def test_simulate_shared_engine_not_ported(pipelines):
 
 def test_port_imports_no_jax():
     """Importing every module of the port, and chip_smoke.py, leaves jax
-    and detikzify_tpu out of sys.modules."""
+    and detikzify_tpu out of sys.modules, and safetensors and transformers
+    too: the card's machine has neither, so the port reads and writes
+    checkpoints itself and imports transformers only to load a
+    tokenizer."""
     code = """
 import importlib, pkgutil, sys
 import detikzify_torch
@@ -461,7 +464,9 @@ for m in pkgutil.walk_packages(detikzify_torch.__path__, 'detikzify_torch.'):
     importlib.import_module(m.name)
 import chip_smoke
 bad = sorted(n for n in sys.modules
-             if n == 'jax' or n.startswith(('jax.', 'jaxlib', 'detikzify_tpu')))
+             if n in ('jax', 'safetensors', 'transformers')
+             or n.startswith(('jax.', 'jaxlib', 'detikzify_tpu',
+                              'safetensors.', 'transformers.')))
 print(len([n for n in sys.modules if n.startswith('detikzify_torch')]), bad)
 assert not bad, bad
 """
@@ -473,7 +478,9 @@ assert not bad, bad
 
 
 def test_chip_smoke_cpu_rehearsal():
-    """The smoke script's phases run end to end at tiny-test on the CPU."""
+    """The smoke script's phases run end to end at tiny-test on the CPU:
+    the v2 phases, the checkpoint round trip (``load``) and the v1
+    family's phases."""
     env = dict(os.environ, OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "chip_smoke.py", "--cpu-rehearsal",
                           "--max-new-tokens", "8"], cwd=ROOT, env=env,
@@ -485,13 +492,39 @@ def test_chip_smoke_cpu_rehearsal():
     names = {row["kernel"] for row in kernels}
     assert names == {"flash_attention", "paged_decode", "paged_verify",
                      "decode_contig", "int8_gemv"}
-    paths = {"sample", "contiguous", "spec_greedy", "simulate",
-             "simulate_spec", "simulate_spec_gated"}
+    paths = {"sample", "contiguous", "spec_greedy", "load", "simulate",
+             "simulate_spec", "simulate_spec_gated", "v1_sample",
+             "v1_simulate"}
     assert all(set(row["launches_by_path"]) == paths for row in kernels)
-    phases = {}
+    # the v1 family's kernel shapes sit beside the v2 ones
+    row_names = {row["name"] for row in kernels}
+    assert {"flash_attention/v1_vision", "flash_attention/v1_map_head",
+            "flash_attention/v1_prefill_window",
+            "paged_decode/v1"} <= row_names
+    assert {f"int8_gemv/v1_{p}/rows{m}" for p in ("qkv", "o", "gateup",
+                                                   "down")
+            for m in (1, 8)} <= row_names
+    phases, refs = {}, []
     for line in lines[:-2]:
         obj = json.loads(line)
         phases.setdefault(obj.get("phase"), obj)
+        if obj.get("phase") == "reference":
+            refs.append((obj["model"], obj["weights"]))
+    assert refs == [("v2", "bf16"), ("v2", "int8+fused"), ("v1", "bf16"),
+                    ("v1", "int8+fused")]
+    load = phases["load"]
+    assert load["loaded_vs_in_place_quantized"]["differing_entries"] == 0
+    assert load["loaded_vs_in_place_quantized"]["tensors"] > 0
+    assert load["config_round_trip"] and load["bytes_written"] > 0
+    v1 = phases["v1_sample"]
+    assert v1["requests"]["figures"] == 6 and v1["feature_layer"] == 0
+    assert v1["loaded_vs_written"]["differing_entries"] == 0
+    assert phases["v1_simulate"]["rollouts"] == 8
+    assert phases["v1_simulate"]["metric"] == "SelfSim cos"
+    assert all(np.isfinite(phases["v1_simulate"]["scores"]))
+    # the temporary checkpoints are gone
+    assert not list((ROOT / "build").glob("load_*"))
+    assert not list((ROOT / "build").glob("v1_*"))
     sim = phases["simulate"]
     assert sim["rollouts"] == 16
     assert sim["selfsim_scored_renders"] > 0

@@ -67,6 +67,21 @@ def test_quantize_kernel_matches_jax(shape):
                                     maxulp=1)
 
 
+@pytest.mark.parametrize("block_elements", [1, 3 * 384, 5 * 384 + 7, 1 << 30])
+def test_quantize_kernel_block_does_not_change_result(block_elements):
+    """One row per block, blocks of three and five rows (the last one
+    partial) and one block for the whole weight give the same bits, and q
+    equal to the JAX package's."""
+    w = np.random.default_rng(7).standard_normal((97, 384)).astype(
+        np.float32)
+    tw = torch.from_numpy(w).to(torch.bfloat16)
+    q, scale = tquant.quantize_kernel(tw, block_elements)
+    wq, wscale = tquant.quantize_kernel(tw, tw.numel())
+    assert torch.equal(q, wq) and torch.equal(scale, wscale)
+    want = jquant.quantize_kernel(jnp.asarray(tw.float().numpy().T))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(want["q"]).T)
+
+
 def test_quantize_params_structure_matches_jax(trees):
     cfg, tcfg, jp, _, _ = trees
     tp = convert.params_from_numpy(_numpy(jp), tcfg, device="cpu")
@@ -238,8 +253,10 @@ def _k5_cases():
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     import chip_smoke
 
-    return [(name, k, n, m) for name, k, n, _ in chip_smoke.K5_CASES
-            for m in chip_smoke.K5_ROWS]
+    return ([(name, k, n, m) for name, k, n, _ in chip_smoke.K5_CASES
+             for m in chip_smoke.K5_ROWS]
+            + [(name, k, n, m) for name, k, n, _ in chip_smoke.K5_V1_CASES
+               for m in chip_smoke.K5_V1_ROWS])
 
 
 # the launch K5 gets at each chip_smoke.py product on 132 SMs: (warps
@@ -249,7 +266,10 @@ K5_PLANS = {"qkv": ((8, 1, 384), (1, 5, 240)),
             "gateup": ((8, 1, 1792), (1, 1, 224)),
             "down": ((8, 1, 256), (1, 8, 256)),
             "lm_head": ((8, 1, 8016), (1, 1, 1002)),
-            "map_head_q_o": ((8, 1, 72), (1, 9, 81))}
+            "map_head_q_o": ((8, 1, 72), (1, 9, 81)),
+            # TinyLlama's fused products (the v1 family), at <= 8 rows only
+            "v1_qkv": ((8, 1, 160), None), "v1_o": ((8, 1, 128), None),
+            "v1_gateup": ((8, 1, 704), None), "v1_down": ((8, 1, 128), None)}
 
 
 @pytest.mark.parametrize("name,k,n,m", _k5_cases())
@@ -346,3 +366,26 @@ def test_int8_engine_greedy_matches_jax(trees):
     got = run(teng, teng.encode_image(pix))
     assert got == want
     assert all(len(s) > 3 for s in got)
+
+
+def test_quant_block_ab_tool_runs():
+    """``tools/quant_block_ab.py`` at ``tiny-test`` on the CPU: every
+    block size gives the whole pass's bits, and the model total counts
+    each projection shape of the preset."""
+    import json
+    import subprocess
+
+    root = Path(__file__).resolve().parents[1]
+    out = subprocess.run(
+        [sys.executable, str(root / "tools" / "quant_block_ab.py"),
+         "--preset", "tiny-test", "--blocks", "64,4096,0"],
+        capture_output=True, text=True, check=True, cwd=root).stdout
+    lines = [json.loads(line) for line in out.splitlines()]
+    rows = [d for d in lines if "shape" in d]
+    assert rows and all(d["same_bits"] for d in rows)
+    assert lines[-1]["same_bits"] and set(lines[-1]["model_total_s"]) == {
+        "64", "4096", "0"}
+    cfg = t_tiny_test_config(vocab_size=512)
+    n_quantized = len(tquant._targets(
+        tdet.Params(cfg, device="meta"), tquant.QUANT_KEYS))
+    assert sum(d["count"] for d in rows) == n_quantized
