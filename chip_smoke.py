@@ -15,7 +15,10 @@ Phases, each printing one JSON line:
               every int8 product of the simulate paths at 1, 8, 40 and 64
               rows) and at the v1 family's (K1 on the 729-patch tower, its
               MAP head and a 243-token prefill window at head_dim 64; K2 at
-              8 query rows per KV head; K5 at TinyLlama's fused products),
+              8 query rows per KV head; K5 at TinyLlama's fused products)
+              and the TikZero adapter's (K1 as the gated cross-attention
+              over a key-masked caption, and as the caption model's causal
+              pass with a key mask),
               and time kernel, plain version and the PyTorch library
               call (CUDA events, median of many launches, L2 flushed before
               each), next to the least time the card needs for the same
@@ -23,7 +26,9 @@ Phases, each printing one JSON line:
 4. reference -- the model path on the card (bf16, kernels) against the
               same weights on the host CPU (fp32, plain versions) at full
               width and 2+2 layers, with bf16 and with int8 + fused weights,
-              for v2-8b and for the v1 model (tapped at layer 0);
+              for v2-8b and for the v1 model (tapped at layer 0); and, bf16,
+              ``tikzero-adapter`` (2 vision layers with their cross-attention
+              blocks, a 2-layer caption model at Llama-3.2-1B's widths);
 5. main    -- random-weight ``detikzify-v2-8b`` at full width and depth in
               bf16: three ``DetikzifyPipeline.sample()`` requests and one
               ``sample_batch()`` of three figures, 128 new tokens each;
@@ -36,30 +41,43 @@ Phases, each printing one JSON line:
 8. spec_greedy -- plain greedy against ``speculate=4`` (K4) on the same
               eight figures, divergence allowed only at a near-tie; one
               rollout hinted with its own greedy continuation;
-9. load    -- the same bf16 weights exported by ``save_pretrained`` into
+9. tikzero_sample -- the TikZero adapter at the ``tikzero-adapter``
+              preset's widths (random, ~0.41 B parameters) and a caption
+              model at ``meta-llama/Llama-3.2-1B``'s published widths
+              (random, ~1.24 B), written under ``build/`` by
+              ``save_adapter`` / ``save_embedding_model`` and loaded back
+              by ``load_adapter_params``, bit for bit; on the same bf16
+              weights, ``sample()`` with a figure and a caption and with a
+              caption alone (the adapter's blank image), 128 new tokens;
+              the caption-conditioned encoder pass timed against the plain
+              one;
+10. tikzero_simulate -- ``simulate()`` with the caption: 8 expansions,
+              parallelism 8, SelfSim EMD against the caption-conditioned
+              features of the figure, one wave profiled;
+11. load   -- the same bf16 weights exported by ``save_pretrained`` into
               a directory under ``build/`` and loaded back by
               ``load_params(..., quantize=True)`` (each projection quantized
               on the host, only int8 on the card), held bit for bit against
               ``quantize_params`` of the same weights in place; GB written,
               write and load seconds, host RSS, the card's peak memory;
-10. simulate -- the loaded int8 weights, fused, in ``DetikzifyPipeline``
+12. simulate -- the loaded int8 weights, fused, in ``DetikzifyPipeline``
               with SelfSim (``metric="model"``, EMD) running ``simulate()``:
               16 expansions, parallelism 8, 128 new tokens; rollouts/min,
               tokens/s, SelfSim waves, memory, and one wave of 8 expansions
               under torch.profiler;
-11. simulate_spec -- the same ``simulate()`` on a speculative engine
+13. simulate_spec -- the same ``simulate()`` on a speculative engine
               (speculate=4), with every draft class kept on and then with
               the default gating (spec_min_rate 1.3);
-12. v1_sample -- random-weight ``detikzify-tl-1.1b`` at full width and
+14. v1_sample -- random-weight ``detikzify-tl-1.1b`` at full width and
               depth (the timm SigLIP tower at 384 px tapped at its
               second-to-last layer, TinyLlama) written as a v1 checkpoint
               and timm tower in the reference's names, loaded back by
               ``load_params(..., vision_tower=...)`` bit for bit, and driven
               as ``main`` drives v2-8b;
-13. v1_simulate -- the same checkpoint loaded with ``quantize=True`` and
+15. v1_simulate -- the same checkpoint loaded with ``quantize=True`` and
               fused, ``simulate()`` with 8 expansions and SelfSim (cos, as
               v1 pins it);
-14. the ``kernels`` JSON line (launches on each path above, each counted
+16. the ``kernels`` JSON line (launches on each path above, each counted
    from 0 just before the path ran and read just after, and their sum),
    the nvidia-smi line, and as the last line
    ``{"ok": true, "device": {...}}``.
@@ -148,13 +166,41 @@ K5_V1_CASES = (
     ("v1_gateup", 2048, 11264, "bf16"), ("v1_down", 5632, 2048, "bf16"),
 )
 K5_V1_ROWS = (1, 8)
+# K1 at the TikZero adapter's shapes, (name, B, S, T, NH, NKV, Hd, mode,
+# key lengths): the gated cross-attention (900 patch queries over a caption
+# padded on the right to 64 tokens, 16/16 heads at Hd 72) and the caption
+# model's causal pass with a key mask (Llama-3.2-1B: 32/8 heads at Hd 64)
+K1_TIKZERO_CASES = (
+    ("cross", 2, 900, 64, 16, 16, 72, "mask", (17, 64)),
+    ("caption", 2, 64, 64, 32, 8, 64, "causal_mask", (23, 64)),
+)
+# meta-llama/Llama-3.2-1B's config.json: the TikZero caption model
+LLAMA32_1B = dict(
+    vocab_size=128256, hidden_size=2048, intermediate_size=8192,
+    num_hidden_layers=16, num_attention_heads=32, num_key_value_heads=8,
+    max_position_embeddings=131072, rms_norm_eps=1e-5, rope_theta=500000.0,
+    rope_scaling={"factor": 32.0, "high_freq_factor": 4.0,
+                  "low_freq_factor": 1.0,
+                  "original_max_position_embeddings": 8192,
+                  "rope_type": "llama3"},
+    tie_word_embeddings=True, hidden_act="silu")
+TIKZERO_CAPTION = ("a bar chart of rollouts per minute on three machines, "
+                   "with error bars and a dashed line at the mean")
+TIKZERO_EXPANSIONS = 8  # MCTS expansions of the tikzero_simulate phase
 V1_EXPANSIONS = 8       # MCTS expansions of the v1_simulate phase
 SIM_EXPANSIONS = 16     # MCTS expansions of the simulate phases
 SPECULATE = 4           # draft tokens per verify step (K1 = 5)
 CONTIG_NEW_TOKENS = 64  # greedy tokens of the contiguous phase
 
 
+_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries ``t_s``, the seconds
+    since the script started."""
+    if "phase" in obj:
+        obj = dict(obj, t_s=time.perf_counter() - _START)
     print(json.dumps(obj), flush=True)
 
 
@@ -198,7 +244,8 @@ class Timer:
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def k1_inputs(torch, gen, device, b, s, t, nh, nkv, hd, mode, prompt=300):
+def k1_inputs(torch, gen, device, b, s, t, nh, nkv, hd, mode, prompt=300,
+              lengths=None):
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=device,
                            dtype=torch.float32).to(torch.bfloat16)
@@ -217,6 +264,16 @@ def k1_inputs(torch, gen, device, b, s, t, nh, nkv, hd, mode, prompt=300):
                                          device=device))
         visible_keys = sum(min(o + i + 1, lim) for o, lim in zip(offs, lims)
                            for i in range(s))
+    elif mode in ("mask", "causal_mask"):
+        # captions padded on the right to T tokens
+        kw = dict(kv_mask=(torch.arange(t, device=device)[None, :]
+                           < torch.tensor(lengths, device=device)[:, None]
+                           ).contiguous())
+        visible_keys = s * sum(lengths)
+        if mode == "causal_mask":
+            kw["causal"] = True
+            visible_keys = sum(min(i + (t - s) + 1, n) for n in lengths
+                               for i in range(s))
     return q, k, v, kw, visible_keys
 
 
@@ -358,13 +415,15 @@ def kernel_phase(torch, device, rehearsal: bool, iters: int):
     gen = torch.Generator(device=device).manual_seed(1234)
     timer = None if rehearsal else Timer(torch, device, iters)
     rows = []
-    for (name, b, s, t, nh, nkv, hd, mode), prompt in (
-            [(c, 300) for c in K1_CASES]
-            + [(c, V1_PROMPT) for c in K1_V1_CASES]):
+    for (name, b, s, t, nh, nkv, hd, mode), prompt, lengths in (
+            [(c, 300, None) for c in K1_CASES]
+            + [(c, V1_PROMPT, None) for c in K1_V1_CASES]
+            + [(c[:8], None, c[8]) for c in K1_TIKZERO_CASES]):
         if rehearsal:   # tiny shapes: the CPU only checks the wiring
             s, t = min(s, 9), 12
+            lengths = lengths and tuple(min(n, t) for n in lengths)
         q, k, v, kw, vis = k1_inputs(torch, gen, device, b, s, t, nh, nkv,
-                                     hd, mode, prompt)
+                                     hd, mode, prompt, lengths)
         got = flash.flash_attention(q, k, v, **kw)
         want = attention.attend_plain(q, k, v, **kw)
         tol = tolerance_check(torch, got, want,
@@ -376,10 +435,12 @@ def kernel_phase(torch, device, rehearsal: bool, iters: int):
                "route": "cuda", "source": "detikzify_torch/csrc/flash_attn.cu",
                "replaces": "detikzify_tpu/ops/flash.py:187",
                "shape": {"B": b, "S": s, "T": t, "NH": nh, "NKV": nkv,
-                         "Hd": hd, "mode": mode},
+                         "Hd": hd, "mode": mode,
+                         **({"key_lengths": list(lengths)} if lengths
+                            else {})},
                **tol}
-        row.update(bound(2 * (q.numel() * 2 + k.numel() + v.numel()),
-                         4 * nh * hd * vis))
+        row.update(bound(2 * (q.numel() * 2 + k.numel() + v.numel())
+                         + (b * t if lengths else 0), 4 * nh * hd * vis))
         if timer is not None:
             import torch.nn.functional as F
 
@@ -394,6 +455,11 @@ def kernel_phase(torch, device, rehearsal: bool, iters: int):
                 kpos = torch.arange(t, device=device)[None, None, None, :]
                 mask = (kpos <= qpos) & (kpos
                                          < kw["kv_limits"][:, None, None, None])
+            elif lengths:
+                mask = kw["kv_mask"][:, None, None, :]
+                if kw.get("causal"):
+                    mask = mask & torch.ones((s, t), dtype=torch.bool,
+                                             device=device).tril(t - s)
             row["library_ms"] = timer(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask, enable_gqa=nh != nkv))
         rows.append(row)
@@ -642,24 +708,49 @@ def v1_hf_config(cfg, feature_layer: int) -> dict:
             "feature_layer": feature_layer}
 
 
+def tikzero_configs(rehearsal: bool):
+    """(model config with its ``AdapterConfig``, caption model config): the
+    ``tikzero-adapter`` preset and Llama-3.2-1B, or tiny-test sizes."""
+    from detikzify_torch.config import (AdapterConfig, TextConfig,
+                                        get_config)
+
+    if not rehearsal:
+        return get_config("tikzero-adapter"), TextConfig(**LLAMA32_1B)
+    ecfg = TextConfig(**dict(LLAMA32_1B, vocab_size=512, hidden_size=48,
+                             intermediate_size=96, num_hidden_layers=2,
+                             num_attention_heads=4, num_key_value_heads=2))
+    cfg = get_config("tiny-test").replace(adapter=AdapterConfig(
+        embedding_hidden_size=48, num_attention_heads=4))
+    return cfg, ecfg
+
+
 def reference_phase(torch, device, rehearsal: bool, seed: int,
-                    v1: bool = False):
+                    v1: bool = False, tikzero: bool = False):
     """The model path on the card (bf16, kernels) against the same weights
     on the host CPU (fp32, plain versions) at full width cut to 2 vision +
-    2 text layers: v2-8b, or (``v1``) the v1 model tapped at layer 0;
-    vision tower, a paged prefill of the image tokens (300 for v2, 243 for
-    v1) + 16 text tokens, then 4 zero-copy decode steps. Once with the bf16
-    weights (K1, K2), once with their int8 + fused form (K5 too)."""
+    2 text layers: v2-8b, or (``v1``) the v1 model tapped at layer 0, or
+    (``tikzero``) the ``tikzero-adapter`` preset with the cross-attention
+    blocks of its 2 vision layers and a 2-layer caption model at
+    Llama-3.2-1B's widths, conditioned on two captions of different
+    lengths; vision tower, a paged prefill of the image tokens (300 for v2,
+    243 for v1) + 16 text tokens, then 4 zero-copy decode steps. Once with
+    the bf16 weights (K1, K2), once with their int8 + fused form (K5 too;
+    not for tikzero, whose path runs bf16)."""
     import copy
 
     import numpy as np
 
     from detikzify_torch.config import get_config
     from detikzify_torch.models import convert, detikzify, llama
+    from detikzify_torch.models.embedding import AdapterBundle
     from detikzify_torch.ops.quant import fuse_projections, quantize_params
+    from detikzify_torch.processing import ByteTokenizer
 
     if v1:
         base = v1_config(rehearsal, feature_layer=0)
+    elif tikzero:
+        base, ecfg = tikzero_configs(rehearsal)
+        ecfg = ecfg.replace(num_hidden_layers=2)
     else:
         base = get_config("tiny-test" if rehearsal else "detikzify-v2-8b")
     cfg = base.replace(
@@ -668,8 +759,28 @@ def reference_phase(torch, device, rehearsal: bool, seed: int,
     cpu = torch.device("cpu")
     ref = convert.init_random(cfg, device=cpu, dtype=torch.float32,
                               generator=torch.Generator().manual_seed(seed))
-    dut = copy.deepcopy(ref).to(device=device, dtype=(
-        torch.float32 if rehearsal else torch.bfloat16))
+    dut_dtype = torch.float32 if rehearsal else torch.bfloat16
+    dut = copy.deepcopy(ref).to(device=device, dtype=dut_dtype)
+    bundles = {}
+    if tikzero:
+        g = torch.Generator().manual_seed(seed + 1)
+        ref_b = AdapterBundle(
+            convert.init_random_adapter(cfg.vision, cfg.adapter, device=cpu,
+                                        dtype=torch.float32, generator=g),
+            cfg.adapter,
+            convert.init_random_llama(ecfg, device=cpu, dtype=torch.float32,
+                                      generator=g),
+            ecfg, smoke_tokenizer(ByteTokenizer, cfg))
+        with torch.no_grad():       # gates off zero, one value a block
+            for i, blk in enumerate(ref_b.adapter_params.layers):
+                blk.attn_gate.fill_(0.5 - i)
+                blk.mlp_gate.fill_(i - 0.5)
+        bundles = {"cpu": ref_b, "dut": AdapterBundle(
+            copy.deepcopy(ref_b.adapter_params).to(device, dut_dtype),
+            cfg.adapter,
+            copy.deepcopy(ref_b.embed_params).to(device, dut_dtype),
+            ecfg, ref_b.tokenizer)}
+    captions = [TIKZERO_CAPTION, "a red square"]
     rng = np.random.default_rng(seed)
     size = cfg.vision.image_size
     pix = rng.standard_normal((1, size, size, 3)).astype(np.float32)
@@ -683,14 +794,19 @@ def reference_phase(torch, device, rehearsal: bool, seed: int,
     steps = [int(t) for t in rng.integers(0, 256, 4)]
 
     @torch.inference_mode()
-    def run(params, dev):
+    def run(params, dev, bundle=None):
         dt = params.dtype
         i32 = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa
         pool = llama.init_paged_cache(cfg.text, m + 1, page, dtype=dt,
                                       device=dev)
         tab = torch.arange(m, dtype=torch.int32, device=dev)[None]
+        ai = None
+        if bundle is not None:      # the padded caption conditions the tower
+            ai = bundle.adapter_inputs(captions)
+            ai = ai._replace(cross_states=ai.cross_states[1:],
+                             cross_mask=ai.cross_mask[1:])
         emb = detikzify.encode_image(params, cfg, torch.from_numpy(pix).to(
-            dev))
+            dev), adapter=ai)
         out = []
         logits, _ = detikzify.prefill_paged(
             params, cfg, torch.from_numpy(ids).to(dev), emb, i32([0]),
@@ -707,8 +823,8 @@ def reference_phase(torch, device, rehearsal: bool, seed: int,
         return torch.cat(out).float().cpu(), emb.float().cpu()
 
     def compare(weights: str, dut, ref) -> None:
-        got, got_emb = run(dut, device)
-        want, want_emb = run(ref, cpu)
+        got, got_emb = run(dut, device, bundles.get("dut"))
+        want, want_emb = run(ref, cpu, bundles.get("cpu"))
         scale = float(want.std())
         rel = float((got - want).abs().max()) / scale
         cos = float(torch.nn.functional.cosine_similarity(got, want, dim=-1)
@@ -716,20 +832,36 @@ def reference_phase(torch, device, rehearsal: bool, seed: int,
         emb_cos = float(torch.nn.functional.cosine_similarity(
             got_emb.flatten(1), want_emb.flatten(1)).min())
         agree = int((got.argmax(-1) == want.argmax(-1)).sum())
-        result = {"phase": "reference", "model": "v1" if v1 else "v2",
+        result = {"phase": "reference",
+                  "model": "tikzero" if tikzero else "v1" if v1 else "v2",
                   "weights": weights, "layers": {"vision": 2, "text": 2},
                   "feature_layer": cfg.feature_layer,
                   "max_abs_err_over_std": rel, "min_cosine": cos,
                   "image_tokens_cosine": emb_cos,
                   "argmax_agree": f"{agree}/{got.shape[0]}",
                   "tolerance": "cosine >= 0.999 and max|err| <= 0.1 std"}
+        ok = (bool(torch.isfinite(got).all()) and cos >= 0.999
+              and emb_cos >= 0.999 and rel <= 0.1)
+        if tikzero:
+            # the caption model alone: hidden states of both captions at
+            # their valid positions (the shorter one padded on the right)
+            (gh, gm), (wh, wm) = (bundles[k].embed_captions(captions)
+                                  for k in ("dut", "cpu"))
+            valid = wm.cpu()
+            hcos = float(torch.nn.functional.cosine_similarity(
+                gh.float().cpu()[valid], wh.float()[valid], dim=-1).min())
+            result.update(caption_layers=2, caption_tokens=[
+                int(x) for x in valid.sum(-1)],
+                caption_hidden_min_cosine=hcos)
+            ok = ok and hcos >= 0.999 and torch.equal(gm.cpu(), valid)
         emit(result)
-        if not (bool(torch.isfinite(got).all()) and cos >= 0.999
-                and emb_cos >= 0.999 and rel <= 0.1):
+        if not ok:
             raise SystemExit(f"card path disagrees with the fp32 "
                              f"reference: {result}")
 
     compare("bf16", dut, ref)
+    if tikzero:
+        return
     # int8 + fused: the same quantized tree on the card (bf16 activations,
     # K5 for the decode rows, the lm_head and the MAP head) and on the CPU
     # (fp32 activations, plain versions)
@@ -979,14 +1111,21 @@ def sample_drive(torch, device, rehearsal: bool, seed: int, params,
 def simulate_phase(torch, device, rehearsal: bool, seed: int, params,
                    processor, max_new_tokens: int, *,
                    phase: str = "simulate", preset: str = "detikzify-v2-8b",
-                   expansions: int = SIM_EXPANSIONS) -> dict:
-    """MCTS ``simulate()`` scored by SelfSim on int8 + fused weights (those
-    ``load_params(quantize=True)`` loaded, fused): ``DetikzifyPipeline``
-    with its default ``metric="model"`` (EMD for v2, cos for v1) runs
-    ``expansions`` expansions with parallelism 8 on one synthetic figure,
-    the launch counters reset just before and read just after. The smoke
-    tokenizer makes each rollout a distinct program, so SelfSim scores
-    batched waves of several renders inside the search."""
+                   expansions: int = SIM_EXPANSIONS,
+                   weights: str = "int8 + fused", adapter=None,
+                   text: Optional[str] = None,
+                   kernels=("flash_attention", "paged_decode", "int8_gemv")
+                   ) -> dict:
+    """MCTS ``simulate()`` scored by SelfSim, by default on int8 + fused
+    weights (those ``load_params(quantize=True)`` loaded, fused):
+    ``DetikzifyPipeline`` with its default ``metric="model"`` (EMD for v2,
+    cos for v1) runs ``expansions`` expansions with parallelism 8 on one
+    synthetic figure, the launch counters reset just before and read just
+    after; with ``adapter`` and ``text`` the search is caption-conditioned
+    and SelfSim scores against the caption-conditioned features of the
+    figure. The smoke tokenizer makes each rollout a distinct program, so
+    SelfSim scores batched waves of several renders inside the search.
+    Fails unless each of ``kernels`` launched."""
     import math
 
     from detikzify_torch.infer import DetikzifyPipeline, TikzDocument
@@ -1000,7 +1139,7 @@ def simulate_phase(torch, device, rehearsal: bool, seed: int, params,
     cfg = processor.cfg
     _free(torch, rehearsal)     # earlier phases' engines and page pools
     pipe = DetikzifyPipeline(params, cfg, processor, num_slots=8,
-                             device=device, seed=seed)
+                             device=device, seed=seed, adapter=adapter)
     eng, metric = pipe.engine, pipe.metric
     if cfg.is_v1 and metric.mode != "cos":
         raise SystemExit(f"{phase}: SelfSim resolved to {metric.mode}; v1 "
@@ -1011,9 +1150,11 @@ def simulate_phase(torch, device, rehearsal: bool, seed: int, params,
     wave_sizes = []
     dispatch = metric.score_against_async
 
-    def counted_dispatch(imgs, *a, **kw):
+    def counted_dispatch(imgs, ref_image=None, text=None):
+        # keeps the ``text`` keyword: a text-conditioned search batches
+        # its waves only through a metric that takes it
         wave_sizes.append(len(imgs))
-        return dispatch(imgs, *a, **kw)
+        return dispatch(imgs, ref_image, text=text)
 
     metric.score_against_async = counted_dispatch
     single = {"n": 0}
@@ -1031,8 +1172,8 @@ def simulate_phase(torch, device, rehearsal: bool, seed: int, params,
         torch.cuda.reset_peak_memory_stats()
     sync()
     t0 = time.perf_counter()
-    results = list(pipe.simulate(image=fig, expansions=expansions,
-                                 parallelism=8,
+    results = list(pipe.simulate(image=fig, text=text,
+                                 expansions=expansions, parallelism=8,
                                  max_new_tokens=max_new_tokens))
     sync()
     wall_s = time.perf_counter() - t0
@@ -1058,12 +1199,13 @@ def simulate_phase(torch, device, rehearsal: bool, seed: int, params,
     if eng.num_free_pages != free0 - eng.prefix_pages_used:
         raise SystemExit(f"pool leak after {phase}")
     if not rehearsal:
-        for name in ("flash_attention", "paged_decode", "int8_gemv"):
+        for name in kernels:
             if counts[name] <= 0:
                 raise SystemExit(f"{phase} never launched {name}")
     result = {
-        "phase": phase, "preset": preset,
-        "weights": "int8 + fused", "metric": f"SelfSim {metric.mode}",
+        "phase": phase, "preset": preset, "weights": weights,
+        "metric": f"SelfSim {metric.mode}"
+        + (" against caption-conditioned features" if text else ""),
         "expansions": expansions, "parallelism": 8,
         "max_new_tokens": max_new_tokens, "wall_s": wall_s, "rollouts": len(results),
         "rollouts_per_min": len(results) / wall_s * 60,
@@ -1084,7 +1226,7 @@ def simulate_phase(torch, device, rehearsal: bool, seed: int, params,
 
         renders = synthetic_figures(8, seed + 2)
         pix = metric._tensor(metric._stack(renders))
-        ref = metric.features(fig)
+        ref = metric.features(fig, text)
 
         def wall_ms(fn):
             fn()
@@ -1095,20 +1237,229 @@ def simulate_phase(torch, device, rehearsal: bool, seed: int, params,
             return (time.perf_counter() - t) * 1e3, out
 
         result["selfsim_wave8_ms"], _ = wall_ms(
-            lambda: metric.score_against(renders, fig))
+            lambda: metric.score_against(renders, fig, text=text))
         result["selfsim_wave8_encoder_ms"], feats = wall_ms(
             lambda: metric.embed(pix))
         result["selfsim_wave8_scores_ms"], _ = wall_ms(
             lambda: score_pairs(feats, ref.expand_as(feats), metric.mode))
         prof = profile_call(torch, lambda: list(pipe.simulate(
-            image=fig, expansions=8, parallelism=8, max_new_tokens=32)),
+            image=fig, text=text, expansions=8, parallelism=8,
+            max_new_tokens=32)),
             "simulate(), one wave of 8 expansions, 32 new tokens")
         result["wave_device_idle_share"] = prof["device_idle_share"]
+        result["wave_k1_ms"] = prof["kernel_ms"]["flash_attention"]
     emit(result)
     if not rehearsal:
         emit(dict(prof, model=preset))
     pipe.close()
     return counts
+
+
+def tikzero_phases(torch, device, rehearsal: bool, seed: int, params,
+                   processor, max_new_tokens: int) -> dict:
+    """The TikZero adapter on the bf16 weights of ``main``: a random adapter
+    at the ``tikzero-adapter`` preset's widths and a random caption model at
+    Llama-3.2-1B's are written under ``build/`` (``save_adapter``,
+    ``save_embedding_model``) and loaded back by ``load_adapter_params``
+    (the weight half of ``load_adapter``), bit for bit. Then
+    ``tikzero_sample``: ``sample()`` with a figure and a caption and with
+    the caption alone, 128 new tokens each, the counters reset just before
+    and read just after; the caption-conditioned encoder pass and the
+    caption model are timed beside the plain encoder pass. Then
+    ``tikzero_simulate`` (``simulate_phase`` with the caption). Returns the
+    launch counts of both paths."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from detikzify_torch.infer import DetikzifyPipeline, TikzDocument
+    from detikzify_torch.models import convert, detikzify
+    from detikzify_torch.models import load as mload
+    from detikzify_torch.models.embedding import AdapterBundle
+    from detikzify_torch.ops import launch_counts, reset_launch_counts
+    from detikzify_torch.ops.quant import params_nbytes
+
+    def sync():
+        if not rehearsal:
+            torch.cuda.synchronize()
+
+    tcfg, ecfg = tikzero_configs(rehearsal)
+    cfg = processor.cfg
+    if dataclasses.replace(tcfg, adapter=None) != cfg:
+        raise SystemExit("tikzero: the preset is not the model of main")
+    acfg = tcfg.adapter
+    dtype = params.dtype
+    preset = "tiny-test" if rehearsal else "tikzero-adapter"
+    _free(torch, rehearsal)
+    gen = torch.Generator(device=device).manual_seed(seed + 201)
+    t0 = time.perf_counter()
+    adapter = convert.init_random_adapter(tcfg.vision, acfg, device=device,
+                                          dtype=dtype, generator=gen)
+    embed = convert.init_random_llama(ecfg, device=device, dtype=dtype,
+                                      generator=gen)
+    sync()
+    init_s = time.perf_counter() - t0
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="tikzero_", dir=build)
+    apath, epath = os.path.join(tmp, "adapter"), os.path.join(tmp, "caption")
+    try:
+        t0 = time.perf_counter()
+        nbytes = mload.save_adapter(apath, adapter, acfg)
+        nbytes_e = mload.save_embedding_model(epath, embed, ecfg)
+        write_s = time.perf_counter() - t0
+        if not rehearsal:
+            torch.cuda.reset_peak_memory_stats()
+            card0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        ladapter, lacfg, lembed, lecfg = mload.load_adapter_params(
+            apath, tcfg.vision, epath, acfg=acfg, dtype=dtype, device=device)
+        sync()
+        load_s = time.perf_counter() - t0
+        card = {}
+        if not rehearsal:
+            card = {"card_peak_above_before_bytes":
+                    torch.cuda.max_memory_allocated() - card0}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    diffs = {"adapter": state_diff(torch, ladapter, adapter),
+             "caption_model": state_diff(torch, lembed, embed)}
+    checkpoint = {
+        "adapter_parameters": sum(p.numel() for p in adapter.parameters()),
+        "caption_model_parameters": sum(p.numel()
+                                        for p in embed.parameters()),
+        "adapter_bytes": nbytes, "caption_model_bytes": nbytes_e,
+        "gb_written": (nbytes + nbytes_e) / 1e9, "init_s": init_s,
+        "write_s": write_s, "load_s": load_s, **card,
+        "loaded_vs_written": diffs, "config_round_trip": lecfg == ecfg}
+    if lecfg != ecfg or lacfg != acfg or any(
+            d["differing_entries"] != 0 for d in diffs.values()):
+        emit({"phase": "tikzero_sample", "checkpoint": checkpoint})
+        raise SystemExit(f"tikzero: the loaded adapter or caption model "
+                         f"differs from what was written: {checkpoint}")
+    del adapter, embed
+    bundle = AdapterBundle(ladapter, lacfg, lembed, lecfg,
+                           processor.tokenizer)
+    fig = synthetic_figures(1, seed + 1)[0]
+    stages = {}
+
+    # the caption-conditioned encoder pass beside the plain one, and the
+    # caption model alone, in turns (host clock around a synchronised call)
+    pv = torch.as_tensor(processor(images=[fig]).pixel_values, device=device)
+    ai = bundle.adapter_inputs([TIKZERO_CAPTION])
+
+    def plain_pass():
+        return detikzify.encode_image(params, cfg, pv)
+
+    def adapter_pass():
+        return detikzify.encode_image(params, cfg, pv, adapter=ai)
+
+    def caption_pass():
+        return bundle.adapter_inputs([TIKZERO_CAPTION])
+
+    with torch.inference_mode():
+        plain_emb, cond_emb = plain_pass(), adapter_pass()
+        times = {"encoder_plain": [], "encoder_adapter": [],
+                 "caption_model": []}
+        for _ in range(1 if rehearsal else 5):
+            for name, fn in (("encoder_plain", plain_pass),
+                             ("encoder_adapter", adapter_pass),
+                             ("caption_model", caption_pass),
+                             ("encoder_adapter", adapter_pass),
+                             ("encoder_plain", plain_pass)):
+                sync()
+                t0 = time.perf_counter()
+                fn()
+                sync()
+                times[name].append((time.perf_counter() - t0) * 1e3)
+    timing = {f"{k}_ms": statistics.median(v) for k, v in times.items()}
+    emb_shape = (1, cfg.image_seq_len, cfg.text.hidden_size)
+    if (tuple(cond_emb.shape) != emb_shape
+            or not bool(torch.isfinite(cond_emb.float()).all())):
+        raise SystemExit("tikzero: caption-conditioned image tokens "
+                         f"{tuple(cond_emb.shape)} not finite or of the "
+                         "wrong shape")
+    moved = float((cond_emb.float() - plain_emb.float()).abs().max())
+    if not moved > 0:
+        raise SystemExit("tikzero: the caption did not change the image "
+                         "tokens")
+
+    pipe = DetikzifyPipeline(params, cfg, processor, metric="fast",
+                             num_slots=8, device=device, seed=seed,
+                             adapter=bundle)
+    eng = pipe.engine
+    free0 = eng.num_free_pages
+    tokens0 = eng.counters["decode_tokens"]
+    reset_launch_counts()
+    t_main = time.perf_counter()
+    docs = []
+    for name, kw in (("image_caption", dict(image=fig)),
+                     ("caption", {})):
+        t0 = time.perf_counter()
+        docs.append(pipe.sample(text=TIKZERO_CAPTION,
+                                max_new_tokens=max_new_tokens, **kw))
+        sync()
+        stages[f"sample_{name}_s"] = time.perf_counter() - t0
+    main_s = time.perf_counter() - t_main
+    counts = launch_counts()
+    decode_tokens = eng.counters["decode_tokens"] - tokens0
+    if not all(isinstance(d, TikzDocument) for d in docs):
+        raise SystemExit("tikzero_sample returned no documents")
+    if eng.num_active or eng.num_free_slots != eng.num_slots:
+        raise SystemExit("tikzero_sample: slots still held")
+    if eng.num_free_pages != free0 - eng.prefix_pages_used:
+        raise SystemExit("tikzero_sample: pool leak")
+    if not rehearsal:
+        for name in ("flash_attention", "paged_decode"):
+            if counts[name] <= 0:
+                raise SystemExit(f"tikzero_sample never launched {name}")
+    # a caption alone: image tokens of the adapter's blank, conditioned
+    g = pipe.generator(text=TIKZERO_CAPTION, max_new_tokens=8)
+    try:
+        blank = g.image_embeds
+        root = len(g.root.token_ids)
+    finally:
+        g.close()
+    if (root != cfg.image_seq_len or tuple(blank.shape) != emb_shape
+            or not bool(torch.isfinite(blank.float()).all())):
+        raise SystemExit(f"tikzero: a caption alone gave a root of {root} "
+                         f"tokens, image tokens {tuple(blank.shape)}")
+    result = {
+        "phase": "tikzero_sample", "preset": preset,
+        "dtype": str(dtype).replace("torch.", ""),
+        "adapter": acfg.to_dict(),
+        "caption_model": {k: getattr(ecfg, k) for k in (
+            "hidden_size", "intermediate_size", "num_hidden_layers",
+            "num_attention_heads", "num_key_value_heads", "vocab_size",
+            "tie_word_embeddings")},
+        "caption_tokens": int(bundle.tokenize(TIKZERO_CAPTION)[1].sum()),
+        "checkpoint": checkpoint,
+        "requests": {"sample_image_caption": 1, "sample_caption": 1,
+                     "max_new_tokens": max_new_tokens},
+        "stages_s": stages, "main_s": main_s, **timing,
+        "image_tokens_moved_by_caption_max_abs": moved,
+        "decode_tokens": decode_tokens, "launches": counts,
+        "weight_bytes": {"model": params_nbytes(params),
+                         "adapter": params_nbytes(ladapter),
+                         "caption_model": params_nbytes(lembed)},
+        "code_chars": [len(d.code) for d in docs]}
+    if not rehearsal:
+        result["max_memory_allocated_bytes"] = \
+            torch.cuda.max_memory_allocated()
+    emit(result)
+    pipe.close()
+    del pipe, eng
+    _free(torch, rehearsal)
+    paths = {"tikzero_sample": counts}
+    paths["tikzero_simulate"] = simulate_phase(
+        torch, device, rehearsal, seed, params, processor, max_new_tokens,
+        phase="tikzero_simulate", preset=preset,
+        expansions=TIKZERO_EXPANSIONS, weights=str(dtype).replace(
+            "torch.", ""), adapter=bundle, text=TIKZERO_CAPTION,
+        kernels=("flash_attention", "paged_decode"))
+    del bundle, ladapter, lembed
+    _free(torch, rehearsal)
+    return paths
 
 
 def host_rss() -> dict:
@@ -1882,6 +2233,7 @@ def main(argv=None) -> int:
 
     reference_phase(torch, device, rehearsal, args.seed)
     reference_phase(torch, device, rehearsal, args.seed, v1=True)
+    reference_phase(torch, device, rehearsal, args.seed, tikzero=True)
     set_backend(FakeBackend())
     paths = {}
     paths["sample"], params, processor = main_phase(
@@ -1896,6 +2248,8 @@ def main(argv=None) -> int:
         torch, device, rehearsal, args.seed, params, processor, prompts, emb,
         args.max_new_tokens)
     del emb
+    paths.update(tikzero_phases(torch, device, rehearsal, args.seed, params,
+                                processor, args.max_new_tokens))
     # export the bf16 weights and load them back int8: what simulate runs
     paths["load"], qparams = load_phase(torch, device, rehearsal, params,
                                         processor)

@@ -1151,10 +1151,13 @@ class DecodeEngine:
     # ------------------------------------------------------------------
 
     @torch.inference_mode()
-    def encode_image(self, pixel_values) -> torch.Tensor:
+    def encode_image(self, pixel_values, adapter_inputs=None) -> torch.Tensor:
         """[B,H,W,C] (numpy or tensor) -> projected image tokens (vision
-        runs once per image)."""
+        runs once per image). With ``adapter_inputs`` (a
+        ``siglip.AdapterInputs``) the tower is caption-conditioned through
+        the TikZero cross-attention blocks."""
         pv = torch.as_tensor(np.asarray(pixel_values)
                              if not torch.is_tensor(pixel_values)
                              else pixel_values, device=self.device)
-        return detikzify.encode_image(self.params, self.cfg, pv)
+        return detikzify.encode_image(self.params, self.cfg, pv,
+                                      adapter=adapter_inputs)

@@ -15,8 +15,11 @@ projections of an int8 tower). Sinkhorn is plain PyTorch, as it is plain
 XLA in the JAX package. Pair scores are computed in fp32 from the tower's
 features (a bf16 cost matrix would quantize the distances). Renders arrive
 as uint8 and are normalised on the device with the checkpoint's mean and
-std. The metric state follows the update/compute/reset contract. Text
-conditioning (TikZero) needs the adapter, which is not ported yet.
+std. The metric state follows the update/compute/reset contract. With
+the TikZero adapter's ``AdapterBundle``, ``features(image, text)``
+conditions the tower on a caption (its cross-attention runs K1 over the
+key-masked caption); renders are never conditioned, so only the reference
+features of a search carry the caption.
 """
 from __future__ import annotations
 
@@ -30,9 +33,6 @@ import torch
 from ..config import DetikzifyConfig
 from ..models import siglip
 from ..utils.image import DUMMY_IMAGE
-
-_ADAPTER = ("text-conditioned scoring needs the TikZero adapter, which is "
-            "not ported yet (ROADMAP queue 1, TikZero adapter)")
 
 
 def _cos(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -82,13 +82,15 @@ class ImageSim:
 
     def __init__(self, vision_params: siglip.SiglipVision,
                  cfg: DetikzifyConfig, mode: str = "cos",
-                 preprocess: bool = True, image_mean=0.5, image_std=0.5):
+                 preprocess: bool = True, adapter=None, image_mean=0.5,
+                 image_std=0.5):
         if mode not in ("cos", "cos_avg", "emd"):
             raise ValueError(f"unknown ImageSim mode {mode!r}")
         self.vision_params = vision_params
         self.cfg = cfg
         self.mode = mode
         self.preprocess = preprocess
+        self.adapter = adapter          # AdapterBundle: text conditioning
         # checkpoint-local normalisation stats: renders must be normalised
         # exactly like the model's prompt pixels
         self.image_mean = image_mean
@@ -101,16 +103,18 @@ class ImageSim:
     @classmethod
     def from_detikzify(cls, params, cfg: DetikzifyConfig, *,
                        processor=None, mode: Optional[str] = None,
-                       **kw) -> "ImageSim":
-        """Build from a composite model's params. ``mode`` resolves as in
-        the reference: explicit argument > the config's ``pooling_mode`` >
-        ``"emd"``. A ``processor`` supplies the normalisation stats."""
+                       adapter=None, **kw) -> "ImageSim":
+        """Build from a composite model's params; pass the model's
+        ``AdapterBundle`` for text-conditioned (TikZero) scoring. ``mode``
+        resolves as in the reference: explicit argument > the config's
+        ``pooling_mode`` > ``"emd"``. A ``processor`` supplies the
+        normalisation stats."""
         if mode is None:
             mode = getattr(cfg, "pooling_mode", None) or "emd"
         if processor is not None:
             kw.setdefault("image_mean", getattr(processor, "image_mean", 0.5))
             kw.setdefault("image_std", getattr(processor, "image_std", 0.5))
-        return cls(params.vision, cfg, mode=mode, **kw)
+        return cls(params.vision, cfg, mode=mode, adapter=adapter, **kw)
 
     # ------------------------------------------------------------------
     # device functions
@@ -122,11 +126,14 @@ class ImageSim:
         return pixels
 
     @torch.inference_mode()
-    def embed(self, pixels: torch.Tensor) -> torch.Tensor:
+    def embed(self, pixels: torch.Tensor, adapter_inputs=None
+              ) -> torch.Tensor:
         """[B, H, W, C] uint8 or normalised float -> features (pooled for
-        ``cos``, every patch otherwise)."""
+        ``cos``, every patch otherwise); caption-conditioned with
+        ``adapter_inputs`` (a ``siglip.AdapterInputs``)."""
         out = siglip.apply(self.vision_params, self.cfg.vision,
-                           self._norm(pixels.to(self.device)))
+                           self._norm(pixels.to(self.device)),
+                           adapter=adapter_inputs)
         return (out["pooler_output"] if self.mode == "cos"
                 else out["last_hidden_state"])
 
@@ -171,20 +178,25 @@ class ImageSim:
 
     def features(self, image=None, text: Optional[str] = None
                  ) -> torch.Tensor:
-        """Features of one input, memoised (16-entry LRU) on its pixel
-        bytes: in the MCTS loop the input figure is scored against every
-        render, so its embedding is computed once per search."""
+        """Features of one (image, text) input, either may be None,
+        memoised (16-entry LRU) on (pixel bytes, text): in the MCTS loop the
+        input figure is scored against every render, so its embedding is
+        computed once per search."""
         if image is None and text is None:
             raise ValueError("image or text required")
-        if text is not None:
-            raise NotImplementedError(_ADAPTER)
         pixels = self._pixels(image)
         key = (pixels.tobytes(), text)
         hit = self._feature_cache.get(key)
         if hit is not None:
             self._feature_cache.move_to_end(key)
             return hit
-        out = self.embed(self._tensor(pixels)[None])
+        pix = self._tensor(pixels)[None]
+        if text is None:
+            out = self.embed(pix)
+        elif self.adapter is None:
+            raise ValueError("text-conditioned scoring needs an adapter")
+        else:
+            out = self.embed(pix, self.adapter.adapter_inputs([text]))
         self._feature_cache[key] = out
         while len(self._feature_cache) > 16:
             self._feature_cache.popitem(last=False)

@@ -16,14 +16,16 @@ score normalisation), executed the JAX package's way:
 ``parallelism > 1`` runs that many expansions at once over the engine's
 slots, with virtual loss to spread the selections. On a speculative engine
 each child rollout drafts from the continuation of the rollout its node was
-cut from (``_hint_for``). Not ported yet: the shared-engine mode and
-per-iteration hook of the serving scheduler, and TikZero text conditioning
-(ROADMAP).
+cut from (``_hint_for``). With a caption (``text``) and the TikZero
+adapter's ``AdapterBundle`` the vision tower is caption-conditioned; a
+caption alone generates from the adapter's learnable blank image. Not
+ported yet: the shared-engine mode of the serving scheduler (ROADMAP).
 """
 from __future__ import annotations
 
 import concurrent.futures as _cf
 import dataclasses
+import inspect
 import itertools
 import time
 from collections import deque
@@ -90,8 +92,19 @@ class WideNode(Node):
 _gen_counter = itertools.count()
 
 
+def _takes(fn, name: str) -> bool:
+    """Whether ``fn`` accepts the keyword ``name``, by name or through
+    ``**kwargs``."""
+    try:
+        params = inspect.signature(fn).parameters
+    except (TypeError, ValueError):
+        return False
+    return name in params or any(
+        p.kind is inspect.Parameter.VAR_KEYWORD for p in params.values())
+
+
 class DetikzifyGenerator:
-    """One image -> TikZ session: one-shot sampling or MCTS search."""
+    """One image/text -> TikZ session: one-shot sampling or MCTS search."""
 
     def __init__(
         self,
@@ -109,14 +122,13 @@ class DetikzifyGenerator:
         max_length: Optional[int] = None,
         max_new_tokens: Optional[int] = None,
         on_token=None,                  # per-token streaming callback
+        adapter=None,                   # AdapterBundle for text conditioning
         sampling=None,                  # SamplingParams override (per-call)
         on_tick=None,                   # per-iteration scheduler hook
         image_embeds=None,              # precomputed [1, N, D] image tokens
     ):
-        if text is not None:
-            raise NotImplementedError(
-                "text conditioning needs the TikZero adapter, which is not "
-                "ported yet (ROADMAP queue 1, TikZero adapter)")
+        if text is not None and adapter is None:
+            raise ValueError("textual inputs require an adapter bundle")
         self.engine = engine
         self.processor = processor
         self.image = image
@@ -136,26 +148,59 @@ class DetikzifyGenerator:
         # expansion and of each loop trip of the parallel search, as the
         # JAX generator calls it; an exception it raises ends the search
         self.on_tick = on_tick
-        # batched wave scoring needs score_against_async; other metrics
+        # batched wave scoring needs score_against_async, and a
+        # text-conditioned search its ``text`` keyword too; other metrics
         # keep the per-render score() path
         self._wave_scoring_ok = hasattr(metric, "score_against_async")
+        if self._wave_scoring_ok and text is not None:
+            try:
+                sig = inspect.signature(metric.score_against_async)
+                self._wave_scoring_ok = "text" in sig.parameters
+            except (TypeError, ValueError):
+                self._wave_scoring_ok = False
+        # per-render score(): the caption keyword where the metric takes
+        # it, decided once here so an error inside the metric propagates
+        self._score_takes_text = (hasattr(metric, "score")
+                                  and _takes(metric.score, "text2"))
         self.namespace = ("gen", next(_gen_counter))
 
         # root prompt mirrors reference generate.py:178-186: image tokens
-        # only (no BOS)
-        out = processor(images=image, text=None if image is not None else "",
+        # only (no BOS); TikZero+ (model_expects_text) appends the caption
+        # and a BOS separator
+        expects_text = getattr(processor, "model_expects_text", False)
+        prompt_text = text if (text is not None and expects_text) else None
+        out = processor(images=image,
+                        text=prompt_text if image is not None
+                        else (prompt_text or ""),
+                        add_bos_token=prompt_text is not None,
                         skip_pixels=image_embeds is not None)
         root_ids = tuple(int(t) for t in out.input_ids[0])
         self.max_length = min(max_length or processor.model_max_length,
                               engine.max_len - 1)
+        self.adapter = adapter
+
+        pixel_values = out.pixel_values
+        if text is not None and pixel_values is None:
+            # a caption alone, and a processor that laid out no image (an
+            # AdapterProcessor puts DUMMY_IMAGE and its tokens in place
+            # itself): image tokens for the adapter's learnable blank image
+            from ..models.adapter import dummy_pixels
+
+            pixel_values = dummy_pixels(adapter.adapter_params, 1)
+            root_ids = tuple(
+                [processor.image_token_id] * processor.image_seq_len
+                + list(root_ids))
         if max_new_tokens is not None:
-            # reference generate() semantics: cap NEW tokens past the prompt
+            # reference generate() semantics: cap NEW tokens past the final
+            # root prompt (a caption alone prepends image tokens above)
             self.max_length = min(self.max_length,
                                   len(root_ids) + max_new_tokens)
 
         self.image_embeds = image_embeds
-        if self.image_embeds is None and out.pixel_values is not None:
-            self.image_embeds = engine.encode_image(out.pixel_values)
+        if self.image_embeds is None and pixel_values is not None:
+            self.image_embeds = engine.encode_image(
+                pixel_values, adapter_inputs=None if text is None
+                else adapter.adapter_inputs([text]))
 
         self.solution: deque = deque(maxlen=1)
         self.failed_rollouts: Dict[NodeState, List[WideNode]] = {}
@@ -363,7 +408,11 @@ class DetikzifyGenerator:
     def score(self, image) -> Numeric:
         assert self.metric is not None
         t0 = time.time()
-        value = float(self.metric.score(image, self.image))
+        if self._score_takes_text:
+            value = float(self.metric.score(img1=image, img2=self.image,
+                                            text2=self.text))
+        else:               # custom metrics without text support
+            value = float(self.metric.score(image, self.image))
         self.stats["score_time"] += time.time() - t0
         return value
 
@@ -727,7 +776,13 @@ class DetikzifyGenerator:
         if not imgs:
             return None
         t0 = time.time()
-        dev, k = self.metric.score_against_async(imgs, self.image)
+        # only the reference features carry the caption (renders are never
+        # conditioned, as in score()); the metric's LRU keeps them
+        if self.text is not None:
+            dev, k = self.metric.score_against_async(imgs, self.image,
+                                                     text=self.text)
+        else:
+            dev, k = self.metric.score_against_async(imgs, self.image)
         ready = None
         if isinstance(dev, torch.Tensor) and dev.is_cuda:
             ready = torch.cuda.Event()

@@ -10,7 +10,11 @@ reference's (T=0.8, top-p 0.95, top-k 0; compile timeout 60 s; exploration
 calls; ``speculate=K`` makes it a speculative engine (n-gram drafts of K
 tokens, verified on kernel K4). ``metric="model"`` (the default) scores
 with SelfSim on the model's own vision tower (``evaluate.ImageSim``, EMD
-for v2); ``metric="fast"`` with compiler diagnostics only.
+for v2); ``metric="fast"`` with compiler diagnostics only. With
+``adapter=`` (the TikZero adapter's ``AdapterBundle``) ``sample()`` and
+``simulate()`` take a caption (``text``), with a figure or alone, and
+SelfSim scores each render against the caption-conditioned features of
+the input.
 """
 from __future__ import annotations
 
@@ -51,6 +55,7 @@ class DetikzifyPipeline:
         compile_workers: int = 4,
         speculate: int = 0,                # n-gram speculative decoding
         engine: Optional[DecodeEngine] = None,
+        adapter=None,                      # AdapterBundle (TikZero)
         device="cuda",
         seed: int = 0,
     ):
@@ -58,6 +63,7 @@ class DetikzifyPipeline:
         self.processor = processor
         self.compile_timeout = compile_timeout
         self.exploration = exploration
+        self.adapter = adapter
         self.engine = engine or DecodeEngine(
             params, cfg, num_slots=num_slots,
             max_len=max_len or min(processor.model_max_length,
@@ -68,7 +74,8 @@ class DetikzifyPipeline:
             device=device, seed=seed)
         if metric == "model":   # SelfSim on the model's own vision tower
             self.metric = ImageSim.from_detikzify(params, cfg,
-                                                  processor=processor)
+                                                  processor=processor,
+                                                  adapter=adapter)
         elif metric == "fast":  # compiler diagnostics only
             self.metric = None
         else:
@@ -86,11 +93,10 @@ class DetikzifyPipeline:
         return image
 
     def check_inputs(self, image, text) -> None:
-        if text is not None:
-            raise NotImplementedError(
-                "textual inputs need the TikZero adapter, which is not "
-                "ported yet (ROADMAP queue 1, TikZero adapter)")
-        if image is None:
+        if text is not None and self.adapter is None:
+            raise ValueError(
+                "You need to load an adapter for textual inputs!")
+        if image is None and text is None:
             raise ValueError("Either image or text (or both) required!")
 
     def _sampling_override(self, temperature, top_p, top_k):
@@ -113,7 +119,8 @@ class DetikzifyPipeline:
             sampling=self._sampling_override(temperature, top_p, top_k),
             engine=self.engine,
             processor=self.processor,
-            image=self.load(image, preprocess),
+            image=self.load(image, preprocess) if image is not None else None,
+            text=text,
             metric=metric,
             compile_timeout=self.compile_timeout
             if compile_timeout is None else compile_timeout,
@@ -123,6 +130,7 @@ class DetikzifyPipeline:
             compile_service=self.compiler,
             control=control,
             on_token=on_token,
+            adapter=self.adapter,
             **kw,
         )
 
@@ -136,7 +144,8 @@ class DetikzifyPipeline:
     def sample(self, image: Optional[Union[Image.Image, str]] = None,
                text: Optional[str] = None, preprocess: bool = True,
                **kw) -> TikzDocument:
-        """DeTikZify a raster image: sample a single TikZ program."""
+        """DeTikZify a raster image, a caption, or both: sample a single
+        TikZ program."""
         gen = self._generator(image, text, preprocess, **kw)
         try:
             return gen.sample()

@@ -8,6 +8,11 @@ JAX dense kernels are ``[in, out]`` and per-layer weights are stacked
 ``detikzify_tpu.ops.quant``: an int8 ``{'kernel_q': {'q', 'scale'}}`` leaf
 becomes a ``QuantLinear`` (``q`` transposed the same way), and fused
 ``qkv`` / ``gateup`` projections are fused in the port's model too.
+``adapter_from_numpy`` carries the JAX ``adapter.init`` /
+``import_adapter`` tree (stacked blocks, ``connector``, ``dummy_input``)
+into the port's ``adapter.Adapter`` the same way, and ``llama_from_numpy``
+a bare JAX ``llama.init`` tree (the TikZero caption model) into a
+``llama.Llama``.
 """
 from __future__ import annotations
 
@@ -17,9 +22,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..config import DetikzifyConfig
+from ..config import AdapterConfig, DetikzifyConfig, TextConfig, VisionConfig
 from ..ops.quant import FUSED, QuantLinear, fuse_module
+from .adapter import Adapter
 from .detikzify import Params
+from .llama import Llama
 from .layers import LayerNorm, RMSNorm
 
 
@@ -29,6 +36,21 @@ def _as_mapping(tree) -> Mapping:
     if hasattr(tree, "_asdict"):          # the JAX Params NamedTuple
         return tree._asdict()
     raise TypeError(f"expected a mapping of numpy arrays, got {type(tree)}")
+
+
+def _draw(module: nn.Module, generator: torch.Generator) -> None:
+    """Dense kernels N(0, 1/in) drawn from ``generator`` in module order,
+    biases zero, norms at identity (the JAX ``layers`` inits)."""
+    for mod in module.modules():
+        if isinstance(mod, nn.Linear):
+            mod.weight.normal_(0.0, mod.in_features ** -0.5,
+                               generator=generator)
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, (LayerNorm, RMSNorm)):
+            mod.scale.fill_(1.0)
+            if isinstance(mod, LayerNorm):
+                mod.bias.zero_()
 
 
 @torch.no_grad()
@@ -44,21 +66,46 @@ def init_random(cfg: DetikzifyConfig, device="cuda", dtype=torch.bfloat16,
     params = Params(cfg, device=device, dtype=dtype)
     if generator is None:
         generator = torch.Generator(device=params.device).manual_seed(seed)
-    for mod in params.modules():
-        if isinstance(mod, nn.Linear):
-            mod.weight.normal_(0.0, mod.in_features ** -0.5,
-                               generator=generator)
-            if mod.bias is not None:
-                mod.bias.zero_()
-        elif isinstance(mod, (LayerNorm, RMSNorm)):
-            mod.scale.fill_(1.0)
-            if isinstance(mod, LayerNorm):
-                mod.bias.zero_()
+    _draw(params, generator)
     for p in (params.vision.embeddings.position, params.text.embed_tokens):
         p.normal_(0.0, 0.02, generator=generator)
     if params.vision.head is not None:
         params.vision.head.probe.normal_(0.0, 0.02, generator=generator)
     return params
+
+
+@torch.no_grad()
+def init_random_adapter(vcfg: VisionConfig, acfg: AdapterConfig,
+                        device="cuda", dtype=torch.bfloat16,
+                        generator: Optional[torch.Generator] = None,
+                        seed: int = 0) -> Adapter:
+    """A random TikZero adapter drawn on ``device`` (the JAX
+    ``adapter.init`` scales): dense kernels N(0, 1/in), biases zero, norms
+    at identity, gates zero (sigmoid 0.5), ``dummy_input`` ones."""
+    adapter = Adapter(vcfg, acfg, device=device, dtype=dtype)
+    if generator is None:
+        generator = torch.Generator(device=adapter.device).manual_seed(seed)
+    _draw(adapter, generator)
+    for blk in adapter.layers:
+        blk.attn_gate.zero_()
+        blk.mlp_gate.zero_()
+    adapter.dummy_input.fill_(1.0)
+    return adapter
+
+
+@torch.no_grad()
+def init_random_llama(cfg: TextConfig, device="cuda", dtype=torch.bfloat16,
+                      generator: Optional[torch.Generator] = None,
+                      seed: int = 0) -> Llama:
+    """A random LLaMA decoder (the TikZero caption model) drawn on
+    ``device``, at ``init_random``'s scales."""
+    text = Llama(cfg, device=device, dtype=dtype).requires_grad_(False)
+    if generator is None:
+        generator = torch.Generator(device=text.embed_tokens.device
+                                    ).manual_seed(seed)
+    _draw(text, generator)
+    text.embed_tokens.normal_(0.0, 0.02, generator=generator)
+    return text
 
 
 def _load(module: nn.Module, tree: Mapping, layer: Optional[int]) -> None:
@@ -108,3 +155,23 @@ def params_from_numpy(tree, cfg: DetikzifyConfig, device="cuda",
     for name in ("vision", "connector", "text"):
         _load(getattr(params, name), _as_mapping(tree[name]), None)
     return params.to(device=device, dtype=dtype)
+
+
+@torch.no_grad()
+def adapter_from_numpy(tree, vcfg: VisionConfig, acfg: AdapterConfig,
+                       device="cuda", dtype=torch.float32) -> Adapter:
+    """A JAX adapter tree (``layers`` stacked ``[L, ...]``, ``connector``,
+    ``dummy_input`` ``[H, W, C]``) as nested dicts of numpy arrays -> the
+    port's ``Adapter`` on ``device`` in ``dtype``."""
+    adapter = Adapter(vcfg, acfg, device="cpu", dtype=torch.float32)
+    _load(adapter, _as_mapping(tree), None)
+    return adapter.to(device=device, dtype=dtype)
+
+
+@torch.no_grad()
+def llama_from_numpy(tree, cfg: TextConfig, device="cuda",
+                     dtype=torch.float32) -> Llama:
+    """A bare JAX ``llama.init`` tree as numpy arrays -> ``llama.Llama``."""
+    text = Llama(cfg, device="cpu", dtype=torch.float32)
+    _load(text, _as_mapping(tree), None)
+    return text.requires_grad_(False).to(device=device, dtype=dtype)

@@ -1,6 +1,7 @@
 """Composite DeTikZify model: SigLIP vision + connector + LLaMA decoder
 (counterpart of ``detikzify_tpu/models/detikzify.py``; v2 and v1
-families, no adapter).
+families; ``adapter=`` conditions the vision tower on a caption through
+the TikZero adapter).
 
   * ``connector``      -- 3->1 patch concatenation + projection;
   * ``merge_inputs``   -- image embeddings into the ``<image>`` token slots
@@ -69,7 +70,9 @@ def connector(params: Params, image_hidden: torch.Tensor,
 
 
 def vision_features(params: Params, cfg: DetikzifyConfig,
-                    pixel_values: torch.Tensor) -> torch.Tensor:
+                    pixel_values: torch.Tensor, *,
+                    adapter: Optional[siglip.AdapterInputs] = None
+                    ) -> torch.Tensor:
     """pixel_values [B,H,W,C] -> pre-connector features
     [B, image_seq_len*cf, Dv]. v2: the final post-norm hidden state. v1
     (``cfg.feature_layer`` set): the output of an intermediate block
@@ -79,19 +82,21 @@ def vision_features(params: Params, cfg: DetikzifyConfig,
     after the tapped one are not run."""
     if cfg.feature_layer is not None:
         feats = siglip.hidden_state(params.vision, cfg.vision, pixel_values,
-                                    cfg.feature_layer)
+                                    cfg.feature_layer, adapter=adapter)
         feats = layer_norm(params.vision.post_ln, feats,
                            cfg.vision.layer_norm_eps)
         return feats[:, -cfg.image_seq_len * cfg.concat_factor:]
-    return siglip.apply(params.vision, cfg.vision,
-                        pixel_values)["last_hidden_state"]
+    return siglip.apply(params.vision, cfg.vision, pixel_values,
+                        adapter=adapter)["last_hidden_state"]
 
 
 def encode_image(params: Params, cfg: DetikzifyConfig,
-                 pixel_values: torch.Tensor) -> torch.Tensor:
+                 pixel_values: torch.Tensor, *,
+                 adapter: Optional[siglip.AdapterInputs] = None
+                 ) -> torch.Tensor:
     """pixel_values [B,H,W,C] -> projected image tokens
     [B, image_seq_len, Dt] (vision tower + connector)."""
-    feats = vision_features(params, cfg, pixel_values)
+    feats = vision_features(params, cfg, pixel_values, adapter=adapter)
     return connector(params, feats, cfg.concat_factor)
 
 

@@ -11,9 +11,11 @@ modules are built on ``meta`` first, so nothing is allocated twice. Key
 names follow the reference's module paths, e.g.
 ``model.vision_model.encoder.layers.3.self_attn.q_proj.weight``.
 
-``import_siglip_text`` (ClipScore's text tower) and ``import_adapter`` (the
-TikZero adapter) wait for their slices (ROADMAP queue 1, eval suite and
-TikZero adapter).
+``import_adapter`` fills the TikZero adapter from the reference's bare
+keys (``layers.N.cross_attn.q_proj.weight``, ``connector.*``,
+``dummy_input`` ``[C, H, W]``) or from the ``adapter.`` subtree of a
+composite checkpoint. ``import_siglip_text`` (ClipScore's text tower) waits
+for its slice (ROADMAP queue 1, eval suite).
 """
 from __future__ import annotations
 
@@ -25,8 +27,9 @@ from typing import Dict, Mapping
 import torch
 from torch import nn
 
-from ..config import DetikzifyConfig, TextConfig, VisionConfig
+from ..config import AdapterConfig, DetikzifyConfig, TextConfig, VisionConfig
 from . import siglip
+from .adapter import Adapter
 from .detikzify import Params
 from .llama import Llama
 from .safetensors_io import load_file
@@ -276,6 +279,52 @@ def import_v1(state: Mapping[str, torch.Tensor],
     return _check_filled(params)
 
 
+def import_adapter(state: Mapping[str, torch.Tensor], vcfg: VisionConfig,
+                   acfg: AdapterConfig, dtype=torch.bfloat16,
+                   prefix: str = "adapter") -> Adapter:
+    """TikZero adapter weights -> ``Adapter`` on the host, one block per
+    vision layer. A layer the checkpoint lacks (the reference stores
+    ``None`` for inactive layers, ``modeling_adapter.py:365-371``) gets a
+    zero block, which the encoder skips by the
+    ``cross_attn_every_n_layers`` rule."""
+    src = _Src(state)
+    # CrossAttentionAdapter.save_pretrained writes BARE keys (layers.N...,
+    # connector.*, dummy_input); a composite checkpoint nests them under
+    # the adapter. prefix
+    if src.has("dummy_input"):
+        prefix = ""
+    if prefix:
+        prefix = prefix.rstrip(".") + "."
+    adapter = Adapter(vcfg, acfg, device="meta", dtype=dtype)
+    for idx, blk in enumerate(adapter.layers):
+        base = f"{prefix}layers.{idx}"
+        if not src.has(f"{base}.layer_norm1.weight"):
+            blk.to_empty(device="cpu")
+            for p in blk.parameters():
+                p.zero_()
+            continue
+        _ln(src, f"{base}.layer_norm1", blk.ln1, dtype)
+        for ours, theirs in (("q", "q_proj"), ("k", "k_proj"),
+                             ("v", "v_proj"), ("o", "out_proj")):
+            _lin(src, f"{base}.cross_attn.{theirs}", getattr(blk.attn, ours),
+                 dtype)
+        _ln(src, f"{base}.cross_attn.q_norm", blk.attn.q_norm, dtype)
+        _ln(src, f"{base}.cross_attn.k_norm", blk.attn.k_norm, dtype)
+        _ln(src, f"{base}.layer_norm2", blk.ln2, dtype)
+        _mlp(src, f"{base}.mlp", blk.mlp, dtype)
+        _put(blk, "attn_gate", src(f"{base}.cross_attn_attn_gate"), dtype)
+        _put(blk, "mlp_gate", src(f"{base}.cross_attn_mlp_gate"), dtype)
+    _lin(src, f"{prefix}connector", adapter.connector, dtype)
+    # [C, H, W] -> [H, W, C]
+    _put(adapter, "dummy_input",
+         src(f"{prefix}dummy_input").permute(1, 2, 0), dtype)
+    missing = [n for n, t in adapter.named_parameters() if t.is_meta]
+    if missing:
+        raise ValueError(f"adapter checkpoint lacks {len(missing)} weights: "
+                         f"{missing[:10]}")
+    return adapter
+
+
 def config_from_hf_json(path_or_dict) -> DetikzifyConfig:
     """Build a DetikzifyConfig from an HF ``config.json``."""
     if isinstance(path_or_dict, str):
@@ -325,6 +374,36 @@ def config_from_hf_json(path_or_dict) -> DetikzifyConfig:
         # back to "emd" exactly like the reference (imagesim.py:64)
         pooling_mode=hf.get("pooling_mode"),
     )
+
+
+# HF ``LlamaConfig``'s defaults, for fields a plain ``config.json`` omits
+_LLAMA_DEFAULTS = dict(
+    vocab_size=32000, hidden_size=4096, intermediate_size=11008,
+    num_hidden_layers=32, num_attention_heads=32,
+    max_position_embeddings=2048, rms_norm_eps=1e-6, rope_theta=10000.0,
+    rope_scaling=None, tie_word_embeddings=False, hidden_act="silu",
+    attention_bias=False)
+
+
+def text_config_from_hf_json(path_or_dict) -> TextConfig:
+    """A LLaMA decoder's ``TextConfig`` from an HF ``config.json``: its
+    ``text_config`` where it has one (a composite checkpoint), else the
+    flat fields of a plain LLaMA checkpoint such as
+    ``meta-llama/Llama-3.2-1B``'s (``rope_scaling`` and tied embeddings
+    included)."""
+    if isinstance(path_or_dict, str):
+        with open(path_or_dict) as f:
+            hf = json.load(f)
+    else:
+        hf = dict(path_or_dict)
+    if "text_config" in hf:
+        return config_from_hf_json(hf).text
+    # a field the file leaves out takes HF ``LlamaConfig``'s default
+    kw = {f: hf.get(f, d) for f, d in _LLAMA_DEFAULTS.items()}
+    # HF LLaMA: no num_key_value_heads means one KV head per query head
+    kw["num_key_value_heads"] = hf.get("num_key_value_heads",
+                                       kw["num_attention_heads"])
+    return TextConfig(**kw)
 
 
 def _v1_config_from_hf(hf: dict) -> DetikzifyConfig:

@@ -19,8 +19,15 @@
 ``quantize=True`` follows the JAX rule: full precision never touches the
 card. The weights are imported on the host, each projection is quantized
 there and only its int8 form is placed on the card
-(``ops.quant.quantize_params_host``), then the rest moves. TikZero
-adapters (``load_adapter``, ``save_adapter``) wait for their slice.
+(``ops.quant.quantize_params_host``), then the rest moves.
+
+TikZero adapters: ``load_adapter`` attaches an adapter and its frozen
+caption model, as ``load`` does for a checkpoint with an ``adapter/``
+folder when ``adapter_embedding_model`` names the caption model. Its
+weight half, ``load_adapter_params``, needs no ``transformers``.
+``save_adapter`` writes the reference's bare adapter keys and
+``save_embedding_model`` a plain LLaMA checkpoint (``model.*`` keys and a
+flat ``config.json``, the layout of ``meta-llama/Llama-3.2-1B``).
 """
 from __future__ import annotations
 
@@ -32,11 +39,13 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..config import DetikzifyConfig
+from ..config import AdapterConfig, DetikzifyConfig, TextConfig, VisionConfig
 from ..ops.quant import quantize_params_host
 from ..processing import DetikzifyProcessor, load_tokenizer
 from . import import_hf
+from .adapter import Adapter
 from .detikzify import Params
+from .llama import Llama
 from .safetensors_io import save_file
 
 # name -> local path or hub id (reference webui/strings.py model registry)
@@ -48,10 +57,6 @@ MODEL_REGISTRY: Dict[str, str] = {
     "detikzify-tl-1.1b": "nllg/detikzify-tl-1.1b",
     "detikzify-cl-7b": "nllg/detikzify-cl-7b",
 }
-
-_ADAPTER = ("TikZero adapters are not ported yet (ROADMAP queue 1, TikZero "
-            "adapter)")
-
 
 def register(name: str, path: str) -> None:
     """Register a model name -> checkpoint path mapping."""
@@ -87,24 +92,28 @@ def load(
     vision_tower: Optional[str] = None,   # v1: timm tower checkpoint path
     quantize: bool = False,
     device="cuda",
-) -> Tuple[Params, DetikzifyConfig, DetikzifyProcessor]:
+):
     """Load (params on ``device``, config, processor) from a checkpoint.
 
     v1 legacy checkpoints (LLaVA-style, reference ``model/v1/__init__.py:
     24-56``) are detected from their config and need ``vision_tower``
     pointing at the timm SigLIP checkpoint (the reference downloads it from
     the timm hub at load time). A checkpoint with an ``adapter/`` folder
-    loaded with ``adapter_embedding_model`` raises NotImplementedError
-    until the TikZero adapter is ported."""
+    loaded with ``adapter_embedding_model`` (the caption model's
+    checkpoint) gives ``(params, config, AdapterProcessor, AdapterBundle)``
+    (``load_adapter``); without one the folder is ignored, as in JAX."""
     path = _resolve(model_name_or_path)
-    if adapter_embedding_model is not None and \
-            os.path.isdir(os.path.join(path, "adapter")):
-        raise NotImplementedError(_ADAPTER)
     params, cfg = load_params(path, dtype=dtype,
                               modality_projector=modality_projector,
                               vision_tower=vision_tower, quantize=quantize,
                               device=device)
-    return params, cfg, load_processor(path, cfg, vision_tower=vision_tower)
+    processor = load_processor(path, cfg, vision_tower=vision_tower)
+    adapter_dir = os.path.join(path, "adapter")
+    if os.path.isdir(adapter_dir) and adapter_embedding_model is not None:
+        return load_adapter(params, cfg, processor, adapter_dir,
+                            adapter_embedding_model, dtype=dtype,
+                            device=device)
+    return params, cfg, processor
 
 
 def load_params(model_name_or_path: str, *, dtype=torch.bfloat16,
@@ -205,6 +214,61 @@ def _overlay_projector(params: Params, path: str, dtype) -> Params:
                                requires_grad=False)
     proj.bias = None
     return params
+
+
+@torch.no_grad()
+def load_adapter_params(adapter_path: str, vcfg: VisionConfig,
+                        embedding_model: str, *,
+                        acfg: Optional[AdapterConfig] = None,
+                        dtype=torch.bfloat16, device="cuda"
+                        ) -> Tuple[Adapter, AdapterConfig, Llama, TextConfig]:
+    """The weight half of ``load_adapter``: (adapter, its config, caption
+    model, its config), both models on ``device``. Each is built on
+    ``meta`` and filled with tensors viewing the mapped files; the caption
+    model's ``model.*`` keys read as ``text_model.*`` (a tied model has no
+    ``lm_head``). ``acfg`` defaults to ``AdapterConfig`` with the caption
+    model's width."""
+    embed_path = _resolve(embedding_model)
+    embed_cfg = import_hf.text_config_from_hf_json(
+        os.path.join(embed_path, "config.json"))
+    acfg = acfg or AdapterConfig(embedding_hidden_size=embed_cfg.hidden_size)
+    adapter = import_hf.import_adapter(
+        import_hf.load_state_dict_from_safetensors(adapter_path), vcfg, acfg,
+        dtype=dtype)
+    state = import_hf.load_state_dict_from_safetensors(embed_path)
+    state = {("text_model." + k[len("model."):] if k.startswith("model.")
+              else k): v for k, v in state.items()}
+    embed = Llama(embed_cfg, device="meta", dtype=dtype)
+    import_hf.import_text(import_hf._Src(state), embed, embed_cfg, dtype)
+    missing = [n for n, t in embed.named_parameters() if t.is_meta]
+    if missing:
+        raise ValueError(f"caption model lacks {len(missing)} weights: "
+                         f"{missing[:10]}")
+    embed.requires_grad_(False)
+    return adapter.to(device), acfg, embed.to(device), embed_cfg
+
+
+def load_adapter(params, cfg: DetikzifyConfig, processor, adapter_path: str,
+                 embedding_model: str, *, dtype=torch.bfloat16,
+                 max_caption_length: int = 512, device="cuda"):
+    """Attach a TikZero adapter: returns (params, cfg with ``adapter`` set,
+    ``AdapterProcessor``, ``AdapterBundle``). ``embedding_model`` is the
+    frozen caption model's checkpoint (the reference uses
+    meta-llama/Llama-3.2-1B); its tokenizer comes through
+    ``transformers``."""
+    from ..processing_adapter import AdapterProcessor
+    from .embedding import AdapterBundle
+
+    adapter, acfg, embed, embed_cfg = load_adapter_params(
+        adapter_path, cfg.vision, embedding_model, acfg=cfg.adapter,
+        dtype=dtype, device=device)
+    tok = load_tokenizer(_resolve(embedding_model))
+    bundle = AdapterBundle(adapter_params=adapter, adapter_cfg=acfg,
+                           embed_params=embed, embed_cfg=embed_cfg,
+                           tokenizer=tok, max_length=max_caption_length)
+    aprocessor = AdapterProcessor(processor, tok,
+                                  max_length=max_caption_length)
+    return params, cfg.replace(adapter=acfg), aprocessor, bundle
 
 
 def has_adapter(obj) -> bool:
@@ -392,4 +456,73 @@ def save_pretrained(path: str, params: Params, cfg: DetikzifyConfig,
             proc_cfg["model_expects_text"] = True
         with open(os.path.join(path, "processor_config.json"), "w") as f:
             json.dump(proc_cfg, f, indent=2)
+    return nbytes
+
+
+def save_adapter(path: str, adapter: Adapter, acfg: AdapterConfig) -> int:
+    """Export TikZero adapter weights in the reference's layout (inverse of
+    ``import_adapter``): the BARE keys of ``CrossAttentionAdapter.
+    save_pretrained`` (``layers.{i}...``, ``connector.*``, ``dummy_input``
+    ``[C, H, W]``) in ``path/model.safetensors``. The layers that
+    ``acfg.cross_attn_every_n_layers`` leaves inactive (those the encoder
+    skips) are omitted like the reference's ``None`` entries. Returns the
+    bytes written."""
+    every = acfg.cross_attn_every_n_layers
+    out: Dict[str, torch.Tensor] = {}
+    for i, blk in enumerate(adapter.layers):
+        if (i + 1) % every != 0:
+            continue
+        base = f"layers.{i}"
+        out[f"{base}.layer_norm1.weight"] = blk.ln1.scale
+        out[f"{base}.layer_norm1.bias"] = blk.ln1.bias
+        for ours, theirs in (("q", "q_proj"), ("k", "k_proj"),
+                             ("v", "v_proj"), ("o", "out_proj")):
+            lin = getattr(blk.attn, ours)
+            out[f"{base}.cross_attn.{theirs}.weight"] = _plain(lin, base)
+            out[f"{base}.cross_attn.{theirs}.bias"] = lin.bias
+        for norm in ("q_norm", "k_norm"):
+            out[f"{base}.cross_attn.{norm}.weight"] = \
+                getattr(blk.attn, norm).scale
+            out[f"{base}.cross_attn.{norm}.bias"] = \
+                getattr(blk.attn, norm).bias
+        out[f"{base}.layer_norm2.weight"] = blk.ln2.scale
+        out[f"{base}.layer_norm2.bias"] = blk.ln2.bias
+        for fc in ("fc1", "fc2"):
+            lin = getattr(blk.mlp, fc)
+            out[f"{base}.mlp.{fc}.weight"] = _plain(lin, base)
+            out[f"{base}.mlp.{fc}.bias"] = lin.bias
+        out[f"{base}.cross_attn_attn_gate"] = blk.attn_gate
+        out[f"{base}.cross_attn_mlp_gate"] = blk.mlp_gate
+    out["connector.weight"] = _plain(adapter.connector, "connector")
+    out["connector.bias"] = adapter.connector.bias
+    out["dummy_input"] = adapter.dummy_input.permute(2, 0, 1)
+    os.makedirs(path, exist_ok=True)
+    return save_file({k: v.detach() for k, v in out.items()},
+                     os.path.join(path, "model.safetensors"))
+
+
+def save_embedding_model(path: str, embed: Llama, cfg: TextConfig) -> int:
+    """Export a caption model as a plain LLaMA checkpoint: ``model.*`` keys
+    (``lm_head`` only when untied) and a flat ``config.json``, the layout
+    of ``meta-llama/Llama-3.2-1B``, which ``load_adapter_params`` reads.
+    Returns the bytes of ``model.safetensors``."""
+    out: Dict[str, torch.Tensor] = {}
+    _export_text(embed, out, "model")
+    if embed.lm_head is not None and not cfg.tie_word_embeddings:
+        out["lm_head.weight"] = _plain(embed.lm_head, "lm_head")
+    os.makedirs(path, exist_ok=True)
+    nbytes = save_file({k: v.detach() for k, v in out.items()},
+                       os.path.join(path, "model.safetensors"))
+    hf_cfg = {"architectures": ["LlamaForCausalLM"], "model_type": "llama",
+              **{k: getattr(cfg, k) for k in (
+                  "vocab_size", "hidden_size", "intermediate_size",
+                  "num_hidden_layers", "num_attention_heads",
+                  "num_key_value_heads", "max_position_embeddings",
+                  "rms_norm_eps", "rope_theta", "rope_scaling",
+                  "tie_word_embeddings", "hidden_act", "attention_bias")},
+              "head_dim": cfg.head_dim,
+              "torch_dtype": str(embed.embed_tokens.dtype).replace(
+                  "torch.", "")}
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(hf_cfg, f, indent=2)
     return nbytes

@@ -1,23 +1,34 @@
 """SigLIP-style ViT vision encoder (counterpart of
-``detikzify_tpu/models/siglip.py``; the TikZero adapter waits for its own
-slice).
+``detikzify_tpu/models/siglip.py``), with the TikZero adapter's gated
+cross-attention wired in explicitly (``AdapterInputs``) where the reference
+uses forward pre-hooks.
 
 Images are NHWC at the public surface, as in the JAX package. The patch
 embedding is an unfold + matmul whose per-patch order is (C, ph, pw), so a
 torch ``Conv2d`` weight ``[D, C, ph, pw]`` reshapes to it directly. Every
-attention call (the 900-patch layers and the 1-query MAP head) goes
-through ``ops.flash.flash_attention``, i.e. kernel K1 on the card.
+attention call (the 900-patch layers, the 1-query MAP head and the
+adapter's cross-attention over a key-masked caption) goes through
+``ops.flash.flash_attention``, i.e. kernel K1 on the card.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
 
-from ..config import VisionConfig
+from ..config import AdapterConfig, VisionConfig
 from ..ops.flash import flash_attention
 from .layers import ACTIVATIONS, LayerNorm, layer_norm, linear
+
+
+class AdapterInputs(NamedTuple):
+    """Caption-conditioning inputs for the TikZero cross-attention adapter."""
+
+    params: nn.ModuleList         # one ``adapter.CrossAttentionBlock`` a layer
+    config: AdapterConfig
+    cross_states: torch.Tensor    # [B, T, D_vision]: caption embeds, connected
+    cross_mask: torch.Tensor      # [B, T] bool
 
 
 class Attention(nn.Module):
@@ -109,22 +120,54 @@ def _mha(p: Attention, x_q: torch.Tensor, x_kv: torch.Tensor,
     return linear(p.o, out.reshape(b, s, d))
 
 
+def _cross_attn_layer(ap, x: torch.Tensor, adapter: AdapterInputs,
+                      eps: float) -> torch.Tensor:
+    """One gated cross-attention block (reference ``CrossAttentionLayer``,
+    ``modeling_adapter.py:309-352``): per-head q/k layer norms, K1 over the
+    key-masked caption, sigmoid gates."""
+    nh = adapter.config.num_attention_heads
+    b, s, d = x.shape
+    hd = d // nh
+    cross = adapter.cross_states
+
+    h = layer_norm(ap.ln1, x, eps)
+    q = linear(ap.attn.q, h).reshape(b, s, nh, hd)
+    k = linear(ap.attn.k, cross).reshape(b, -1, nh, hd)
+    v = linear(ap.attn.v, cross).reshape(b, -1, nh, hd)
+    q = layer_norm(ap.attn.q_norm, q, eps)
+    k = layer_norm(ap.attn.k_norm, k, eps)
+    out = flash_attention(q, k, v, kv_mask=adapter.cross_mask)
+    out = linear(ap.attn.o, out.reshape(b, s, d))
+    x = x + torch.sigmoid(ap.attn_gate) * out
+
+    h = layer_norm(ap.ln2, x, eps)
+    h = linear(ap.mlp.fc2, ACTIVATIONS["gelu_pytorch_tanh"](
+        linear(ap.mlp.fc1, h)))
+    return x + torch.sigmoid(ap.mlp_gate) * h
+
+
 def _blocks(params: SiglipVision, cfg: VisionConfig,
             pixel_values: torch.Tensor, num_layers: Optional[int] = None,
-            keep: bool = False):
+            keep: bool = False, adapter: Optional[AdapterInputs] = None):
     """Patch embedding and the first ``num_layers`` encoder blocks (all by
     default) -> (the last block's output, every block's output when
-    ``keep``, else [])."""
+    ``keep``, else []). With ``adapter``, its cross-attention block runs
+    before each active layer (``(idx + 1) % cross_attn_every_n_layers ==
+    0``, the reference's pre-hook placement); the other layers skip it."""
     act = ACTIVATIONS[cfg.hidden_act]
     eps = cfg.layer_norm_eps
     nh = cfg.num_attention_heads
     dtype = params.embeddings.patch.weight.dtype
+    every = (adapter.config.cross_attn_every_n_layers
+             if adapter is not None else 0)
 
     x = linear(params.embeddings.patch,
                patchify(pixel_values.to(dtype), cfg.patch_size))
     x = x + params.embeddings.position
     states = []
-    for lp in params.layers[:num_layers]:
+    for idx, lp in enumerate(params.layers[:num_layers]):
+        if every and (idx + 1) % every == 0:
+            x = _cross_attn_layer(adapter.params[idx], x, adapter, eps)
         h = layer_norm(lp.ln1, x, eps)
         x = x + _mha(lp.attn, h, h, nh)
         h = layer_norm(lp.ln2, x, eps)
@@ -135,28 +178,31 @@ def _blocks(params: SiglipVision, cfg: VisionConfig,
 
 
 def hidden_state(params: SiglipVision, cfg: VisionConfig,
-                 pixel_values: torch.Tensor, layer: int) -> torch.Tensor:
+                 pixel_values: torch.Tensor, layer: int,
+                 adapter: Optional[AdapterInputs] = None) -> torch.Tensor:
     """``apply(..., output_hidden_states=True)["hidden_states"][layer]``
     (Python indexing, negative values included), computing the blocks up
     to ``layer`` and no further."""
     n = len(params.layers)
     if not -n <= layer < n:
         raise IndexError(f"layer {layer} of a {n}-layer tower")
-    return _blocks(params, cfg, pixel_values, layer % n + 1)[0]
+    return _blocks(params, cfg, pixel_values, layer % n + 1,
+                   adapter=adapter)[0]
 
 
 def apply(params: SiglipVision, cfg: VisionConfig,
-          pixel_values: torch.Tensor,
+          pixel_values: torch.Tensor, *,
+          adapter: Optional[AdapterInputs] = None,
           output_hidden_states: bool = False) -> dict:
     """pixel_values [B, H, W, C] (SigLIP-normalized) ->
     {'last_hidden_state': [B, N, D], 'pooler_output': [B, D]}, plus
     'hidden_states' (each block's output, before the final norm, one per
-    layer) when asked."""
+    layer) when asked. ``adapter`` conditions the tower on a caption."""
     act = ACTIVATIONS[cfg.hidden_act]
     eps = cfg.layer_norm_eps
     nh = cfg.num_attention_heads
     x, states = _blocks(params, cfg, pixel_values,
-                        keep=output_hidden_states)
+                        keep=output_hidden_states, adapter=adapter)
     x = layer_norm(params.post_ln, x, eps)
 
     hp: Optional[MAPHead] = params.head

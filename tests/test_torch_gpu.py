@@ -550,3 +550,122 @@ def test_quantize_kernel_card_matches_host(cuda):
     hq, hscale = quantize_kernel(w.cpu())
     assert torch.equal(q.cpu(), hq)
     assert torch.equal(scale.cpu().view(torch.int32), hscale.view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# the TikZero adapter's shapes: the gated cross-attention (900 patch queries
+# over a short, right-padded caption, 16/16 heads at Hd 72) and the caption
+# model's causal pass with a key mask (Llama-3.2-1B: 32/8 heads at Hd 64)
+# ---------------------------------------------------------------------------
+
+def _length_mask(dev, t, lengths):
+    return (torch.arange(t, device=dev)[None, :]
+            < torch.tensor(lengths, device=dev)[:, None]).contiguous()
+
+
+@pytest.mark.parametrize("lengths", [(1, 17, 64), (17, 64)])
+def test_flash_kernel_cross_attention_shape(cuda, lengths):
+    """K1 at the cross-attention shape: keys far fewer than one tile of
+    query rows, rows of different lengths in one batch (1, 17 and 64 keys
+    of 64)."""
+    gen = torch.Generator(device=cuda).manual_seed(25)
+    b, t = len(lengths), 64
+    q, k, v = (_rnd(gen, cuda, b, 900, 16, 72), _rnd(gen, cuda, b, t, 16, 72),
+               _rnd(gen, cuda, b, t, 16, 72))
+    mask = _length_mask(cuda, t, lengths)
+    before = flash.KERNEL.launches
+    got = flash.flash_attention(q, k, v, kv_mask=mask)
+    assert flash.KERNEL.launches == before + 1
+    _close(got, attention.attend_plain(q, k, v, kv_mask=mask),
+           attention.attend_plain(q, k, v.abs(), kv_mask=mask))
+
+
+@pytest.mark.parametrize("s", [1, 900])
+def test_flash_kernel_fully_masked_cross_row(cuda, s):
+    """A batch row whose caption keys are all masked averages V uniformly,
+    as the plain version and the JAX kernel do (their finite sentinel)."""
+    gen = torch.Generator(device=cuda).manual_seed(26)
+    q, k, v = (_rnd(gen, cuda, 2, s, 16, 72), _rnd(gen, cuda, 2, 64, 16, 72),
+               _rnd(gen, cuda, 2, 64, 16, 72))
+    mask = _length_mask(cuda, 64, (0, 23))
+    got = flash.flash_attention(q, k, v, kv_mask=mask)
+    want = attention.attend_plain(q, k, v, kv_mask=mask)
+    _close(got, want, attention.attend_plain(q, k, v.abs(), kv_mask=mask))
+    mean = v[0].float().mean(dim=0)                      # [16, 72]
+    assert torch.allclose(got[0].float(), mean.expand_as(got[0]).float(),
+                          atol=2 * BF16_U * float(v.abs().max()))
+
+
+@pytest.mark.parametrize("t,lengths", [(64, (23, 64)), (15, (15, 6)),
+                                       (130, (130, 77))])
+def test_flash_kernel_caption_model_shape(cuda, t, lengths):
+    """K1 at the caption model's shape: causal with a key-padding mask
+    (right padding), 32 query heads over 8 KV heads at Hd 64, on the
+    tiled path (64, 130 tokens) and the split-key path (15)."""
+    gen = torch.Generator(device=cuda).manual_seed(27)
+    b = len(lengths)
+    q, k, v = (_rnd(gen, cuda, b, t, 32, 64), _rnd(gen, cuda, b, t, 8, 64),
+               _rnd(gen, cuda, b, t, 8, 64))
+    mask = _length_mask(cuda, t, lengths)
+    kw = dict(causal=True, kv_mask=mask)
+    got = flash.flash_attention(q, k, v, **kw)
+    _close(got, attention.attend_plain(q, k, v, **kw),
+           attention.attend_plain(q, k, v.abs(), **kw))
+
+
+def test_adapter_encoder_pass_matches_cpu(cuda):
+    """A caption-conditioned encoder pass at SigLIP-so400m's widths (2
+    layers, each with its cross-attention block) and a 2-layer caption
+    model at Hd 64: bf16 on the card (K1 for the tower, the blocks and
+    the caption model) against fp32 plain versions on the host CPU,
+    cosine >= 0.999, with K1 launched."""
+    import copy
+
+    from detikzify_torch.config import AdapterConfig, TextConfig, get_config
+    from detikzify_torch.models import convert, detikzify
+    from detikzify_torch.models.embedding import AdapterBundle
+    from detikzify_torch.processing import ByteTokenizer
+
+    base = get_config("tikzero-adapter")
+    cfg = base.replace(vision=base.vision.replace(num_hidden_layers=2),
+                       text=base.text.replace(num_hidden_layers=1,
+                                              vocab_size=512))
+    ecfg = TextConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=4,
+                      num_key_value_heads=2)
+    acfg = AdapterConfig(embedding_hidden_size=256)
+    cpu = torch.device("cpu")
+    g = torch.Generator().manual_seed(28)
+    ref = dict(
+        params=convert.init_random(cfg, device=cpu, dtype=torch.float32,
+                                   generator=g),
+        adapter=convert.init_random_adapter(cfg.vision, acfg, device=cpu,
+                                            dtype=torch.float32,
+                                            generator=g),
+        embed=convert.init_random_llama(ecfg, device=cpu,
+                                        dtype=torch.float32, generator=g))
+    with torch.no_grad():
+        for blk in ref["adapter"].layers:
+            blk.attn_gate.fill_(0.5)
+            blk.mlp_gate.fill_(-0.5)
+    dut = {k: copy.deepcopy(v).to(cuda, torch.bfloat16)
+           for k, v in ref.items()}
+    pix = torch.randn((1, 420, 420, 3), generator=g)
+    outs = []
+    for side, dev in ((dut, cuda), (ref, cpu)):
+        bundle = AdapterBundle(side["adapter"], acfg, side["embed"], ecfg,
+                               ByteTokenizer(), max_length=64)
+        with torch.inference_mode():
+            ai = bundle.adapter_inputs(["a red square", "caption"])
+            ai = ai._replace(cross_states=ai.cross_states[:1],
+                             cross_mask=ai.cross_mask[:1])
+            before = flash.KERNEL.launches
+            outs.append(detikzify.encode_image(
+                side["params"], cfg, pix.to(dev), adapter=ai).float().cpu())
+            if dev == cuda:
+                assert flash.KERNEL.launches - before == 2 * 2 + 1
+    got, want = outs
+    assert torch.isfinite(got).all()
+    cos = torch.nn.functional.cosine_similarity(got.flatten(1),
+                                                want.flatten(1))
+    assert float(cos.min()) >= 0.999, float(cos.min())

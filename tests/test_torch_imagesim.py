@@ -38,6 +38,28 @@ def towers():
     return cfg, jp, tcfg, tp
 
 
+def _bundle(tcfg):
+    """A random TikZero adapter (gates at sigmoid 0.5) and a 2-layer
+    caption model at ``tcfg``'s widths."""
+    from detikzify_torch.config import AdapterConfig, TextConfig
+    from detikzify_torch.models import convert as tconvert
+    from detikzify_torch.models.embedding import AdapterBundle
+    from detikzify_torch.processing import ByteTokenizer
+
+    acfg = AdapterConfig(embedding_hidden_size=32, num_attention_heads=4)
+    ecfg = TextConfig(vocab_size=512, hidden_size=32, intermediate_size=64,
+                      num_hidden_layers=2, num_attention_heads=4,
+                      num_key_value_heads=2, rope_theta=10000.0)
+    return AdapterBundle(
+        adapter_params=tconvert.init_random_adapter(
+            tcfg.vision, acfg, device="cpu", dtype=torch.float32, seed=1),
+        adapter_cfg=acfg,
+        embed_params=tconvert.init_random_llama(ecfg, device="cpu",
+                                                dtype=torch.float32, seed=2),
+        embed_cfg=ecfg,
+        tokenizer=ByteTokenizer(), max_length=32)
+
+
 @pytest.fixture(scope="module")
 def renders():
     """FakeBackend renders of a few programs, plus a reference figure."""
@@ -136,5 +158,17 @@ def test_imagesim_state_and_mode_resolution(towers, renders):
     sim.reset()
     with pytest.raises(RuntimeError):
         sim.compute()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a caption needs an adapter; with one, features(img, text) differ
+    # from features(img) and are memoised per (image, text)
+    with pytest.raises(ValueError, match="adapter"):
         sim.features(renders[0], text="a caption")
+    csim = TImageSim.from_detikzify(tp, tcfg, adapter=_bundle(tcfg))
+    plain = csim.features(renders[0])
+    cond = csim.features(renders[0], text="a caption")
+    assert cond.shape == plain.shape
+    assert float((cond - plain).abs().max()) > 1e-4
+    assert csim.features(renders[0], text="a caption") is cond
+    other = csim.features(renders[0], text="another caption")
+    assert other is not cond and not torch.equal(other, cond)
+    assert csim.features(renders[0]) is plain
+    assert len(csim._feature_cache) == 3

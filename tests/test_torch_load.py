@@ -598,17 +598,341 @@ def test_export_with_processor_round_trips(model, tmp_path):
     assert not tload._processor_expects_text(str(tmp_path))
 
 
-def test_adapter_checkpoint_not_ported(jax_ckpt, tmp_path):
+def _jax_adapter(cfg, seed=1):
+    """A JAX adapter tree at ``cfg``'s vision widths for a 48-wide caption
+    model, its gates moved off zero, as numpy arrays."""
+    from detikzify_tpu.config import AdapterConfig
+    from detikzify_tpu.models import adapter as jadapter
+
+    tree = jadapter.init(jax.random.PRNGKey(seed), cfg.vision,
+                         AdapterConfig(embedding_hidden_size=48))
+    tree = jax.tree.map(np.asarray, tree)
+    n = cfg.vision.num_hidden_layers
+    tree["layers"]["attn_gate"] = np.linspace(-1, 1, n, dtype=np.float32
+                                              )[:, None]
+    tree["layers"]["mlp_gate"] = np.linspace(1, -1, n, dtype=np.float32
+                                             )[:, None]
+    return tree
+
+
+def _adapter_cfgs():
+    from detikzify_torch.config import AdapterConfig
+
+    return AdapterConfig(embedding_hidden_size=48)
+
+
+def _assert_adapter_equal(tadapter_, jtree, vcfg, acfg):
+    """The port's adapter equals the JAX tree bit for bit."""
+    want = convert.adapter_from_numpy(jtree, vcfg, acfg, device="cpu")
+    got, exp = tadapter_.state_dict(), want.state_dict()
+    assert list(got) == list(exp)
+    for k in exp:
+        assert got[k].dtype == exp[k].dtype and torch.equal(got[k], exp[k]), k
+
+
+def _prefixed(path, out):
+    """The bare adapter keys of ``path`` under ``adapter.`` in ``out``, as
+    a composite checkpoint nests them."""
+    from safetensors.numpy import save_file
+
+    state = jimport.load_state_dict_from_safetensors(path)
+    os.makedirs(out, exist_ok=True)
+    save_file({f"adapter.{k}": np.ascontiguousarray(v)
+               for k, v in state.items()}, f"{out}/model.safetensors")
+    return out
+
+
+@pytest.mark.parametrize("keys", ["bare", "prefixed"])
+def test_jax_adapter_checkpoint_loads_in_port(model, tmp_path, keys):
+    """An adapter written by the JAX ``save_adapter`` loads into the port
+    equal to the JAX tree, bit for bit, from the reference's bare keys and
+    from the ``adapter.`` subtree of a composite checkpoint."""
+    cfg, _, tcfg, _ = model
+    jtree = _jax_adapter(cfg)
+    path = str(tmp_path / "bare")
+    jload.save_adapter(path, jtree, cfg.vision)
+    if keys == "prefixed":
+        path = _prefixed(path, str(tmp_path / "prefixed"))
+    acfg = _adapter_cfgs()
+    got = timport.import_adapter(timport.load_state_dict_from_safetensors(
+        path), tcfg.vision, acfg, dtype=torch.float32)
+    _assert_adapter_equal(got, jtree, tcfg.vision, acfg)
+
+
+@pytest.mark.parametrize("keys", ["bare", "prefixed"])
+@pytest.mark.parametrize("every", [1, 2])
+def test_port_adapter_checkpoint_loads_in_jax(model, tmp_path, keys, every):
+    """An adapter written by the port's ``save_adapter`` has the JAX
+    export's keys and values, and loads through the JAX
+    ``import_adapter`` equal to it bit for bit; with
+    ``cross_attn_every_n_layers=2`` the inactive layer is omitted and both
+    packages import it as zeros."""
+    cfg, _, tcfg, _ = model
+    jtree = _jax_adapter(cfg)
+    acfg = _adapter_cfgs()
+    tad = convert.adapter_from_numpy(jtree, tcfg.vision, acfg, device="cpu")
+    path, jpath = str(tmp_path / "port"), str(tmp_path / "jax")
+    assert tload.save_adapter(path, tad, dataclasses.replace(
+        acfg, cross_attn_every_n_layers=every)) > 0
+    jload.save_adapter(jpath, jtree, cfg.vision, active_every=every)
+    ours = safetensors_io.load_file(f"{path}/model.safetensors")
+    theirs = jimport.load_state_dict_from_safetensors(jpath)
+    assert sorted(ours) == sorted(theirs)
+    for k in theirs:
+        np.testing.assert_array_equal(ours[k].numpy(), theirs[k], err_msg=k)
+    if keys == "prefixed":
+        path = _prefixed(path, str(tmp_path / "prefixed"))
+    from detikzify_tpu.config import AdapterConfig
+
+    back = jax.tree.map(np.asarray, jimport.import_adapter(
+        jimport.load_state_dict_from_safetensors(path), cfg.vision,
+        AdapterConfig(embedding_hidden_size=48), dtype=jnp.float32))
+    if every == 2:      # layer 0 is inactive: zeros in both packages
+        jtree = jax.tree.map(lambda x: x, jtree)
+        jtree["layers"] = jax.tree.map(
+            lambda x: np.concatenate([np.zeros_like(x[:1]), x[1:]]),
+            jtree["layers"])
+        tback = timport.import_adapter(timport.load_state_dict_from_safetensors(
+            path), tcfg.vision, acfg, dtype=torch.float32)
+        _assert_adapter_equal(tback, jtree, tcfg.vision, acfg)
+    flat_back = jax.tree_util.tree_leaves_with_path(back)
+    flat_want = dict(jax.tree_util.tree_leaves_with_path(jtree))
+    assert len(flat_back) == len(flat_want)
+    for kp, leaf in flat_back:
+        want = flat_want[kp]
+        assert leaf.dtype == want.dtype, kp
+        np.testing.assert_array_equal(leaf, want, err_msg=str(kp))
+
+
+def _caption_model(tmp_path, cfg, tokenizer=True):
+    """A 2-layer, 48-wide caption model from a JAX init, written by the
+    port as a plain LLaMA checkpoint; its ``config.json`` also carries a
+    ``text_config``, which the JAX loader reads. Returns (path, the JAX
+    tree, the TextConfig)."""
+    from detikzify_tpu.config import TextConfig
+    from detikzify_tpu.models import llama as jllama
+    from detikzify_torch.config import TextConfig as TTextConfig
+
+    kw = dict(vocab_size=512, hidden_size=48, intermediate_size=96,
+              num_hidden_layers=2, num_attention_heads=4,
+              num_key_value_heads=2, max_position_embeddings=256,
+              rope_theta=10000.0)
+    jtree = jax.tree.map(np.asarray, jllama.init(jax.random.PRNGKey(3),
+                                                 TextConfig(**kw)))
+    tcfg = TTextConfig(**kw)
+    path = str(tmp_path / "caption_model")
+    tload.save_embedding_model(path, convert.llama_from_numpy(
+        jtree, tcfg, device="cpu"), tcfg)
+    with open(f"{path}/config.json") as f:
+        hf = json.load(f)
+    hf["text_config"] = dict(kw)
+    with open(f"{path}/config.json", "w") as f:
+        json.dump(hf, f)
+    if tokenizer:
+        _tokenizer_dir(path, cfg)
+    return path, jtree, tcfg
+
+
+def test_adapter_checkpoint_not_ported(model, jax_ckpt, tmp_path):
+    """load(..., adapter_embedding_model=) on a checkpoint with an
+    ``adapter/`` folder: the adapter processor and bundle on the CPU, the
+    adapter and caption model equal to the JAX loader's bit for bit, the
+    same caption embeddings and ids; without an embedding model the folder
+    is ignored, as in JAX."""
+    from detikzify_torch.models.embedding import AdapterBundle
+    from detikzify_torch.processing_adapter import AdapterProcessor
+
+    cfg, _, _, _ = model
     path = tmp_path / "with_adapter"
-    os.makedirs(path / "adapter")
+    os.makedirs(path)
     for name in ("config.json", "model.safetensors"):
         os.symlink(f"{jax_ckpt}/{name}", path / name)
-    with pytest.raises(NotImplementedError, match="TikZero adapter"):
-        tload.load(str(path), adapter_embedding_model="embed",
-                   device="cpu")
+    _tokenizer_dir(str(path), cfg)
+    jload.save_adapter(str(path / "adapter"), _jax_adapter(cfg), cfg.vision)
+    embed_path, _, _ = _caption_model(tmp_path, cfg)
+
+    tp, tcfg, tproc, tbundle = tload.load(
+        str(path), adapter_embedding_model=embed_path, dtype=torch.float32,
+        device="cpu")
+    jp, jcfg, jproc, jbundle = jload.load(
+        str(path), adapter_embedding_model=embed_path, dtype=jnp.float32)
+    assert isinstance(tproc, AdapterProcessor)
+    assert isinstance(tbundle, AdapterBundle)
+    assert tbundle.embed_params.embed_tokens.device.type == "cpu"
+    want_cfg = jcfg.to_dict()
+    want_cfg["adapter"]["embedding_hidden_size"] = 48   # the caption width
+    assert tcfg.to_dict() == want_cfg
+    assert tbundle.embed_cfg.to_dict() == jbundle.embed_cfg.to_dict()
+    _assert_adapter_equal(tbundle.adapter_params, jax.tree.map(
+        np.asarray, jbundle.adapter_params), tcfg.vision, tcfg.adapter)
+    want = convert.llama_from_numpy(jax.tree.map(
+        np.asarray, jbundle.embed_params), tbundle.embed_cfg, device="cpu")
+    for k, v in want.state_dict().items():
+        assert torch.equal(tbundle.embed_params.state_dict()[k], v), k
+    texts = ["tok1 tok2 tok3", "tok4"]
+    th, tm = tbundle.embed_captions(texts)
+    jh, jm = jbundle.embed_captions(texts)
+    np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), atol=TOL,
+                               rtol=TOL)
+    got, exp = tproc(text="tok5 tok6"), jproc(text="tok5 tok6")
+    np.testing.assert_array_equal(got.input_ids, exp.input_ids)
+    np.testing.assert_array_equal(got.adapter_input_ids,
+                                  exp.adapter_input_ids)
     # without an embedding model the adapter folder is ignored, as in JAX
     tp, _ = tload.load_params(str(path), dtype=torch.float32, device="cpu")
     assert tload.has_adapter(tp) is False
+
+
+def _outcome(fn):
+    """What a call gives: ("ok", its value) or ("raise", the error type)."""
+    try:
+        return "ok", fn()
+    except Exception as e:  # noqa: BLE001 -- compared across packages
+        return "raise", type(e).__name__
+
+
+@pytest.mark.parametrize("with_image", [False, True])
+@pytest.mark.parametrize("expects_text", [False, True])
+def test_pipeline_from_load_matches_jax(model, jax_ckpt, tmp_path,
+                                        expects_text, with_image):
+    """DetikzifyPipeline built from the 4-tuple that ``load(...,
+    adapter_embedding_model=)`` returns (its AdapterProcessor, not the base
+    processor): the root prompt, the number of image embeddings and the
+    greedy stream equal JAX's pipeline built from JAX's own ``load``, for
+    a caption alone and with a figure, on a DeTikZify and a TikZero+
+    checkpoint (``model_expects_text``)."""
+    from PIL import Image, ImageDraw
+
+    from detikzify_tpu.infer import DetikzifyPipeline as JPipeline
+    from detikzify_tpu.infer import FakeBackend as JFake
+    from detikzify_tpu.infer import set_backend as j_set_backend
+    from detikzify_torch.infer import DetikzifyPipeline as TPipeline
+    from detikzify_torch.infer import FakeBackend as TFake
+    from detikzify_torch.infer import set_backend as t_set_backend
+
+    cfg, _, _, _ = model
+    path = tmp_path / "ckpt"
+    os.makedirs(path)
+    for name in ("config.json", "model.safetensors"):
+        os.symlink(f"{jax_ckpt}/{name}", path / name)
+    _tokenizer_dir(str(path), cfg)
+    if expects_text:
+        with open(path / "processor_config.json", "w") as f:
+            json.dump({"model_expects_text": True}, f)
+    jload.save_adapter(str(path / "adapter"), _jax_adapter(cfg), cfg.vision)
+    embed_path, _, _ = _caption_model(tmp_path, cfg)
+    tp, tcfg, tproc, tbundle = tload.load(
+        str(path), adapter_embedding_model=embed_path, dtype=torch.float32,
+        device="cpu")
+    jp, jcfg, jproc, jbundle = jload.load(
+        str(path), adapter_embedding_model=embed_path, dtype=jnp.float32)
+    assert tproc.processor.model_expects_text is expects_text
+    img = Image.new("RGB", (100, 80), "white")
+    ImageDraw.Draw(img).ellipse([10, 10, 90, 70], outline="blue", width=2)
+    kw = dict(text="tok5 tok6 tok7", max_new_tokens=8)
+    if with_image:
+        kw["image"] = img
+    pkw = dict(num_slots=2, max_len=96, temperature=0.0, metric="fast")
+    j_set_backend(JFake())
+    t_set_backend(TFake())
+    jpipe = JPipeline(jp, jcfg, jproc, adapter=jbundle, **pkw)
+    tpipe = TPipeline(tp, tcfg, tproc, adapter=tbundle, device="cpu", **pkw)
+    try:
+        def run(pipe):
+            def go():
+                gen = pipe.generator(**kw)
+                try:
+                    return (gen.root.token_ids,
+                            tuple(np.asarray(gen.image_embeds).shape),
+                            pipe.sample(**kw).code)
+                finally:
+                    gen.close()
+            return _outcome(go)
+
+        want, got = run(jpipe), run(tpipe)
+        assert got == want
+        if got[0] == "ok":
+            root, shape, _ = got[1]
+            # one image token for each image embedding row
+            assert root.count(tcfg.image_token_id) == shape[1] == \
+                tcfg.image_seq_len
+    finally:
+        tpipe.close()
+        j_set_backend(None)
+        t_set_backend(None)
+
+
+def test_load_adapter_params_without_tokenizer(model, tmp_path):
+    """The weight half of load_adapter needs no tokenizer (no
+    ``transformers`` on the card's machine): a caption-model directory
+    without one loads, tied embeddings without an ``lm_head``."""
+    from detikzify_torch.config import TextConfig
+    from detikzify_torch.models import llama as tllama
+
+    cfg, _, tcfg, _ = model
+    jload.save_adapter(str(tmp_path / "adapter"), _jax_adapter(cfg),
+                       cfg.vision)
+    ecfg = TextConfig(vocab_size=512, hidden_size=48, intermediate_size=96,
+                      num_hidden_layers=2, num_attention_heads=4,
+                      num_key_value_heads=2, rope_theta=500000.0,
+                      rope_scaling={"rope_type": "llama3", "factor": 32.0,
+                                    "low_freq_factor": 1.0,
+                                    "high_freq_factor": 4.0,
+                                    "original_max_position_embeddings":
+                                        8192},
+                      tie_word_embeddings=True)
+    src = tllama.Llama(ecfg, device="cpu", dtype=torch.float32)
+    g = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for p in src.parameters():
+            p.copy_(torch.randn(p.shape, generator=g))
+    path = str(tmp_path / "embed")
+    tload.save_embedding_model(path, src, ecfg)
+    assert "lm_head.weight" not in safetensors_io.load_file(
+        f"{path}/model.safetensors")
+    adapter, acfg, embed, got_cfg = tload.load_adapter_params(
+        str(tmp_path / "adapter"), tcfg.vision, path, dtype=torch.float32,
+        device="cpu")
+    assert got_cfg == ecfg and acfg.embedding_hidden_size == 48
+    assert embed.lm_head is None
+    for k, v in src.state_dict().items():
+        assert torch.equal(embed.state_dict()[k], v), k
+    assert not any(p.requires_grad for p in (*adapter.parameters(),
+                                             *embed.parameters()))
+
+
+@pytest.mark.parametrize("hf", [
+    {"hidden_size": 2048, "intermediate_size": 8192, "num_hidden_layers": 16,
+     "num_attention_heads": 32, "num_key_value_heads": 8,
+     "vocab_size": 128256, "rope_theta": 500000.0,
+     "rope_scaling": {"rope_type": "llama3", "factor": 32.0},
+     "tie_word_embeddings": True},
+    {"hidden_size": 64, "num_attention_heads": 4},
+    {"text_config": {"hidden_size": 96, "num_attention_heads": 8}}])
+def test_text_config_from_hf_json(hf):
+    """A caption model's config: the flat fields of a plain LLaMA
+    ``config.json`` (one KV head per query head where it names none), or
+    the ``text_config`` of a composite one as the JAX reader takes it."""
+    got = timport.text_config_from_hf_json(hf)
+    if "text_config" in hf:
+        assert got.to_dict() == jimport.config_from_hf_json(hf).text.to_dict()
+        return
+    for k, v in hf.items():
+        assert getattr(got, k) == v
+    if "num_key_value_heads" not in hf:
+        assert got.num_key_value_heads == hf["num_attention_heads"]
+    # the fields the file leaves out: HF LlamaConfig's defaults
+    hf_cfg = pytest.importorskip("transformers").LlamaConfig(
+        **{k: v for k, v in hf.items() if k != "rope_scaling"})
+    for k in ("vocab_size", "hidden_size", "intermediate_size",
+              "num_hidden_layers", "num_attention_heads",
+              "num_key_value_heads", "max_position_embeddings",
+              "rms_norm_eps", "rope_theta", "tie_word_embeddings",
+              "hidden_act", "attention_bias"):
+        assert getattr(got, k) == getattr(hf_cfg, k), k
+    if "rope_scaling" not in hf:
+        assert got.rope_scaling is None
 
 
 def test_load_defaults_to_the_card(jax_ckpt):

@@ -479,7 +479,8 @@ assert not bad, bad
 
 def test_chip_smoke_cpu_rehearsal():
     """The smoke script's phases run end to end at tiny-test on the CPU:
-    the v2 phases, the checkpoint round trip (``load``) and the v1
+    the v2 phases, the TikZero adapter's (``tikzero_sample``,
+    ``tikzero_simulate``), the checkpoint round trip (``load``) and the v1
     family's phases."""
     env = dict(os.environ, OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "chip_smoke.py", "--cpu-rehearsal",
@@ -492,9 +493,9 @@ def test_chip_smoke_cpu_rehearsal():
     names = {row["kernel"] for row in kernels}
     assert names == {"flash_attention", "paged_decode", "paged_verify",
                      "decode_contig", "int8_gemv"}
-    paths = {"sample", "contiguous", "spec_greedy", "load", "simulate",
-             "simulate_spec", "simulate_spec_gated", "v1_sample",
-             "v1_simulate"}
+    paths = {"sample", "contiguous", "spec_greedy", "tikzero_sample",
+             "tikzero_simulate", "load", "simulate", "simulate_spec",
+             "simulate_spec_gated", "v1_sample", "v1_simulate"}
     assert all(set(row["launches_by_path"]) == paths for row in kernels)
     # the v1 family's kernel shapes sit beside the v2 ones
     row_names = {row["name"] for row in kernels}
@@ -504,6 +505,8 @@ def test_chip_smoke_cpu_rehearsal():
     assert {f"int8_gemv/v1_{p}/rows{m}" for p in ("qkv", "o", "gateup",
                                                    "down")
             for m in (1, 8)} <= row_names
+    # and the TikZero adapter's: the cross-attention and the caption model
+    assert {"flash_attention/cross", "flash_attention/caption"} <= row_names
     phases, refs = {}, []
     for line in lines[:-2]:
         obj = json.loads(line)
@@ -511,7 +514,17 @@ def test_chip_smoke_cpu_rehearsal():
         if obj.get("phase") == "reference":
             refs.append((obj["model"], obj["weights"]))
     assert refs == [("v2", "bf16"), ("v2", "int8+fused"), ("v1", "bf16"),
-                    ("v1", "int8+fused")]
+                    ("v1", "int8+fused"), ("tikzero", "bf16")]
+    tz = phases["tikzero_sample"]
+    assert all(d["differing_entries"] == 0
+               for d in tz["checkpoint"]["loaded_vs_written"].values())
+    assert tz["checkpoint"]["config_round_trip"]
+    assert tz["image_tokens_moved_by_caption_max_abs"] > 0
+    assert len(tz["code_chars"]) == 2
+    tzs = phases["tikzero_simulate"]
+    assert tzs["rollouts"] == 8 and "caption" in tzs["metric"]
+    assert max(tzs["selfsim_wave_sizes"]) > 1
+    assert all(np.isfinite(tzs["scores"]))
     load = phases["load"]
     assert load["loaded_vs_in_place_quantized"]["differing_entries"] == 0
     assert load["loaded_vs_in_place_quantized"]["tensors"] > 0
@@ -525,6 +538,7 @@ def test_chip_smoke_cpu_rehearsal():
     # the temporary checkpoints are gone
     assert not list((ROOT / "build").glob("load_*"))
     assert not list((ROOT / "build").glob("v1_*"))
+    assert not list((ROOT / "build").glob("tikzero_*"))
     sim = phases["simulate"]
     assert sim["rollouts"] == 16
     assert sim["selfsim_scored_renders"] > 0
