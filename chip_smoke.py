@@ -13,7 +13,8 @@ Phases, each printing one JSON line:
               window of speculate=4 with a dead slot and one past the table
               edge; K3: a 2048-row cache and a 1024-row kv_limit view; K5:
               every int8 product of the simulate paths at 1, 8, 40 and 64
-              rows) and at the v1 family's (K1 on the 729-patch tower, its
+              rows; K1 also on the four figures of a fused serving
+              wave) and at the v1 family's (K1 on the 729-patch tower, its
               MAP head and a 243-token prefill window at head_dim 64; K2 at
               8 query rows per KV head; K5 at TinyLlama's fused products)
               and the TikZero adapter's (K1 as the gated cross-attention
@@ -68,16 +69,25 @@ Phases, each printing one JSON line:
 13. simulate_spec -- the same ``simulate()`` on a speculative engine
               (speculate=4), with every draft class kept on and then with
               the default gating (spec_min_rate 1.3);
-14. v1_sample -- random-weight ``detikzify-tl-1.1b`` at full width and
+14. serve  -- the HTTP server (``serve.make_server``) on the same int8 +
+              fused weights, SelfSim, 8 slots over 2048 rows, driven over
+              real HTTP: an idle greedy request (equal to a direct
+              ``sample()``), four concurrent requests fused into one wave,
+              four requests under a running 16-expansion search (each
+              back before its result), two concurrent 8-expansion
+              searches (interleaved, one request beside them profiled), a
+              token stream, /healthz, /metrics and a malformed request;
+              latencies, rollouts/min, engine steps of the idle requests;
+15. v1_sample -- random-weight ``detikzify-tl-1.1b`` at full width and
               depth (the timm SigLIP tower at 384 px tapped at its
               second-to-last layer, TinyLlama) written as a v1 checkpoint
               and timm tower in the reference's names, loaded back by
               ``load_params(..., vision_tower=...)`` bit for bit, and driven
               as ``main`` drives v2-8b;
-15. v1_simulate -- the same checkpoint loaded with ``quantize=True`` and
+16. v1_simulate -- the same checkpoint loaded with ``quantize=True`` and
               fused, ``simulate()`` with 8 expansions and SelfSim (cos, as
               v1 pins it);
-16. the ``kernels`` JSON line (launches on each path above, each counted
+17. the ``kernels`` JSON line (launches on each path above, each counted
    from 0 just before the path ran and read just after, and their sum),
    the nvidia-smi line, and as the last line
    ``{"ok": true, "device": {...}}``.
@@ -111,6 +121,11 @@ K1_CASES = (
     ("vision", 3, 900, 900, 16, 16, 72, "full"),
     ("map_head", 3, 1, 900, 16, 16, 72, "full"),
     ("prefill_window", 3, 512, 640, 32, 8, 128, "window"),
+)
+# K1 at the serve path's fused sampling wave: one vision pass over the
+# four figures of a wave
+K1_SERVE_CASES = (
+    ("vision_fused4", 4, 900, 900, 16, 16, 72, "full"),
 )
 K2_CASE = dict(B=8, NH=32, NKV=8, Hd=128, page=128, m=16,
                lengths=(300, 517, 800, 1024, 1311, 1600, 1900, 2048))
@@ -191,6 +206,8 @@ V1_EXPANSIONS = 8       # MCTS expansions of the v1_simulate phase
 SIM_EXPANSIONS = 16     # MCTS expansions of the simulate phases
 SPECULATE = 4           # draft tokens per verify step (K1 = 5)
 CONTIG_NEW_TOKENS = 64  # greedy tokens of the contiguous phase
+SERVE_MCTS_EXPANSIONS = 16  # the search that sampling requests run beside
+SERVE_PAIR_EXPANSIONS = 8   # each of the two concurrent searches
 
 
 _START = time.perf_counter()
@@ -416,7 +433,7 @@ def kernel_phase(torch, device, rehearsal: bool, iters: int):
     timer = None if rehearsal else Timer(torch, device, iters)
     rows = []
     for (name, b, s, t, nh, nkv, hd, mode), prompt, lengths in (
-            [(c, 300, None) for c in K1_CASES]
+            [(c, 300, None) for c in K1_CASES + K1_SERVE_CASES]
             + [(c, V1_PROMPT, None) for c in K1_V1_CASES]
             + [(c[:8], None, c[8]) for c in K1_TIKZERO_CASES]):
         if rehearsal:   # tiny shapes: the CPU only checks the wiring
@@ -898,7 +915,7 @@ def synthetic_figures(n: int, seed: int):
     return figs
 
 
-def smoke_tokenizer(byte_tokenizer, cfg):
+def smoke_tokenizer(byte_tokenizer, cfg, model_max_length: int = 2048):
     """The byte tokenizer with every id above the 256 bytes decoding to
     text too: one id in 16 to a newline, the others to a letter. Random
     weights spread their tokens over the whole vocabulary (128,256 ids at
@@ -920,14 +937,34 @@ def smoke_tokenizer(byte_tokenizer, cfg):
                           bos_token_id=cfg.bos_token_id,
                           eos_token_id=cfg.eos_token_id,
                           pad_token_id=cfg.pad_token_id,
-                          model_max_length=2048)
+                          model_max_length=model_max_length)
+
+
+def _device_time(prof, top: int = 10) -> dict:
+    """The device side of a torch.profiler run: busy ms (the sum of every
+    device event, kernels and copies, whichever thread launched them),
+    each hand-written kernel's ms over all of its functions, and the
+    ``top`` device functions."""
+    from torch.autograd import DeviceType
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) \
+            or getattr(e, "self_cuda_time_total", 0)
+
+    rows = [(e.key, dev_us(e), e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    rows.sort(key=lambda r: -r[1])
+    return {"device_busy_ms": sum(r[1] for r in rows) / 1e3,
+            "kernel_ms": {name: sum(us for k, us, _ in rows
+                                    if any(f in k for f in funcs)) / 1e3
+                          for name, funcs in KERNEL_FUNCTIONS.items()},
+            "top": [{"name": k[:80], "device_ms": us / 1e3, "calls": n}
+                    for k, us, n in rows[:top]]}
 
 
 def profile_call(torch, fn, label: str) -> dict:
     """``fn()`` timed plainly, then once more under torch.profiler: device
-    busy time is the sum of the device-side events (kernels, copies), set
-    against the plain call's wall time."""
-    from torch.autograd import DeviceType
+    busy time against the plain call's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -939,27 +976,12 @@ def profile_call(torch, fn, label: str) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) \
-            or getattr(e, "self_cuda_time_total", 0)
-
-    rows = [(e.key, dev_us(e), e.count) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
-    busy_ms = sum(r[1] for r in rows) / 1e3
-    if busy_ms <= 0:
+    dev = _device_time(prof)
+    if dev["device_busy_ms"] <= 0:
         raise SystemExit("torch.profiler recorded no device time")
-    rows.sort(key=lambda r: -r[1])
-    # device time of each hand-written kernel, over all of its functions
-    kernel_ms = {name: sum(us for k, us, _ in rows
-                           if any(f in k for f in funcs)) / 1e3
-                 for name, funcs in KERNEL_FUNCTIONS.items()}
     return {"phase": "profile", "request": label, "wall_ms": wall_ms,
-            "device_busy_ms": busy_ms,
-            "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
-            "kernel_ms": kernel_ms,
-            "top": [{"name": k[:80], "device_ms": us / 1e3, "calls": n}
-                    for k, us, n in rows[:10]]}
+            **dev, "device_idle_share": max(
+                0.0, 1 - dev["device_busy_ms"] / wall_ms)}
 
 
 def main_phase(torch, device, rehearsal: bool, seed: int,
@@ -2178,6 +2200,350 @@ def simulate_spec_phase(torch, device, rehearsal: bool, seed: int, params,
     return paths
 
 
+def _http(base: str, path: str, payload=None, timeout: float = 600):
+    """(status, JSON body) of a GET of ``path``, or of a POST of
+    ``payload``; an error status comes back, not raised."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(base + path, data=data, headers={
+        "Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+def _sse(base: str, payload: dict, first=None, timeout: float = 600):
+    """POST ``payload`` to ``/v1/stream``: (status, [(monotonic time,
+    event, data)]). ``first`` (a threading.Event) is set at the first
+    ``candidate`` event, and in any case once the stream ends."""
+    import http.client
+    from urllib.parse import urlparse
+
+    u = urlparse(base)
+    conn = http.client.HTTPConnection(u.hostname, u.port, timeout=timeout)
+    events, kind = [], None
+    try:
+        conn.request("POST", "/v1/stream", body=json.dumps(payload).encode(),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        for raw in resp:
+            line = raw.decode().rstrip("\n")
+            if line.startswith("event: "):
+                kind = line[len("event: "):]
+            elif line.startswith("data: "):
+                events.append((time.monotonic(), kind,
+                               json.loads(line[len("data: "):])))
+                if kind == "candidate" and first is not None:
+                    first.set()
+        return resp.status, events
+    finally:
+        conn.close()
+        if first is not None:
+            first.set()
+
+
+def _png_b64(img) -> str:
+    import base64
+    import io
+
+    buf = io.BytesIO()
+    img.save(buf, format="PNG")
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def _stream_result(status: int, events: list, what: str):
+    """The ``result`` event of a finished stream, its time, and the
+    candidate events' times; raises on anything else."""
+    kinds = [k for _, k, _ in events]
+    if status != 200 or not kinds or kinds[-1] != "result":
+        raise SystemExit(f"serve: {what} stream ended with status {status}, "
+                         f"events {kinds[-3:]}: "
+                         f"{events[-1][2] if events else None}")
+    cand = [t for t, k, _ in events if k == "candidate"]
+    return events[-1][2], events[-1][0], cand
+
+
+def _profile_window(torch, fn):
+    """``fn()`` under torch.profiler: (the profile, the window's wall ms).
+    The profile is read later (``_window_time``): its events are parsed
+    when first read, on this thread, which holds the interpreter lock for
+    seconds and would stall a server thread still at work."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return prof, wall_ms
+
+
+def _window_time(prof, wall_ms: float) -> dict:
+    """The card's busy time in a ``_profile_window`` (every thread's
+    launches) against the window's wall time."""
+    dev = _device_time(prof, top=8)
+    if dev["device_busy_ms"] <= 0:
+        raise SystemExit("torch.profiler recorded no device time")
+    return {"wall_ms": wall_ms, **dev, "device_idle_share": max(
+        0.0, 1 - dev["device_busy_ms"] / wall_ms)}
+
+
+def serve_phase(torch, device, rehearsal: bool, seed: int, params, cfg,
+                max_new_tokens: int) -> dict:
+    """The HTTP server (``serve.make_server``) on the int8 + fused weights
+    of ``simulate``: a ``DetikzifyPipeline`` of 8 slots over 2048 rows with
+    SelfSim (EMD), the server on 127.0.0.1 with a 50 ms batching window and
+    its defaults otherwise (2 reserved slots, 4 searches at most), driven
+    over real HTTP by client threads. Counters reset just before the
+    traffic and read once the scheduler thread has joined. Fails unless:
+    an idle greedy request returns the code of a direct ``sample()``
+    exactly; four concurrent requests fuse into one wave; four requests
+    sent after a search's first candidate all return before its result;
+    two concurrent searches both yield candidates before either finishes;
+    streamed tokens make up the result; /healthz, /metrics and a malformed
+    request (400) answer; no request failed; K1, K2 and K5 launched and K3
+    and K4 did not."""
+    import math
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from detikzify_torch.infer import DetikzifyPipeline
+    from detikzify_torch.ops import launch_counts, reset_launch_counts
+    from detikzify_torch.processing import ByteTokenizer, DetikzifyProcessor
+    from detikzify_torch.serve import make_server
+
+    _free(torch, rehearsal)
+    # the server hands a search no max_new_tokens (its rollouts run to the
+    # tokenizer's model_max_length, as in the JAX server), so the tokenizer
+    # bounds every rollout at max_new_tokens past the image tokens
+    processor = DetikzifyProcessor(smoke_tokenizer(
+        ByteTokenizer, cfg, cfg.image_seq_len + max_new_tokens), cfg)
+    pipe = DetikzifyPipeline(params, cfg, processor, num_slots=8,
+                             max_len=2048, device=device, seed=seed)
+    eng = pipe.engine
+    figs = synthetic_figures(12, seed + 5)
+    b64 = [_png_b64(f) for f in figs]
+    new = {"max_new_tokens": max_new_tokens}
+
+    def sync():
+        if not rehearsal:
+            torch.cuda.synchronize()
+
+    # the reference for the idle greedy request, before the counters reset
+    t0 = time.perf_counter()
+    want = pipe.sample(image=figs[0], temperature=0.0,
+                       max_new_tokens=max_new_tokens).code
+    sync()
+    direct_s = time.perf_counter() - t0
+    # engine.step calls and the host time inside them (each ends in a
+    # fetch of the block's tokens), read around the idle requests
+    steps = {"calls": 0, "s": 0.0}
+    step = eng.step
+
+    def counted_step(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return step(*a, **kw)
+        finally:
+            steps["calls"] += 1
+            steps["s"] += time.perf_counter() - t
+
+    def snapshot():
+        return (steps["calls"], steps["s"], eng.counters["decode_tokens"],
+                eng.counters["decode_dispatches"])
+
+    def since(before):
+        now = snapshot()
+        return {"step_calls": now[0] - before[0],
+                "step_s": now[1] - before[1],
+                "decode_tokens": now[2] - before[2],
+                "decode_dispatches": now[3] - before[3]}
+
+    eng.step = counted_step
+    free0 = eng.num_free_pages
+    httpd, inference = make_server(pipe, host="127.0.0.1", port=0,
+                                   batch_window_s=0.05)
+    http_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    result = {"phase": "serve", "preset": "tiny-test" if rehearsal
+              else "detikzify-v2-8b", "weights": "int8 + fused",
+              "metric": f"SelfSim {pipe.metric.mode}", "num_slots": 8,
+              "max_len": 2048, "batch_window_s": 0.05,
+              "sample_reserve": inference.sample_reserve,
+              "max_active_mcts": inference.max_active_mcts,
+              "max_new_tokens": max_new_tokens,
+              "direct_greedy_sample_s": direct_s}
+    reset_launch_counts()
+    t_phase = time.perf_counter()
+    http_thread.start()
+    pool = ThreadPoolExecutor(8)
+    try:
+        # 1. idle greedy: the code of the direct sample(), exactly
+        t0, before = time.perf_counter(), snapshot()
+        status, body = _http(base, "/v1/generate", dict(
+            new, image=b64[0], temperature=0.0))
+        result["idle_greedy_s"] = time.perf_counter() - t0
+        result["idle_greedy_engine"] = since(before)
+        if status != 200 or body.get("code") != want:
+            raise SystemExit(f"serve: idle greedy request gave {status} "
+                             f"{str(body)[:200]!r}, the direct sample() "
+                             f"{want[:200]!r}")
+
+        # 2. four concurrent image-only requests: one fused wave
+        batched0 = inference.requests["batched"]
+        barrier = threading.Barrier(4)
+
+        def timed_sample(i, wait=None):
+            if wait is not None:
+                wait.wait()
+            t = time.monotonic()
+            status, body = _http(base, "/v1/generate", dict(
+                new, image=b64[i], temperature=0.8))
+            if status != 200:
+                raise SystemExit(f"serve: sampling request {i} gave "
+                                 f"{status}: {body}")
+            return t, time.monotonic()
+
+        t0, before = time.perf_counter(), snapshot()
+        fused = [f.result() for f in [pool.submit(timed_sample, 1 + i,
+                                                  barrier)
+                                      for i in range(4)]]
+        result["fused_wave_s"] = time.perf_counter() - t0
+        result["fused_wave_engine"] = since(before)
+        result["fused_latency_s"] = [b - a for a, b in fused]
+        if inference.requests["batched"] - batched0 < 4:
+            raise SystemExit("serve: four concurrent requests did not fuse "
+                             "into one wave (batched "
+                             f"{inference.requests['batched'] - batched0})")
+
+        # 3. sampling under a running search
+        first = threading.Event()
+        t_mcts = time.monotonic()
+        search = pool.submit(_sse, base, {
+            "image": b64[5], "algorithm": "mcts",
+            "expansions": SERVE_MCTS_EXPANSIONS, "timeout": 0}, first)
+        first.wait(600)
+        under = [f.result() for f in [pool.submit(timed_sample, 6 + i)
+                                      for i in range(4)]]
+        mcts_body, t_result, cand = _stream_result(*search.result(),
+                                                   "the MCTS")
+        if len(mcts_body["candidates"]) != SERVE_MCTS_EXPANSIONS:
+            raise SystemExit("serve: the search returned "
+                             f"{len(mcts_body['candidates'])} candidates")
+        lat = sorted(b - a for a, b in under)
+        result["under_mcts"] = {
+            "latency_s": lat, "p50_s": statistics.median(lat),
+            "p95_s": lat[min(len(lat) - 1, round(0.95 * (len(lat) - 1)))],
+            "returned_before_search_result": [b < t_result
+                                              for _, b in under],
+            "mcts_wall_s": t_result - t_mcts,
+            "mcts_first_candidate_s": cand[0] - t_mcts,
+            "mcts_rollouts_per_min": SERVE_MCTS_EXPANSIONS
+            / (t_result - t_mcts) * 60,
+            "mcts_scores": [c["score"] for c in mcts_body["candidates"]]}
+        if not all(math.isfinite(x) for x in
+                   result["under_mcts"]["mcts_scores"]):
+            raise SystemExit("serve: the search gave non-finite scores")
+        if not rehearsal and not all(
+                result["under_mcts"]["returned_before_search_result"]):
+            # on the CPU a tiny search can end before the requests arrive
+            raise SystemExit("serve: a sampling request sent under the "
+                             "search returned after its result: "
+                             f"{result['under_mcts']}")
+
+        # 4. two concurrent searches, interleaved; once both have yielded,
+        # one sampling request beside them profiled: the card's busy time
+        # against the request's wall time
+        stalls0 = inference.requests["mcts_stalls"]
+        firsts = [threading.Event() for _ in range(2)]
+        pair = [pool.submit(_sse, base, {
+            "image": b64[10 + i], "algorithm": "mcts",
+            "expansions": SERVE_PAIR_EXPANSIONS, "timeout": 0}, firsts[i])
+            for i in range(2)]
+        for first in firsts:
+            first.wait(600)
+        window = None if rehearsal else _profile_window(
+            torch, lambda: timed_sample(2))
+        (body_a, end_a, cand_a), (body_b, end_b, cand_b) = (
+            _stream_result(*f.result(), "a paired MCTS") for f in pair)
+        if window is not None:      # read once both searches are done
+            result["profile_sample_under_mcts"] = _window_time(*window)
+        if not (len(cand_a) == len(cand_b) == SERVE_PAIR_EXPANSIONS
+                and cand_a[0] < end_b and cand_b[0] < end_a):
+            raise SystemExit("serve: the two searches did not interleave: "
+                             f"{len(cand_a)}, {len(cand_b)} candidates")
+        result["two_searches"] = {
+            "wall_s": max(end_a, end_b) - min(cand_a[0], cand_b[0]),
+            "first_candidates_before_other_end": True,
+            "mcts_stalls": inference.requests["mcts_stalls"] - stalls0}
+
+        # 5. a streamed sampling request: its tokens make up its result
+        status, events = _sse(base, dict(new, image=b64[4],
+                                         temperature=0.8))
+        body, _, _ = _stream_result(status, events, "the sampling")
+        tokens = "".join(d["text"] for _, k, d in events if k == "token")
+        if tokens != body["code"] or not tokens:
+            raise SystemExit("serve: streamed tokens do not make up the "
+                             "result")
+        result["stream_token_events"] = sum(k == "token"
+                                            for _, k, _ in events)
+
+
+        # 6. introspection and a malformed request
+        status, health = _http(base, "/healthz")
+        status_m, metrics = _http(base, "/metrics")
+        keys = {"engine", "spec_rate", "num_slots", "num_free_slots",
+                "prefix_pages_used", "requests", "queue_depth",
+                "active_mcts", "waiting_mcts", "compiling", "latency_s"}
+        if (status, status_m) != (200, 200) or set(metrics) != keys \
+                or health.get("status") != "ok":
+            raise SystemExit(f"serve: /healthz {status}, /metrics "
+                             f"{status_m} with keys {sorted(metrics)}")
+        status, body = _http(base, "/v1/generate", {"image": "not base64"})
+        if status != 400:
+            raise SystemExit(f"serve: a malformed request got {status}")
+        result["latency_s"] = metrics["latency_s"]
+    finally:
+        pool.shutdown(wait=True)
+        httpd.shutdown()
+        inference.stop()
+        httpd.server_close()
+        http_thread.join(timeout=30)
+        del eng.step                    # the class's method again
+    sync()
+    counts = launch_counts()
+    result["t_traffic_s"] = time.perf_counter() - t_phase
+    if inference._thread.is_alive() or http_thread.is_alive():
+        raise SystemExit("serve: the server's threads did not stop")
+    if inference.requests["failed"] != 0:
+        raise SystemExit(f"serve: failed requests {inference.requests}")
+    if eng.num_active or eng.num_free_slots != eng.num_slots:
+        raise SystemExit("serve: slots still held after the traffic")
+    if eng.num_free_pages != free0 - eng.prefix_pages_used:
+        raise SystemExit("serve: pool leak after the traffic")
+    if not rehearsal:
+        for name in ("flash_attention", "paged_decode", "int8_gemv"):
+            if counts[name] <= 0:
+                raise SystemExit(f"serve never launched {name}")
+        for name in ("decode_contig", "paged_verify"):
+            if counts[name] != 0:
+                raise SystemExit(f"serve launched {name}")
+    result.update(requests=dict(inference.requests),
+                  engine_counters=dict(eng.counters), launches=counts)
+    if not rehearsal:
+        result["max_memory_allocated_bytes"] = \
+            torch.cuda.max_memory_allocated()
+    emit(result)
+    pipe.close()
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -2260,6 +2626,8 @@ def main(argv=None) -> int:
         preset="tiny-test" if rehearsal else "detikzify-v2-8b")
     paths.update(simulate_spec_phase(torch, device, rehearsal, args.seed,
                                      qparams, processor, args.max_new_tokens))
+    paths["serve"] = serve_phase(torch, device, rehearsal, args.seed,
+                                 qparams, processor.cfg, args.max_new_tokens)
     del qparams
     _free(torch, rehearsal)
     paths.update(v1_phases(torch, device, rehearsal, args.seed,

@@ -18,8 +18,12 @@ slots, with virtual loss to spread the selections. On a speculative engine
 each child rollout drafts from the continuation of the rollout its node was
 cut from (``_hint_for``). With a caption (``text``) and the TikZero
 adapter's ``AdapterBundle`` the vision tower is caption-conditioned; a
-caption alone generates from the adapter's learnable blank image. Not
-ported yet: the shared-engine mode of the serving scheduler (ROADMAP).
+caption alone generates from the adapter's learnable blank image.
+``simulate(shared_engine=True)`` serves a timesliced scheduler
+(``serve.InferenceServer``) that shares the engine between searches and
+sampling waves: it re-reads ``parallelism`` on every loop trip and yields
+``STALLED`` on a trip that ends with nothing in flight (other users may
+hold every slot).
 """
 from __future__ import annotations
 
@@ -44,6 +48,14 @@ from ..utils.generation import ExplicitAbort
 from .tikz import CompileService, TikzDocument
 
 Numeric = float
+
+#: Yielded by ``simulate(..., shared_engine=True)`` on a loop trip that
+#: ends with nothing in flight: OTHER users of the shared engine (paused
+#: sibling searches in a timesliced scheduler) may hold every slot, and
+#: only their turns release them, so the scheduler must advance its other
+#: tasks. As in the JAX loop, a trip between two of the search's own waves
+#: yields it too. Never yielded from an exclusively owned engine.
+STALLED = object()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,6 +174,10 @@ class DetikzifyGenerator:
         # it, decided once here so an error inside the metric propagates
         self._score_takes_text = (hasattr(metric, "score")
                                   and _takes(metric.score, "text2"))
+        # live concurrency target of _simulate_parallel, re-read on every
+        # loop trip: a scheduler sharing the engine between searches grows
+        # or shrinks each search's slot share mid-run
+        self.parallelism = 1
         self.namespace = ("gen", next(_gen_counter))
 
         # root prompt mirrors reference generate.py:178-186: image tokens
@@ -550,13 +566,19 @@ class DetikzifyGenerator:
         ``parallelism > 1`` runs that many expansions concurrently on the
         engine's slots (virtual loss spreads the selections; LaTeX compiles
         and SelfSim waves overlap decode); ``parallelism=1`` keeps the
-        reference's strictly sequential order. ``shared_engine=True`` (a
-        timesliced scheduler sharing the engine with sibling searches)
-        raises ``NotImplementedError``: the serving layer is not ported."""
+        reference's strictly sequential order.
+
+        ``shared_engine=True`` (timesliced schedulers: ``serve.py``) always
+        takes the staged parallel loop, even at parallelism 1: its launch
+        guards tolerate sibling searches holding slots (the sequential
+        path's ``engine.start`` raises on a full engine), and it re-reads
+        ``self.parallelism`` on every trip, so a scheduler can rebalance
+        the slot shares. It yields ``STALLED`` instead of a result on a
+        trip that ends with nothing in flight (paused siblings may hold
+        every slot); the scheduler must then advance its other tasks."""
         if shared_engine:
-            raise NotImplementedError(
-                "simulate(shared_engine=True) serves timesliced schedulers, "
-                "which are not ported yet (ROADMAP queue 1, serving)")
+            return self._simulate_parallel(expansions, parallelism,
+                                           shared=True)
         if parallelism > 1:
             return self._simulate_parallel(expansions, parallelism)
         return self._simulate_sequential(expansions)
@@ -811,12 +833,12 @@ class DetikzifyGenerator:
         return out
 
     def _simulate_parallel(self, expansions: Optional[float],
-                           parallelism: int
+                           parallelism: int, shared: bool = False
                            ) -> Generator[Tuple[Numeric, TikzDocument],
                                           None, None]:
         start = time.time()
         target = expansions
-        parallelism = max(1, min(parallelism, self.engine.num_slots))
+        self.parallelism = max(1, min(parallelism, self.engine.num_slots))
         launched = completed = 0
         decoding: List = []
         compiling: List = []
@@ -830,6 +852,9 @@ class DetikzifyGenerator:
             while target is None or completed < target:
                 if self.on_tick is not None:
                     self.on_tick()
+                # live re-read: a scheduler may rebalance the slot shares
+                parallelism = max(1, min(self.parallelism,
+                                         self.engine.num_slots))
                 t_ph = time.time()
                 wave: List = []
                 # ``parallelism`` bounds concurrent DECODING rollouts;
@@ -932,8 +957,13 @@ class DetikzifyGenerator:
                     break
                 if not decoding and not compiling and not scoring:
                     # nothing launched and nothing in flight: every slot
-                    # is held by another user of the engine
+                    # is held by another user of the engine. Under a
+                    # timesliced scheduler those are paused siblings whose
+                    # slots free only on THEIR turns, so spinning here would
+                    # wedge the scheduler thread: hand control back
                     time.sleep(0.001)
+                    if shared:
+                        yield STALLED
                     continue
                 if not decoding and compiling:
                     # nothing to decode: wait briefly for ANY compile

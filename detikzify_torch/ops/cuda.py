@@ -196,3 +196,17 @@ def stream_handle(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def device_scope(device):
+    """``device`` as the calling thread's current CUDA device, for a thread
+    that launches kernels (PyTorch keeps the current device, and with it
+    the current stream that ``stream_handle`` reads, per thread); a null
+    context for a CPU device or none."""
+    import contextlib
+
+    import torch
+
+    if isinstance(device, torch.device) and device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()

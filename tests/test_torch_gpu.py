@@ -669,3 +669,82 @@ def test_adapter_encoder_pass_matches_cpu(cuda):
     cos = torch.nn.functional.cosine_similarity(got.flatten(1),
                                                 want.flatten(1))
     assert float(cos.min()) >= 0.999, float(cos.min())
+
+
+def test_server_launches_kernels_from_its_scheduler_thread(cuda):
+    """The port's HTTP server on the card (v2-8b widths, 2 + 2 layers): a
+    greedy sampling request is decoded on the scheduler thread, which
+    launches K1 and K2 (their counts rise), and returns the code of a
+    direct sample() on the same pipeline, with no failed request."""
+    import base64
+    import io
+    import json
+    import threading
+    import urllib.request
+
+    from PIL import Image, ImageDraw
+
+    from detikzify_torch.config import get_config
+    from detikzify_torch.infer import (DetikzifyPipeline, FakeBackend,
+                                       set_backend)
+    from detikzify_torch.models import convert
+    from detikzify_torch.ops.cuda import KERNELS
+    from detikzify_torch.processing import ByteTokenizer, DetikzifyProcessor
+    from detikzify_torch.serve import make_server
+
+    base = get_config("detikzify-v2-8b")
+    cfg = base.replace(vision=base.vision.replace(num_hidden_layers=2),
+                       text=base.text.replace(num_hidden_layers=2))
+
+    class LetterTokenizer(ByteTokenizer):
+        # ids above the bytes decode to letters, so the code is not empty
+        def decode(self, token_ids, skip_special_tokens=False):
+            return super().decode([
+                t if t < 256 or t in self.all_special_ids else 97 + t % 26
+                for t in token_ids], skip_special_tokens)
+
+    tok = LetterTokenizer(vocab_size=cfg.text.vocab_size,
+                          image_token_id=cfg.image_token_id,
+                          bos_token_id=cfg.bos_token_id,
+                          eos_token_id=cfg.eos_token_id,
+                          pad_token_id=cfg.pad_token_id,
+                          model_max_length=1024)
+    params = convert.init_random(
+        cfg, device=cuda, dtype=torch.bfloat16,
+        generator=torch.Generator(device=cuda).manual_seed(3))
+    set_backend(FakeBackend())
+    pipe = DetikzifyPipeline(params, cfg, DetikzifyProcessor(tok, cfg),
+                             num_slots=4, max_len=1024, metric="fast",
+                             device=cuda)
+    httpd, inference = make_server(pipe, port=0, batch_window_s=0.05)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        img = Image.new("RGB", (200, 120), "white")
+        ImageDraw.Draw(img).ellipse([20, 20, 180, 100], outline="blue",
+                                    width=3)
+        want = pipe.sample(image=img, temperature=0.0,
+                           max_new_tokens=24).code
+        buf = io.BytesIO()
+        img.save(buf, format="PNG")
+        before = {k: KERNELS[k].launches
+                  for k in ("flash_attention", "paged_decode")}
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{httpd.server_address[1]}/v1/generate",
+            data=json.dumps({"image": base64.b64encode(
+                buf.getvalue()).decode(), "temperature": 0.0,
+                "max_new_tokens": 24}).encode())
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            assert resp.status == 200
+            body = json.loads(resp.read())
+        for k, n in before.items():
+            assert KERNELS[k].launches > n, k
+        assert body["code"] == want and want
+        assert inference.requests["failed"] == 0
+    finally:
+        httpd.shutdown()
+        inference.stop()
+        httpd.server_close()
+        pipe.close()
+        set_backend(None)
+    assert not inference._thread.is_alive()

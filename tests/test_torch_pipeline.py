@@ -336,16 +336,18 @@ def test_wave_scoring_shares_score_memo_and_dedups(selfsim_pipe):
 # simulate() parity with the JAX package
 # ---------------------------------------------------------------------------
 
-def _sync_compiles(pipe):
-    """Compile on submit and hand back a finished future, so the parallel
-    loop sees every compile done at its first check, in both packages."""
-    def submit_doc(doc):
-        doc.compile()
-        fut = cf.Future()
-        fut.set_result(doc)
-        return fut
+def _sync_submit_doc(doc):
+    """Compile on submit and hand back a finished future."""
+    doc.compile()
+    fut = cf.Future()
+    fut.set_result(doc)
+    return fut
 
-    pipe.compiler.submit_doc = submit_doc
+
+def _sync_compiles(pipe):
+    """Compile on submit, so the parallel loop sees every compile done at
+    its first check, in both packages."""
+    pipe.compiler.submit_doc = _sync_submit_doc
 
 
 @pytest.fixture(scope="module", params=["fp32", "int8"])
@@ -437,18 +439,134 @@ def test_on_tick_calls_match_jax(parity_pipes, parallelism):
         assert runs[1][0] == 6
 
 
-def test_simulate_shared_engine_not_ported(pipelines):
-    """simulate(shared_engine=True), the serving layer's timesliced search,
-    raises NotImplementedError (not TypeError) until serving is ported."""
-    _, tpipe = pipelines
-    gen = tpipe.generator(image=_figures()[0], max_new_tokens=8)
-    try:
-        with pytest.raises(NotImplementedError, match="serving"):
-            gen.simulate(2, shared_engine=True)
-        assert len(list(gen.simulate(1, shared_engine=False))) == 1
-    finally:
-        gen.close()
-    assert _free(tpipe.engine)
+@pytest.mark.parametrize("parallelism", [1, 4])
+def test_simulate_shared_engine_matches_jax(parity_pipes, parallelism):
+    """simulate(shared_engine=True), the serving layer's timesliced search:
+    the staged parallel loop even at parallelism 1, with the same solution
+    stream, scores (1e-4), tree and prefix reuse as the JAX generator's,
+    and STALLED on the same loop trips (JAX yields it on every trip that
+    ends with nothing in flight, also between two of its own waves)."""
+    from detikzify_tpu.infer import generator as jgen_mod
+    from detikzify_torch.infer import generator as tgen_mod
+
+    runs = []
+    for pipe, stalled in zip(parity_pipes, (jgen_mod.STALLED,
+                                            tgen_mod.STALLED)):
+        random.seed(0)                      # UCT ties break at random
+        gen = pipe.generator(image=_figures()[1], metric=pipe.metric,
+                             max_new_tokens=24)
+        try:
+            stream = list(gen.simulate(12, parallelism=parallelism,
+                                       shared_engine=True))
+            out = [o for o in stream if o is not stalled]
+            runs.append(([sc for sc, _ in out], [d.code for _, d in out],
+                         _tree(gen.root), gen.stats["prefix_hits"],
+                         gen.stats["max_inflight"],
+                         [o is stalled for o in stream]))
+        finally:
+            gen.close()
+    (jscores, jcodes, jtree, jhits, jin, jst), (tscores, tcodes, ttree,
+                                                thits, tin, tst) = runs
+    assert len(tcodes) == 12 and tcodes == jcodes
+    np.testing.assert_allclose(tscores, jscores, rtol=0, atol=1e-4)
+    assert ttree == jtree and thits == jhits and tin == jin
+    assert tst == jst
+    assert _free(parity_pipes[1].engine)
+
+
+def _hold_every_slot(pipe, gen):
+    """Start rollouts on every free slot of ``pipe``'s engine without
+    stepping them, as a paused sibling search holds its slots."""
+    eng = pipe.engine
+    n = eng.num_free_slots
+    return eng.start_many([list(gen.root.token_ids)] * n,
+                          image_embeds=gen.image_embeds,
+                          max_new_tokens=[40] * n)
+
+
+def _let_go(pipe, ros):
+    eng = pipe.engine
+    for ro in ros:
+        eng.abort(ro)
+    while not all(ro.finished for ro in ros):
+        eng.step()
+    for ro in ros:
+        eng.release(ro)
+
+
+def test_shared_search_yields_stalled_while_slots_are_held(pipelines,
+                                                          monkeypatch):
+    """While a second generator holds every slot, a shared search yields
+    STALLED (it hands control back instead of spinning), in both packages;
+    once the slots are freed it completes with the JAX stream."""
+    from detikzify_tpu.infer import generator as jgen_mod
+    from detikzify_torch.infer import generator as tgen_mod
+
+    runs = []
+    for pipe, stalled in zip(pipelines, (jgen_mod.STALLED,
+                                         tgen_mod.STALLED)):
+        monkeypatch.setattr(pipe.compiler, "submit_doc",
+                            _sync_submit_doc)
+        holder = pipe.generator(image=_figures()[2], max_new_tokens=40)
+        gen = pipe.generator(image=_figures()[0], max_new_tokens=16)
+        try:
+            held = _hold_every_slot(pipe, holder)
+            it = gen.simulate(3, parallelism=2, shared_engine=True)
+            firsts = [next(it) for _ in range(3)]
+            assert all(out is stalled for out in firsts)
+            assert pipe.engine.num_free_slots == 0
+            _let_go(pipe, held)
+            # between two of its own waves the loop may yield STALLED too
+            rest = [out for out in it if out is not stalled]
+            runs.append([d.code for _, d in rest])
+        finally:
+            gen.close()
+            holder.close()
+    assert len(runs[1]) == 3 and runs[1] == runs[0]
+    assert _free(pipelines[1].engine)
+
+
+def test_live_parallelism_bounds_decoding_rollouts(parity_pipes):
+    """A mid-run change of gen.parallelism (a scheduler's rebalance) bounds
+    the rollouts launched after it: at 1, every later launch is a single
+    rollout on an engine with none of the search's rollouts decoding. The
+    launch sequence equals the JAX generator's."""
+    from detikzify_tpu.infer import generator as jgen_mod
+    from detikzify_torch.infer import generator as tgen_mod
+
+    runs = []
+    for pipe, stalled in zip(parity_pipes, (jgen_mod.STALLED,
+                                            tgen_mod.STALLED)):
+        eng = pipe.engine
+        launches = []
+        start_many = eng.start_many
+
+        def recording(prompts, *a, **kw):
+            launches.append((eng.num_active, len(prompts)))
+            return start_many(prompts, *a, **kw)
+
+        eng.start_many = recording
+        gen = pipe.generator(image=_figures()[1], metric=pipe.metric,
+                             max_new_tokens=24)
+        try:
+            random.seed(0)
+            it = gen.simulate(16, parallelism=4, shared_engine=True)
+            first = [next(it)]
+            assert gen.parallelism == 4
+            n_before = len(launches)
+            gen.parallelism = 1
+            out = [o for o in first + list(it) if o is not stalled]
+        finally:
+            gen.close()
+            del eng.start_many
+        assert len(out) == 16
+        assert launches[0] == (0, 4)
+        after = launches[n_before:]
+        assert after and all(n == 1 and active == 0
+                             for active, n in after)
+        runs.append(launches)
+    assert runs[1] == runs[0]
+    assert _free(parity_pipes[1].engine)
 
 
 def test_port_imports_no_jax():
@@ -480,8 +598,8 @@ assert not bad, bad
 def test_chip_smoke_cpu_rehearsal():
     """The smoke script's phases run end to end at tiny-test on the CPU:
     the v2 phases, the TikZero adapter's (``tikzero_sample``,
-    ``tikzero_simulate``), the checkpoint round trip (``load``) and the v1
-    family's phases."""
+    ``tikzero_simulate``), the checkpoint round trip (``load``), the HTTP
+    server (``serve``) and the v1 family's phases."""
     env = dict(os.environ, OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "chip_smoke.py", "--cpu-rehearsal",
                           "--max-new-tokens", "8"], cwd=ROOT, env=env,
@@ -495,7 +613,7 @@ def test_chip_smoke_cpu_rehearsal():
                      "decode_contig", "int8_gemv"}
     paths = {"sample", "contiguous", "spec_greedy", "tikzero_sample",
              "tikzero_simulate", "load", "simulate", "simulate_spec",
-             "simulate_spec_gated", "v1_sample", "v1_simulate"}
+             "simulate_spec_gated", "serve", "v1_sample", "v1_simulate"}
     assert all(set(row["launches_by_path"]) == paths for row in kernels)
     # the v1 family's kernel shapes sit beside the v2 ones
     row_names = {row["name"] for row in kernels}
@@ -554,6 +672,16 @@ def test_chip_smoke_cpu_rehearsal():
     for path in ("simulate_spec", "simulate_spec_gated"):
         assert phases[path]["rollouts"] == 16
         assert phases[path]["spec_counters"]["spec_steps"] > 0
+    # the HTTP server on the int8 + fused weights, driven over real HTTP
+    serve = phases["serve"]
+    assert "flash_attention/vision_fused4" in row_names
+    assert serve["requests"]["failed"] == 0
+    assert serve["requests"]["batched"] >= 4
+    assert serve["requests"]["mcts"] == 3 and serve["requests"]["sample"] >= 10
+    assert len(serve["under_mcts"]["mcts_scores"]) == 16
+    assert serve["two_searches"]["first_candidates_before_other_end"]
+    assert serve["stream_token_events"] > 0
+    assert set(serve["latency_s"]) == {"sample", "mcts"}
 
 
 def test_chip_smoke_refuses_without_card(tmp_path):
