@@ -19,7 +19,9 @@ Phases, each printing one JSON line:
               8 query rows per KV head; K5 at TinyLlama's fused products)
               and the TikZero adapter's (K1 as the gated cross-attention
               over a key-masked caption, and as the caption model's causal
-              pass with a key mask),
+              pass with a key mask) and ClipScore's (K1 on the SigLIP text
+              tower's 64 positions and the 384-px vision tower's 729
+              patches),
               and time kernel, plain version and the PyTorch library
               call (CUDA events, median of many launches, L2 flushed before
               each), next to the least time the card needs for the same
@@ -30,6 +32,8 @@ Phases, each printing one JSON line:
               for v2-8b and for the v1 model (tapped at layer 0); and, bf16,
               ``tikzero-adapter`` (2 vision layers with their cross-attention
               blocks, a 2-layer caption model at Llama-3.2-1B's widths);
+              and ClipScore's two towers at so400m-384's widths, 2 + 2
+              layers, pooled outputs and scores;
 5. main    -- random-weight ``detikzify-v2-8b`` at full width and depth in
               bf16: three ``DetikzifyPipeline.sample()`` requests and one
               ``sample_batch()`` of three figures, 128 new tokens each;
@@ -78,16 +82,28 @@ Phases, each printing one JSON line:
               searches (interleaved, one request beside them profiled), a
               token stream, /healthz, /metrics and a malformed request;
               latencies, rollouts/min, engine steps of the idle requests;
-15. v1_sample -- random-weight ``detikzify-tl-1.1b`` at full width and
+15. evaluate -- the evaluation protocol of ``examples/eval.py`` on the
+              same int8 + fused weights: four test items (reference
+              programs, their renders, captions) predicted by
+              ``generate_until_compilable`` (fast mode, parallelism 8) into
+              a ``PredictionCache``, a second pass from the cache, one item
+              in model mode; then scored: compile rate, token efficiency,
+              sampling throughput, SelfSim, KID, CrystalBLEU, EED (native
+              library), DreamSim (the dreamsim package's ViT-B/16 ensemble
+              layout, random, through its ``.pth`` files and back through
+              ``save_ensemble``/``load_ensemble``), ClipScore (a random
+              ``google/siglip-so400m-patch14-384`` two-tower written and
+              loaded back in bf16), and the redacted variants;
+16. v1_sample -- random-weight ``detikzify-tl-1.1b`` at full width and
               depth (the timm SigLIP tower at 384 px tapped at its
               second-to-last layer, TinyLlama) written as a v1 checkpoint
               and timm tower in the reference's names, loaded back by
               ``load_params(..., vision_tower=...)`` bit for bit, and driven
               as ``main`` drives v2-8b;
-16. v1_simulate -- the same checkpoint loaded with ``quantize=True`` and
+17. v1_simulate -- the same checkpoint loaded with ``quantize=True`` and
               fused, ``simulate()`` with 8 expansions and SelfSim (cos, as
               v1 pins it);
-17. the ``kernels`` JSON line (launches on each path above, each counted
+18. the ``kernels`` JSON line (launches on each path above, each counted
    from 0 just before the path ran and read just after, and their sum),
    the nvidia-smi line, and as the last line
    ``{"ok": true, "device": {...}}``.
@@ -206,6 +222,28 @@ V1_EXPANSIONS = 8       # MCTS expansions of the v1_simulate phase
 SIM_EXPANSIONS = 16     # MCTS expansions of the simulate phases
 SPECULATE = 4           # draft tokens per verify step (K1 = 5)
 CONTIG_NEW_TOKENS = 64  # greedy tokens of the contiguous phase
+# K1 at ClipScore's towers (google/siglip-so400m-patch14-384, 16 heads at
+# Hd 72): the text tower over 8 captions of 64 positions, no key mask, and
+# the vision tower at 384 px (27 x 27 = 729 patches) over 4 renders
+K1_EVAL_CASES = (
+    ("clip_text", 8, 64, 64, 16, 16, 72, "full"),
+    ("clip_vision", 4, 729, 729, 16, 16, 72, "full"),
+)
+# google/siglip-so400m-patch14-384's config.json: both towers share the
+# layer geometry; the text tower's vocabulary and positions
+SIGLIP_SO400M = dict(hidden_size=1152, intermediate_size=4304,
+                     num_hidden_layers=27, num_attention_heads=16,
+                     image_size=384, patch_size=14,
+                     hidden_act="gelu_pytorch_tanh", layer_norm_eps=1e-6)
+SIGLIP_TEXT_VOCAB, SIGLIP_TEXT_POSITIONS = 32000, 64
+# the dreamsim package's ensemble towers: ViT-B/16 at 224 px (width,
+# MLP, layers, patch, image side) and the CLIP pair's projection width
+DREAMSIM_VITB16 = (768, 3072, 12, 16, 224, 512)
+EVAL_ITEMS = 4          # test items of the evaluate phase
+# the model-mode item searches for at least this many times the slowest
+# fast-mode item: the first wave's results all arrive before the minimum,
+# so model mode keeps searching into a second wave on a slow call too
+EVAL_MIN_SECONDS_OVER_FAST = 1.5
 SERVE_MCTS_EXPANSIONS = 16  # the search that sampling requests run beside
 SERVE_PAIR_EXPANSIONS = 8   # each of the two concurrent searches
 
@@ -435,7 +473,8 @@ def kernel_phase(torch, device, rehearsal: bool, iters: int):
     for (name, b, s, t, nh, nkv, hd, mode), prompt, lengths in (
             [(c, 300, None) for c in K1_CASES + K1_SERVE_CASES]
             + [(c, V1_PROMPT, None) for c in K1_V1_CASES]
-            + [(c[:8], None, c[8]) for c in K1_TIKZERO_CASES]):
+            + [(c[:8], None, c[8]) for c in K1_TIKZERO_CASES]
+            + [(c, None, None) for c in K1_EVAL_CASES]):
         if rehearsal:   # tiny shapes: the CPU only checks the wiring
             s, t = min(s, 9), 12
             lengths = lengths and tuple(min(n, t) for n in lengths)
@@ -2544,6 +2583,578 @@ def serve_phase(torch, device, rehearsal: bool, seed: int, params, cfg,
     return counts
 
 
+def siglip_two_tower(rehearsal: bool, layers: Optional[int] = None):
+    """ClipScore's two-tower configuration: ``google/siglip-so400m-
+    patch14-384``'s published config (``SIGLIP_SO400M``; tiny widths in the
+    rehearsal), both towers cut to ``layers`` when given. Returns (vision
+    config, text config, vocabulary, positions)."""
+    from detikzify_torch.config import VisionConfig
+
+    if rehearsal:
+        cfg = VisionConfig(hidden_size=48, intermediate_size=96,
+                           num_hidden_layers=2, num_attention_heads=4,
+                           image_size=42, patch_size=14)
+        vocab, positions = 300, 16
+    else:
+        cfg = VisionConfig(**SIGLIP_SO400M)
+        vocab, positions = SIGLIP_TEXT_VOCAB, SIGLIP_TEXT_POSITIONS
+    if layers is not None:
+        cfg = cfg.replace(num_hidden_layers=layers)
+    return cfg, cfg, vocab, positions
+
+
+def clip_tokenizer(vocab: int):
+    """The smoke tokenizer at the SigLIP text tower's vocabulary (its
+    specials below ``vocab``; eos = pad = 1, as SigLIP's tokenizer has)."""
+    from types import SimpleNamespace
+
+    from detikzify_torch.processing import ByteTokenizer
+
+    cfg = SimpleNamespace(text=SimpleNamespace(vocab_size=vocab),
+                          image_token_id=vocab - 2, bos_token_id=vocab - 1,
+                          eos_token_id=1, pad_token_id=1)
+    return smoke_tokenizer(ByteTokenizer, cfg)
+
+
+def random_siglip_towers(torch, device, dtype, rehearsal: bool, seed: int,
+                         layers: Optional[int] = None):
+    """A random two-tower model (``models.load.SiglipTowers``) drawn on
+    ``device`` from ``seed``; logit scale log(10) and bias -10, SigLIP's
+    initial values (the scale rounded to float32, as checkpoints keep
+    it)."""
+    import math
+
+    import numpy as np
+
+    from detikzify_torch.models import convert
+    from detikzify_torch.models.load import SiglipTowers
+
+    vcfg, tcfg, vocab, positions = siglip_two_tower(rehearsal, layers)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    vision = convert.init_random_siglip_vision(vcfg, device=device,
+                                               dtype=dtype, generator=gen)
+    text = convert.init_random_siglip_text(tcfg, vocab, positions,
+                                           device=device, dtype=dtype,
+                                           generator=gen)
+    return SiglipTowers(vision, text, vcfg, tcfg,
+                        float(np.float32(math.log(10.0))), -10.0)
+
+
+def clip_metric(towers, tokenizer):
+    from detikzify_torch.evaluate import ClipScore
+
+    return ClipScore(towers.vision, towers.text, towers.cfg, tokenizer,
+                     logit_scale=towers.logit_scale,
+                     logit_bias=towers.logit_bias, text_cfg=towers.text_cfg,
+                     text_max_len=towers.text.embeddings.position.shape[0])
+
+
+def clip_reference_phase(torch, device, rehearsal: bool, seed: int) -> None:
+    """ClipScore's towers at full width and 2 + 2 layers: both towers'
+    pooled outputs and the scores on the card (bf16, K1) against the same
+    weights on the host CPU (fp32, plain versions)."""
+    import copy
+
+    import numpy as np
+
+    from detikzify_torch.models import siglip
+    from detikzify_torch.models.load import SiglipTowers
+    from detikzify_torch.processing import preprocess_image
+
+    cpu = torch.device("cpu")
+    ref = random_siglip_towers(torch, cpu, torch.float32, rehearsal, seed,
+                               layers=2)
+    dtype = torch.float32 if rehearsal else torch.bfloat16
+    dut = SiglipTowers(copy.deepcopy(ref.vision).to(device, dtype),
+                       copy.deepcopy(ref.text).to(device, dtype), *ref[2:])
+    figs = synthetic_figures(3, seed + 11)
+    captions = [TIKZERO_CAPTION, "a red square", ""]
+    tok = clip_tokenizer(ref.text.embeddings.token.shape[0])
+    pixels = torch.from_numpy(np.stack([
+        preprocess_image(f, ref.cfg.image_size, do_trim=True) for f in figs]))
+    out = {}
+    for name, t in (("cpu", ref), ("dut", dut)):
+        metric = clip_metric(t, tok)
+        ids = torch.from_numpy(metric._tokenize(captions))
+        with torch.inference_mode():
+            img = siglip.apply(t.vision, t.cfg, pixels.to(metric.device))
+            txt = siglip.apply_text(t.text, t.text_cfg, ids.to(metric.device))
+        out[name] = (img["pooler_output"].float().cpu(),
+                     txt["pooler_output"].float().cpu(),
+                     metric.score_batch(figs, captions))
+    cos = torch.nn.functional.cosine_similarity
+    img_cos = float(cos(out["dut"][0], out["cpu"][0], dim=-1).min())
+    txt_cos = float(cos(out["dut"][1], out["cpu"][1], dim=-1).min())
+    result = {"phase": "reference", "model": "clipscore", "weights": "bf16",
+              "layers": {"vision": 2, "text": 2},
+              "image_pooled_min_cosine": img_cos,
+              "text_pooled_min_cosine": txt_cos,
+              "scores": [float(s) for s in out["dut"][2]],
+              "scores_max_abs_diff": float(np.abs(out["dut"][2]
+                                                  - out["cpu"][2]).max()),
+              "tolerance": "pooled cosine >= 0.999"}
+    emit(result)
+    if not (img_cos >= 0.999 and txt_cos >= 0.999
+            and np.isfinite(out["dut"][2]).all()):
+        raise SystemExit(f"ClipScore towers on the card disagree with the "
+                         f"fp32 reference: {result}")
+
+
+def eval_testset(n: int, seed: int) -> list:
+    """``n`` test items as ``examples/eval.py`` reads them: a reference
+    TikZ program of several lines (distinct shapes, positions and labels;
+    FakeBackend compiles it), its FakeBackend render as ``image`` and a
+    short ``caption``."""
+    import numpy as np
+
+    from detikzify_torch.infer import TikzDocument
+
+    rng = np.random.default_rng(seed)
+    shapes = ("rectangle", "circle", "ellipse", "grid")
+    items = []
+    for i in range(n):
+        x, y = (int(v) for v in rng.integers(1, 5, 2))
+        shape = shapes[i % len(shapes)]
+        body = {"rectangle": f"\\draw[thick] (0,0) rectangle ({x},{y});",
+                "circle": f"\\draw[blue] ({x},{y}) circle ({1 + i % 2});",
+                "ellipse": f"\\fill[red!40] (0,0) ellipse ({x} and {y});",
+                "grid": f"\\draw[step=0.5,gray] (0,0) grid ({x},{y});"}[shape]
+        code = ("\\documentclass[tikz]{standalone}\n\\begin{document}\n"
+                "\\begin{tikzpicture}\n" + body + "\n"
+                f"\\draw[->] (0,0) -- ({x + 1},0) node[right] {{$x_{i}$}};\n"
+                f"\\node at ({x / 2},{y + 0.5}) {{item {i}}};\n"
+                "\\end{tikzpicture}\n\\end{document}")
+        image = TikzDocument(code).rasterize()
+        if image is None:
+            raise SystemExit(f"evaluate: reference program {i} did not "
+                             "compile")
+        items.append({"code": code, "image": image,
+                      "caption": f"a {shape} labelled item {i} with an "
+                                 "x axis"})
+    return items
+
+
+def _timm_vit_state(torch, gen, d: int, inter: int, layers: int, patch: int,
+                    side: int, norm_pre: bool = False) -> dict:
+    """A random ViT in timm naming (the dreamsim package's merged towers,
+    as ``tests/test_dreamsim.py::_timm_b16_state`` draws them)."""
+    def t(*shape):
+        return torch.randn(*shape, generator=gen) * 0.02
+
+    n = (side // patch) ** 2
+    sd = {"cls_token": t(1, 1, d), "pos_embed": t(1, n + 1, d),
+          "patch_embed.proj.weight": t(d, 3, patch, patch),
+          "patch_embed.proj.bias": t(d), "norm.weight": 1 + t(d),
+          "norm.bias": t(d)}
+    if norm_pre:
+        sd["norm_pre.weight"] = 1 + t(d)
+        sd["norm_pre.bias"] = t(d)
+    for i in range(layers):
+        b = f"blocks.{i}"
+        sd.update({
+            f"{b}.norm1.weight": 1 + t(d), f"{b}.norm1.bias": t(d),
+            f"{b}.attn.qkv.weight": t(3 * d, d),
+            f"{b}.attn.qkv.bias": t(3 * d),
+            f"{b}.attn.proj.weight": t(d, d), f"{b}.attn.proj.bias": t(d),
+            f"{b}.norm2.weight": 1 + t(d), f"{b}.norm2.bias": t(d),
+            f"{b}.mlp.fc1.weight": t(inter, d),
+            f"{b}.mlp.fc1.bias": t(inter),
+            f"{b}.mlp.fc2.weight": t(d, inter), f"{b}.mlp.fc2.bias": t(d),
+        })
+    return sd
+
+
+def write_dreamsim_branches(torch, path: str, rehearsal: bool,
+                            seed: int) -> dict:
+    """The ``dreamsim`` package's published ensemble layout, random, as
+    ``.pth`` files: ``dino_vitb16`` (a bare timm state dict),
+    ``clip_vitb16`` (``{"model", "proj"}``, CLIP's ln_pre kept as
+    ``norm_pre``) and ``open_clip_vitb16`` (``proj`` inside the state
+    dict); ViT-B/16 at 224 px (12 layers, width 768, MLP 3072) with a
+    512-wide projection on the CLIP pair. Returns branch -> path."""
+    d, inter, layers, patch, side, proj = (
+        (32, 64, 2, 8, 32, 16) if rehearsal
+        else DREAMSIM_VITB16)
+    gen = torch.Generator().manual_seed(seed)
+    paths = {}
+    for branch, norm_pre in (("dino_vitb16", False), ("clip_vitb16", True),
+                             ("open_clip_vitb16", True)):
+        sd = _timm_vit_state(torch, gen, d, inter, layers, patch, side,
+                             norm_pre)
+        obj = sd
+        if branch == "clip_vitb16":
+            obj = {"model": sd, "proj": torch.randn(d, proj, generator=gen)
+                   * 0.02}
+        elif branch == "open_clip_vitb16":
+            sd["proj"] = torch.randn(d, proj, generator=gen) * 0.02
+        paths[branch] = os.path.join(path,
+                                     f"{branch}_pretrain_lora_merged.pth")
+        torch.save(obj, paths[branch])
+    return paths
+
+
+def _tree_diff(a: dict, b: dict) -> int:
+    """Entries that differ, bit for bit, between two trees of fp32
+    tensors; -1 where their keys or shapes differ."""
+    import numpy as np
+
+    if a.keys() != b.keys():
+        return -1
+    n = 0
+    for k in a:
+        if isinstance(a[k], dict):
+            sub = _tree_diff(a[k], b[k])
+            if sub < 0:
+                return -1
+            n += sub
+        elif a[k].shape != b[k].shape or a[k].dtype != b[k].dtype:
+            return -1
+        else:
+            n += int((a[k].cpu().numpy().view(np.uint32)
+                      != b[k].cpu().numpy().view(np.uint32)).sum())
+    return n
+
+
+def evaluate_phase(torch, device, rehearsal: bool, seed: int, params, cfg,
+                   max_new_tokens: int) -> dict:
+    """The evaluation protocol of ``examples/eval.py`` (``predict`` and
+    ``score``, one replica) on the int8 + fused weights of ``simulate``:
+    ``EVAL_ITEMS`` test items (reference programs FakeBackend compiles,
+    their renders, captions).
+
+    Predict: ``generate_until_compilable`` in fast mode, parallelism 8,
+    through a ``DetikzifyPipeline`` (SelfSim EMD) into a
+    ``PredictionCache`` under ``build/``; a second pass takes every item
+    from the cache (no new search); one item again in model mode
+    (``score_improve``, ``EVAL_MIN_SECONDS_OVER_FAST``). Score: CompileSuccessRate,
+    MeanTokenEfficiency, MeanSamplingThroughput, SelfSim (cos), KID on the
+    model's tower, CrystalBLEU, TexEditDistance (native library), DreamSim
+    (three random branches at the ``dreamsim`` package's published layout,
+    written as ``.pth`` and loaded by ``from_dreamsim_checkpoint``, then
+    saved and loaded back bit for bit), ClipScore (a random two-tower at
+    ``google/siglip-so400m-patch14-384``'s widths written as a
+    ``SiglipModel`` checkpoint and loaded back bit for bit in bf16), and
+    the redacted variants through ``FakeBackend.render_redacted``. The
+    launch counters are reset around predict and around score; fails
+    unless K1, K2 and K5 launched while predicting and K1 while scoring,
+    and unless every metric is finite and in its range."""
+    import math
+    import shutil
+    import tempfile
+
+    from detikzify_torch import native
+    from detikzify_torch.evaluate import (CrystalBLEU, ImageSim,
+                                          KernelInceptionDistance,
+                                          TexEditDistance, crystalbleu,
+                                          harness)
+    from detikzify_torch.evaluate import dreamsim_vit
+    from detikzify_torch.infer import DetikzifyPipeline, TikzDocument
+    from detikzify_torch.models import load as mload
+    from detikzify_torch.ops import launch_counts, reset_launch_counts
+    from detikzify_torch.processing import ByteTokenizer, DetikzifyProcessor
+
+    def sync():
+        if not rehearsal:
+            torch.cuda.synchronize()
+
+    if not native.available():
+        raise SystemExit("evaluate: the native library did not build "
+                         f"({native.lib_path()})")
+    _free(torch, rehearsal)
+    # the harness hands a search no max_new_tokens (as the JAX harness),
+    # so the tokenizer bounds each rollout at max_new_tokens past the
+    # image tokens
+    processor = DetikzifyProcessor(smoke_tokenizer(
+        ByteTokenizer, cfg, cfg.image_seq_len + max_new_tokens), cfg)
+    pipe = DetikzifyPipeline(params, cfg, processor, num_slots=8,
+                             max_len=2048, device=device, seed=seed)
+    eng = pipe.engine
+    free0 = eng.num_free_pages
+    testset = eval_testset(EVAL_ITEMS, seed + 13)
+    searches = {"n": 0}
+    simulate = pipe.simulate
+
+    def counted_simulate(*a, **kw):
+        searches["n"] += 1
+        return simulate(*a, **kw)
+
+    pipe.simulate = counted_simulate
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="eval_", dir=build)
+    stages, result = {}, {"phase": "evaluate", "items": EVAL_ITEMS}
+    try:
+        cache = harness.PredictionCache(os.path.join(tmp, "v2-8b.jsonl"))
+
+        def predict():
+            local, hits = [], 0
+            for idx in harness.shard_indices(len(testset)):
+                key = f"v2-8b-{idx}"
+                hit = cache.get(key)
+                if hit is not None:
+                    local.append((idx, hit))
+                    hits += 1
+                    continue
+                r = harness.generate_until_compilable(
+                    pipe, testset[idx]["image"], parallelism=8)
+                row = {"code": r.best_code, "score": r.best_score,
+                       "num_programs": r.num_programs,
+                       "lengths": r.program_lengths, "seconds": r.seconds}
+                cache.put(key, row)
+                local.append((idx, row))
+            return harness.gather_interleaved(local, len(testset)), hits
+
+        reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        rows, hits = predict()
+        sync()
+        stages["predict_s"] = time.perf_counter() - t0
+        searched = searches["n"]
+        t0 = time.perf_counter()
+        rows2, hits2 = predict()
+        stages["cache_pass_s"] = time.perf_counter() - t0
+        new_searches = searches["n"] - searched
+        min_seconds = EVAL_MIN_SECONDS_OVER_FAST * max(
+            r["seconds"] for r in rows)
+        t0 = time.perf_counter()
+        improved = harness.generate_until_compilable(
+            pipe, testset[0]["image"], score_improve=True,
+            min_seconds=min_seconds, parallelism=8)
+        sync()
+        stages["model_mode_s"] = time.perf_counter() - t0
+        predict_counts = launch_counts()
+        # a cached row also carries its key
+        if (hits, hits2, new_searches) != (0, EVAL_ITEMS, 0) or [
+                {k: v for k, v in r.items() if k != "key"}
+                for r in rows2] != rows:
+            raise SystemExit(f"evaluate: the cache pass took {hits2} of "
+                             f"{EVAL_ITEMS} items from the cache and ran "
+                             f"{new_searches} new searches")
+        if improved.num_programs <= 1 or not improved.compiled:
+            raise SystemExit(f"evaluate: model mode kept {improved}")
+        if eng.num_active or eng.num_free_slots != eng.num_slots \
+                or eng.num_free_pages != free0 - eng.prefix_pages_used:
+            raise SystemExit("evaluate: slots or pages still held after "
+                             "prediction")
+
+        # ---- score, as examples/eval.py::score -------------------------
+        refs = [ex["code"] for ex in testset]
+        codes = [row["code"] for row in rows]
+        reset_launch_counts()
+
+        def timed(name, fn):
+            sync()
+            t = time.perf_counter()
+            out = fn()
+            sync()
+            stages[f"{name}_s"] = time.perf_counter() - t
+            return out
+
+        pairs, captions = [], []
+        for row, ex in zip(rows, testset):
+            img = TikzDocument(row["code"]).rasterize()
+            if img is not None:
+                pairs.append((img, ex["image"]))
+                captions.append(ex["caption"])
+        renders = [a for a, _ in pairs]
+        ref_images = [b for _, b in pairs]
+        metrics = {
+            "CompileSuccessRate": len(renders) / max(len(rows), 1),
+            "MeanTokenEfficiency": harness.mean_token_efficiency(
+                [row["lengths"] for row in rows]),
+            "MeanSamplingThroughput": harness.mean_sampling_throughput(
+                [row["num_programs"] for row in rows]),
+        }
+        selfsim = ImageSim.from_detikzify(params, cfg, processor=processor,
+                                          mode="cos")
+        metrics["SelfSim"] = timed("selfsim", lambda: float(
+            selfsim.score_batch(renders, ref_images).mean()))
+
+        def kid():
+            m = KernelInceptionDistance(params.vision, cfg,
+                                        subset_size=min(50, len(renders)))
+            m.update(ref_images, real=True)
+            m.update(renders, real=False)
+            return m.compute()
+
+        metrics["KID"], kid_std = timed("kid", kid)
+
+        def bleu():
+            m = CrystalBLEU(refs, cache_dir=os.path.join(tmp, "bleu"))
+            m.update(codes, [[r] for r in refs])
+            # which corpus pass chose the trivially shared n-grams
+            result["crystalbleu_shared_ngrams"] = "native" if isinstance(
+                m.shared, crystalbleu.HashedNgramSet) else "python"
+            return m.compute()
+
+        metrics["CrystalBLEU"] = timed("crystalbleu", bleu)
+
+        def eed():
+            m = TexEditDistance()
+            m.update(codes, [[r] for r in refs])
+            return m.compute()
+
+        metrics["TexEditDistance"] = timed("eed", eed)
+
+        # DreamSim: the published ensemble layout, random, in and out
+        t0 = time.perf_counter()
+        branches = write_dreamsim_branches(torch, tmp, rehearsal, seed + 14)
+        stages["dreamsim_write_s"] = time.perf_counter() - t0
+        dreamsim = timed("dreamsim_load", lambda: dreamsim_vit.
+                         from_dreamsim_checkpoint(branches, device=device))
+        t0 = time.perf_counter()
+        manifest = dreamsim_vit.save_ensemble(os.path.join(tmp, "ensemble"),
+                                              dreamsim)
+        back = dreamsim_vit.load_ensemble(os.path.join(tmp, "ensemble"),
+                                          device=device)
+        stages["dreamsim_round_trip_s"] = time.perf_counter() - t0
+        dreamsim_diff = [_tree_diff(a.params, b.params) for a, b in
+                         zip(dreamsim.extractors, back.extractors)]
+        dreamsim_self = dreamsim.similarity(ref_images[0], ref_images[0])
+
+        def dreamsim_score(metric, items):
+            for render, ref_img in items:
+                metric.update(ref_img, render)
+            out = metric.compute()
+            metric.reset()
+            return out
+
+        metrics["DreamSim"] = timed("dreamsim", lambda: dreamsim_score(
+            back, pairs))
+
+        # ClipScore: so400m's two towers, random, in and out (bf16 on the
+        # card, K1's type)
+        dtype = torch.float32 if rehearsal else torch.bfloat16
+        towers = timed("clip_init", lambda: random_siglip_towers(
+            torch, device, dtype, rehearsal, seed + 15))
+        clip_dir = os.path.join(tmp, "siglip")
+        clip_bytes = timed("clip_write", lambda: mload.save_siglip_towers(
+            clip_dir, towers))
+        loaded = timed("clip_load", lambda: mload.load_siglip_towers(
+            clip_dir, dtype=dtype, device=device))
+        clip_diff = {"vision": state_diff(torch, loaded.vision,
+                                          towers.vision),
+                     "text": state_diff(torch, loaded.text, towers.text),
+                     "scalars_equal": (loaded.logit_scale,
+                                       loaded.logit_bias)
+                     == (towers.logit_scale, towers.logit_bias)}
+        del towers
+        clip = clip_metric(loaded, clip_tokenizer(
+            loaded.text.embeddings.token.shape[0]))
+
+        def clipscore():
+            clip.update(renders, captions)
+            out = clip.compute()
+            clip.reset()
+            return out
+
+        metrics["ClipScore"] = timed("clipscore", clipscore)
+
+        # the redacted variants (FakeBackend's render_redacted; no fitz)
+        redacted = [(harness.redacted_render(TikzDocument(row["code"]),
+                                             rot13=True),
+                     ex["image"], ex["caption"])
+                    for row, ex in zip(rows, testset)]
+        redacted = [(r, i, c) for r, i, c in redacted if r is not None]
+        metrics["SelfSim_redacted"] = timed("selfsim_redacted", lambda: float(
+            selfsim.score_batch([r for r, _, _ in redacted],
+                                [i for _, i, _ in redacted]).mean()))
+        metrics["DreamSim_redacted"] = timed(
+            "dreamsim_redacted", lambda: dreamsim_score(
+                back, [(r, i) for r, i, _ in redacted]))
+
+        def clip_redacted():
+            clip.update([r for r, _, _ in redacted],
+                        [c for _, _, c in redacted])
+            out = clip.compute()
+            clip.reset()
+            return out
+
+        metrics["ClipScore_redacted"] = timed("clipscore_redacted",
+                                              clip_redacted)
+        score_counts = launch_counts()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        del pipe.simulate                  # the pipeline's own method
+    pipe.close()
+
+    ranges = {"CompileSuccessRate": (1.0, 1.0),
+              "MeanTokenEfficiency": (0.0, 1.0),
+              "MeanSamplingThroughput": (1.0, math.inf),
+              "SelfSim": (-1.0, 1.0), "SelfSim_redacted": (-1.0, 1.0),
+              "KID": (-math.inf, math.inf), "CrystalBLEU": (0.0, 1.0),
+              "TexEditDistance": (0.0, 1.0), "DreamSim": (-1.0, 1.0),
+              "DreamSim_redacted": (-1.0, 1.0),
+              "ClipScore": (0.0, 1.0), "ClipScore_redacted": (0.0, 1.0)}
+    out_of_range = {k: v for k, v in metrics.items()
+                    if not (math.isfinite(v) and ranges[k][0] <= v
+                            <= ranges[k][1])}
+    # ClipScore is a sigmoid: open interval
+    for k in ("ClipScore", "ClipScore_redacted"):
+        if not 0.0 < metrics[k] < 1.0:
+            out_of_range[k] = metrics[k]
+    result.update({
+        "weights": "int8 + fused", "metrics": metrics, "KID_std": kid_std,
+        "stages_s": stages, "cache": {"first_pass_hits": hits,
+                                      "second_pass_hits": hits2,
+                                      "second_pass_new_searches":
+                                          new_searches},
+        "predictions": [{"num_programs": r["num_programs"],
+                         "lengths": r["lengths"], "seconds": r["seconds"],
+                         "score": r["score"]} for r in rows],
+        "model_mode": {"min_seconds": min_seconds,
+                       "num_programs": improved.num_programs,
+                       "seconds": improved.seconds,
+                       "best_score": improved.best_score},
+        "native_available": native.available(),
+        "tex_tokenizer": "pygments" if _has_pygments() else "regex",
+        "dreamsim": {"branches": list(branches),
+                     "n_params": [b["n_params"] for b in
+                                  manifest["branches"]],
+                     "configs": [b["config"] for b in manifest["branches"]],
+                     "round_trip_differing_entries": dreamsim_diff,
+                     "self_similarity": dreamsim_self},
+        "clipscore": {"checkpoint_bytes": clip_bytes,
+                      "vision_layers": loaded.cfg.num_hidden_layers,
+                      "text_layers": loaded.text_cfg.num_hidden_layers,
+                      "loaded_vs_written": clip_diff,
+                      "dtype": str(dtype).replace("torch.", "")},
+        "launches_predict": predict_counts, "launches_score": score_counts,
+    })
+    emit(result)
+    problems = []
+    if out_of_range:
+        problems.append(f"metrics out of range: {out_of_range}")
+    if any(d != 0 for d in dreamsim_diff) or abs(dreamsim_self - 1) > 1e-3:
+        problems.append("DreamSim weights did not round-trip or an image "
+                        "is not similar to itself")
+    if clip_diff["vision"]["differing_entries"] \
+            or clip_diff["text"]["differing_entries"] \
+            or not clip_diff["scalars_equal"]:
+        problems.append("ClipScore weights did not round-trip")
+    if result["crystalbleu_shared_ngrams"] != "native":
+        problems.append("CrystalBLEU's corpus pass did not run native")
+    if not rehearsal:
+        for name in ("flash_attention", "paged_decode", "int8_gemv"):
+            if predict_counts[name] <= 0:
+                problems.append(f"prediction never launched {name}")
+        if score_counts["flash_attention"] <= 0:
+            problems.append("scoring never launched flash_attention")
+    if problems:
+        raise SystemExit(f"evaluate: {'; '.join(problems)}")
+    return {"evaluate_predict": predict_counts,
+            "evaluate_score": score_counts}
+
+
+def _has_pygments() -> bool:
+    try:
+        import pygments  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -2600,6 +3211,7 @@ def main(argv=None) -> int:
     reference_phase(torch, device, rehearsal, args.seed)
     reference_phase(torch, device, rehearsal, args.seed, v1=True)
     reference_phase(torch, device, rehearsal, args.seed, tikzero=True)
+    clip_reference_phase(torch, device, rehearsal, args.seed)
     set_backend(FakeBackend())
     paths = {}
     paths["sample"], params, processor = main_phase(
@@ -2628,6 +3240,8 @@ def main(argv=None) -> int:
                                      qparams, processor, args.max_new_tokens))
     paths["serve"] = serve_phase(torch, device, rehearsal, args.seed,
                                  qparams, processor.cfg, args.max_new_tokens)
+    paths.update(evaluate_phase(torch, device, rehearsal, args.seed, qparams,
+                                processor.cfg, args.max_new_tokens))
     del qparams
     _free(torch, rehearsal)
     paths.update(v1_phases(torch, device, rehearsal, args.seed,

@@ -12,7 +12,8 @@ becomes a ``QuantLinear`` (``q`` transposed the same way), and fused
 ``import_adapter`` tree (stacked blocks, ``connector``, ``dummy_input``)
 into the port's ``adapter.Adapter`` the same way, and ``llama_from_numpy``
 a bare JAX ``llama.init`` tree (the TikZero caption model) into a
-``llama.Llama``.
+``llama.Llama``, and ``siglip_text_from_numpy`` a JAX ``siglip.init_text``
+tree (ClipScore's text tower) into a ``siglip.SiglipText``.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from .adapter import Adapter
 from .detikzify import Params
 from .llama import Llama
 from .layers import LayerNorm, RMSNorm
+from .siglip import SiglipText, SiglipVision
 
 
 def _as_mapping(tree) -> Mapping:
@@ -108,6 +110,44 @@ def init_random_llama(cfg: TextConfig, device="cuda", dtype=torch.bfloat16,
     return text
 
 
+@torch.no_grad()
+def init_random_siglip_vision(cfg: VisionConfig, device="cuda",
+                              dtype=torch.bfloat16,
+                              generator: Optional[torch.Generator] = None,
+                              seed: int = 0) -> SiglipVision:
+    """A random SigLIP vision tower with its MAP head (ClipScore's image
+    side) drawn on ``device``, at ``init_random``'s scales."""
+    vision = SiglipVision(cfg, device=device, dtype=dtype
+                          ).requires_grad_(False)
+    if generator is None:
+        generator = torch.Generator(device=vision.embeddings.position.device
+                                    ).manual_seed(seed)
+    _draw(vision, generator)
+    vision.embeddings.position.normal_(0.0, 0.02, generator=generator)
+    vision.head.probe.normal_(0.0, 0.02, generator=generator)
+    return vision
+
+
+@torch.no_grad()
+def init_random_siglip_text(cfg: VisionConfig, vocab_size: int = 32000,
+                            max_positions: int = 64, device="cuda",
+                            dtype=torch.bfloat16,
+                            generator: Optional[torch.Generator] = None,
+                            seed: int = 0) -> SiglipText:
+    """A random SigLIP text tower (JAX ``siglip.init_text``'s scales:
+    dense kernels N(0, 1/in), token and position embeddings N(0, 0.02^2),
+    norms at identity, biases zero) drawn on ``device``."""
+    text = SiglipText(cfg, vocab_size, max_positions, device=device,
+                      dtype=dtype).requires_grad_(False)
+    if generator is None:
+        generator = torch.Generator(device=text.embeddings.token.device
+                                    ).manual_seed(seed)
+    _draw(text, generator)
+    text.embeddings.token.normal_(0.0, 0.02, generator=generator)
+    text.embeddings.position.normal_(0.0, 0.02, generator=generator)
+    return text
+
+
 def _load(module: nn.Module, tree: Mapping, layer: Optional[int]) -> None:
     def pick(arr):
         arr = np.asarray(arr)
@@ -174,4 +214,19 @@ def llama_from_numpy(tree, cfg: TextConfig, device="cuda",
     """A bare JAX ``llama.init`` tree as numpy arrays -> ``llama.Llama``."""
     text = Llama(cfg, device="cpu", dtype=torch.float32)
     _load(text, _as_mapping(tree), None)
+    return text.requires_grad_(False).to(device=device, dtype=dtype)
+
+
+@torch.no_grad()
+def siglip_text_from_numpy(tree, cfg: VisionConfig, device="cuda",
+                           dtype=torch.float32) -> SiglipText:
+    """A JAX ``siglip.init_text`` (or ``import_siglip_text``) tree as numpy
+    arrays -> ``siglip.SiglipText``; vocabulary and positions are read off
+    the embeddings."""
+    tree = _as_mapping(tree)
+    vocab, _ = np.shape(tree["embeddings"]["token"])
+    positions = np.shape(tree["embeddings"]["position"])[0]
+    text = SiglipText(cfg, vocab, positions, device="cpu",
+                      dtype=torch.float32)
+    _load(text, tree, None)
     return text.requires_grad_(False).to(device=device, dtype=dtype)

@@ -14,8 +14,8 @@ names follow the reference's module paths, e.g.
 ``import_adapter`` fills the TikZero adapter from the reference's bare
 keys (``layers.N.cross_attn.q_proj.weight``, ``connector.*``,
 ``dummy_input`` ``[C, H, W]``) or from the ``adapter.`` subtree of a
-composite checkpoint. ``import_siglip_text`` (ClipScore's text tower) waits
-for its slice (ROADMAP queue 1, eval suite).
+composite checkpoint. ``import_siglip_text`` fills ClipScore's text tower
+from a ``SiglipModel`` checkpoint's ``text_model.*`` keys.
 """
 from __future__ import annotations
 
@@ -111,6 +111,20 @@ def _mlp(src: _Src, name: str, mlp: nn.Module, dtype) -> None:
     _lin(src, f"{name}.fc2", mlp.fc2, dtype)
 
 
+def _encoder_layers(src: _Src, layers: nn.ModuleList, prefix: str,
+                    dtype) -> None:
+    """SigLIP encoder layers (vision or text tower) from HF names."""
+    for i, lp in enumerate(layers):
+        base = f"{prefix}.encoder.layers.{i}"
+        _ln(src, f"{base}.layer_norm1", lp.ln1, dtype)
+        for ours, theirs in (("q", "q_proj"), ("k", "k_proj"),
+                             ("v", "v_proj"), ("o", "out_proj")):
+            _lin(src, f"{base}.self_attn.{theirs}", getattr(lp.attn, ours),
+                 dtype)
+        _ln(src, f"{base}.layer_norm2", lp.ln2, dtype)
+        _mlp(src, f"{base}.mlp", lp.mlp, dtype)
+
+
 def import_vision(src: _Src, vision: siglip.SiglipVision, cfg: VisionConfig,
                   dtype=torch.bfloat16, prefix: str = "vision_model") -> None:
     """Fill a SigLIP tower from HF names, in place. The conv patch weight
@@ -125,15 +139,7 @@ def import_vision(src: _Src, vision: siglip.SiglipVision, cfg: VisionConfig,
             src(f"{prefix}.embeddings.patch_embedding.bias"), dtype)
     _put(emb, "position",
          src(f"{prefix}.embeddings.position_embedding.weight"), dtype)
-    for i, lp in enumerate(vision.layers):
-        base = f"{prefix}.encoder.layers.{i}"
-        _ln(src, f"{base}.layer_norm1", lp.ln1, dtype)
-        for ours, theirs in (("q", "q_proj"), ("k", "k_proj"),
-                             ("v", "v_proj"), ("o", "out_proj")):
-            _lin(src, f"{base}.self_attn.{theirs}", getattr(lp.attn, ours),
-                 dtype)
-        _ln(src, f"{base}.layer_norm2", lp.ln2, dtype)
-        _mlp(src, f"{base}.mlp", lp.mlp, dtype)
+    _encoder_layers(src, vision.layers, prefix, dtype)
     _ln(src, f"{prefix}.post_layernorm", vision.post_ln, dtype)
 
     if not src.has(f"{prefix}.head.probe"):
@@ -190,6 +196,23 @@ def import_timm_vision(state: Mapping[str, torch.Tensor],
     _lin(src, f"{p}attn_pool.proj", head.attn.o, dtype)
     _ln(src, f"{p}attn_pool.norm", head.ln, dtype)
     _mlp(src, f"{p}attn_pool.mlp", head.mlp, dtype)
+
+
+def import_siglip_text(src: _Src, text: siglip.SiglipText, cfg: VisionConfig,
+                       dtype=torch.bfloat16, prefix: str = "text_model"
+                       ) -> None:
+    """Fill a SigLIP text tower (ClipScore's two-tower metric) from a
+    ``SiglipModel`` checkpoint's names, in place: ``{prefix}.embeddings.
+    {token,position}_embedding``, ``encoder.layers.N.*`` as the vision
+    tower names them, ``final_layer_norm`` and ``head``."""
+    emb = text.embeddings
+    _put(emb, "token",
+         src(f"{prefix}.embeddings.token_embedding.weight"), dtype)
+    _put(emb, "position",
+         src(f"{prefix}.embeddings.position_embedding.weight"), dtype)
+    _encoder_layers(src, text.layers, prefix, dtype)
+    _ln(src, f"{prefix}.final_layer_norm", text.final_ln, dtype)
+    _lin(src, f"{prefix}.head", text.head, dtype)
 
 
 def import_text(src: _Src, text: Llama, cfg: TextConfig,

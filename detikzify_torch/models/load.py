@@ -28,12 +28,17 @@ weight half, ``load_adapter_params``, needs no ``transformers``.
 ``save_adapter`` writes the reference's bare adapter keys and
 ``save_embedding_model`` a plain LLaMA checkpoint (``model.*`` keys and a
 flat ``config.json``, the layout of ``meta-llama/Llama-3.2-1B``).
+
+SigLIP two-tower checkpoints (ClipScore, ``google/siglip-so400m-patch14-
+384`` in the reference): ``load_siglip_towers`` reads a ``SiglipModel``
+directory's towers, ``logit_scale`` and ``logit_bias`` without
+``transformers``; ``save_siglip_towers`` writes that layout.
 """
 from __future__ import annotations
 
 import json
 import os
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,6 +52,7 @@ from .adapter import Adapter
 from .detikzify import Params
 from .llama import Llama
 from .safetensors_io import save_file
+from .siglip import SiglipText, SiglipVision
 
 # name -> local path or hub id (reference webui/strings.py model registry)
 MODEL_REGISTRY: Dict[str, str] = {
@@ -288,16 +294,9 @@ def _plain(lin: nn.Module, name: str) -> torch.Tensor:
     return lin.weight
 
 
-def _export_vision(vision, out: dict, prefix: str, cfg) -> None:
-    emb = vision.embeddings
-    d, p, c = (cfg.hidden_size, cfg.patch_size, cfg.num_channels)
-    # the port's [D, C*p*p] patch weight is the conv's [D, C, p, p]
-    out[f"{prefix}.embeddings.patch_embedding.weight"] = \
-        _plain(emb.patch, "patch").reshape(d, c, p, p)
-    out[f"{prefix}.embeddings.patch_embedding.bias"] = emb.patch.bias
-    out[f"{prefix}.embeddings.position_embedding.weight"] = emb.position
-
-    for i, lp in enumerate(vision.layers):
+def _export_encoder_layers(layers, out: dict, prefix: str) -> None:
+    """SigLIP encoder layers (vision or text tower) in HF names."""
+    for i, lp in enumerate(layers):
         base = f"{prefix}.encoder.layers.{i}"
         out[f"{base}.layer_norm1.weight"] = lp.ln1.scale
         out[f"{base}.layer_norm1.bias"] = lp.ln1.bias
@@ -312,6 +311,18 @@ def _export_vision(vision, out: dict, prefix: str, cfg) -> None:
             lin = getattr(lp.mlp, fc)
             out[f"{base}.mlp.{fc}.weight"] = _plain(lin, base)
             out[f"{base}.mlp.{fc}.bias"] = lin.bias
+
+
+def _export_vision(vision, out: dict, prefix: str, cfg) -> None:
+    emb = vision.embeddings
+    d, p, c = (cfg.hidden_size, cfg.patch_size, cfg.num_channels)
+    # the port's [D, C*p*p] patch weight is the conv's [D, C, p, p]
+    out[f"{prefix}.embeddings.patch_embedding.weight"] = \
+        _plain(emb.patch, "patch").reshape(d, c, p, p)
+    out[f"{prefix}.embeddings.patch_embedding.bias"] = emb.patch.bias
+    out[f"{prefix}.embeddings.position_embedding.weight"] = emb.position
+
+    _export_encoder_layers(vision.layers, out, prefix)
 
     out[f"{prefix}.post_layernorm.weight"] = vision.post_ln.scale
     out[f"{prefix}.post_layernorm.bias"] = vision.post_ln.bias
@@ -525,4 +536,102 @@ def save_embedding_model(path: str, embed: Llama, cfg: TextConfig) -> int:
                   "torch.", "")}
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(hf_cfg, f, indent=2)
+    return nbytes
+
+
+class SiglipTowers(NamedTuple):
+    """A SigLIP two-tower model: ClipScore's weights."""
+
+    vision: SiglipVision
+    text: SiglipText
+    cfg: VisionConfig              # the vision tower's
+    text_cfg: VisionConfig         # the text tower's layer geometry
+    logit_scale: float             # log of the scale, as the file keeps it
+    logit_bias: float
+
+
+def _siglip_tower_cfg(d: dict) -> VisionConfig:
+    return VisionConfig(
+        hidden_size=d["hidden_size"],
+        intermediate_size=d["intermediate_size"],
+        num_hidden_layers=d["num_hidden_layers"],
+        num_attention_heads=d["num_attention_heads"],
+        image_size=d.get("image_size", 224),
+        patch_size=d.get("patch_size", 16),
+        hidden_act=d.get("hidden_act", "gelu_pytorch_tanh"),
+        layer_norm_eps=d.get("layer_norm_eps", 1e-6))
+
+
+@torch.no_grad()
+def load_siglip_towers(path: str, *, dtype=torch.bfloat16, device="cuda"
+                       ) -> SiglipTowers:
+    """A ``SiglipModel`` checkpoint directory (safetensors and
+    ``config.json``; the tower configs read as the JAX
+    ``ClipScore.from_siglip_checkpoint`` reads them) -> its towers on
+    ``device``, built on ``meta`` and filled with tensors viewing the
+    mapped files."""
+    path = _resolve(path)
+    with open(os.path.join(path, "config.json")) as f:
+        hf = json.load(f)
+    vcfg = _siglip_tower_cfg(hf["vision_config"])
+    tcfg = _siglip_tower_cfg(hf["text_config"])
+    state = import_hf.load_state_dict_from_safetensors(path)
+    src = import_hf._Src(state)
+    vision = SiglipVision(vcfg, device="meta", dtype=dtype)
+    import_hf.import_vision(src, vision, vcfg, dtype, prefix="vision_model")
+    text = SiglipText(tcfg, hf["text_config"].get("vocab_size", 32000),
+                      hf["text_config"].get("max_position_embeddings", 64),
+                      device="meta", dtype=dtype)
+    import_hf.import_siglip_text(src, text, tcfg, dtype, prefix="text_model")
+    missing = [n for m in (vision, text)
+               for n, t in m.named_parameters() if t.is_meta]
+    if missing:
+        raise ValueError(f"SigLIP checkpoint lacks {len(missing)} weights: "
+                         f"{missing[:10]}")
+    return SiglipTowers(
+        vision.requires_grad_(False).to(device),
+        text.requires_grad_(False).to(device), vcfg, tcfg,
+        float(src("logit_scale").reshape(-1)[0]),
+        float(src("logit_bias").reshape(-1)[0]))
+
+
+def _siglip_tower_json(cfg: VisionConfig) -> dict:
+    return {"hidden_size": cfg.hidden_size,
+            "intermediate_size": cfg.intermediate_size,
+            "num_hidden_layers": cfg.num_hidden_layers,
+            "num_attention_heads": cfg.num_attention_heads,
+            "image_size": cfg.image_size, "patch_size": cfg.patch_size,
+            "hidden_act": cfg.hidden_act,
+            "layer_norm_eps": cfg.layer_norm_eps}
+
+
+def save_siglip_towers(path: str, towers: SiglipTowers) -> int:
+    """Write ``towers`` as a ``SiglipModel`` checkpoint directory
+    (``model.safetensors`` in its tensor names, ``config.json``); returns
+    the bytes written."""
+    vision, text = towers.vision, towers.text
+    out: Dict[str, torch.Tensor] = {}
+    _export_vision(vision, out, "vision_model", towers.cfg)
+    emb = text.embeddings
+    out["text_model.embeddings.token_embedding.weight"] = emb.token
+    out["text_model.embeddings.position_embedding.weight"] = emb.position
+    _export_encoder_layers(text.layers, out, "text_model")
+    out["text_model.final_layer_norm.weight"] = text.final_ln.scale
+    out["text_model.final_layer_norm.bias"] = text.final_ln.bias
+    out["text_model.head.weight"] = _plain(text.head, "head")
+    out["text_model.head.bias"] = text.head.bias
+    out["logit_scale"] = torch.tensor([towers.logit_scale],
+                                      dtype=torch.float32)
+    out["logit_bias"] = torch.tensor([towers.logit_bias],
+                                     dtype=torch.float32)
+    os.makedirs(path, exist_ok=True)
+    nbytes = save_file({k: v.detach() for k, v in out.items()},
+                       os.path.join(path, "model.safetensors"))
+    text_json = dict(_siglip_tower_json(towers.text_cfg),
+                     vocab_size=emb.token.shape[0],
+                     max_position_embeddings=emb.position.shape[0])
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"architectures": ["SiglipModel"], "model_type": "siglip",
+                   "vision_config": _siglip_tower_json(towers.cfg),
+                   "text_config": text_json}, f, indent=1)
     return nbytes

@@ -8,7 +8,10 @@ embedding is an unfold + matmul whose per-patch order is (C, ph, pw), so a
 torch ``Conv2d`` weight ``[D, C, ph, pw]`` reshapes to it directly. Every
 attention call (the 900-patch layers, the 1-query MAP head and the
 adapter's cross-attention over a key-masked caption) goes through
-``ops.flash.flash_attention``, i.e. kernel K1 on the card.
+``ops.flash.flash_attention``, i.e. kernel K1 on the card. So does the
+SigLIP text tower (``SiglipText``, ``apply_text``) that ClipScore pairs
+with a vision tower: the same encoder layers over token + position
+embeddings, pooled at the last position.
 """
 from __future__ import annotations
 
@@ -94,6 +97,32 @@ class SiglipVision(nn.Module):
         self.head = MAPHead(cfg, **kw) if head else None
 
 
+class TextEmbeddings(nn.Module):
+    def __init__(self, vocab_size: int, max_positions: int, d: int, *,
+                 device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.token = nn.Parameter(torch.zeros(vocab_size, d, **kw))
+        self.position = nn.Parameter(torch.zeros(max_positions, d, **kw))
+
+
+class SiglipText(nn.Module):
+    """SigLIP text tower (JAX ``siglip.init_text``): the vision tower's
+    encoder layers over token + position embeddings, a final norm and a
+    dense head."""
+
+    def __init__(self, cfg: VisionConfig, vocab_size: int = 32000,
+                 max_positions: int = 64, *, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        d = cfg.hidden_size
+        self.embeddings = TextEmbeddings(vocab_size, max_positions, d, **kw)
+        self.layers = nn.ModuleList(EncoderLayer(cfg, **kw)
+                                    for _ in range(cfg.num_hidden_layers))
+        self.final_ln = LayerNorm(d, **kw)
+        self.head = nn.Linear(d, d, **kw)
+
+
 def patchify(pixel_values: torch.Tensor, patch: int) -> torch.Tensor:
     """[B, H, W, C] -> [B, (H/p)*(W/p), p*p*C], per-patch order (C, ph, pw).
     Rows and columns past the last whole patch are dropped, as a torch
@@ -168,13 +197,18 @@ def _blocks(params: SiglipVision, cfg: VisionConfig,
     for idx, lp in enumerate(params.layers[:num_layers]):
         if every and (idx + 1) % every == 0:
             x = _cross_attn_layer(adapter.params[idx], x, adapter, eps)
-        h = layer_norm(lp.ln1, x, eps)
-        x = x + _mha(lp.attn, h, h, nh)
-        h = layer_norm(lp.ln2, x, eps)
-        x = x + linear(lp.mlp.fc2, act(linear(lp.mlp.fc1, h)))
+        x = _encoder_layer(lp, x, act, eps, nh)
         if keep:
             states.append(x)
     return x, states
+
+
+def _encoder_layer(lp: EncoderLayer, x: torch.Tensor, act, eps: float,
+                   nh: int) -> torch.Tensor:
+    h = layer_norm(lp.ln1, x, eps)
+    x = x + _mha(lp.attn, h, h, nh)
+    h = layer_norm(lp.ln2, x, eps)
+    return x + linear(lp.mlp.fc2, act(linear(lp.mlp.fc1, h)))
 
 
 def hidden_state(params: SiglipVision, cfg: VisionConfig,
@@ -218,3 +252,23 @@ def apply(params: SiglipVision, cfg: VisionConfig,
     if output_hidden_states:
         out["hidden_states"] = states
     return out
+
+
+def apply_text(params: SiglipText, cfg: VisionConfig,
+               input_ids: torch.Tensor) -> dict:
+    """input_ids [B, T] -> {'last_hidden_state', 'pooler_output'}.
+
+    Pooling follows SigLIP: the LAST position's hidden state through the
+    head (the tokenizer pads every caption to a fixed length). Attention is
+    K1 over all T positions, with no key mask, as in the JAX tower."""
+    act = ACTIVATIONS[cfg.hidden_act]
+    eps = cfg.layer_norm_eps
+    nh = cfg.num_attention_heads
+    emb = params.embeddings
+    ids = input_ids.to(emb.token.device).long()
+    x = emb.token[ids] + emb.position[:ids.shape[1]]
+    for lp in params.layers:
+        x = _encoder_layer(lp, x, act, eps, nh)
+    x = layer_norm(params.final_ln, x, eps)
+    pooled = linear(params.head, x[:, -1])
+    return {"last_hidden_state": x, "pooler_output": pooled}

@@ -748,3 +748,89 @@ def test_server_launches_kernels_from_its_scheduler_thread(cuda):
         pipe.close()
         set_backend(None)
     assert not inference._thread.is_alive()
+
+
+# ---------------------------------------------------------------------------
+# the evaluation suite on the card
+# ---------------------------------------------------------------------------
+
+def _siglip_cfg():
+    from detikzify_torch.config import VisionConfig
+
+    # so400m's widths (16 heads at Hd 72), 2 layers, a 224-px image
+    return VisionConfig(hidden_size=1152, intermediate_size=4304,
+                        num_hidden_layers=2, num_attention_heads=16,
+                        image_size=224, patch_size=14)
+
+
+def test_clip_text_tower_on_card_matches_plain(cuda):
+    """ClipScore's text tower on the card (bf16, K1 in each layer) against
+    the same weights on the CPU (fp32, plain versions)."""
+    import copy
+
+    from detikzify_torch.models import convert, siglip
+
+    cfg = _siglip_cfg()
+    ref = convert.init_random_siglip_text(cfg, device="cpu",
+                                          dtype=torch.float32, seed=0)
+    dut = copy.deepcopy(ref).to(cuda, torch.bfloat16)
+    ids = torch.randint(0, 32000, (8, 64),
+                        generator=torch.Generator().manual_seed(1))
+    before = flash.KERNEL.launches
+    with torch.inference_mode():
+        got = siglip.apply_text(dut, cfg, ids.to(cuda))["pooler_output"]
+        want = siglip.apply_text(ref, cfg, ids)["pooler_output"]
+    assert flash.KERNEL.launches == before + cfg.num_hidden_layers
+    cos = torch.nn.functional.cosine_similarity(got.float().cpu(), want,
+                                                dim=-1)
+    assert float(cos.min()) >= 0.999
+
+
+def test_clipscore_refuses_fp32_towers_on_card(cuda):
+    """K1 takes bf16 only: an fp32 tower on the card raises, it does not
+    fall back to the plain version."""
+    from detikzify_torch.models import convert, siglip
+
+    cfg = _siglip_cfg().replace(num_hidden_layers=1)
+    text = convert.init_random_siglip_text(cfg, device=cuda,
+                                           dtype=torch.float32, seed=0)
+    with pytest.raises(ValueError, match="bfloat16"):
+        siglip.apply_text(text, cfg, torch.zeros((2, 64), dtype=torch.long))
+
+
+def test_kid_features_on_card_match_cpu(cuda):
+    import copy
+
+    import numpy as np
+    from PIL import Image, ImageDraw
+
+    from detikzify_torch.evaluate.kid import KernelInceptionDistance
+    from detikzify_torch.models import convert
+
+    cfg = _siglip_cfg()
+    ref = convert.init_random_siglip_vision(cfg, device="cpu",
+                                            dtype=torch.float32, seed=2)
+    dut = copy.deepcopy(ref).to(cuda, torch.bfloat16)
+    images = []
+    for i in range(4):
+        img = Image.new("RGB", (200, 150), "white")
+        ImageDraw.Draw(img).ellipse([10 + 9 * i, 20, 180, 130 - 7 * i],
+                                    outline="black", width=3)
+        images.append(img)
+    before = flash.KERNEL.launches
+    got = KernelInceptionDistance(dut, cfg)._features(images)
+    assert flash.KERNEL.launches > before
+    want = KernelInceptionDistance(ref, cfg)._features(images)
+    cos = (got * want).sum(-1) / (np.linalg.norm(got, axis=-1)
+                                  * np.linalg.norm(want, axis=-1))
+    assert got.dtype == np.float64 and float(cos.min()) >= 0.999
+
+
+def test_native_library_builds_and_loads(cuda):
+    from detikzify_torch import native
+    from detikzify_torch.evaluate.eed import (_extended_edit_distance_py,
+                                              extended_edit_distance)
+
+    assert native.available(), native.lib_path()
+    h, r = list("\\draw (0,0) -- (1,1);"), list("\\fill (0,0) circle;")
+    assert extended_edit_distance(h, r) == _extended_edit_distance_py(h, r)

@@ -586,6 +586,8 @@ bad = sorted(n for n in sys.modules
              or n.startswith(('jax.', 'jaxlib', 'detikzify_tpu',
                               'safetensors.', 'transformers.')))
 print(len([n for n in sys.modules if n.startswith('detikzify_torch')]), bad)
+print(' '.join(sorted(n for n in sys.modules
+                      if n.startswith('detikzify_torch'))))
 assert not bad, bad
 """
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -593,13 +595,20 @@ assert not bad, bad
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
     assert n_modules >= 20
+    # the walk reached the evaluation suite and the native binding
+    walked = set(out.stdout.splitlines()[1].split())
+    assert {f"detikzify_torch.evaluate.{m}" for m in (
+        "clipscore", "crystalbleu", "dist", "dreamsim", "dreamsim_vit",
+        "eed", "harness", "imagesim", "kid")} <= walked
+    assert "detikzify_torch.native" in walked
 
 
 def test_chip_smoke_cpu_rehearsal():
     """The smoke script's phases run end to end at tiny-test on the CPU:
     the v2 phases, the TikZero adapter's (``tikzero_sample``,
     ``tikzero_simulate``), the checkpoint round trip (``load``), the HTTP
-    server (``serve``) and the v1 family's phases."""
+    server (``serve``), the evaluation protocol (``evaluate``) and the v1
+    family's phases."""
     env = dict(os.environ, OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "chip_smoke.py", "--cpu-rehearsal",
                           "--max-new-tokens", "8"], cwd=ROOT, env=env,
@@ -613,7 +622,8 @@ def test_chip_smoke_cpu_rehearsal():
                      "decode_contig", "int8_gemv"}
     paths = {"sample", "contiguous", "spec_greedy", "tikzero_sample",
              "tikzero_simulate", "load", "simulate", "simulate_spec",
-             "simulate_spec_gated", "serve", "v1_sample", "v1_simulate"}
+             "simulate_spec_gated", "serve", "evaluate_predict",
+             "evaluate_score", "v1_sample", "v1_simulate"}
     assert all(set(row["launches_by_path"]) == paths for row in kernels)
     # the v1 family's kernel shapes sit beside the v2 ones
     row_names = {row["name"] for row in kernels}
@@ -632,7 +642,8 @@ def test_chip_smoke_cpu_rehearsal():
         if obj.get("phase") == "reference":
             refs.append((obj["model"], obj["weights"]))
     assert refs == [("v2", "bf16"), ("v2", "int8+fused"), ("v1", "bf16"),
-                    ("v1", "int8+fused"), ("tikzero", "bf16")]
+                    ("v1", "int8+fused"), ("tikzero", "bf16"),
+                    ("clipscore", "bf16")]
     tz = phases["tikzero_sample"]
     assert all(d["differing_entries"] == 0
                for d in tz["checkpoint"]["loaded_vs_written"].values())
@@ -682,6 +693,30 @@ def test_chip_smoke_cpu_rehearsal():
     assert serve["two_searches"]["first_candidates_before_other_end"]
     assert serve["stream_token_events"] > 0
     assert set(serve["latency_s"]) == {"sample", "mcts"}
+    # the evaluation protocol: predict, the cache pass, model mode, score
+    ev = phases["evaluate"]
+    assert {"flash_attention/clip_text",
+            "flash_attention/clip_vision"} <= row_names
+    assert ev["cache"] == {"first_pass_hits": 0, "second_pass_hits": 4,
+                           "second_pass_new_searches": 0}
+    assert ev["model_mode"]["num_programs"] > 1
+    m = ev["metrics"]
+    assert m["CompileSuccessRate"] == 1.0
+    assert set(m) == {"CompileSuccessRate", "MeanTokenEfficiency",
+                      "MeanSamplingThroughput", "SelfSim", "KID",
+                      "CrystalBLEU", "TexEditDistance", "DreamSim",
+                      "ClipScore", "SelfSim_redacted", "DreamSim_redacted",
+                      "ClipScore_redacted"}
+    assert all(np.isfinite(v) for v in m.values())
+    assert 0 < m["ClipScore"] < 1 and -1 <= m["SelfSim"] <= 1
+    assert ev["native_available"] and \
+        ev["crystalbleu_shared_ngrams"] == "native"
+    assert ev["dreamsim"]["round_trip_differing_entries"] == [0, 0, 0]
+    assert abs(ev["dreamsim"]["self_similarity"] - 1) <= 1e-3
+    clip = ev["clipscore"]["loaded_vs_written"]
+    assert clip["scalars_equal"] and clip["vision"]["differing_entries"] == 0
+    assert clip["text"]["differing_entries"] == 0
+    assert not list((ROOT / "build").glob("eval_*"))
 
 
 def test_chip_smoke_refuses_without_card(tmp_path):
