@@ -21,7 +21,8 @@ Phases, each printing one JSON line:
               over a key-masked caption, and as the caption model's causal
               pass with a key mask) and ClipScore's (K1 on the SigLIP text
               tower's 64 positions and the 384-px vision tower's 729
-              patches),
+              patches) and training's (K1 on DeepSeek-1.3B's causal pass
+              over 4 rows of 640 with a key mask),
               and time kernel, plain version and the PyTorch library
               call (CUDA events, median of many launches, L2 flushed before
               each), next to the least time the card needs for the same
@@ -103,10 +104,33 @@ Phases, each printing one JSON line:
 17. v1_simulate -- the same checkpoint loaded with ``quantize=True`` and
               fused, ``simulate()`` with 8 expansions and SelfSim (cos, as
               v1 pins it);
-18. the ``kernels`` JSON line (launches on each path above, each counted
-   from 0 just before the path ran and read just after, and their sum),
-   the nvidia-smi line, and as the last line
-   ``{"ok": true, "device": {...}}``.
+18. k1_backward -- K1's backward at the training shapes (the decoder's
+              causal pass with a key mask, the tower's 900 patches): the
+              gradients through ``flash_attention`` (K1 forward, the plain
+              version recomputed) against autograd through the plain
+              version, a backward without the causal mask as a control
+              that must fail; K1, recompute and SDPA forward/backward
+              times;
+19. reference (train) -- ``detikzify-ds-1.3b`` at full width, 2 + 2
+              layers: loss and every leaf's gradient on the card (bf16,
+              K1) against fp32 on the host CPU;
+20. train  -- ``detikzify-ds-1.3b`` at full width and depth, random bf16
+              weights: 3 steps at grad_accum 1 and 3 at 2, micro 4 x 640,
+              remat, 8-bit Adam moments; loss, grad norm, seconds,
+              tokens/s, TFLOP/s by 6 N T, peak memory, one step profiled
+              (busy and idle share, K1's forward, the backward's
+              recompute);
+21. trainer -- ``Trainer`` on those weights (AdamW, moments in bf16):
+              8 synthetic figures, sketch ratio 0.5, 2 steps, a checkpoint
+              under ``build/`` resumed bit for bit by a second trainer
+              (GB, save and restore seconds), then deleted;
+22. pretrain -- ``pretrain()`` on those weights: only the connector
+              moves, ``modality_projector.npz`` is read back by the
+              loader's overlay;
+23. the ``kernels`` JSON line (launches on each path above, each counted
+   from 0 just before the path ran and read just after, and their sum;
+   ``train`` counts the train and trainer phases), the nvidia-smi line,
+   and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 ``--cpu-rehearsal`` runs the same phases on the CPU at ``tiny-test`` with
@@ -240,12 +264,36 @@ SIGLIP_TEXT_VOCAB, SIGLIP_TEXT_POSITIONS = 32000, 64
 # MLP, layers, patch, image side) and the CLIP pair's projection width
 DREAMSIM_VITB16 = (768, 3072, 12, 16, 224, 512)
 EVAL_ITEMS = 4          # test items of the evaluate phase
-# the model-mode item searches for at least this many times the slowest
-# fast-mode item: the first wave's results all arrive before the minimum,
-# so model mode keeps searching into a second wave on a slow call too
-EVAL_MIN_SECONDS_OVER_FAST = 1.5
+# the model-mode item searches to this many programs (two waves of 8), not
+# to a wall time: a minimum of seconds kept 1 program whenever the host
+# was slower during the search than during the fast-mode items
+EVAL_MODEL_MODE_PROGRAMS = 16
 SERVE_MCTS_EXPANSIONS = 16  # the search that sampling requests run beside
 SERVE_PAIR_EXPANSIONS = 8   # each of the two concurrent searches
+# training at bench.py's train_bench shape: detikzify-ds-1.3b full
+# fine-tune, bf16 weights, micro-batch 4 at sequence 640 (300 image tokens
+# + code), remat, 8-bit Adam moments, grad_accum 1 and 2
+TRAIN_PRESET = "detikzify-ds-1.3b"
+TRAIN_MICRO, TRAIN_SEQ, TRAIN_ACCUMS, TRAIN_STEPS = 4, 640, (1, 2), 3
+TRAIN_LR = 5e-5
+# K1 in that step: the decoder's causal pass over 4 rows of 640 with a key
+# mask (the rows' code ends at these lengths) at DeepSeek-1.3B's 16/16
+# heads of 128, and the tower's 900 patches over the 4 figures
+K1_TRAIN_CASES = (
+    ("train_decoder", 4, 640, 640, 16, 16, 128, "causal_mask",
+     (640, 611, 523, 467)),
+)
+K1_BACKWARD_CASES = K1_TRAIN_CASES + (
+    ("train_vision", 4, 900, 900, 16, 16, 72, "full", None),
+)
+# K1's backward recomputes the plain version, as autograd through the
+# plain version does: the two agree to the bf16 resolution of the largest
+# gradient of each of dq, dk, dv
+K1_GRAD_TOL = 2.0 ** -8
+# the training reference: each leaf's gradient on the card within this
+# relative L2 error of the fp32 one (a leaf whose fp32 gradient is below
+# 1e-3 of the largest leaf's is held against that floor instead)
+TRAIN_REF_GRAD_TOL, TRAIN_REF_LOSS_TOL = 5e-2, 1e-2
 
 
 _START = time.perf_counter()
@@ -474,7 +522,8 @@ def kernel_phase(torch, device, rehearsal: bool, iters: int):
             [(c, 300, None) for c in K1_CASES + K1_SERVE_CASES]
             + [(c, V1_PROMPT, None) for c in K1_V1_CASES]
             + [(c[:8], None, c[8]) for c in K1_TIKZERO_CASES]
-            + [(c, None, None) for c in K1_EVAL_CASES]):
+            + [(c, None, None) for c in K1_EVAL_CASES]
+            + [(c[:8], None, c[8]) for c in K1_TRAIN_CASES]):
         if rehearsal:   # tiny shapes: the CPU only checks the wiring
             s, t = min(s, 9), 12
             lengths = lengths and tuple(min(n, t) for n in lengths)
@@ -512,10 +561,7 @@ def kernel_phase(torch, device, rehearsal: bool, iters: int):
                 mask = (kpos <= qpos) & (kpos
                                          < kw["kv_limits"][:, None, None, None])
             elif lengths:
-                mask = kw["kv_mask"][:, None, None, :]
-                if kw.get("causal"):
-                    mask = mask & torch.ones((s, t), dtype=torch.bool,
-                                             device=device).tril(t - s)
+                mask = _sdpa_mask(torch, kw, s, t, device)
             row["library_ms"] = timer(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask, enable_gqa=nh != nkv))
         rows.append(row)
@@ -528,6 +574,96 @@ def kernel_phase(torch, device, rehearsal: bool, iters: int):
     rows.extend(k3_rows(torch, gen, device, rehearsal, timer))
     rows.extend(k5_rows(torch, gen, device, rehearsal, timer))
     return rows
+
+
+def _sdpa_mask(torch, kw, s, t, device):
+    """The boolean mask SDPA takes for K1's key mask / causal inputs."""
+    mask = kw["kv_mask"][:, None, None, :]
+    if kw.get("causal"):
+        mask = mask & torch.ones((s, t), dtype=torch.bool,
+                                 device=device).tril(t - s)
+    return mask
+
+
+def k1_backward_phase(torch, device, rehearsal: bool, iters: int) -> dict:
+    """K1's backward at the training shapes: the gradients through
+    ``flash_attention`` (K1's forward, then the plain version recomputed
+    and differentiated) against autograd through ``attend_plain`` on the
+    same bf16 inputs, within ``K1_GRAD_TOL`` of each gradient's largest
+    value; a backward that drops the causal mask must fail the same check.
+    Times K1's forward, the recompute backward, and SDPA's forward and
+    backward (autograd) on the same inputs."""
+    import torch.nn.functional as F
+
+    from detikzify_torch.ops import attention, flash
+
+    gen = torch.Generator(device=device).manual_seed(4321)
+    timer = None if rehearsal else Timer(torch, device, iters)
+    rows = []
+    for name, b, s, t, nh, nkv, hd, mode, lengths in K1_BACKWARD_CASES:
+        if rehearsal:
+            s, t = min(s, 9), 12
+            lengths = lengths and tuple(min(n, t) for n in lengths)
+        q, k, v, kw, vis = k1_inputs(torch, gen, device, b, s, t, nh, nkv,
+                                     hd, mode, lengths=lengths)
+        dout = torch.randn(q.shape, generator=gen, device=device).to(q.dtype)
+
+        def grads(fn, **over):
+            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+            out = fn(*leaves, **dict(kw, **over))
+            return torch.autograd.grad(out, leaves, dout)
+
+        def over_tol(got, want):
+            return max(float((g.float() - w.float()).abs().max())
+                       / (K1_GRAD_TOL * float(w.float().abs().max()))
+                       for g, w in zip(got, want))
+
+        got = grads(flash.flash_attention)
+        want = grads(attention.attend_plain)
+        row = {"name": f"flash_attention_backward/{name}",
+               "shape": {"B": b, "S": s, "T": t, "NH": nh, "NKV": nkv,
+                         "Hd": hd, "mode": mode,
+                         **({"key_lengths": list(lengths)} if lengths
+                            else {})},
+               "tolerance": "|grad - plain grad| <= 2^-8 max|plain grad| "
+                            "for each of dq, dk, dv",
+               "max_err_over_tol": over_tol(got, want),
+               "finite": all(bool(torch.isfinite(g.float()).all())
+                             for g in got)}
+        if row["max_err_over_tol"] > 1 or not row["finite"]:
+            raise SystemExit(f"K1 backward {name}: the gradients disagree "
+                             f"with the plain version's: {row}")
+        if kw.get("causal"):
+            # control: a backward without the causal mask must fail
+            mutant = grads(attention.attend_plain, causal=False)
+            row["no_causal_mutant_err_over_tol"] = over_tol(mutant, want)
+            if row["no_causal_mutant_err_over_tol"] <= 1:
+                raise SystemExit(f"K1 backward {name}: the tolerance passes "
+                                 "a backward without the causal mask")
+        if timer is not None:
+            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+            out = flash.flash_attention(*leaves, **kw)
+            row["forward_ms"] = timer(lambda: flash.flash_attention(
+                q, k, v, **kw))
+            row["backward_ms"] = timer(lambda: torch.autograd.grad(
+                out, leaves, dout, retain_graph=True))
+            tl = [x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v)]
+            mask = _sdpa_mask(torch, kw, s, t, device) if lengths else None
+            sdpa = F.scaled_dot_product_attention(
+                *tl, attn_mask=mask, enable_gqa=nh != nkv)
+            dt = dout.transpose(1, 2)
+            row["sdpa_forward_ms"] = timer(
+                lambda: F.scaled_dot_product_attention(
+                    *(x.detach() for x in tl), attn_mask=mask,
+                    enable_gqa=nh != nkv))
+            row["sdpa_backward_ms"] = timer(lambda: torch.autograd.grad(
+                sdpa, tl, dt, retain_graph=True))
+            del out, sdpa
+        rows.append(row)
+    result = {"phase": "k1_backward", "rows": rows}
+    emit(result)
+    return result
 
 
 def k2_row(torch, gen, device, rehearsal: bool, timer, case: dict,
@@ -981,17 +1117,21 @@ def smoke_tokenizer(byte_tokenizer, cfg, model_max_length: int = 2048):
 
 def _device_time(prof, top: int = 10) -> dict:
     """The device side of a torch.profiler run: busy ms (the sum of every
-    device event, kernels and copies, whichever thread launched them),
-    each hand-written kernel's ms over all of its functions, and the
-    ``top`` device functions."""
+    device event, kernels and copies, whichever thread launched them; not
+    the device-side ranges of ``record_function`` spans, which cover
+    kernels already counted), each hand-written kernel's ms over all of
+    its functions, and the ``top`` device functions."""
     from torch.autograd import DeviceType
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) \
             or getattr(e, "self_cuda_time_total", 0)
 
+    spans = {e.name for e in prof.events()
+             if getattr(e, "is_user_annotation", False)}
     rows = [(e.key, dev_us(e), e.count) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+            if e.device_type == DeviceType.CUDA and dev_us(e) > 0
+            and e.key not in spans]
     rows.sort(key=lambda r: -r[1])
     return {"device_busy_ms": sum(r[1] for r in rows) / 1e3,
             "kernel_ms": {name: sum(us for k, us, _ in rows
@@ -2333,6 +2473,48 @@ def _window_time(prof, wall_ms: float) -> dict:
         0.0, 1 - dev["device_busy_ms"] / wall_ms)}
 
 
+class SchedulerGate:
+    """Holds the server's scheduler thread before it takes a sampling wave
+    or advances a search, until ``n`` requests armed for (``arm(n)``) have
+    been queued. Requests sent together then meet in the scheduler however
+    the host schedules the client threads: the fused wave and the two
+    interleaved searches are checked on what the scheduler does with
+    requests that are all there, not on the clients' timing. Unarmed it
+    holds nothing."""
+
+    def __init__(self, inference):
+        import threading
+
+        self.cond = threading.Condition()
+        self.queued = self.want = 0
+        submit = inference.submit
+
+        def counted(job):
+            out = submit(job)
+            with self.cond:
+                self.queued += 1
+                self.cond.notify_all()
+            return out
+
+        inference.submit = counted
+        for name in ("_take_wave", "_advance_mcts"):
+            setattr(inference, name, self._held(getattr(inference, name)))
+
+    def arm(self, n: int) -> None:
+        with self.cond:
+            self.queued, self.want = 0, n
+
+    def _held(self, fn):
+        def call(*args, **kw):
+            with self.cond:
+                if not self.cond.wait_for(
+                        lambda: self.queued >= self.want, timeout=600):
+                    raise RuntimeError(f"serve: {self.queued} of "
+                                       f"{self.want} requests queued")
+            return fn(*args, **kw)
+        return call
+
+
 def serve_phase(torch, device, rehearsal: bool, seed: int, params, cfg,
                 max_new_tokens: int) -> dict:
     """The HTTP server (``serve.make_server``) on the int8 + fused weights
@@ -2408,6 +2590,7 @@ def serve_phase(torch, device, rehearsal: bool, seed: int, params, cfg,
     free0 = eng.num_free_pages
     httpd, inference = make_server(pipe, host="127.0.0.1", port=0,
                                    batch_window_s=0.05)
+    gate = SchedulerGate(inference)
     http_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     base = f"http://127.0.0.1:{httpd.server_address[1]}"
     result = {"phase": "serve", "preset": "tiny-test" if rehearsal
@@ -2450,6 +2633,7 @@ def serve_phase(torch, device, rehearsal: bool, seed: int, params, cfg,
             return t, time.monotonic()
 
         t0, before = time.perf_counter(), snapshot()
+        gate.arm(4)
         fused = [f.result() for f in [pool.submit(timed_sample, 1 + i,
                                                   barrier)
                                       for i in range(4)]]
@@ -2501,6 +2685,7 @@ def serve_phase(torch, device, rehearsal: bool, seed: int, params, cfg,
         # against the request's wall time
         stalls0 = inference.requests["mcts_stalls"]
         firsts = [threading.Event() for _ in range(2)]
+        gate.arm(2)
         pair = [pool.submit(_sse, base, {
             "image": b64[10 + i], "algorithm": "mcts",
             "expansions": SERVE_PAIR_EXPANSIONS, "timeout": 0}, firsts[i])
@@ -2826,8 +3011,9 @@ def evaluate_phase(torch, device, rehearsal: bool, seed: int, params, cfg,
     through a ``DetikzifyPipeline`` (SelfSim EMD) into a
     ``PredictionCache`` under ``build/``; a second pass takes every item
     from the cache (no new search); one item again in model mode
-    (``score_improve``, ``EVAL_MIN_SECONDS_OVER_FAST``). Score: CompileSuccessRate,
-    MeanTokenEfficiency, MeanSamplingThroughput, SelfSim (cos), KID on the
+    (``score_improve`` to ``EVAL_MODEL_MODE_PROGRAMS`` programs). Score:
+    CompileSuccessRate, MeanTokenEfficiency, MeanSamplingThroughput,
+    SelfSim (cos), KID on the
     model's tower, CrystalBLEU, TexEditDistance (native library), DreamSim
     (three random branches at the ``dreamsim`` package's published layout,
     written as ``.pth`` and loaded by ``from_dreamsim_checkpoint``, then
@@ -2915,12 +3101,13 @@ def evaluate_phase(torch, device, rehearsal: bool, seed: int, params, cfg,
         rows2, hits2 = predict()
         stages["cache_pass_s"] = time.perf_counter() - t0
         new_searches = searches["n"] - searched
-        min_seconds = EVAL_MIN_SECONDS_OVER_FAST * max(
-            r["seconds"] for r in rows)
+        # model mode keeps improving until its minimum; an infinite one
+        # ends the search at its expansions, a count of programs
         t0 = time.perf_counter()
         improved = harness.generate_until_compilable(
             pipe, testset[0]["image"], score_improve=True,
-            min_seconds=min_seconds, parallelism=8)
+            min_seconds=math.inf, max_expansions=EVAL_MODEL_MODE_PROGRAMS,
+            parallelism=8)
         sync()
         stages["model_mode_s"] = time.perf_counter() - t0
         predict_counts = launch_counts()
@@ -2931,7 +3118,8 @@ def evaluate_phase(torch, device, rehearsal: bool, seed: int, params, cfg,
             raise SystemExit(f"evaluate: the cache pass took {hits2} of "
                              f"{EVAL_ITEMS} items from the cache and ran "
                              f"{new_searches} new searches")
-        if improved.num_programs <= 1 or not improved.compiled:
+        if improved.num_programs != EVAL_MODEL_MODE_PROGRAMS \
+                or not improved.compiled:
             raise SystemExit(f"evaluate: model mode kept {improved}")
         if eng.num_active or eng.num_free_slots != eng.num_slots \
                 or eng.num_free_pages != free0 - eng.prefix_pages_used:
@@ -3103,7 +3291,7 @@ def evaluate_phase(torch, device, rehearsal: bool, seed: int, params, cfg,
         "predictions": [{"num_programs": r["num_programs"],
                          "lengths": r["lengths"], "seconds": r["seconds"],
                          "score": r["score"]} for r in rows],
-        "model_mode": {"min_seconds": min_seconds,
+        "model_mode": {"expansions": EVAL_MODEL_MODE_PROGRAMS,
                        "num_programs": improved.num_programs,
                        "seconds": improved.seconds,
                        "best_score": improved.best_score},
@@ -3145,6 +3333,407 @@ def evaluate_phase(torch, device, rehearsal: bool, seed: int, params, cfg,
         raise SystemExit(f"evaluate: {'; '.join(problems)}")
     return {"evaluate_predict": predict_counts,
             "evaluate_score": score_counts}
+
+
+def train_batch(processor, n: int, seed: int, max_length: int) -> dict:
+    """``n`` synthetic figures with ``generate_corpus`` programs, tokenized
+    and padded to ``max_length`` as the trainer's batches are (numpy)."""
+    from detikzify_torch.dataset.synthetic import generate_corpus
+    from detikzify_torch.train import data as tdata
+
+    items = [{"image": f, "text": c} for f, c in zip(
+        synthetic_figures(n, seed), generate_corpus(n, seed))]
+    return tdata._collate(processor, items, max_length)
+
+
+def _train_config(rehearsal: bool, layers: Optional[int] = None):
+    from detikzify_torch.config import get_config
+
+    cfg = get_config("tiny-test" if rehearsal else TRAIN_PRESET)
+    if layers is not None:
+        cfg = cfg.replace(vision=cfg.vision.replace(num_hidden_layers=layers),
+                          text=cfg.text.replace(num_hidden_layers=layers))
+    return cfg
+
+
+def train_reference_phase(torch, device, rehearsal: bool, seed: int) -> None:
+    """The training path on the card (bf16 weights, K1 forward, its
+    recompute backward) against the same weights on the host CPU (fp32,
+    plain versions): ``detikzify-ds-1.3b`` at full width cut to 2 vision +
+    2 text layers, one batch of 2 figures with their programs at sequence
+    640. The loss within ``TRAIN_REF_LOSS_TOL`` relative, each leaf's
+    gradient (through ``params_to_numpy``) within ``TRAIN_REF_GRAD_TOL``
+    relative L2 error."""
+    import copy
+
+    import numpy as np
+
+    from detikzify_torch.models import convert
+    from detikzify_torch.processing import ByteTokenizer, DetikzifyProcessor
+    from detikzify_torch.train.step import (label_smoothing_free_loss,
+                                            trainable_mask)
+    from detikzify_torch.train.trainer import to_device
+
+    cfg = _train_config(rehearsal, layers=2)
+    cpu = torch.device("cpu")
+    ref = convert.init_random(cfg, device=cpu, dtype=torch.float32,
+                              generator=torch.Generator().manual_seed(
+                                  seed + 7))
+    dut = copy.deepcopy(ref).to(device=device, dtype=(
+        torch.float32 if rehearsal else torch.bfloat16))
+    processor = DetikzifyProcessor(smoke_tokenizer(ByteTokenizer, cfg), cfg)
+    batch = train_batch(processor, 2, seed + 7,
+                        64 if rehearsal else TRAIN_SEQ)
+
+    def loss_and_grads(params, dev):
+        trainable_mask(params, "all")
+        trained = list(params.parameters())
+        loss = label_smoothing_free_loss(params, cfg, to_device(batch, dev))
+        grads = torch.autograd.grad(loss, trained, allow_unused=True)
+        tree = convert.params_to_numpy(params, {
+            p: torch.zeros_like(p) if g is None else g
+            for p, g in zip(trained, grads)})
+        return float(loss.detach()), tree
+
+    got_loss, got = loss_and_grads(dut, device)
+    want_loss, want = loss_and_grads(ref, cpu)
+
+    def flat(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from flat(v, f"{prefix}{k}/")
+            else:
+                yield prefix + k, v
+
+    got, want = dict(flat(got)), dict(flat(want))
+    norms = {k: float(np.linalg.norm(w)) for k, w in want.items()}
+    floor = 1e-3 * max(norms.values())
+    errs = {k: float(np.linalg.norm(got[k] - w)) / max(norms[k], floor)
+            for k, w in want.items()}
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])[:5]
+    rel_loss = abs(got_loss - want_loss) / abs(want_loss)
+    result = {"phase": "reference", "model": "train", "weights": "bf16",
+              "preset": "tiny-test" if rehearsal else TRAIN_PRESET,
+              "layers": {"vision": 2, "text": 2},
+              "batch": {"B": 2, "S": int(batch["input_ids"].shape[1]),
+                        "code_tokens": [int(x) for x in (
+                            batch["labels"] != -100).sum(-1)]},
+              "loss": got_loss, "loss_fp32": want_loss,
+              "loss_rel_err": rel_loss, "leaves": len(errs),
+              "grad_rel_l2_max": worst[0][1],
+              "grad_rel_l2_median": float(np.median(list(errs.values()))),
+              "worst_leaves": worst,
+              "tolerance": f"loss {TRAIN_REF_LOSS_TOL} relative; each "
+                           f"leaf's gradient {TRAIN_REF_GRAD_TOL} relative "
+                           "L2 (norm floor 1e-3 of the largest leaf's)"}
+    emit(result)
+    if not (np.isfinite(got_loss) and rel_loss <= TRAIN_REF_LOSS_TOL
+            and worst[0][1] <= TRAIN_REF_GRAD_TOL):
+        raise SystemExit(f"training gradients on the card disagree with "
+                         f"the fp32 reference: {result}")
+
+
+def _profile_step(torch, fn) -> dict:
+    """One training step timed plainly, then one more under torch.profiler:
+    the card's busy ms against the plain step's wall ms (the profiler slows
+    the host), K1's forward ms and the ms of K1's backward (the plain
+    version recomputed, the ``flash_attention_backward`` span)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    profiled_ms = (time.perf_counter() - t0) * 1e3
+    dev = _device_time(prof)
+    if dev["device_busy_ms"] <= 0:
+        raise SystemExit("torch.profiler recorded no device time")
+    from torch.autograd import DeviceType
+
+    # the host-side span: its device time is that of the kernels launched
+    # inside it (the device-side range of the same name spans gaps too)
+    recompute = [getattr(e, "device_time_total", None)
+                 or getattr(e, "cuda_time_total", 0)
+                 for e in prof.events()
+                 if e.name == "flash_attention_backward"
+                 and e.device_type == DeviceType.CPU]
+    return {"wall_ms": wall_ms, "wall_ms_profiled": profiled_ms, **dev,
+            "device_idle_share": max(0.0, 1 - dev["device_busy_ms"]
+                                     / wall_ms),
+            "k1_forward_ms": dev["kernel_ms"]["flash_attention"],
+            "k1_backward_recompute_ms": sum(recompute) / 1e3}
+
+
+def train_phase(torch, device, rehearsal: bool, seed: int):
+    """``detikzify-ds-1.3b`` at full width and depth, random bf16 weights
+    drawn on the card from ``seed``, at bench.py's training shape: micro
+    4 x 640, remat, 8-bit Adam moments; ``TRAIN_STEPS`` steps at
+    grad_accum 1 and then 2, each with a fresh optimizer. Per step: loss,
+    grad norm, wall seconds, tokens/s and TFLOP/s by 6 N T (after the
+    first step); peak memory per run; one more step of grad_accum 1 under
+    torch.profiler. Fails on a non-finite loss or weights the steps did
+    not move. Returns (params, cfg, processor) for the trainer phases."""
+    import math
+
+    from detikzify_torch.models import convert
+    from detikzify_torch.processing import ByteTokenizer, DetikzifyProcessor
+    from detikzify_torch.train.step import (init_state, make_optimizer,
+                                            make_train_step, trainable_mask)
+    from detikzify_torch.train.trainer import to_device
+
+    def sync():
+        if not rehearsal:
+            torch.cuda.synchronize()
+
+    cfg = _train_config(rehearsal)
+    seq = 64 if rehearsal else TRAIN_SEQ
+    t0 = time.perf_counter()
+    params = convert.init_random(
+        cfg, device=device, dtype=torch.float32 if rehearsal
+        else torch.bfloat16,
+        generator=torch.Generator(device=device).manual_seed(seed + 11))
+    sync()
+    n_params = sum(p.numel() for p in params.parameters())
+    processor = DetikzifyProcessor(smoke_tokenizer(ByteTokenizer, cfg), cfg)
+    result = {"phase": "train",
+              "preset": "tiny-test" if rehearsal else TRAIN_PRESET,
+              "params": n_params, "init_weights_s": time.perf_counter() - t0,
+              "micro_batch": TRAIN_MICRO, "seq": seq, "remat": True,
+              "moment_dtype": "quant8", "learning_rate": TRAIN_LR,
+              "flops_per_token": "6 N (N = every parameter)", "runs": []}
+    watch = params.text.layers[0].mlp.down.weight
+    start = watch.detach().clone()
+    for ga in TRAIN_ACCUMS:
+        batch = to_device(train_batch(processor, TRAIN_MICRO * ga,
+                                      seed + ga, seq), device)
+        opt = make_optimizer(TRAIN_LR, total_steps=TRAIN_STEPS,
+                             trainable=trainable_mask(params, "all"),
+                             moment_dtype="quant8")
+        state = init_state(params, opt)
+        step = make_train_step(cfg, opt, grad_accum=ga, remat=True)
+        if not rehearsal:
+            torch.cuda.reset_peak_memory_stats()
+        run = {"grad_accum": ga, "tokens_per_step": TRAIN_MICRO * ga * seq,
+               "code_tokens": int((batch["labels"] != -100).sum()),
+               "steps": []}
+        for i in range(TRAIN_STEPS):
+            sync()
+            t = time.perf_counter()
+            state, metrics = step(state, batch)
+            sync()
+            dt = time.perf_counter() - t
+            rec = {"step": i + 1, "loss": float(metrics["loss"]),
+                   "grad_norm": float(metrics["grad_norm"]), "wall_s": dt}
+            if i > 0:       # the first step carries one-time costs
+                rec["tokens_per_s"] = run["tokens_per_step"] / dt
+                rec["tflops_6nt"] = (6 * n_params * run["tokens_per_step"]
+                                     / dt / 1e12)
+            run["steps"].append(rec)
+            if not (math.isfinite(rec["loss"])
+                    and math.isfinite(rec["grad_norm"])):
+                raise SystemExit(f"train: a non-finite step: {rec}")
+        if not rehearsal:
+            run["max_memory_allocated_bytes"] = \
+                torch.cuda.max_memory_allocated()
+            if ga == 1:
+                run["profile"] = _profile_step(
+                    torch, lambda: step(state, batch))
+        result["runs"].append(run)
+        del state, opt, step, batch
+        _free(torch, rehearsal)
+    result["moved_max_abs"] = float((watch.detach().float()
+                                     - start.float()).abs().max())
+    emit(result)
+    if result["moved_max_abs"] <= 0:
+        raise SystemExit("train: the steps did not move the weights")
+    return params, cfg, processor
+
+
+def trainer_phase(torch, device, rehearsal: bool, seed: int, params, cfg,
+                  processor) -> None:
+    """``Trainer`` (AdamW with moments in the weights' dtype, JAX's
+    ``TrainConfig`` defaults otherwise) on the train phase's weights: 8
+    synthetic figures with ``generate_corpus`` programs, sketch ratio 0.5,
+    micro 1 x grad_accum 2 at ``max_length`` 640; 2 steps, one checkpoint
+    written under ``build/``. A second ``Trainer`` on fresh random weights
+    resumes from it at step 2 with the first one's weights bit for bit.
+    The checkpoint's GB, save and restore seconds; then it is deleted."""
+    import shutil
+    import tempfile
+
+    from detikzify_torch.dataset.synthetic import generate_corpus
+    from detikzify_torch.models import convert
+    from detikzify_torch.train import TrainConfig, Trainer
+    from detikzify_torch.train.data import SketchDataset
+
+    def sync():
+        if not rehearsal:
+            torch.cuda.synchronize()
+
+    def dataset():
+        return SketchDataset([{"image": f, "text": c} for f, c in zip(
+            synthetic_figures(8, seed + 21), generate_corpus(8, seed))],
+            sketch_ratio=0.5, seed=seed)
+
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    out = tempfile.mkdtemp(prefix="train_", dir=build)
+    logs = []
+    result = {"phase": "trainer", "figures": 8, "micro_batch": 1,
+              "grad_accum": 2, "max_length": 64 if rehearsal else TRAIN_SEQ,
+              "sketch_ratio": 0.5}
+    try:
+        tc = TrainConfig(output_dir=out, epochs=1, micro_batch_size=1,
+                         grad_accum=2, max_length=result["max_length"],
+                         sketch_ratio=0.5, save_epoch_fraction=1.0,
+                         logging_steps=1, seed=seed)
+        trainer = Trainer(params, cfg, processor, dataset(), tc,
+                          device=device, log_fn=logs.append)
+        save = trainer.ckpt.save
+        saves = []
+
+        def timed_save(*a, **kw):
+            sync()
+            t = time.perf_counter()
+            path = save(*a, **kw)
+            saves.append(time.perf_counter() - t)
+            return path
+        trainer.ckpt.save = timed_save
+        t0 = time.perf_counter()
+        state = trainer.train(max_steps=2)
+        sync()
+        result["train_s"] = time.perf_counter() - t0
+        ckpts = sorted(os.listdir(out))
+        nbytes = sum(f.stat().st_size for f in Path(out).rglob("*")
+                     if f.is_file())
+        result.update(steps=state.step, checkpoints=ckpts,
+                      checkpoint_gb=nbytes / 1e9, save_s=saves,
+                      steps_per_epoch=trainer.steps_per_epoch, log=logs)
+        del trainer, state
+        _free(torch, rehearsal)
+        fresh = convert.init_random(
+            cfg, device=device, dtype=params.dtype,
+            generator=torch.Generator(device=device).manual_seed(seed + 31))
+        trainer2 = Trainer(fresh, cfg, processor, dataset(), tc,
+                           device=device, log_fn=logs.append)
+        sync()
+        t0 = time.perf_counter()
+        resumed = trainer2._resume()
+        sync()
+        result["restore_s"] = time.perf_counter() - t0
+        result["resumed_step"] = resumed
+        result["restored_vs_trained"] = state_diff(torch, fresh, params)
+        del trainer2, fresh
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    _free(torch, rehearsal)
+    emit(result)
+    if (result["steps"] != 2 or result["resumed_step"] != 2
+            or result["checkpoints"] != ["checkpoint-2"]
+            or result["restored_vs_trained"]["differing_entries"] != 0):
+        raise SystemExit(f"trainer: the run or its resume failed: {result}")
+
+
+def pretrain_phase(torch, device, rehearsal: bool, seed: int, params, cfg,
+                   processor) -> None:
+    """``pretrain()`` on the train phase's weights: 4 synthetic figures
+    with captions, batch 2 of micro 1, one epoch (2 steps: the first runs
+    at learning rate 0). Only the connector may move, and
+    ``modality_projector.npz`` is read back by the port's loader overlay
+    bit for bit."""
+    import copy
+    import shutil
+    import tempfile
+    import types
+
+    from detikzify_torch.dataset.synthetic import generate_corpus
+    from detikzify_torch.models.load import _overlay_projector
+    from detikzify_torch.train import pretrain
+
+    def sync():
+        if not rehearsal:
+            torch.cuda.synchronize()
+
+    before = {n: p.detach().clone() for n, p in params.named_parameters()}
+    data = [{"image": f, "text": f"a figure of {c.splitlines()[1][:40]}"}
+            for f, c in zip(synthetic_figures(4, seed + 41),
+                            generate_corpus(4, seed + 41))]
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    out = tempfile.mkdtemp(prefix="pretrain_", dir=build)
+    logs = []
+    try:
+        sync()
+        t0 = time.perf_counter()
+        trained, _ = pretrain(out, params, cfg, processor, data,
+                              batch_size=2, micro_batch_size=1,
+                              learning_rate=1e-3, epochs=1,
+                              max_length=64 if rehearsal else TRAIN_SEQ,
+                              device=device, log_fn=logs.append)
+        sync()
+        seconds = time.perf_counter() - t0
+        moved = {n: float((p.detach().float() - before[n].float())
+                          .abs().max())
+                 for n, p in trained.named_parameters()}
+        npz = os.path.join(out, "modality_projector.npz")
+        holder = types.SimpleNamespace(
+            connector=copy.deepcopy(trained.connector))
+        _overlay_projector(holder, npz, trained.dtype)
+        overlay_equal = bool(torch.equal(holder.connector.proj.weight,
+                                         trained.connector.proj.weight))
+        npz_bytes = os.path.getsize(npz)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    del before
+    _free(torch, rehearsal)
+    others = {n: d for n, d in moved.items()
+              if not n.startswith("connector.")}
+    result = {"phase": "pretrain", "figures": 4, "steps": 2,
+              "seconds": seconds, "log": logs,
+              "connector_moved_max_abs": max(
+                  d for n, d in moved.items() if n.startswith("connector.")),
+              "embed_tokens_moved_max_abs": moved["text.embed_tokens"],
+              "other_leaves_moved": sum(d > 0 for d in others.values()),
+              "modality_projector_npz_bytes": npz_bytes,
+              "overlay_equal": overlay_equal}
+    emit(result)
+    if (result["connector_moved_max_abs"] <= 0
+            or result["other_leaves_moved"] or not overlay_equal):
+        raise SystemExit(f"pretrain: {result}")
+
+
+def training_phases(torch, device, rehearsal: bool, seed: int) -> dict:
+    """K1's backward, the training reference, then ``train`` (the step and
+    the ``Trainer``) and ``pretrain``, each path's launches counted from 0
+    just before it and read just after."""
+    from detikzify_torch.ops import launch_counts, reset_launch_counts
+
+    train_reference_phase(torch, device, rehearsal, seed)
+    reset_launch_counts()
+    params, cfg, processor = train_phase(torch, device, rehearsal, seed)
+    trainer_phase(torch, device, rehearsal, seed, params, cfg, processor)
+    paths = {"train": launch_counts()}
+    reset_launch_counts()
+    pretrain_phase(torch, device, rehearsal, seed, params, cfg, processor)
+    paths["pretrain"] = launch_counts()
+    del params
+    _free(torch, rehearsal)
+    if not rehearsal:
+        for path, counts in paths.items():
+            if counts["flash_attention"] <= 0:
+                raise SystemExit(f"{path} never launched flash_attention")
+            for name in ("paged_decode", "decode_contig", "paged_verify",
+                         "int8_gemv"):
+                if counts[name] != 0:
+                    raise SystemExit(f"{path} launched {name}")
+    emit({"phase": "training_launches", **paths})
+    return paths
 
 
 def _has_pygments() -> bool:
@@ -3246,6 +3835,9 @@ def main(argv=None) -> int:
     _free(torch, rehearsal)
     paths.update(v1_phases(torch, device, rehearsal, args.seed,
                            args.max_new_tokens))
+    _free(torch, rehearsal)
+    k1_backward_phase(torch, device, rehearsal, args.iters)
+    paths.update(training_phases(torch, device, rehearsal, args.seed))
     for row in rows:
         # launches on each path, each counted from 0 just before it ran;
         # "launches" is their sum

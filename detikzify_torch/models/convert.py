@@ -14,10 +14,14 @@ into the port's ``adapter.Adapter`` the same way, and ``llama_from_numpy``
 a bare JAX ``llama.init`` tree (the TikZero caption model) into a
 ``llama.Llama``, and ``siglip_text_from_numpy`` a JAX ``siglip.init_text``
 tree (ClipScore's text tower) into a ``siglip.SiglipText``.
+``params_to_numpy`` is the inverse of ``params_from_numpy``: the port's
+weights (or any tensors keyed by them, such as their gradients) as the JAX
+tree of numpy arrays. ``leaves`` lists that tree's leaves with the port
+tensors behind each: one tensor, or one a layer of a stacked leaf.
 """
 from __future__ import annotations
 
-from typing import Mapping, Optional
+from typing import Dict, List, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -230,3 +234,84 @@ def siglip_text_from_numpy(tree, cfg: VisionConfig, device="cuda",
                       dtype=torch.float32)
     _load(text, tree, None)
     return text.requires_grad_(False).to(device=device, dtype=dtype)
+
+
+class Leaf(NamedTuple):
+    """One leaf of the JAX tree and the port's tensors behind it."""
+
+    path: str                       # the JAX tree's keys, "/"-joined
+    tensors: Tuple[torch.Tensor, ...]   # one a layer when ``stacked``
+    transposed: bool                # a dense kernel: JAX keeps [in, out]
+    stacked: bool                   # layers stacked on a leading axis
+
+
+def _walk(module: nn.Module, prefix: str):
+    """(path, tensor, transposed) of one module's leaves, in the order
+    ``_load`` fills them."""
+    if isinstance(module, nn.Linear):
+        yield prefix + "kernel", module.weight, True
+        if module.bias is not None:
+            yield prefix + "bias", module.bias, False
+        return
+    if isinstance(module, QuantLinear):
+        yield prefix + "kernel_q/q", module.q, True
+        yield prefix + "kernel_q/scale", module.scale, False
+        if module.bias is not None:
+            yield prefix + "bias", module.bias, False
+        return
+    for name, param in module.named_parameters(recurse=False):
+        yield prefix + name, param, False
+    for name, child in module.named_children():
+        if child is None:
+            continue
+        if isinstance(child, nn.ModuleList):
+            for leaf in _stacked(child, f"{prefix}{name}/"):
+                yield leaf
+        else:
+            yield from _walk(child, f"{prefix}{name}/")
+
+
+def _stacked(layers: nn.ModuleList, prefix: str):
+    per_layer = [list(_walk(layer, prefix)) for layer in layers]
+    for entries in zip(*per_layer):
+        yield entries[0][0], tuple(t for _, t, _ in entries), entries[0][2]
+
+
+def leaves(module: nn.Module) -> List[Leaf]:
+    """The JAX tree's leaves of ``module`` (``Params`` or any of its parts),
+    in tree order: per-layer tensors of a ``ModuleList`` form one stacked
+    leaf, as the JAX package stacks its layers ``[L, ...]``."""
+    out = []
+    for path, tensors, transposed in _walk(module, ""):
+        stacked = isinstance(tensors, tuple)
+        out.append(Leaf(path, tensors if stacked else (tensors,),
+                        transposed, stacked))
+    return out
+
+
+@torch.no_grad()
+def params_to_numpy(params: nn.Module,
+                    values: Optional[Mapping[torch.Tensor, torch.Tensor]]
+                    = None) -> Dict:
+    """The port's weights as the JAX tree: nested dicts of numpy arrays,
+    dense kernels ``[in, out]``, layers stacked ``[L, ...]``, the keys of
+    the JAX ``Params``. ``values`` maps a weight to the tensor to write in
+    its place (its gradient, say); weights it does not hold are written
+    themselves. ``params_from_numpy`` of the result gives ``params`` back
+    bit for bit."""
+    values = {} if values is None else values
+    tree: Dict = {}
+    for leaf in leaves(params):
+        arrays = []
+        for t in leaf.tensors:
+            t = values.get(t, t).detach().cpu()
+            if t.dtype == torch.bfloat16:
+                t = t.float()
+            arrays.append(t.t() if leaf.transposed else t)
+        arr = (torch.stack(arrays) if leaf.stacked else arrays[0]).numpy()
+        node = tree
+        *keys, last = leaf.path.split("/")
+        for key in keys:
+            node = node.setdefault(key, {})
+        node[last] = np.ascontiguousarray(arr)
+    return tree

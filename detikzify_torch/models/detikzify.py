@@ -43,7 +43,8 @@ class Params(nn.Module):
                  device="cuda", dtype=torch.bfloat16):
         """Allocates the weights on ``device`` WITHOUT initialising them:
         build through ``convert.init_random`` or ``convert.params_from_numpy``.
-        Inference only, so no parameter requires a gradient."""
+        No parameter requires a gradient: training switches on the leaves
+        it trains (``train.step.trainable_mask``)."""
         super().__init__()
         kw = dict(device="meta", dtype=dtype)
         self.vision = siglip.SiglipVision(cfg.vision, head=vision_head, **kw)
@@ -71,8 +72,8 @@ def connector(params: Params, image_hidden: torch.Tensor,
 
 def vision_features(params: Params, cfg: DetikzifyConfig,
                     pixel_values: torch.Tensor, *,
-                    adapter: Optional[siglip.AdapterInputs] = None
-                    ) -> torch.Tensor:
+                    adapter: Optional[siglip.AdapterInputs] = None,
+                    remat=False) -> torch.Tensor:
     """pixel_values [B,H,W,C] -> pre-connector features
     [B, image_seq_len*cf, Dv]. v2: the final post-norm hidden state. v1
     (``cfg.feature_layer`` set): the output of an intermediate block
@@ -82,21 +83,23 @@ def vision_features(params: Params, cfg: DetikzifyConfig,
     after the tapped one are not run."""
     if cfg.feature_layer is not None:
         feats = siglip.hidden_state(params.vision, cfg.vision, pixel_values,
-                                    cfg.feature_layer, adapter=adapter)
+                                    cfg.feature_layer, adapter=adapter,
+                                    remat=remat)
         feats = layer_norm(params.vision.post_ln, feats,
                            cfg.vision.layer_norm_eps)
         return feats[:, -cfg.image_seq_len * cfg.concat_factor:]
     return siglip.apply(params.vision, cfg.vision, pixel_values,
-                        adapter=adapter)["last_hidden_state"]
+                        adapter=adapter, remat=remat)["last_hidden_state"]
 
 
 def encode_image(params: Params, cfg: DetikzifyConfig,
                  pixel_values: torch.Tensor, *,
-                 adapter: Optional[siglip.AdapterInputs] = None
-                 ) -> torch.Tensor:
+                 adapter: Optional[siglip.AdapterInputs] = None,
+                 remat=False) -> torch.Tensor:
     """pixel_values [B,H,W,C] -> projected image tokens
     [B, image_seq_len, Dt] (vision tower + connector)."""
-    feats = vision_features(params, cfg, pixel_values, adapter=adapter)
+    feats = vision_features(params, cfg, pixel_values, adapter=adapter,
+                            remat=remat)
     return connector(params, feats, cfg.concat_factor)
 
 
@@ -121,15 +124,17 @@ def forward(params: Params, cfg: DetikzifyConfig, input_ids: torch.Tensor,
             pixel_values: Optional[torch.Tensor] = None, *,
             attention_mask: Optional[torch.Tensor] = None,
             labels: Optional[torch.Tensor] = None,
-            image_embeds: Optional[torch.Tensor] = None):
-    """Full forward. Returns (logits [B,S,V] fp32, loss or None)."""
+            image_embeds: Optional[torch.Tensor] = None, remat=False):
+    """Full forward. Returns (logits [B,S,V] fp32, loss or None).
+    ``remat`` (False | True | "dots") recomputes each layer of both towers
+    in the backward (``layers.apply_remat``)."""
     embeds = llama.embed(params.text, input_ids)
     if image_embeds is None and pixel_values is not None:
-        image_embeds = encode_image(params, cfg, pixel_values)
+        image_embeds = encode_image(params, cfg, pixel_values, remat=remat)
     if image_embeds is not None:
         embeds = merge_inputs(cfg, input_ids, embeds, image_embeds)
     hidden = llama.forward(params.text, cfg.text, embeds,
-                           attention_mask=attention_mask)
+                           attention_mask=attention_mask, remat=remat)
     logits = llama.unembed(params.text, hidden)
 
     loss = None

@@ -5,10 +5,12 @@ of the JAX ``[in, out]`` kernels) or, once quantized, ``ops.quant.
 QuantLinear`` (int8 ``[out, in]`` + fp32 per-channel scale). Norms compute
 in fp32 and cast back to the input dtype, as the JAX functions do. RoPE is
 the non-interleaved
-"rotate_half" form with optional llama3 frequency scaling.
+"rotate_half" form with optional llama3 frequency scaling. ``apply_remat``
+wraps a layer's body in ``torch.utils.checkpoint`` for training.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -17,6 +19,40 @@ from torch import nn
 
 from ..ops.quant import QuantLinear
 from ..ops.quant_matmul import int8_matmul
+
+#: the outputs ``remat="dots"`` keeps: the products without batch dims (the
+#: projections), as JAX's ``dots_with_no_batch_dims_saveable``; attention's
+#: batched products and K1 are recomputed
+_SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_projections(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_PRODUCTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def apply_remat(block, remat):
+    """Wrap a layer's body per the remat policy (``detikzify_tpu/models/
+    layers.py::apply_remat``): ``True`` keeps only the layer's inputs and
+    recomputes its forward in the backward (``torch.utils.checkpoint``);
+    ``"dots"`` also keeps the projections' outputs (``aten.mm`` /
+    ``aten.addmm``), so the backward recomputes only the cheap ops and
+    attention; ``False`` returns ``block`` itself."""
+    if not remat:
+        return block
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_projections)
+
+    def wrapped(*args):
+        return checkpoint(block, *args, use_reentrant=False, **kw)
+    return wrapped
 
 
 class LayerNorm(nn.Module):

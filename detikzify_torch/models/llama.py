@@ -49,8 +49,8 @@ from ..ops.flash import flash_attention
 from ..ops.paged import decode_attend_paged, decode_verify_attend_paged
 from ..ops.quant import QuantLinear
 from ..ops.quant_matmul import int8_matmul, matmul_f32
-from .layers import (ACTIVATIONS, RMSNorm, apply_rope, linear, rms_norm,
-                     rope_cos_sin, rope_inv_freq)
+from .layers import (ACTIVATIONS, RMSNorm, apply_remat, apply_rope, linear,
+                     rms_norm, rope_cos_sin, rope_inv_freq)
 
 
 class Attention(nn.Module):
@@ -153,8 +153,12 @@ def _inv_freq(cfg: TextConfig, device) -> torch.Tensor:
 
 def forward(params: Llama, cfg: TextConfig, inputs_embeds: torch.Tensor, *,
             positions: Optional[torch.Tensor] = None,
-            attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Causal full-sequence pass; returns final-norm'd hidden [B, S, D]."""
+            attention_mask: Optional[torch.Tensor] = None,
+            remat=False) -> torch.Tensor:
+    """Causal full-sequence pass; returns final-norm'd hidden [B, S, D].
+
+    ``remat`` (False | True | "dots") recomputes each layer in the backward
+    (``layers.apply_remat``): activation memory of one layer, not of all."""
     b, s, _ = inputs_embeds.shape
     dev = inputs_embeds.device
     act = ACTIVATIONS[cfg.hidden_act]
@@ -165,15 +169,20 @@ def forward(params: Llama, cfg: TextConfig, inputs_embeds: torch.Tensor, *,
         else:
             positions = torch.arange(s, device=dev)[None].expand(b, s)
     cos, sin = rope_cos_sin(positions, _inv_freq(cfg, dev))
-    x = inputs_embeds
-    for lp in params.layers:
+
+    def block(x, lp):
         h = rms_norm(lp.input_ln, x, cfg.rms_norm_eps)
         q, k, v = _qkv(lp, h, cfg, cos, sin)
         h = flash_attention(q, k, v.contiguous(), causal=True,
                             kv_mask=attention_mask)
         x = x + linear(lp.attn.o, h.reshape(b, s, -1))
         h = rms_norm(lp.post_ln, x, cfg.rms_norm_eps)
-        x = x + _mlp(lp, h, act)
+        return x + _mlp(lp, h, act)
+
+    block = apply_remat(block, remat)
+    x = inputs_embeds
+    for lp in params.layers:
+        x = block(x, lp)
     return rms_norm(params.norm, x, cfg.rms_norm_eps)
 
 

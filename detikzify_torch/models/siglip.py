@@ -22,7 +22,7 @@ from torch import nn
 
 from ..config import AdapterConfig, VisionConfig
 from ..ops.flash import flash_attention
-from .layers import ACTIVATIONS, LayerNorm, layer_norm, linear
+from .layers import ACTIVATIONS, LayerNorm, apply_remat, layer_norm, linear
 
 
 class AdapterInputs(NamedTuple):
@@ -177,12 +177,15 @@ def _cross_attn_layer(ap, x: torch.Tensor, adapter: AdapterInputs,
 
 def _blocks(params: SiglipVision, cfg: VisionConfig,
             pixel_values: torch.Tensor, num_layers: Optional[int] = None,
-            keep: bool = False, adapter: Optional[AdapterInputs] = None):
+            keep: bool = False, adapter: Optional[AdapterInputs] = None,
+            remat=False):
     """Patch embedding and the first ``num_layers`` encoder blocks (all by
     default) -> (the last block's output, every block's output when
     ``keep``, else []). With ``adapter``, its cross-attention block runs
     before each active layer (``(idx + 1) % cross_attn_every_n_layers ==
-    0``, the reference's pre-hook placement); the other layers skip it."""
+    0``, the reference's pre-hook placement); the other layers skip it.
+    ``remat`` recomputes each block (with its cross-attention) in the
+    backward (``layers.apply_remat``)."""
     act = ACTIVATIONS[cfg.hidden_act]
     eps = cfg.layer_norm_eps
     nh = cfg.num_attention_heads
@@ -190,14 +193,18 @@ def _blocks(params: SiglipVision, cfg: VisionConfig,
     every = (adapter.config.cross_attn_every_n_layers
              if adapter is not None else 0)
 
+    def block(x, idx, lp):
+        if every and (idx + 1) % every == 0:
+            x = _cross_attn_layer(adapter.params[idx], x, adapter, eps)
+        return _encoder_layer(lp, x, act, eps, nh)
+
+    block = apply_remat(block, remat)
     x = linear(params.embeddings.patch,
                patchify(pixel_values.to(dtype), cfg.patch_size))
     x = x + params.embeddings.position
     states = []
     for idx, lp in enumerate(params.layers[:num_layers]):
-        if every and (idx + 1) % every == 0:
-            x = _cross_attn_layer(adapter.params[idx], x, adapter, eps)
-        x = _encoder_layer(lp, x, act, eps, nh)
+        x = block(x, idx, lp)
         if keep:
             states.append(x)
     return x, states
@@ -213,7 +220,8 @@ def _encoder_layer(lp: EncoderLayer, x: torch.Tensor, act, eps: float,
 
 def hidden_state(params: SiglipVision, cfg: VisionConfig,
                  pixel_values: torch.Tensor, layer: int,
-                 adapter: Optional[AdapterInputs] = None) -> torch.Tensor:
+                 adapter: Optional[AdapterInputs] = None,
+                 remat=False) -> torch.Tensor:
     """``apply(..., output_hidden_states=True)["hidden_states"][layer]``
     (Python indexing, negative values included), computing the blocks up
     to ``layer`` and no further."""
@@ -221,22 +229,25 @@ def hidden_state(params: SiglipVision, cfg: VisionConfig,
     if not -n <= layer < n:
         raise IndexError(f"layer {layer} of a {n}-layer tower")
     return _blocks(params, cfg, pixel_values, layer % n + 1,
-                   adapter=adapter)[0]
+                   adapter=adapter, remat=remat)[0]
 
 
 def apply(params: SiglipVision, cfg: VisionConfig,
           pixel_values: torch.Tensor, *,
           adapter: Optional[AdapterInputs] = None,
-          output_hidden_states: bool = False) -> dict:
+          output_hidden_states: bool = False, remat=False) -> dict:
     """pixel_values [B, H, W, C] (SigLIP-normalized) ->
     {'last_hidden_state': [B, N, D], 'pooler_output': [B, D]}, plus
     'hidden_states' (each block's output, before the final norm, one per
-    layer) when asked. ``adapter`` conditions the tower on a caption."""
+    layer) when asked. ``adapter`` conditions the tower on a caption;
+    ``remat`` (False | True | "dots") recomputes each block in the
+    backward."""
     act = ACTIVATIONS[cfg.hidden_act]
     eps = cfg.layer_norm_eps
     nh = cfg.num_attention_heads
     x, states = _blocks(params, cfg, pixel_values,
-                        keep=output_hidden_states, adapter=adapter)
+                        keep=output_hidden_states, adapter=adapter,
+                        remat=remat)
     x = layer_norm(params.post_ln, x, eps)
 
     hp: Optional[MAPHead] = params.head

@@ -7,7 +7,16 @@ of ``CLUSTER`` blocks splits the keys (``split_keys`` each) and merges their
 fp32 partials (see the header of ``flash_attn.cu``). ``attend_split_plain``
 repeats the split arithmetic in PyTorch for the tests. The plain version is
 ``ops.attention.attend_plain``: a tensor on the CPU takes it, a CUDA tensor
-launches the kernel or raises. There is no backward yet.
+launches the kernel or raises.
+
+``flash_attention`` is differentiable on both devices through one
+``torch.autograd.Function``, ``_FlashAttention``, the counterpart of the
+JAX ``custom_vjp`` (``detikzify_tpu/ops/flash.py:114-134``): its forward
+launches K1 (or, on the CPU, runs the plain version without a graph) and
+keeps q, k, v and the masks; its backward recomputes ``attend_plain`` on
+them and returns autograd's gradients for q, k and v, as the JAX backward
+differentiates ``attend_xla``. The JAX package has no backward kernel, so
+neither has the port.
 """
 from __future__ import annotations
 
@@ -94,10 +103,43 @@ def flash_attention(
     if kv_limits is not None and q_offsets is None:
         raise ValueError("kv_limits requires q_offsets "
                          "(pass zeros for offset-free bounds)")
-    if q.device.type == "cpu":
-        return attend_plain(q, k, v, causal=causal, kv_mask=kv_mask,
-                            scale=scale, q_offsets=q_offsets,
-                            kv_limits=kv_limits)
+    return _FlashAttention.apply(q, k, v, kv_mask, q_offsets, kv_limits,
+                                 causal, scale)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K1 forward; the backward differentiates the plain version."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, q_offsets, kv_limits, causal, scale):
+        if q.device.type == "cpu":
+            out = attend_plain(q, k, v, causal=causal, kv_mask=kv_mask,
+                               scale=scale, q_offsets=q_offsets,
+                               kv_limits=kv_limits)
+        else:
+            out = _launch(q, k, v, causal, kv_mask, scale, q_offsets,
+                          kv_limits)
+        ctx.save_for_backward(q, k, v, kv_mask, q_offsets, kv_limits)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, k, v, kv_mask, q_offsets, kv_limits = ctx.saved_tensors
+        # named for torch.profiler: a profile reads the recompute's device
+        # time under this span
+        with torch.enable_grad(), \
+                torch.profiler.record_function("flash_attention_backward"):
+            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+            out = attend_plain(*leaves, causal=ctx.causal, kv_mask=kv_mask,
+                               scale=ctx.scale, q_offsets=q_offsets,
+                               kv_limits=kv_limits)
+            dq, dk, dv = torch.autograd.grad(out, leaves, grad)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def _launch(q, k, v, causal, kv_mask, scale, q_offsets, kv_limits):
+    """Check the operands against the kernel's limits and launch K1."""
     b, s, nh, hd = q.shape
     if k.dim() != 4 or k.shape[0] != b or k.shape != v.shape:
         raise ValueError(f"flash_attention: k {tuple(k.shape)} / v "

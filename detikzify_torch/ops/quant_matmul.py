@@ -83,10 +83,35 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.float32 and w.dtype == torch.float32:
         return F.linear(x, w)
     if x.is_cuda:
-        y = torch.mm(x.reshape(-1, x.shape[-1]), w.t(),
-                     out_dtype=torch.float32)
+        x2 = x.reshape(-1, x.shape[-1])
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+            y = _MatmulF32.apply(x2, w)
+        else:
+            y = torch.mm(x2, w.t(), out_dtype=torch.float32)
         return y.reshape(*x.shape[:-1], w.shape[0])
     return F.linear(x.float(), w.float())
+
+
+class _MatmulF32(torch.autograd.Function):
+    """``torch.mm(..., out_dtype=float32)`` of a training step: that op has
+    no derivative, so the backward is written out, two products of the
+    fp32 cotangent rounded once to the operands' type (fp32 accumulation
+    in both)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.mm(grad.to(w.dtype), w).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = torch.mm(grad.t().to(x.dtype), x).to(w.dtype)
+        return dx, dw
 
 
 def int8_matmul_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,

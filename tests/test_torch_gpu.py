@@ -834,3 +834,66 @@ def test_native_library_builds_and_loads(cuda):
     assert native.available(), native.lib_path()
     h, r = list("\\draw (0,0) -- (1,1);"), list("\\fill (0,0) circle;")
     assert extended_edit_distance(h, r) == _extended_edit_distance_py(h, r)
+
+
+@pytest.mark.parametrize("b,s,t,nh,nkv,hd,causal,lengths", [
+    (2, 640, 640, 16, 16, 128, True, (640, 523)),     # the decoder's step
+    (2, 900, 900, 16, 16, 72, False, None),            # the tower's
+    (2, 129, 200, 8, 2, 64, True, (200, 150)),         # GQA, S < T
+])
+def test_flash_attention_backward_on_card_matches_plain(cuda, b, s, t, nh,
+                                                        nkv, hd, causal,
+                                                        lengths):
+    """K1's Function on the card: forward by K1, backward by the plain
+    version recomputed, within 2^-8 of each gradient's largest value of
+    autograd through ``attend_plain``; a backward without the causal mask
+    falls outside."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v = (_rnd(gen, cuda, b, s, nh, hd), _rnd(gen, cuda, b, t, nkv, hd),
+               _rnd(gen, cuda, b, t, nkv, hd))
+    dout = _rnd(gen, cuda, b, s, nh, hd)
+    kw = {"causal": causal}
+    if lengths:
+        kw["kv_mask"] = (torch.arange(t, device=cuda)[None, :] < torch.tensor(
+            lengths, device=cuda)[:, None]).contiguous()
+
+    def grads(fn, **over):
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        out = fn(*leaves, **dict(kw, **over))
+        return out, torch.autograd.grad(out, leaves, dout)
+
+    before = flash.KERNEL.launches
+    out, got = grads(flash.flash_attention)
+    assert flash.KERNEL.launches == before + 1
+    assert type(out.grad_fn).__name__ == "_FlashAttentionBackward"
+    _, want = grads(attention.attend_plain)
+
+    def within(a, b):
+        return all(float((x.float() - y.float()).abs().max())
+                   <= 2.0 ** -8 * float(y.float().abs().max())
+                   for x, y in zip(a, b))
+
+    assert within(got, want)
+    if causal:
+        _, mutant = grads(attention.attend_plain, causal=False)
+        assert not within(mutant, want)
+
+
+def test_unembed_backward_on_card(cuda):
+    """The fp32-output product of the logits has a hand-written backward on
+    the card (``torch.mm(..., out_dtype)`` has none): its gradients within
+    bf16 rounding of an fp32 autograd reference."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = _rnd(gen, cuda, 64, 256)
+    w = _rnd(gen, cuda, 1000, 256)
+    g = torch.randn((64, 1000), generator=gen, device=cuda)
+    xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+    y = quant_matmul.matmul_f32(xl, wl)
+    assert y.dtype == torch.float32
+    dx, dw = torch.autograd.grad(y, (xl, wl), g)
+    xf, wf = x.float().requires_grad_(), w.float().requires_grad_()
+    rx, rw = torch.autograd.grad(xf @ wf.t(), (xf, wf), g)
+    for got, want in ((dx, rx), (dw, rw)):
+        assert got.dtype == torch.bfloat16
+        err = float((got.float() - want).abs().max())
+        assert err <= 2.0 ** -6 * float(want.abs().max()), err

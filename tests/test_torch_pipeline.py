@@ -571,10 +571,11 @@ def test_live_parallelism_bounds_decoding_rollouts(parity_pipes):
 
 def test_port_imports_no_jax():
     """Importing every module of the port, and chip_smoke.py, leaves jax
-    and detikzify_tpu out of sys.modules, and safetensors and transformers
-    too: the card's machine has neither, so the port reads and writes
-    checkpoints itself and imports transformers only to load a
-    tokenizer."""
+    and detikzify_tpu out of sys.modules, optax and orbax (the port's
+    training writes its own optimizer and checkpoints), and safetensors
+    and transformers too: the card's machine has neither, so the port
+    reads and writes checkpoints itself and imports transformers only to
+    load a tokenizer."""
     code = """
 import importlib, pkgutil, sys
 import detikzify_torch
@@ -582,9 +583,11 @@ for m in pkgutil.walk_packages(detikzify_torch.__path__, 'detikzify_torch.'):
     importlib.import_module(m.name)
 import chip_smoke
 bad = sorted(n for n in sys.modules
-             if n in ('jax', 'safetensors', 'transformers')
+             if n in ('jax', 'safetensors', 'transformers', 'optax',
+                      'orbax')
              or n.startswith(('jax.', 'jaxlib', 'detikzify_tpu',
-                              'safetensors.', 'transformers.')))
+                              'safetensors.', 'transformers.', 'optax.',
+                              'orbax.')))
 print(len([n for n in sys.modules if n.startswith('detikzify_torch')]), bad)
 print(' '.join(sorted(n for n in sys.modules
                       if n.startswith('detikzify_torch'))))
@@ -601,14 +604,20 @@ assert not bad, bad
         "clipscore", "crystalbleu", "dist", "dreamsim", "dreamsim_vit",
         "eed", "harness", "imagesim", "kid")} <= walked
     assert "detikzify_torch.native" in walked
+    # and the training core
+    assert {f"detikzify_torch.train.{m}" for m in (
+        "checkpoint", "data", "pretrain", "step", "train", "trainer")} | {
+        "detikzify_torch.data.augment",
+        "detikzify_torch.dataset.synthetic"} <= walked
 
 
 def test_chip_smoke_cpu_rehearsal():
     """The smoke script's phases run end to end at tiny-test on the CPU:
     the v2 phases, the TikZero adapter's (``tikzero_sample``,
     ``tikzero_simulate``), the checkpoint round trip (``load``), the HTTP
-    server (``serve``), the evaluation protocol (``evaluate``) and the v1
-    family's phases."""
+    server (``serve``), the evaluation protocol (``evaluate``), the v1
+    family's phases and training (K1's backward, the training reference,
+    ``train``, ``trainer``, ``pretrain``)."""
     env = dict(os.environ, OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "chip_smoke.py", "--cpu-rehearsal",
                           "--max-new-tokens", "8"], cwd=ROOT, env=env,
@@ -623,7 +632,8 @@ def test_chip_smoke_cpu_rehearsal():
     paths = {"sample", "contiguous", "spec_greedy", "tikzero_sample",
              "tikzero_simulate", "load", "simulate", "simulate_spec",
              "simulate_spec_gated", "serve", "evaluate_predict",
-             "evaluate_score", "v1_sample", "v1_simulate"}
+             "evaluate_score", "v1_sample", "v1_simulate", "train",
+             "pretrain"}
     assert all(set(row["launches_by_path"]) == paths for row in kernels)
     # the v1 family's kernel shapes sit beside the v2 ones
     row_names = {row["name"] for row in kernels}
@@ -643,7 +653,7 @@ def test_chip_smoke_cpu_rehearsal():
             refs.append((obj["model"], obj["weights"]))
     assert refs == [("v2", "bf16"), ("v2", "int8+fused"), ("v1", "bf16"),
                     ("v1", "int8+fused"), ("tikzero", "bf16"),
-                    ("clipscore", "bf16")]
+                    ("clipscore", "bf16"), ("train", "bf16")]
     tz = phases["tikzero_sample"]
     assert all(d["differing_entries"] == 0
                for d in tz["checkpoint"]["loaded_vs_written"].values())
@@ -699,7 +709,8 @@ def test_chip_smoke_cpu_rehearsal():
             "flash_attention/clip_vision"} <= row_names
     assert ev["cache"] == {"first_pass_hits": 0, "second_pass_hits": 4,
                            "second_pass_new_searches": 0}
-    assert ev["model_mode"]["num_programs"] > 1
+    assert ev["model_mode"]["num_programs"] == ev["model_mode"][
+        "expansions"] > 1
     m = ev["metrics"]
     assert m["CompileSuccessRate"] == 1.0
     assert set(m) == {"CompileSuccessRate", "MeanTokenEfficiency",
@@ -717,6 +728,33 @@ def test_chip_smoke_cpu_rehearsal():
     assert clip["scalars_equal"] and clip["vision"]["differing_entries"] == 0
     assert clip["text"]["differing_entries"] == 0
     assert not list((ROOT / "build").glob("eval_*"))
+    # training: K1's backward with its mutant, the gradient reference, the
+    # step at two accumulations, the trainer's save and resume, pretrain
+    assert "flash_attention/train_decoder" in row_names
+    back = phases["k1_backward"]["rows"]
+    assert [r["name"] for r in back] == [
+        "flash_attention_backward/train_decoder",
+        "flash_attention_backward/train_vision"]
+    assert all(r["max_err_over_tol"] <= 1 for r in back)
+    assert back[0]["no_causal_mutant_err_over_tol"] > 1
+    ref = [json.loads(line) for line in lines[:-2]
+           if '"model": "train"' in line][0]
+    assert ref["grad_rel_l2_max"] <= 5e-2 and ref["leaves"] > 0
+    train = phases["train"]
+    assert [r["grad_accum"] for r in train["runs"]] == [1, 2]
+    assert all(len(r["steps"]) == 3 and all(
+        np.isfinite(s["loss"]) for s in r["steps"]) for r in train["runs"])
+    assert train["moved_max_abs"] > 0
+    trainer = phases["trainer"]
+    assert trainer["steps"] == trainer["resumed_step"] == 2
+    assert trainer["checkpoints"] == ["checkpoint-2"]
+    assert trainer["restored_vs_trained"]["differing_entries"] == 0
+    pre = phases["pretrain"]
+    assert pre["connector_moved_max_abs"] > 0
+    assert pre["embed_tokens_moved_max_abs"] == 0
+    assert pre["other_leaves_moved"] == 0 and pre["overlay_equal"]
+    assert not list((ROOT / "build").glob("train_*"))
+    assert not list((ROOT / "build").glob("pretrain_*"))
 
 
 def test_chip_smoke_refuses_without_card(tmp_path):
