@@ -22,7 +22,10 @@ Phases, each printing one JSON line:
               pass with a key mask) and ClipScore's (K1 on the SigLIP text
               tower's 64 positions and the 384-px vision tower's 729
               patches) and training's (K1 on DeepSeek-1.3B's causal pass
-              over 4 rows of 640 with a key mask),
+              over 4 rows of 640 with a key mask) and post-training's
+              (K1 on adapter distillation's tower over 8 figures and its
+              cross-attention over 8 key-masked captions, and on GRPO's
+              causal log-prob pass over 16 rollouts of 428 tokens),
               and time kernel, plain version and the PyTorch library
               call (CUDA events, median of many launches, L2 flushed before
               each), next to the least time the card needs for the same
@@ -105,7 +108,8 @@ Phases, each printing one JSON line:
               fused, ``simulate()`` with 8 expansions and SelfSim (cos, as
               v1 pins it);
 18. k1_backward -- K1's backward at the training shapes (the decoder's
-              causal pass with a key mask, the tower's 900 patches): the
+              causal pass with a key mask, the tower's 900 patches,
+              distillation's key-masked cross-attention): the
               gradients through ``flash_attention`` (K1 forward, the plain
               version recomputed) against autograd through the plain
               version, a backward without the causal mask as a control
@@ -127,7 +131,25 @@ Phases, each printing one JSON line:
 22. pretrain -- ``pretrain()`` on those weights: only the connector
               moves, ``modality_projector.npz`` is read back by the
               loader's overlay;
-23. the ``kernels`` JSON line (launches on each path above, each counted
+23. reference (adapter, grpo) -- at full width, 2 layers: the
+              distillation loss and every adapter leaf's gradient
+              (``tikzero-adapter``), the GRPO loss and every trainable
+              leaf's gradient (``detikzify-ds-1.3b``), card bf16 against
+              host fp32;
+24. grpo   -- ``refine()`` on the train phase's weights: SelfSim rewards
+              over FakeBackend renders, 8 rollouts of 128 tokens for each
+              of 2 figures a step, 2 steps, the KL anchor on, 2 updates a
+              batch; rollout, reward and update seconds, one update
+              profiled; the caller's weights unchanged;
+25. adapter_pretrain -- ``pretrain_adapter()`` at ``tikzero-adapter``,
+              full width and depth (random tower, adapter and caption
+              model): 16 figures, 2 steps of 8, one profiled; only the
+              adapter moves;
+26. adapter_train -- ``train_adapter_llm()`` (TikZero+) on those weights
+              with the decoder cut to 8 of its 32 layers: 2 steps
+              caption-conditioned, 2 in image mode; only a copy of the
+              decoder trains;
+27. the ``kernels`` JSON line (launches on each path above, each counted
    from 0 just before the path ran and read just after, and their sum;
    ``train`` counts the train and trainer phases), the nvidia-smi line,
    and as the last line ``{"ok": true, "device": {...}}``.
@@ -140,7 +162,9 @@ test suite and never prints a device result.
 from __future__ import annotations
 
 import argparse
+import faulthandler
 import gc
+import importlib
 import json
 import os
 import statistics
@@ -283,8 +307,26 @@ K1_TRAIN_CASES = (
     ("train_decoder", 4, 640, 640, 16, 16, 128, "causal_mask",
      (640, 611, 523, 467)),
 )
+# post-training: adapter distillation at ``tikzero-adapter`` (the
+# tower over 8 figures, teacher and student, and the adapter's
+# cross-attention of 900 patches over 8 captions padded to 64 tokens, 16
+# heads of 72) and GRPO's log-prob pass at ``detikzify-ds-1.3b`` (16
+# rollouts of 300 image tokens + 128, causal, 16/16 heads of 128)
+DISTILL_CAPTION_LENGTHS = (64, 58, 51, 47, 40, 33, 26, 17)
+K1_POSTTRAIN_CASES = (
+    ("distill_tower", 8, 900, 900, 16, 16, 72, "full", None),
+    ("distill_cross", 8, 900, 64, 16, 16, 72, "mask",
+     DISTILL_CAPTION_LENGTHS),
+    ("grpo_logprobs", 16, 428, 428, 16, 16, 128, "causal", None),
+)
+DISTILL_FIGURES, DISTILL_MICRO = 16, 8  # 2 steps of 8 figures
+TIKZERO_PLUS_LAYERS = 8     # adapter_train's decoder: 8 of Llama-3.1-8B's 32
+TIKZERO_PLUS_ITEMS, TIKZERO_PLUS_MICRO = 8, 4
+TIKZERO_PLUS_LR = 5e-5
+GRPO_GENERATIONS, GRPO_NEW_TOKENS, GRPO_PROMPTS, GRPO_STEPS = 8, 128, 2, 2
 K1_BACKWARD_CASES = K1_TRAIN_CASES + (
     ("train_vision", 4, 900, 900, 16, 16, 72, "full", None),
+    K1_POSTTRAIN_CASES[1],          # distillation's key-masked cross shape
 )
 # K1's backward recomputes the plain version, as autograd through the
 # plain version does: the two agree to the bf16 resolution of the largest
@@ -367,6 +409,9 @@ def k1_inputs(torch, gen, device, b, s, t, nh, nkv, hd, mode, prompt=300,
                                          device=device))
         visible_keys = sum(min(o + i + 1, lim) for o, lim in zip(offs, lims)
                            for i in range(s))
+    elif mode == "causal":
+        kw = dict(causal=True)
+        visible_keys = b * sum(min(i + (t - s) + 1, t) for i in range(s))
     elif mode in ("mask", "causal_mask"):
         # captions padded on the right to T tokens
         kw = dict(kv_mask=(torch.arange(t, device=device)[None, :]
@@ -523,7 +568,8 @@ def kernel_phase(torch, device, rehearsal: bool, iters: int):
             + [(c, V1_PROMPT, None) for c in K1_V1_CASES]
             + [(c[:8], None, c[8]) for c in K1_TIKZERO_CASES]
             + [(c, None, None) for c in K1_EVAL_CASES]
-            + [(c[:8], None, c[8]) for c in K1_TRAIN_CASES]):
+            + [(c[:8], None, c[8]) for c in K1_TRAIN_CASES]
+            + [(c[:8], None, c[8]) for c in K1_POSTTRAIN_CASES]):
         if rehearsal:   # tiny shapes: the CPU only checks the wiring
             s, t = min(s, 9), 12
             lengths = lengths and tuple(min(n, t) for n in lengths)
@@ -563,7 +609,8 @@ def kernel_phase(torch, device, rehearsal: bool, iters: int):
             elif lengths:
                 mask = _sdpa_mask(torch, kw, s, t, device)
             row["library_ms"] = timer(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, enable_gqa=nh != nkv))
+                qt, kt, vt, attn_mask=mask, is_causal=mode == "causal",
+                enable_gqa=nh != nkv))
         rows.append(row)
 
     rows.append(k2_row(torch, gen, device, rehearsal, timer, K2_CASE,
@@ -601,9 +648,10 @@ def k1_backward_phase(torch, device, rehearsal: bool, iters: int) -> dict:
     timer = None if rehearsal else Timer(torch, device, iters)
     rows = []
     for name, b, s, t, nh, nkv, hd, mode, lengths in K1_BACKWARD_CASES:
-        if rehearsal:
-            s, t = min(s, 9), 12
-            lengths = lengths and tuple(min(n, t) for n in lengths)
+        if rehearsal:   # key lengths scaled, so the key mask masks keys
+            full_t, s, t = t, min(s, 9), 12
+            lengths = lengths and tuple(max(1, n * t // full_t)
+                                        for n in lengths)
         q, k, v, kw, vis = k1_inputs(torch, gen, device, b, s, t, nh, nkv,
                                      hd, mode, lengths=lengths)
         dout = torch.randn(q.shape, generator=gen, device=device).to(q.dtype)
@@ -640,6 +688,13 @@ def k1_backward_phase(torch, device, rehearsal: bool, iters: int) -> dict:
             if row["no_causal_mutant_err_over_tol"] <= 1:
                 raise SystemExit(f"K1 backward {name}: the tolerance passes "
                                  "a backward without the causal mask")
+        elif "kv_mask" in kw:
+            # control: a backward without the key mask must fail
+            mutant = grads(attention.attend_plain, kv_mask=None)
+            row["no_key_mask_mutant_err_over_tol"] = over_tol(mutant, want)
+            if row["no_key_mask_mutant_err_over_tol"] <= 1:
+                raise SystemExit(f"K1 backward {name}: the tolerance passes "
+                                 "a backward without the key mask")
         if timer is not None:
             leaves = [x.detach().requires_grad_() for x in (q, k, v)]
             out = flash.flash_attention(*leaves, **kw)
@@ -3397,20 +3452,7 @@ def train_reference_phase(torch, device, rehearsal: bool, seed: int) -> None:
 
     got_loss, got = loss_and_grads(dut, device)
     want_loss, want = loss_and_grads(ref, cpu)
-
-    def flat(tree, prefix=""):
-        for k, v in tree.items():
-            if isinstance(v, dict):
-                yield from flat(v, f"{prefix}{k}/")
-            else:
-                yield prefix + k, v
-
-    got, want = dict(flat(got)), dict(flat(want))
-    norms = {k: float(np.linalg.norm(w)) for k, w in want.items()}
-    floor = 1e-3 * max(norms.values())
-    errs = {k: float(np.linalg.norm(got[k] - w)) / max(norms[k], floor)
-            for k, w in want.items()}
-    worst = sorted(errs.items(), key=lambda kv: -kv[1])[:5]
+    errs = _leaf_errors(got, want)
     rel_loss = abs(got_loss - want_loss) / abs(want_loss)
     result = {"phase": "reference", "model": "train", "weights": "bf16",
               "preset": "tiny-test" if rehearsal else TRAIN_PRESET,
@@ -3419,16 +3461,13 @@ def train_reference_phase(torch, device, rehearsal: bool, seed: int) -> None:
                         "code_tokens": [int(x) for x in (
                             batch["labels"] != -100).sum(-1)]},
               "loss": got_loss, "loss_fp32": want_loss,
-              "loss_rel_err": rel_loss, "leaves": len(errs),
-              "grad_rel_l2_max": worst[0][1],
-              "grad_rel_l2_median": float(np.median(list(errs.values()))),
-              "worst_leaves": worst,
+              "loss_rel_err": rel_loss, **errs,
               "tolerance": f"loss {TRAIN_REF_LOSS_TOL} relative; each "
                            f"leaf's gradient {TRAIN_REF_GRAD_TOL} relative "
                            "L2 (norm floor 1e-3 of the largest leaf's)"}
     emit(result)
     if not (np.isfinite(got_loss) and rel_loss <= TRAIN_REF_LOSS_TOL
-            and worst[0][1] <= TRAIN_REF_GRAD_TOL):
+            and errs["grad_rel_l2_max"] <= TRAIN_REF_GRAD_TOL):
         raise SystemExit(f"training gradients on the card disagree with "
                          f"the fp32 reference: {result}")
 
@@ -3708,10 +3747,608 @@ def pretrain_phase(torch, device, rehearsal: bool, seed: int, params, cfg,
         raise SystemExit(f"pretrain: {result}")
 
 
+# ------------------------------------------------------------ post-training
+
+
+class GradCapture:
+    """An optimizer with ``train.step.AdamW``'s interface that keeps the
+    gradients a step hands it and changes nothing: the reference rows read
+    a step's gradients through it."""
+
+    def __init__(self):
+        self.grads = {}
+
+    def init(self, params) -> dict:
+        return {}
+
+    def update(self, params, grads, state) -> dict:
+        self.grads = dict(grads)
+        return state
+
+
+def _leaf_errors(got: dict, want: dict) -> dict:
+    """Per-leaf relative L2 error of two JAX-layout gradient trees (numpy),
+    each leaf against the larger of its fp32 norm and 1e-3 of the largest
+    leaf's norm: the worst five, the largest and the median."""
+    import numpy as np
+
+    def flat(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from flat(v, f"{prefix}{k}/")
+            else:
+                yield prefix + k, v
+
+    got, want = dict(flat(got)), dict(flat(want))
+    norms = {k: float(np.linalg.norm(w)) for k, w in want.items()}
+    floor = 1e-3 * max(norms.values())
+    errs = {k: float(np.linalg.norm(got[k] - w)) / max(norms[k], floor)
+            for k, w in want.items()}
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])[:5]
+    return {"leaves": len(errs), "grad_rel_l2_max": worst[0][1],
+            "grad_rel_l2_median": float(np.median(list(errs.values()))),
+            "worst_leaves": worst}
+
+
+def made_up_captions(n: int, seed: int) -> list:
+    """Short captions of the kind TikZero's training pairs carry."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    kinds = ("bar chart", "line plot", "scatter plot", "flow diagram",
+             "tree", "graph", "circuit", "grid")
+    things = ("three machines", "rollouts per minute", "two groups",
+              "a binary search", "the training loss", "six nodes")
+    return [f"a {kinds[int(rng.integers(len(kinds)))]} of "
+            f"{things[int(rng.integers(len(things)))]}"
+            + " with a legend" * int(rng.integers(2)) for _ in range(n)]
+
+
+def posttrain_reference_phase(torch, device, rehearsal: bool,
+                              seed: int) -> None:
+    """The post-training paths on the card (bf16 weights, K1 forward, its
+    recompute backward) against the same weights on the host CPU (fp32,
+    plain versions), at full width cut to 2 layers, each through its own
+    step with ``GradCapture``: ``adapter`` -- the distillation loss and
+    every adapter leaf's gradient (``adapter_to_numpy``) at
+    ``tikzero-adapter`` (the tower's 2 layers with their cross-attention
+    blocks, 2 figures, two captions' hidden states at Llama-3.2-1B's
+    width with a key mask); ``grpo`` -- the GRPO loss (KL term on) and
+    every trainable leaf's gradient (``params_to_numpy``: the connector
+    and the decoder; the tower is frozen) at ``detikzify-ds-1.3b`` 2 + 2
+    layers, 2 rollouts of 32 tokens after the 300 image tokens, the tower's
+    features computed on each side. Held within ``TRAIN_REF_LOSS_TOL``
+    and ``TRAIN_REF_GRAD_TOL`` as the training reference is."""
+    import copy
+
+    import numpy as np
+
+    from detikzify_torch.models import convert, detikzify
+    from detikzify_torch.processing import preprocess_image
+    from detikzify_torch.train.adapter import (DistillLossConfig,
+                                               DistillState,
+                                               make_distill_step)
+    from detikzify_torch.train.grpo import (GRPOConfig, GRPOState,
+                                            make_grpo_step,
+                                            make_refine_optimizer,
+                                            sequence_logprobs)
+
+    cpu = torch.device("cpu")
+    dut_dtype = torch.float32 if rehearsal else torch.bfloat16
+    rng = np.random.default_rng(seed + 13)
+
+    def held(result, got_loss, want_loss, got, want):
+        result.update(loss=got_loss, loss_fp32=want_loss,
+                      loss_rel_err=abs(got_loss - want_loss) / abs(want_loss),
+                      **_leaf_errors(got, want),
+                      tolerance=f"loss {TRAIN_REF_LOSS_TOL} relative; each "
+                                f"leaf's gradient {TRAIN_REF_GRAD_TOL} "
+                                "relative L2 (norm floor 1e-3 of the "
+                                "largest leaf's)")
+        emit(result)
+        if not (np.isfinite(got_loss)
+                and result["loss_rel_err"] <= TRAIN_REF_LOSS_TOL
+                and result["grad_rel_l2_max"] <= TRAIN_REF_GRAD_TOL):
+            raise SystemExit(f"{result['model']} gradients on the card "
+                             f"disagree with the fp32 reference: {result}")
+
+    # --- adapter distillation
+    base, _ = tikzero_configs(rehearsal)
+    cfg = base.replace(vision=base.vision.replace(num_hidden_layers=2))
+    g = torch.Generator().manual_seed(seed + 13)
+    vision = convert.init_random_siglip_vision(cfg.vision, device=cpu,
+                                               dtype=torch.float32,
+                                               generator=g)
+    adapter = convert.init_random_adapter(cfg.vision, cfg.adapter,
+                                          device=cpu, dtype=torch.float32,
+                                          generator=g)
+    with torch.no_grad():       # gates off zero, one value a block
+        for i, blk in enumerate(adapter.layers):
+            blk.attn_gate.fill_(0.5 - i)
+            blk.mlp_gate.fill_(i - 0.5)
+    size = cfg.vision.image_size
+    figs = synthetic_figures(2, seed + 13)
+    t = 24
+    mask = np.zeros((2, t), bool)
+    mask[0], mask[1, :13] = True, True
+    batch = {"teacher_pixels": np.stack([preprocess_image(f, size)
+                                         for f in figs]),
+             "student_pixels": 0.25 * np.stack([preprocess_image(f, size)
+                                                for f in figs[::-1]]),
+             "caption_hidden": rng.standard_normal(
+                 (2, t, cfg.adapter.embedding_hidden_size)).astype(
+                     np.float32),
+             "caption_mask": mask}
+
+    def distill(vision, adapter, dev):
+        adapter.requires_grad_(True)
+        cap = GradCapture()
+        step = make_distill_step(cfg, vision, cap, DistillLossConfig())
+        _, m = step(DistillState(adapter, {}, 0),
+                    {k: torch.from_numpy(v).to(dev)
+                     for k, v in batch.items()})
+        adapter.requires_grad_(False)
+        return float(m["loss"]), convert.adapter_to_numpy(adapter,
+                                                          cap.grads)
+
+    dut = (copy.deepcopy(vision).to(device, dut_dtype),
+           copy.deepcopy(adapter).to(device, dut_dtype))
+    got_loss, got = distill(*dut, device)
+    want_loss, want = distill(vision, adapter, cpu)
+    held({"phase": "reference", "model": "adapter", "weights": "bf16",
+          "preset": "tiny-test" if rehearsal else "tikzero-adapter",
+          "layers": {"vision": 2, "cross_attention": 2},
+          "batch": {"B": 2, "caption_tokens": [t, 13]}},
+         got_loss, want_loss, got, want)
+    del dut, vision, adapter
+
+    # --- GRPO
+    cfg = _train_config(rehearsal, layers=2)
+    ref = convert.init_random(cfg, device=cpu, dtype=torch.float32,
+                              generator=torch.Generator().manual_seed(
+                                  seed + 17))
+    seq, n_new = cfg.image_seq_len, 32 if not rehearsal else 8
+    tokens = np.full((2, seq + n_new), cfg.pad_token_id, np.int32)
+    tokens[:, :seq] = cfg.image_token_id
+    tokens[:, seq:] = rng.integers(0, 256, (2, n_new))
+    comp = np.zeros(tokens.shape, bool)
+    comp[0, seq:] = True
+    comp[1, seq:seq + n_new // 2] = True
+    tokens[1, seq + n_new // 2:] = cfg.pad_token_id
+    pix = preprocess_image(synthetic_figures(1, seed + 17)[0],
+                           cfg.vision.image_size)[None]
+    gcfg = GRPOConfig(beta=0.04)
+
+    def grpo(params, dev):
+        make_refine_optimizer(params, gcfg)     # trainable: all but vision
+        cap = GradCapture()
+        step = make_grpo_step(cfg, cap, gcfg)
+        tb = {"tokens": torch.from_numpy(tokens).to(dev),
+              "completion_mask": torch.from_numpy(comp).to(dev),
+              "advantages": torch.tensor([1.0, -0.5], device=dev)}
+        with torch.no_grad():
+            feats = detikzify.vision_features(
+                params, cfg, torch.from_numpy(pix).to(dev))
+            tb["vision_feats"] = feats.expand(2, *feats.shape[1:])
+            tb["ref_logprobs"] = sequence_logprobs(
+                params, cfg, tb["tokens"], None, tb["completion_mask"],
+                image_embeds=detikzify.connector(
+                    params, tb["vision_feats"], cfg.concat_factor)) - 0.05
+        _, m = step(GRPOState(params, {}, 0), tb)
+        params.requires_grad_(False)
+        tree = convert.params_to_numpy(params, cap.grads)
+        del tree["vision"]                      # frozen: no gradient
+        return float(m["loss"]), tree
+
+    dut = copy.deepcopy(ref).to(device=device, dtype=dut_dtype)
+    got_loss, got = grpo(dut, device)
+    want_loss, want = grpo(ref, cpu)
+    held({"phase": "reference", "model": "grpo", "weights": "bf16",
+          "preset": "tiny-test" if rehearsal else TRAIN_PRESET,
+          "layers": {"vision": 2, "text": 2},
+          "batch": {"B": 2, "S": int(tokens.shape[1]),
+                    "completion_tokens": [int(x) for x in comp.sum(-1)]}},
+         got_loss, want_loss, got, want)
+    del dut, ref
+    _free(torch, rehearsal)
+
+
+def tikzero_train_weights(torch, device, rehearsal: bool, seed: int):
+    """``tikzero-adapter`` at full width, random bf16 weights drawn on the
+    card: the tower (SigLIP so400m at 420 px) at its full 27 layers, the
+    decoder (Llama-3.1-8B's widths) cut to ``TIKZERO_PLUS_LAYERS``, the
+    adapter (0.41 B) and a caption model at Llama-3.2-1B's widths (16
+    layers, 1.24 B). Returns (params, cfg, bundle, processor): the
+    processor an ``AdapterProcessor`` over ``smoke_tokenizer``, which the
+    caption model reads too."""
+    from detikzify_torch.models import convert
+    from detikzify_torch.models.embedding import AdapterBundle
+    from detikzify_torch.processing import ByteTokenizer, DetikzifyProcessor
+    from detikzify_torch.processing_adapter import AdapterProcessor
+
+    cfg, ecfg = tikzero_configs(rehearsal)
+    if not rehearsal:
+        cfg = cfg.replace(text=cfg.text.replace(
+            num_hidden_layers=TIKZERO_PLUS_LAYERS))
+    dtype = torch.float32 if rehearsal else torch.bfloat16
+    gen = torch.Generator(device=device).manual_seed(seed + 301)
+    params = convert.init_random(cfg, device=device, dtype=dtype,
+                                 generator=gen)
+    adapter = convert.init_random_adapter(cfg.vision, cfg.adapter,
+                                          device=device, dtype=dtype,
+                                          generator=gen)
+    embed = convert.init_random_llama(ecfg, device=device, dtype=dtype,
+                                      generator=gen)
+    tok = smoke_tokenizer(ByteTokenizer, cfg)
+    bundle = AdapterBundle(adapter, cfg.adapter, embed, ecfg, tok)
+    processor = AdapterProcessor(DetikzifyProcessor(tok, cfg), tok)
+    return params, cfg, bundle, processor
+
+
+def _timed_steps(torch, module, name: str, rehearsal: bool, record):
+    """Patch ``module.<name>`` (a step factory) so each step it makes is
+    timed on a synchronised clock and handed to ``record(state, batch,
+    metrics, seconds, step_fn)``; returns the undo."""
+    real = getattr(module, name)
+
+    def factory(*a, **kw):
+        fn = real(*a, **kw)
+
+        def step(state, batch):
+            if not rehearsal:
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, metrics = fn(state, batch)
+            if not rehearsal:
+                torch.cuda.synchronize()
+            record(state, batch, metrics, time.perf_counter() - t, fn)
+            return state, metrics
+        return step
+
+    setattr(module, name, factory)
+    return lambda: setattr(module, name, real)
+
+
+def _peak(torch, rehearsal: bool) -> dict:
+    return {} if rehearsal else {
+        "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+
+
+def adapter_pretrain_phase(torch, device, rehearsal: bool, seed: int,
+                           params, cfg, bundle) -> None:
+    """``pretrain_adapter`` at ``tikzero-adapter``, full width and depth:
+    ``DISTILL_FIGURES`` synthetic figures with made-up captions, micro and
+    batch ``DISTILL_MICRO``, one epoch (2 steps; the first at the warmup's
+    learning rate 0). Per step: seconds, the loss and its four terms, peak
+    memory; one more step profiled. Fails on a non-finite loss, an adapter
+    that did not move, or a tower or caption model that changed."""
+    import math
+    import shutil
+    import tempfile
+
+    from detikzify_torch.train.adapter import pretrain_adapter
+
+    # the package's ``pretrain`` is the function, as in the JAX package
+    pretrain_mod = importlib.import_module(
+        "detikzify_torch.train.adapter.pretrain")
+
+    adapter = bundle.adapter_params
+    tower0 = {k: v.clone() for k, v in params.vision.state_dict().items()}
+    caption0 = {k: v.clone()
+                for k, v in bundle.embed_params.state_dict().items()}
+    watch = adapter.layers[0].attn.q.weight
+    start = watch.detach().clone()
+    data = [{"image": f, "text": c} for f, c in zip(
+        synthetic_figures(DISTILL_FIGURES, seed + 311),
+        made_up_captions(DISTILL_FIGURES, seed + 311))]
+    steps, last = [], {}
+
+    def record(state, batch, metrics, seconds, fn):
+        steps.append({"step": len(steps) + 1, "wall_s": seconds,
+                      "caption_tokens": int(batch["caption_mask"].shape[1]),
+                      **{k: float(metrics[k]) for k in
+                         ("loss", "pool", "avg", "patch", "layer")},
+                      **_peak(torch, rehearsal)})
+        last.update(state=state, batch=batch, fn=fn)
+
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    undo = _timed_steps(torch, pretrain_mod, "make_distill_step", rehearsal,
+                        record)
+    out = tempfile.mkdtemp(prefix="adapter_pretrain_", dir=build)
+    if not rehearsal:
+        torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        pretrain_adapter(out, bundle, cfg, params.vision, data,
+                         batch_size=DISTILL_MICRO,
+                         micro_batch_size=DISTILL_MICRO, epochs=1,
+                         seed=seed, log_fn=lambda m: None)
+        seconds = time.perf_counter() - t0
+        ckpts = sorted(os.listdir(out))
+    finally:
+        undo()
+        shutil.rmtree(out, ignore_errors=True)
+    result = {"phase": "adapter_pretrain", "preset": "tiny-test"
+              if rehearsal else "tikzero-adapter",
+              "adapter_parameters": sum(p.numel()
+                                        for p in adapter.parameters()),
+              "caption_model_parameters": sum(
+                  p.numel() for p in bundle.embed_params.parameters()),
+              "figures": DISTILL_FIGURES, "micro_batch": DISTILL_MICRO,
+              "seconds": seconds, "steps": steps, "checkpoints": ckpts,
+              "adapter_moved_max_abs": float(
+                  (watch.detach().float() - start.float()).abs().max())}
+    if not rehearsal:
+        adapter.requires_grad_(True)
+        try:
+            result["profile"] = _profile_step(
+                torch, lambda: last["fn"](last["state"], last["batch"]))
+        finally:
+            adapter.requires_grad_(False)
+    result["tower_changed_tensors"] = sum(
+        not torch.equal(v, tower0[k])
+        for k, v in params.vision.state_dict().items())
+    result["caption_model_changed_tensors"] = sum(
+        not torch.equal(v, caption0[k])
+        for k, v in bundle.embed_params.state_dict().items())
+    del tower0, caption0, last
+    _free(torch, rehearsal)
+    emit(result)
+    if (len(steps) != 2 or not all(math.isfinite(s["loss"]) for s in steps)
+            or result["adapter_moved_max_abs"] <= 0
+            or result["tower_changed_tensors"]
+            or result["caption_model_changed_tensors"]
+            or ckpts != ["checkpoint-2"]):
+        raise SystemExit(f"adapter_pretrain: {result}")
+
+
+def adapter_train_phase(torch, device, rehearsal: bool, seed: int, params,
+                        cfg, bundle, processor) -> None:
+    """``train_adapter_llm`` (TikZero+) at ``tikzero-adapter``, full width,
+    the decoder cut to ``TIKZERO_PLUS_LAYERS``: caption-conditioned on
+    ``TIKZERO_PLUS_ITEMS`` captions with ``generate_corpus`` programs and
+    no figure (the adapter's blank image), micro ``TIKZERO_PLUS_MICRO`` (2
+    steps), then the same in image mode with their figures (2 steps: a
+    run of one step has no cosine schedule, in the JAX package neither).
+    Per step: seconds,
+    tokens/s, peak memory. Fails unless only the returned text tower moved
+    and the caller's stayed as it was."""
+    import math
+    import shutil
+    import tempfile
+
+    from detikzify_torch.dataset.synthetic import generate_corpus
+    from detikzify_torch.train.adapter import train_adapter_llm
+
+    train_mod = importlib.import_module("detikzify_torch.train.adapter.train")
+
+    n = TIKZERO_PLUS_ITEMS
+    codes = generate_corpus(n, seed + 321)
+    captions = made_up_captions(n, seed + 321)
+    text0 = {k: v.clone() for k, v in params.text.state_dict().items()}
+    steps = []
+
+    def record(state, batch, metrics, seconds, fn):
+        tokens = int(batch["input_ids"].numel())
+        steps.append({"step": len(steps) + 1, "wall_s": seconds,
+                      "loss": float(metrics["loss"]), "tokens": tokens,
+                      "seq": int(batch["input_ids"].shape[1]),
+                      "tokens_per_s": tokens / seconds,
+                      **_peak(torch, rehearsal)})
+
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    undo = _timed_steps(torch, train_mod, "make_adapter_train_step",
+                        rehearsal, record)
+    out = tempfile.mkdtemp(prefix="adapter_train_", dir=build)
+    if not rehearsal:
+        torch.cuda.reset_peak_memory_stats()
+    runs = {}
+    try:
+        for mode, items, condition in (
+                ("caption_condition",
+                 [{"caption": c, "code": k} for c, k in zip(captions, codes)],
+                 True),
+                ("image", [{"caption": c, "code": k, "image": f}
+                           for c, k, f in zip(captions, codes,
+                                              synthetic_figures(n, seed))],
+                 False)):
+            n0, t0 = len(steps), time.perf_counter()
+            trained = train_adapter_llm(
+                os.path.join(out, mode), params, cfg, processor, bundle,
+                items, caption_condition=condition,
+                micro_batch_size=TIKZERO_PLUS_MICRO,
+                learning_rate=TIKZERO_PLUS_LR, seed=seed,
+                log_fn=lambda m: None)
+            runs[mode] = {
+                "seconds": time.perf_counter() - t0, "steps": steps[n0:],
+                "text_moved_max_abs": float(
+                    (trained.text.layers[0].mlp.down.weight.detach().float()
+                     - params.text.layers[0].mlp.down.weight.detach()
+                     .float()).abs().max()),
+                "shares_vision_and_connector": (
+                    trained.vision is params.vision
+                    and trained.connector is params.connector),
+                "returns_a_copy_of_text": trained.text is not params.text}
+            del trained
+            _free(torch, rehearsal)
+    finally:
+        undo()
+        shutil.rmtree(out, ignore_errors=True)
+    changed = sum(not torch.equal(v, text0[k])
+                  for k, v in params.text.state_dict().items())
+    del text0
+    _free(torch, rehearsal)
+    result = {"phase": "adapter_train", "preset": "tiny-test"
+              if rehearsal else "tikzero-adapter",
+              "decoder_layers": cfg.text.num_hidden_layers,
+              "parameters": sum(p.numel() for p in params.parameters()),
+              "micro_batch": TIKZERO_PLUS_MICRO, "runs": runs,
+              "callers_text_changed_tensors": changed}
+    emit(result)
+    ok = (changed == 0 and [len(r["steps"]) for r in runs.values()] == [2, 2]
+          and all(math.isfinite(s["loss"])
+                  for r in runs.values() for s in r["steps"])
+          and all(r["text_moved_max_abs"] > 0
+                  and r["shares_vision_and_connector"]
+                  and r["returns_a_copy_of_text"] for r in runs.values()))
+    if not ok:
+        raise SystemExit(f"adapter_train: {result}")
+
+
+def grpo_phase(torch, device, rehearsal: bool, seed: int, params, cfg,
+               processor) -> None:
+    """``refine`` (GRPO) on the train phase's ``detikzify-ds-1.3b`` (full
+    width and depth, bf16): ``SelfSimReward`` over ``FakeBackend`` renders
+    (``smoke_tokenizer`` makes each rollout a distinct program),
+    ``GRPO_GENERATIONS`` rollouts of ``GRPO_NEW_TOKENS`` for each of
+    ``GRPO_PROMPTS`` figures a step, ``GRPO_STEPS`` steps, the KL anchor
+    on and 2 updates a batch (the ref and old log-prob passes both run).
+    Per step: rollout seconds and tokens/s, reward and update seconds,
+    reward mean and max, loss, ratio, peak memory; one more update
+    profiled. Fails unless the rewards differ, the policy moved outside
+    the tower, and the caller's weights (the tower and the KL anchor)
+    stayed bit for bit."""
+    import numpy as np
+
+    from detikzify_torch.engine import DecodeEngine
+    from detikzify_torch.evaluate.imagesim import ImageSim
+    from detikzify_torch.infer import CompileService, FakeBackend
+    from detikzify_torch.models import detikzify
+    from detikzify_torch.ops.sampling import SamplingParams
+    from detikzify_torch.processing import preprocess_image
+    from detikzify_torch.train.grpo import (GRPOConfig, GRPOState,
+                                            SelfSimReward, make_grpo_step,
+                                            make_refine_optimizer, refine,
+                                            sequence_logprobs)
+
+    def sync():
+        if not rehearsal:
+            torch.cuda.synchronize()
+
+    new_tokens = 8 if rehearsal else GRPO_NEW_TOKENS
+    # refine's learning rate (1e-6): Adam's steps of ~1e-6 move only the
+    # bf16 weights below ~2.4e-4 in size, whose unit is below 2e-6
+    gcfg = GRPOConfig(num_generations=GRPO_GENERATIONS,
+                      max_new_tokens=new_tokens, beta=0.04,
+                      updates_per_batch=2)
+    engine = DecodeEngine(params, cfg, num_slots=min(GRPO_GENERATIONS, 16),
+                          max_len=cfg.image_seq_len + 2 + new_tokens,
+                          sampling=SamplingParams(), device=device,
+                          seed=seed)
+    before = {k: v.clone() for k, v in params.state_dict().items()}
+    figs = synthetic_figures(4, seed + 331)
+    selfsim = SelfSimReward(ImageSim.from_detikzify(params, cfg),
+                            CompileService(workers=4, backend=FakeBackend()))
+    steps, marks = [], {"t": time.perf_counter(),
+                        "tokens": engine.counters["decode_tokens"]}
+
+    def reward(images, codes):
+        t0 = time.perf_counter()
+        rewards = selfsim(images, codes)
+        sync()
+        tokens = engine.counters["decode_tokens"]
+        steps.append({"step": len(steps), "rollouts": len(codes),
+                      "rollout_s": t0 - marks["t"],
+                      "rollout_tokens": tokens - marks["tokens"],
+                      "rollout_tokens_per_s": (tokens - marks["tokens"])
+                      / (t0 - marks["t"]),
+                      "reward_s": time.perf_counter() - t0,
+                      "reward_mean": float(rewards.mean()),
+                      "reward_max": float(rewards.max()),
+                      "rewards": [float(r) for r in rewards]})
+        marks["t"] = time.perf_counter()
+        return rewards
+
+    def log(line):
+        sync()
+        now = time.perf_counter()
+        steps[-1].update(update_s=now - marks["t"],
+                         loss=float(line.split("loss ")[1].split(",")[0]),
+                         ratio=float(line.split("ratio ")[1]),
+                         **_peak(torch, rehearsal))
+        marks.update(t=now, tokens=engine.counters["decode_tokens"])
+
+    if not rehearsal:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    policy = refine(params, cfg, processor, figs, reward, gcfg=gcfg,
+                    engine=engine, steps=GRPO_STEPS,
+                    prompts_per_step=GRPO_PROMPTS, seed=seed, log_fn=log)
+    seconds = time.perf_counter() - t0
+    selfsim.compiler.shutdown()
+    result = {"phase": "grpo", "preset": "tiny-test" if rehearsal
+              else TRAIN_PRESET, "seconds": seconds,
+              "num_generations": GRPO_GENERATIONS,
+              "max_new_tokens": new_tokens, "prompts_per_step": GRPO_PROMPTS,
+              "learning_rate": gcfg.learning_rate, "beta": gcfg.beta,
+              "updates_per_batch": gcfg.updates_per_batch, "steps": steps,
+              "distinct_rewards": len({r for s in steps
+                                       for r in s["rewards"]}),
+              "text_moved_max_abs": float(
+                  (policy.text.layers[0].mlp.down.weight.detach().float()
+                   - params.text.layers[0].mlp.down.weight.detach().float())
+                  .abs().max()),
+              "text_moved_share": float(
+                  (policy.text.layers[0].mlp.down.weight
+                   != params.text.layers[0].mlp.down.weight).float().mean()),
+              "connector_moved_max_abs": float(
+                  (policy.connector.proj.weight.detach().float()
+                   - params.connector.proj.weight.detach().float())
+                  .abs().max()),
+              "shares_vision": policy.vision is params.vision,
+              "engine_samples_the_policy": engine.params is policy}
+    if not rehearsal:
+        # one more update at refine's shape, profiled
+        b = GRPO_PROMPTS * GRPO_GENERATIONS
+        width = cfg.image_seq_len + new_tokens
+        rng = np.random.default_rng(seed)
+        tokens = np.full((b, width), cfg.image_token_id, np.int32)
+        tokens[:, cfg.image_seq_len:] = rng.integers(0, 256, (b, new_tokens))
+        comp = np.zeros(tokens.shape, bool)
+        comp[:, cfg.image_seq_len:] = True
+        opt = make_refine_optimizer(policy, gcfg)
+        with torch.no_grad():
+            feats = detikzify.vision_features(policy, cfg, torch.from_numpy(
+                preprocess_image(figs[0], cfg.vision.image_size))[None].to(
+                    device))
+        batch = {"tokens": torch.from_numpy(tokens).to(device),
+                 "completion_mask": torch.from_numpy(comp).to(device),
+                 "advantages": torch.from_numpy(rng.standard_normal(b).astype(
+                     np.float32)).to(device),
+                 "vision_feats": feats.expand(b, *feats.shape[1:])}
+        with torch.no_grad():
+            batch["ref_logprobs"] = sequence_logprobs(
+                policy, cfg, batch["tokens"], None, batch["completion_mask"],
+                image_embeds=detikzify.connector(policy, batch["vision_feats"],
+                                                 cfg.concat_factor))
+        state = GRPOState(policy, opt.init(policy), 0)
+        step = make_grpo_step(cfg, opt, gcfg)
+        result["profile"] = _profile_step(torch, lambda: step(state, batch))
+        policy.requires_grad_(False)
+        del opt, state, step, batch
+    result["callers_changed_tensors"] = sum(
+        not torch.equal(v, before[k]) for k, v in params.state_dict().items())
+    del before, policy, engine
+    _free(torch, rehearsal)
+    emit(result)
+    if (result["distinct_rewards"] < 2 or result["text_moved_max_abs"] <= 0
+            or result["connector_moved_max_abs"] <= 0
+            or not result["shares_vision"]
+            or not result["engine_samples_the_policy"]
+            or result["callers_changed_tensors"]
+            or len(steps) != GRPO_STEPS
+            or not all(np.isfinite(s["loss"]) for s in steps)):
+        raise SystemExit(f"grpo: {result}")
+
+
 def training_phases(torch, device, rehearsal: bool, seed: int) -> dict:
-    """K1's backward, the training reference, then ``train`` (the step and
-    the ``Trainer``) and ``pretrain``, each path's launches counted from 0
-    just before it and read just after."""
+    """The training reference, then ``train`` (the step and the
+    ``Trainer``) and ``pretrain``; the post-training reference, ``grpo`` on
+    the same weights, then ``adapter_pretrain`` and ``adapter_train`` on
+    ``tikzero-adapter``'s. Each path's launches are counted from 0 just
+    before it and read just after."""
     from detikzify_torch.ops import launch_counts, reset_launch_counts
 
     train_reference_phase(torch, device, rehearsal, seed)
@@ -3722,14 +4359,33 @@ def training_phases(torch, device, rehearsal: bool, seed: int) -> dict:
     reset_launch_counts()
     pretrain_phase(torch, device, rehearsal, seed, params, cfg, processor)
     paths["pretrain"] = launch_counts()
+    posttrain_reference_phase(torch, device, rehearsal, seed)
+    reset_launch_counts()
+    grpo_phase(torch, device, rehearsal, seed, params, cfg, processor)
+    paths["grpo"] = launch_counts()
     del params
+    _free(torch, rehearsal)
+    params, cfg, bundle, processor = tikzero_train_weights(
+        torch, device, rehearsal, seed)
+    reset_launch_counts()
+    adapter_pretrain_phase(torch, device, rehearsal, seed, params, cfg,
+                           bundle)
+    paths["adapter_pretrain"] = launch_counts()
+    reset_launch_counts()
+    adapter_train_phase(torch, device, rehearsal, seed, params, cfg, bundle,
+                        processor)
+    paths["adapter_train"] = launch_counts()
+    del params, bundle
     _free(torch, rehearsal)
     if not rehearsal:
         for path, counts in paths.items():
             if counts["flash_attention"] <= 0:
                 raise SystemExit(f"{path} never launched flash_attention")
-            for name in ("paged_decode", "decode_contig", "paged_verify",
-                         "int8_gemv"):
+            # GRPO's rollouts decode through the page pool (K2)
+            if (counts["paged_decode"] > 0) != (path == "grpo"):
+                raise SystemExit(f"{path} launched paged_decode "
+                                 f"{counts['paged_decode']} times")
+            for name in ("decode_contig", "paged_verify", "int8_gemv"):
                 if counts[name] != 0:
                     raise SystemExit(f"{path} launched {name}")
     emit({"phase": "training_launches", **paths})
@@ -3755,6 +4411,8 @@ def main(argv=None) -> int:
     ap.add_argument("--skip-main", action="store_true",
                     help="build and hold the kernels only")
     args = ap.parse_args(argv)
+    # a crash in native code prints every thread's Python stack
+    faulthandler.enable(all_threads=True)
 
     if not (ROOT / "detikzify_torch" / "csrc").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -3856,4 +4514,12 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    code = main()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    # The result is printed and every process the script started has
+    # ended. Skip the interpreter's teardown: it runs the static
+    # destructors of the CUDA runtimes (PyTorch's and the one linked into
+    # each kernel library) and of the profiler's CUPTI, which the check
+    # does not measure and whose order is not fixed.
+    os._exit(code)

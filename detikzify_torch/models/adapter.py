@@ -10,6 +10,11 @@ states (Llama-3.2-1B's 2048) into the vision width, and (c) a learnable
 ``dummy_input`` image ``[H, W, C]`` for generation from a caption alone.
 The blocks' q/k/v/o and MLP products and the connector are ``nn.Linear``
 (cuBLAS on the card); their attention is kernel K1 with a key mask.
+
+An ``Adapter`` is built frozen (no leaf requires a gradient). Adapter
+distillation (``train.adapter.pretrain.pretrain_adapter``) is the one
+place that trains it: it switches every leaf on for its run and off again
+at the end; TikZero+ and inference keep it frozen.
 """
 from __future__ import annotations
 
@@ -59,7 +64,8 @@ class Adapter(nn.Module):
                  device="cuda", dtype=torch.bfloat16):
         """Allocates on ``device`` WITHOUT initialising: build through
         ``convert.init_random_adapter``, ``convert.adapter_from_numpy`` or
-        ``import_hf.import_adapter``. Inference only."""
+        ``import_hf.import_adapter``. Frozen: distillation switches the
+        leaves on (``train.adapter.pretrain``)."""
         super().__init__()
         kw = dict(device="meta", dtype=dtype)
         self.layers = nn.ModuleList(

@@ -16,7 +16,8 @@ a bare JAX ``llama.init`` tree (the TikZero caption model) into a
 tree (ClipScore's text tower) into a ``siglip.SiglipText``.
 ``params_to_numpy`` is the inverse of ``params_from_numpy``: the port's
 weights (or any tensors keyed by them, such as their gradients) as the JAX
-tree of numpy arrays. ``leaves`` lists that tree's leaves with the port
+tree of numpy arrays, and ``adapter_to_numpy`` that of
+``adapter_from_numpy``. ``leaves`` lists that tree's leaves with the port
 tensors behind each: one tensor, or one a layer of a stacked leaf.
 """
 from __future__ import annotations
@@ -315,3 +316,14 @@ def params_to_numpy(params: nn.Module,
             node = node.setdefault(key, {})
         node[last] = np.ascontiguousarray(arr)
     return tree
+
+
+def adapter_to_numpy(adapter: Adapter,
+                     values: Optional[Mapping[torch.Tensor, torch.Tensor]]
+                     = None) -> Dict:
+    """The inverse of ``adapter_from_numpy``: the adapter (or, through
+    ``values``, its gradients or any tensors keyed by its weights) as the
+    JAX adapter tree, ``layers`` stacked ``[L, ...]``, dense kernels
+    ``[in, out]``. ``adapter_from_numpy`` of the result gives the adapter
+    back bit for bit."""
+    return params_to_numpy(adapter, values)

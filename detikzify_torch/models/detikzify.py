@@ -53,6 +53,16 @@ class Params(nn.Module):
         self.to_empty(device=device)
         self.requires_grad_(False)
 
+    @classmethod
+    def of(cls, vision: nn.Module, connector: nn.Module,
+           text: nn.Module) -> "Params":
+        """``Params`` over existing parts, sharing their tensors (the JAX
+        ``Params(vision=..., connector=..., text=...)``)."""
+        params = cls.__new__(cls)
+        nn.Module.__init__(params)
+        params.vision, params.connector, params.text = vision, connector, text
+        return params
+
     @property
     def device(self) -> torch.device:
         return self.text.embed_tokens.device

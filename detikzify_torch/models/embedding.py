@@ -9,6 +9,14 @@ caption's padding mask as K1's key mask and positions ``cumsum(mask) - 1``
 (captions are padded on the right). Any ``(llama.Llama, TextConfig)`` pair
 works: the tests use a tiny random one, ``load.load_adapter`` imports a
 checkpoint through ``import_hf.import_text``.
+
+The caption model is frozen everywhere: ``embed_captions`` and
+``adapter_inputs`` run under ``torch.no_grad()``, so they build no graph.
+Not under ``torch.inference_mode()``: its outputs are inference tensors,
+which autograd refuses to save for a backward, and adapter distillation
+(``train.adapter.pretrain``) and TikZero+ (``train.adapter.train``) feed
+them into a computation that trains (the adapter's connector, K1's key
+mask).
 """
 from __future__ import annotations
 
@@ -56,7 +64,7 @@ class AdapterBundle:
     def tokenize(self, texts) -> tuple:
         return pad_right(self.tokenizer, texts, self.max_length)
 
-    @torch.inference_mode()
+    @torch.no_grad()
     def embed_captions(self, texts) -> tuple:
         """texts -> (caption hidden states [B, T, De], mask [B, T] bool),
         on the caption model's device."""
@@ -69,7 +77,7 @@ class AdapterBundle:
                                attention_mask=mask)
         return hidden, mask
 
-    @torch.inference_mode()
+    @torch.no_grad()
     def adapter_inputs(self, texts) -> AdapterInputs:
         hidden, mask = self.embed_captions(texts)
         return make_inputs(self.adapter_params, self.adapter_cfg, hidden,

@@ -16,10 +16,11 @@ import json
 import os
 import re
 import shutil
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..models.convert import params_to_numpy
 from .step import TrainState
@@ -51,13 +52,18 @@ class Checkpointer:
         os.makedirs(self.output_dir, exist_ok=True)
         self.max_to_keep = max_to_keep
 
-    def save(self, step: int, state: TrainState,
+    def save(self, step: int, state: Union[TrainState, nn.Module],
              meta: Optional[Dict[str, Any]] = None) -> str:
+        """Save a ``TrainState``, or a module's weights alone (the
+        post-training loops save the part they train)."""
         path = _ckpt_dir(self.output_dir, step)
         os.makedirs(path, exist_ok=True)
-        torch.save({"params": state.params.state_dict(),
-                    "opt_state": state.opt_state, "step": state.step},
-                   os.path.join(path, "state.pt"))
+        if isinstance(state, nn.Module):
+            blob = {"params": state.state_dict(), "step": step}
+        else:
+            blob = {"params": state.params.state_dict(),
+                    "opt_state": state.opt_state, "step": state.step}
+        torch.save(blob, os.path.join(path, "state.pt"))
         # meta.json is the completeness marker get_last_checkpoint keys on:
         # written only once the state is on disk
         with open(os.path.join(path, "meta.json"), "w") as f:

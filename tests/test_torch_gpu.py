@@ -840,6 +840,9 @@ def test_native_library_builds_and_loads(cuda):
     (2, 640, 640, 16, 16, 128, True, (640, 523)),     # the decoder's step
     (2, 900, 900, 16, 16, 72, False, None),            # the tower's
     (2, 129, 200, 8, 2, 64, True, (200, 150)),         # GQA, S < T
+    # adapter distillation's cross-attention: 900 patches over 8 captions
+    # padded to 64 tokens
+    (8, 900, 64, 16, 16, 72, False, (64, 58, 51, 47, 40, 33, 26, 17)),
 ])
 def test_flash_attention_backward_on_card_matches_plain(cuda, b, s, t, nh,
                                                         nkv, hd, causal,
@@ -847,7 +850,7 @@ def test_flash_attention_backward_on_card_matches_plain(cuda, b, s, t, nh,
     """K1's Function on the card: forward by K1, backward by the plain
     version recomputed, within 2^-8 of each gradient's largest value of
     autograd through ``attend_plain``; a backward without the causal mask
-    falls outside."""
+    (or, without causality, the key mask) falls outside."""
     gen = torch.Generator(device=cuda).manual_seed(11)
     q, k, v = (_rnd(gen, cuda, b, s, nh, hd), _rnd(gen, cuda, b, t, nkv, hd),
                _rnd(gen, cuda, b, t, nkv, hd))
@@ -876,6 +879,9 @@ def test_flash_attention_backward_on_card_matches_plain(cuda, b, s, t, nh,
     assert within(got, want)
     if causal:
         _, mutant = grads(attention.attend_plain, causal=False)
+        assert not within(mutant, want)
+    elif lengths:
+        _, mutant = grads(attention.attend_plain, kv_mask=None)
         assert not within(mutant, want)
 
 

@@ -616,8 +616,10 @@ def test_chip_smoke_cpu_rehearsal():
     the v2 phases, the TikZero adapter's (``tikzero_sample``,
     ``tikzero_simulate``), the checkpoint round trip (``load``), the HTTP
     server (``serve``), the evaluation protocol (``evaluate``), the v1
-    family's phases and training (K1's backward, the training reference,
-    ``train``, ``trainer``, ``pretrain``)."""
+    family's phases, training (K1's backward, the training reference,
+    ``train``, ``trainer``, ``pretrain``) and post-training (the adapter
+    and GRPO references, ``grpo``, ``adapter_pretrain``,
+    ``adapter_train``)."""
     env = dict(os.environ, OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "chip_smoke.py", "--cpu-rehearsal",
                           "--max-new-tokens", "8"], cwd=ROOT, env=env,
@@ -633,7 +635,7 @@ def test_chip_smoke_cpu_rehearsal():
              "tikzero_simulate", "load", "simulate", "simulate_spec",
              "simulate_spec_gated", "serve", "evaluate_predict",
              "evaluate_score", "v1_sample", "v1_simulate", "train",
-             "pretrain"}
+             "pretrain", "grpo", "adapter_pretrain", "adapter_train"}
     assert all(set(row["launches_by_path"]) == paths for row in kernels)
     # the v1 family's kernel shapes sit beside the v2 ones
     row_names = {row["name"] for row in kernels}
@@ -645,6 +647,10 @@ def test_chip_smoke_cpu_rehearsal():
             for m in (1, 8)} <= row_names
     # and the TikZero adapter's: the cross-attention and the caption model
     assert {"flash_attention/cross", "flash_attention/caption"} <= row_names
+    # and post-training's: distillation's tower and cross-attention, GRPO's
+    # log-prob pass
+    assert {"flash_attention/distill_tower", "flash_attention/distill_cross",
+            "flash_attention/grpo_logprobs"} <= row_names
     phases, refs = {}, []
     for line in lines[:-2]:
         obj = json.loads(line)
@@ -653,7 +659,8 @@ def test_chip_smoke_cpu_rehearsal():
             refs.append((obj["model"], obj["weights"]))
     assert refs == [("v2", "bf16"), ("v2", "int8+fused"), ("v1", "bf16"),
                     ("v1", "int8+fused"), ("tikzero", "bf16"),
-                    ("clipscore", "bf16"), ("train", "bf16")]
+                    ("clipscore", "bf16"), ("train", "bf16"),
+                    ("adapter", "bf16"), ("grpo", "bf16")]
     tz = phases["tikzero_sample"]
     assert all(d["differing_entries"] == 0
                for d in tz["checkpoint"]["loaded_vs_written"].values())
@@ -674,7 +681,22 @@ def test_chip_smoke_cpu_rehearsal():
     assert phases["v1_simulate"]["rollouts"] == 8
     assert phases["v1_simulate"]["metric"] == "SelfSim cos"
     assert all(np.isfinite(phases["v1_simulate"]["scores"]))
+    # post-training: distillation trains the adapter alone, TikZero+ a copy
+    # of the decoder, GRPO a copy of the policy from distinct rewards
+    ap = phases["adapter_pretrain"]
+    assert len(ap["steps"]) == 2 and ap["checkpoints"] == ["checkpoint-2"]
+    assert ap["adapter_moved_max_abs"] > 0
+    assert ap["tower_changed_tensors"] == ap[
+        "caption_model_changed_tensors"] == 0
+    at = phases["adapter_train"]
+    assert at["callers_text_changed_tensors"] == 0
+    assert [len(r["steps"]) for r in at["runs"].values()] == [2, 2]
+    grpo = phases["grpo"]
+    assert len(grpo["steps"]) == 2 and grpo["distinct_rewards"] > 1
+    assert grpo["callers_changed_tensors"] == 0
+    assert grpo["text_moved_max_abs"] > 0
     # the temporary checkpoints are gone
+    assert not list((ROOT / "build").glob("adapter_*"))
     assert not list((ROOT / "build").glob("load_*"))
     assert not list((ROOT / "build").glob("v1_*"))
     assert not list((ROOT / "build").glob("tikzero_*"))
@@ -734,9 +756,11 @@ def test_chip_smoke_cpu_rehearsal():
     back = phases["k1_backward"]["rows"]
     assert [r["name"] for r in back] == [
         "flash_attention_backward/train_decoder",
-        "flash_attention_backward/train_vision"]
+        "flash_attention_backward/train_vision",
+        "flash_attention_backward/distill_cross"]
     assert all(r["max_err_over_tol"] <= 1 for r in back)
     assert back[0]["no_causal_mutant_err_over_tol"] > 1
+    assert back[2]["no_key_mask_mutant_err_over_tol"] > 1
     ref = [json.loads(line) for line in lines[:-2]
            if '"model": "train"' in line][0]
     assert ref["grad_rel_l2_max"] <= 5e-2 and ref["leaves"] > 0
