@@ -25,7 +25,11 @@ Phases, each printing one JSON line:
               over 4 rows of 640 with a key mask) and post-training's
               (K1 on adapter distillation's tower over 8 figures and its
               cross-attention over 8 key-masked captions, and on GRPO's
-              causal log-prob pass over 16 rollouts of 428 tokens),
+              causal log-prob pass over 16 rollouts of 428 tokens) and
+              the command line's (K2 over serve_bench's 16 DS-1.3b slots,
+              K5 at DS-1.3b's fused products at 16 rows and at v2-8b's
+              unfused k/v and gate/up products, which eval's int8 load
+              gives, at 8),
               and time kernel, plain version and the PyTorch library
               call (CUDA events, median of many launches, L2 flushed before
               each), next to the least time the card needs for the same
@@ -86,28 +90,47 @@ Phases, each printing one JSON line:
               searches (interleaved, one request beside them profiled), a
               token stream, /healthz, /metrics and a malformed request;
               latencies, rollouts/min, engine steps of the idle requests;
-15. evaluate -- the evaluation protocol of ``examples/eval.py`` on the
-              same int8 + fused weights: four test items (reference
-              programs, their renders, captions) predicted by
-              ``generate_until_compilable`` (fast mode, parallelism 8) into
-              a ``PredictionCache``, a second pass from the cache, one item
-              in model mode; then scored: compile rate, token efficiency,
-              sampling throughput, SelfSim, KID, CrystalBLEU, EED (native
-              library), DreamSim (the dreamsim package's ViT-B/16 ensemble
-              layout, random, through its ``.pth`` files and back through
+15. evaluate -- the evaluation protocol through the port's script,
+              ``detikzify_torch.examples.eval``: ``predict`` loads the
+              ``load`` phase's exported checkpoint int8 into a
+              ``ReplicaPool`` (one replica on the card) and predicts four
+              test items (reference programs, their renders, captions) by
+              ``generate_until_compilable`` (fast mode, parallelism 8)
+              into a ``PredictionCache``; a second ``predict`` takes them
+              from the cache; one item in model mode; then ``score``:
+              compile rate, token efficiency, sampling throughput,
+              SelfSim, KID, CrystalBLEU, EED (native library), DreamSim
+              (the dreamsim package's ViT-B/16 ensemble layout, random,
+              through its ``.pth`` files and back through
               ``save_ensemble``/``load_ensemble``), ClipScore (a random
               ``google/siglip-so400m-patch14-384`` two-tower written and
               loaded back in bf16), and the redacted variants;
-16. v1_sample -- random-weight ``detikzify-tl-1.1b`` at full width and
+16. replicas -- ``parallel.ReplicaPool`` on the int8 + fused weights, one
+              replica (``devices=None``) and two sharing ``cuda:0``:
+              ``map_until_compilable`` (fast mode), a greedy
+              ``map_sample`` held against one greedy pipeline, K2's
+              launches against the replicas' own decode steps; items/s,
+              peak memory;
+17. trace  -- ``utils.profiling.trace`` around one ``sample()`` of 32
+              tokens, its prefill annotated: the trace file holds the
+              annotation and K1's and K2's device functions;
+18. infer_cli -- ``detikzify_torch.examples.infer.main`` on the exported
+              bf16 checkpoint, two PNG paths on stdin: one-shot with
+              ``--output``, then ``--mcts``;
+19. serve_bench -- ``detikzify_torch.examples.serve_bench.main`` at its
+              DS-1.3b shape (zeros, int8 + fused, 16 slots, decode block
+              128), ``SERVE_BENCH_ARGV``'s requests and clients; the
+              export directory is deleted before it;
+20. v1_sample -- random-weight ``detikzify-tl-1.1b`` at full width and
               depth (the timm SigLIP tower at 384 px tapped at its
               second-to-last layer, TinyLlama) written as a v1 checkpoint
               and timm tower in the reference's names, loaded back by
               ``load_params(..., vision_tower=...)`` bit for bit, and driven
               as ``main`` drives v2-8b;
-17. v1_simulate -- the same checkpoint loaded with ``quantize=True`` and
+21. v1_simulate -- the same checkpoint loaded with ``quantize=True`` and
               fused, ``simulate()`` with 8 expansions and SelfSim (cos, as
               v1 pins it);
-18. k1_backward -- K1's backward at the training shapes (the decoder's
+22. k1_backward -- K1's backward at the training shapes (the decoder's
               causal pass with a key mask, the tower's 900 patches,
               distillation's key-masked cross-attention): the
               gradients through ``flash_attention`` (K1 forward, the plain
@@ -115,41 +138,41 @@ Phases, each printing one JSON line:
               version, a backward without the causal mask as a control
               that must fail; K1, recompute and SDPA forward/backward
               times;
-19. reference (train) -- ``detikzify-ds-1.3b`` at full width, 2 + 2
+23. reference (train) -- ``detikzify-ds-1.3b`` at full width, 2 + 2
               layers: loss and every leaf's gradient on the card (bf16,
               K1) against fp32 on the host CPU;
-20. train  -- ``detikzify-ds-1.3b`` at full width and depth, random bf16
+24. train  -- ``detikzify-ds-1.3b`` at full width and depth, random bf16
               weights: 3 steps at grad_accum 1 and 3 at 2, micro 4 x 640,
               remat, 8-bit Adam moments; loss, grad norm, seconds,
               tokens/s, TFLOP/s by 6 N T, peak memory, one step profiled
               (busy and idle share, K1's forward, the backward's
               recompute);
-21. trainer -- ``Trainer`` on those weights (AdamW, moments in bf16):
+25. trainer -- ``Trainer`` on those weights (AdamW, moments in bf16):
               8 synthetic figures, sketch ratio 0.5, 2 steps, a checkpoint
               under ``build/`` resumed bit for bit by a second trainer
               (GB, save and restore seconds), then deleted;
-22. pretrain -- ``pretrain()`` on those weights: only the connector
+26. pretrain -- ``pretrain()`` on those weights: only the connector
               moves, ``modality_projector.npz`` is read back by the
               loader's overlay;
-23. reference (adapter, grpo) -- at full width, 2 layers: the
+27. reference (adapter, grpo) -- at full width, 2 layers: the
               distillation loss and every adapter leaf's gradient
               (``tikzero-adapter``), the GRPO loss and every trainable
               leaf's gradient (``detikzify-ds-1.3b``), card bf16 against
               host fp32;
-24. grpo   -- ``refine()`` on the train phase's weights: SelfSim rewards
+28. grpo   -- ``refine()`` on the train phase's weights: SelfSim rewards
               over FakeBackend renders, 8 rollouts of 128 tokens for each
               of 2 figures a step, 2 steps, the KL anchor on, 2 updates a
               batch; rollout, reward and update seconds, one update
               profiled; the caller's weights unchanged;
-25. adapter_pretrain -- ``pretrain_adapter()`` at ``tikzero-adapter``,
+29. adapter_pretrain -- ``pretrain_adapter()`` at ``tikzero-adapter``,
               full width and depth (random tower, adapter and caption
               model): 16 figures, 2 steps of 8, one profiled; only the
               adapter moves;
-26. adapter_train -- ``train_adapter_llm()`` (TikZero+) on those weights
+30. adapter_train -- ``train_adapter_llm()`` (TikZero+) on those weights
               with the decoder cut to 8 of its 32 layers: 2 steps
               caption-conditioned, 2 in image mode; only a copy of the
               decoder trains;
-27. the ``kernels`` JSON line (launches on each path above, each counted
+31. the ``kernels`` JSON line (launches on each path above, each counted
    from 0 just before the path ran and read just after, and their sum;
    ``train`` counts the train and trainer phases), the nvidia-smi line,
    and as the last line ``{"ok": true, "device": {...}}``.
@@ -162,14 +185,17 @@ test suite and never prints a device result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import faulthandler
 import gc
 import importlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from typing import Optional
@@ -245,6 +271,27 @@ K5_V1_CASES = (
     ("v1_gateup", 2048, 11264, "bf16"), ("v1_down", 5632, 2048, "bf16"),
 )
 K5_V1_ROWS = (1, 8)
+# K5 at the evaluate phase's unfused int8 products (``examples/eval.py``'s
+# ``predict`` loads with quantize=True and does not fuse): k and v (N =
+# 1024), gate and up (N = 14336); q has o's shape. 8 rows, the slots
+K5_EVAL_CASES = (
+    ("unfused_k_v", 4096, 1024, "bf16"),
+    ("unfused_gate_up", 4096, 14336, "bf16"),
+)
+K5_EVAL_ROWS = (8,)
+# serve_bench's engine (``detikzify-ds-1.3b``, int8 + fused, 16 slots of
+# 640 rows, 6 pages): K2 over 16 slots at 16/16 heads of 128, lengths from
+# the 301-token prompt to the 640-row limit; K5 at DeepSeek-1.3B's fused
+# products at 16 rows. Its lm_head (N = 32258, not a multiple of 128)
+# takes the plain dequant product by the JAX eligibility rule
+K2_DS13_CASE = dict(B=16, NH=16, NKV=16, Hd=128, page=128, m=6,
+                    lengths=tuple(301 + (640 - 301) * i // 15
+                                  for i in range(16)))
+K5_DS13_CASES = (
+    ("ds13_qkv", 2048, 6144, "bf16"), ("ds13_o", 2048, 2048, "bf16"),
+    ("ds13_gateup", 2048, 11008, "bf16"), ("ds13_down", 5504, 2048, "bf16"),
+)
+K5_DS13_ROWS = (16,)
 # K1 at the TikZero adapter's shapes, (name, B, S, T, NH, NKV, Hd, mode,
 # key lengths): the gated cross-attention (900 patch queries over a caption
 # padded on the right to 64 tokens, 16/16 heads at Hd 72) and the caption
@@ -292,6 +339,15 @@ EVAL_ITEMS = 4          # test items of the evaluate phase
 # to a wall time: a minimum of seconds kept 1 program whenever the host
 # was slower during the search than during the fast-mode items
 EVAL_MODEL_MODE_PROGRAMS = 16
+# the replicas phase: figures searched by map_until_compilable (fast mode)
+# and figures of the greedy map_sample held against a single pipeline
+# (cut from 6 and 4 to keep the whole run near 1000 s: two replicas on one
+# card took twice one's time, PR 13 call 1)
+REPLICA_ITEMS, REPLICA_GREEDY = 2, 2
+# serve_bench's traffic on the card: its defaults are 48 requests from 16
+# clients, which its fused waves' staggered starts (two 128-step blocks a
+# member) stretched to 577 s (PR 13 call 1); 4 requests from 4 clients
+SERVE_BENCH_ARGV = ["--requests", "4", "--clients", "4"]
 SERVE_MCTS_EXPANSIONS = 16  # the search that sampling requests run beside
 SERVE_PAIR_EXPANSIONS = 8   # each of the two concurrent searches
 # training at bench.py's train_bench shape: detikzify-ds-1.3b full
@@ -506,7 +562,9 @@ def k5_rows(torch, gen, device, rehearsal: bool, timer) -> list:
     rows = []
     for (name, k, n, out), row_counts in (
             [(c, K5_ROWS) for c in K5_CASES]
-            + [(c, K5_V1_ROWS) for c in K5_V1_CASES]):
+            + [(c, K5_V1_ROWS) for c in K5_V1_CASES]
+            + [(c, K5_EVAL_ROWS) for c in K5_EVAL_CASES]
+            + [(c, K5_DS13_ROWS) for c in K5_DS13_CASES]):
         if rehearsal:       # tiny shapes: the CPU only checks the wiring
             k, n = 256, 384
         w = torch.randn((n, k), generator=gen, device=device) * k ** -0.5
@@ -617,6 +675,8 @@ def kernel_phase(torch, device, rehearsal: bool, iters: int):
                        "paged_decode"))
     rows.append(k2_row(torch, gen, device, rehearsal, timer, K2_V1_CASE,
                        "paged_decode/v1"))
+    rows.append(k2_row(torch, gen, device, rehearsal, timer, K2_DS13_CASE,
+                       "paged_decode/ds13_16slots"))
     rows.append(k4_row(torch, gen, device, rehearsal, timer))
     rows.extend(k3_rows(torch, gen, device, rehearsal, timer))
     rows.extend(k5_rows(torch, gen, device, rehearsal, timer))
@@ -1760,18 +1820,19 @@ def state_diff(torch, a, b) -> dict:
             "max_abs_diff": worst}
 
 
-def load_phase(torch, device, rehearsal: bool, params, processor):
+def load_phase(torch, device, rehearsal: bool, params, processor,
+               export_dir: str):
     """Checkpoint export and int8 load at full width and depth: the main
-    phase's bf16 weights go out through ``save_pretrained`` into a
-    directory under ``build/`` and come back through ``load_params(...,
-    quantize=True)`` (each projection quantized on the host, only int8 on
-    the card). The loaded weights must equal, bit for bit, the same bf16
-    weights quantized in place on the card (``quantize_params``): both do
-    the same fp32 arithmetic. Returns (launch counts, the loaded weights
-    fused)."""
+    phase's bf16 weights go out through ``save_pretrained`` into
+    ``export_dir`` (under ``build/``; the caller deletes it once the
+    phases that read the checkpoint are done) and come back through
+    ``load_params(..., quantize=True)`` (each projection quantized on the
+    host, only int8 on the card). The loaded weights must equal, bit for
+    bit, the same bf16 weights quantized in place on the card
+    (``quantize_params``): both do the same fp32 arithmetic. Returns
+    (launch counts, the loaded weights fused)."""
     import dataclasses
     import shutil
-    import tempfile
 
     from detikzify_torch.models import load as mload
     from detikzify_torch.ops import launch_counts, reset_launch_counts
@@ -1791,33 +1852,29 @@ def load_phase(torch, device, rehearsal: bool, params, processor):
         raise SystemExit(f"load: {free} bytes free where build/ lives, the "
                          f"export needs {need} and 1 GiB to spare")
     _free(torch, rehearsal)
-    tmp = tempfile.mkdtemp(prefix="load_", dir=build)
     reset_launch_counts()
-    try:
-        sync()
-        t0 = time.perf_counter()
-        nbytes = mload.save_pretrained(tmp, params, cfg)
-        write_s = time.perf_counter() - t0
-        rss0 = host_rss()
-        if not rehearsal:
-            torch.cuda.reset_peak_memory_stats()
-            card0 = torch.cuda.memory_allocated()
-        t0 = time.perf_counter()
-        loaded, lcfg = mload.load_params(tmp, dtype=params.dtype,
-                                         quantize=True, device=device)
-        sync()
-        load_s = time.perf_counter() - t0
-        rss1 = host_rss()
-        # the host quantization alone, in a call of its own, on the same
-        # weights viewed on the host (the file is in the page cache now)
-        host = mload.load_weights(tmp, lcfg, dtype=params.dtype,
-                                  device="cpu")
-        t0 = time.perf_counter()
-        quantize_params_host(host, device="cpu")
-        quantize_s = time.perf_counter() - t0
-        del host
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    sync()
+    t0 = time.perf_counter()
+    nbytes = mload.save_pretrained(export_dir, params, cfg)
+    write_s = time.perf_counter() - t0
+    rss0 = host_rss()
+    if not rehearsal:
+        torch.cuda.reset_peak_memory_stats()
+        card0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    loaded, lcfg = mload.load_params(export_dir, dtype=params.dtype,
+                                     quantize=True, device=device)
+    sync()
+    load_s = time.perf_counter() - t0
+    rss1 = host_rss()
+    # the host quantization alone, in a call of its own, on the same
+    # weights viewed on the host (the file is in the page cache now)
+    host = mload.load_weights(export_dir, lcfg, dtype=params.dtype,
+                              device="cpu")
+    t0 = time.perf_counter()
+    quantize_params_host(host, device="cpu")
+    quantize_s = time.perf_counter() - t0
+    del host
     counts = launch_counts()
     card = {}
     if not rehearsal:
@@ -3055,20 +3112,44 @@ def _tree_diff(a: dict, b: dict) -> int:
     return n
 
 
-def evaluate_phase(torch, device, rehearsal: bool, seed: int, params, cfg,
-                   max_new_tokens: int) -> dict:
-    """The evaluation protocol of ``examples/eval.py`` (``predict`` and
-    ``score``, one replica) on the int8 + fused weights of ``simulate``:
+@contextlib.contextmanager
+def checkpoint_tokenizer(cfg, model_max_length: int):
+    """``models.load.load`` with the smoke tokenizer in place of the
+    checkpoint's: a checkpoint that ``save_pretrained`` wrote carries no
+    tokenizer files, and the card's machine has no ``transformers`` to
+    read them. The weights, config and image statistics load as they
+    would; ``model_max_length`` bounds each rollout past the prompt."""
+    from detikzify_torch.models import load as mload
+    from detikzify_torch.processing import ByteTokenizer
+
+    tok = smoke_tokenizer(ByteTokenizer, cfg, model_max_length)
+    load_tokenizer = mload.load_tokenizer
+    mload.load_tokenizer = lambda path: tok
+    try:
+        yield tok
+    finally:
+        mload.load_tokenizer = load_tokenizer
+
+
+def evaluate_phase(torch, device, rehearsal: bool, seed: int, cfg,
+                   export_dir: str, max_new_tokens: int) -> dict:
+    """The evaluation protocol through the port's script,
+    ``detikzify_torch.examples.eval``: ``predict`` and ``score`` on the
+    ``load`` phase's exported v2-8b checkpoint, loaded int8
+    (``quantize=True``) into one ``ReplicaPool`` replica on the card, over
     ``EVAL_ITEMS`` test items (reference programs FakeBackend compiles,
-    their renders, captions).
+    their renders, captions), as ``main`` holds them in memory.
 
     Predict: ``generate_until_compilable`` in fast mode, parallelism 8,
-    through a ``DetikzifyPipeline`` (SelfSim EMD) into a
-    ``PredictionCache`` under ``build/``; a second pass takes every item
-    from the cache (no new search); one item again in model mode
-    (``score_improve`` to ``EVAL_MODEL_MODE_PROGRAMS`` programs). Score:
-    CompileSuccessRate, MeanTokenEfficiency, MeanSamplingThroughput,
-    SelfSim (cos), KID on the
+    into a ``PredictionCache`` under ``build/``; a second ``predict``, on
+    the weights the first loaded, takes every item from the cache (no new
+    search, no kernel launch); after each pass every engine of the pool
+    ``predict`` built must hold no slot and no page beyond its stored
+    prefixes (``ReplicaPool`` is wrapped to see them); one item
+    again in model mode (SelfSim EMD, ``score_improve`` to
+    ``EVAL_MODEL_MODE_PROGRAMS`` programs; its engine held to the same
+    slot and page check). Score: CompileSuccessRate,
+    MeanTokenEfficiency, MeanSamplingThroughput, SelfSim (cos), KID on the
     model's tower, CrystalBLEU, TexEditDistance (native library), DreamSim
     (three random branches at the ``dreamsim`` package's published layout,
     written as ``.pth`` and loaded by ``from_dreamsim_checkpoint``, then
@@ -3084,80 +3165,125 @@ def evaluate_phase(torch, device, rehearsal: bool, seed: int, params, cfg,
     import tempfile
 
     from detikzify_torch import native
-    from detikzify_torch.evaluate import (CrystalBLEU, ImageSim,
-                                          KernelInceptionDistance,
-                                          TexEditDistance, crystalbleu,
-                                          harness)
+    from detikzify_torch.evaluate import crystalbleu, harness
     from detikzify_torch.evaluate import dreamsim_vit
-    from detikzify_torch.infer import DetikzifyPipeline, TikzDocument
+    from detikzify_torch.examples import eval as eval_script
+    from detikzify_torch.infer import DetikzifyPipeline
     from detikzify_torch.models import load as mload
     from detikzify_torch.ops import launch_counts, reset_launch_counts
-    from detikzify_torch.processing import ByteTokenizer, DetikzifyProcessor
+    from detikzify_torch.parallel import replicas
 
     def sync():
         if not rehearsal:
             torch.cuda.synchronize()
 
+    # every pool ``predict`` builds, with each engine's free pages at birth
+    pools = []
+    pool_cls = replicas.ReplicaPool
+
+    class WatchedPool(pool_cls):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.free0 = [p.engine.num_free_pages for p in self.pipelines]
+            pools.append(self)
+
+    def held_by(new_pools) -> list:
+        """Engines of ``new_pools`` still holding slots, or pages beyond
+        their stored prefixes."""
+        held = []
+        for pool in new_pools:
+            for p, free0 in zip(pool.pipelines, pool.free0):
+                eng = p.engine
+                if eng.num_active or eng.num_free_slots != eng.num_slots \
+                        or eng.num_free_pages != free0 - eng.prefix_pages_used:
+                    held.append({"device": str(eng.device),
+                                 "active": eng.num_active,
+                                 "free_slots": eng.num_free_slots,
+                                 "free_pages": eng.num_free_pages,
+                                 "free_pages_at_start": free0,
+                                 "prefix_pages": eng.prefix_pages_used})
+        return held
+
     if not native.available():
         raise SystemExit("evaluate: the native library did not build "
                          f"({native.lib_path()})")
     _free(torch, rehearsal)
-    # the harness hands a search no max_new_tokens (as the JAX harness),
-    # so the tokenizer bounds each rollout at max_new_tokens past the
-    # image tokens
-    processor = DetikzifyProcessor(smoke_tokenizer(
-        ByteTokenizer, cfg, cfg.image_seq_len + max_new_tokens), cfg)
-    pipe = DetikzifyPipeline(params, cfg, processor, num_slots=8,
-                             max_len=2048, device=device, seed=seed)
-    eng = pipe.engine
-    free0 = eng.num_free_pages
     testset = eval_testset(EVAL_ITEMS, seed + 13)
-    searches = {"n": 0}
-    simulate = pipe.simulate
+    # the script's names, wrapped: its searches counted, its loads timed,
+    # its CrystalBLEU's corpus cache under build/
+    searches, loads, bleus = [], [], []
+    script = {k: getattr(eval_script, k) for k in
+              ("generate_until_compilable", "load", "CrystalBLEU")}
 
-    def counted_simulate(*a, **kw):
-        searches["n"] += 1
-        return simulate(*a, **kw)
+    def counted_search(*a, **kw):
+        searches.append(1)
+        return script["generate_until_compilable"](*a, **kw)
 
-    pipe.simulate = counted_simulate
+    def timed_load(*a, **kw):
+        t = time.perf_counter()
+        out = script["load"](*a, **kw)
+        sync()
+        loads.append(time.perf_counter() - t)
+        return out
+
     build = ROOT / "build"
     build.mkdir(exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="eval_", dir=build)
-    stages, result = {}, {"phase": "evaluate", "items": EVAL_ITEMS}
+
+    def bleu(refs):
+        bleus.append(script["CrystalBLEU"](
+            refs, cache_dir=os.path.join(tmp, "bleu")))
+        return bleus[-1]
+
+    eval_script.generate_until_compilable = counted_search
+    eval_script.load = timed_load
+    eval_script.CrystalBLEU = bleu
+    replicas.ReplicaPool = WatchedPool
+    # "cuda" places one replica on every local card (one here)
+    where = "cpu" if rehearsal else "cuda"
+    stages, result = {}, {"phase": "evaluate", "items": EVAL_ITEMS,
+                          "entry": "detikzify_torch.examples.eval"}
     try:
-        cache = harness.PredictionCache(os.path.join(tmp, "v2-8b.jsonl"))
-
-        def predict():
-            local, hits = [], 0
-            for idx in harness.shard_indices(len(testset)):
-                key = f"v2-8b-{idx}"
-                hit = cache.get(key)
-                if hit is not None:
-                    local.append((idx, hit))
-                    hits += 1
-                    continue
-                r = harness.generate_until_compilable(
-                    pipe, testset[idx]["image"], parallelism=8)
-                row = {"code": r.best_code, "score": r.best_score,
-                       "num_programs": r.num_programs,
-                       "lengths": r.program_lengths, "seconds": r.seconds}
-                cache.put(key, row)
-                local.append((idx, row))
-            return harness.gather_interleaved(local, len(testset)), hits
-
+        cache_dir = os.path.join(tmp, "cache")
+        with checkpoint_tokenizer(cfg, cfg.image_seq_len + max_new_tokens):
+            reset_launch_counts()
+            sync()
+            t0 = time.perf_counter()
+            rows, params, pcfg, processor = eval_script.predict(
+                "v2-8b", export_dir, testset, cache_dir, 0, parallelism=8,
+                quantize=True, device=where)
+            sync()
+            stages["predict_s"] = time.perf_counter() - t0
+            predict_counts = launch_counts()
+            searched = len(searches)
+            held = {"predict": held_by(pools)}
+            first_pools = len(pools)
+            # the cache pass: predict again on the weights loaded above
+            # (the load itself ran in the first pass)
+            eval_script.load = lambda *a, **kw: (params, pcfg, processor)
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            rows2, *_ = eval_script.predict(
+                "v2-8b", export_dir, testset, cache_dir, 0, parallelism=8,
+                quantize=True, device=where)
+            stages["cache_pass_s"] = time.perf_counter() - t0
+            cache_counts = launch_counts()
+            held["cache_pass"] = held_by(pools[first_pools:])
+            del _
+        n_pools = [first_pools, len(pools) - first_pools]
+        for pool in pools:
+            pool.close()
+        pools.clear()
+        stages["load_s"] = loads
+        new_searches = len(searches) - searched
+        _free(torch, rehearsal)
+        # model mode (predict with a timeout) improves until a minimum of
+        # seconds; an infinite one ends the search at its expansions, a
+        # count of programs
         reset_launch_counts()
-        sync()
-        t0 = time.perf_counter()
-        rows, hits = predict()
-        sync()
-        stages["predict_s"] = time.perf_counter() - t0
-        searched = searches["n"]
-        t0 = time.perf_counter()
-        rows2, hits2 = predict()
-        stages["cache_pass_s"] = time.perf_counter() - t0
-        new_searches = searches["n"] - searched
-        # model mode keeps improving until its minimum; an infinite one
-        # ends the search at its expansions, a count of programs
+        pipe = DetikzifyPipeline(params, pcfg, processor, num_slots=8,
+                                 device=device, seed=seed)
+        free0 = pipe.engine.num_free_pages
         t0 = time.perf_counter()
         improved = harness.generate_until_compilable(
             pipe, testset[0]["image"], score_improve=True,
@@ -3165,117 +3291,62 @@ def evaluate_phase(torch, device, rehearsal: bool, seed: int, params, cfg,
             parallelism=8)
         sync()
         stages["model_mode_s"] = time.perf_counter() - t0
-        predict_counts = launch_counts()
+        model_mode_counts = launch_counts()
+        eng = pipe.engine
+        if eng.num_active or eng.num_free_slots != eng.num_slots \
+                or eng.num_free_pages != free0 - eng.prefix_pages_used:
+            held["model_mode"] = [{"active": eng.num_active,
+                                   "free_slots": eng.num_free_slots,
+                                   "free_pages": eng.num_free_pages,
+                                   "free_pages_at_start": free0,
+                                   "prefix_pages": eng.prefix_pages_used}]
+        pipe.close()
+        del pipe, eng
         # a cached row also carries its key
-        if (hits, hits2, new_searches) != (0, EVAL_ITEMS, 0) or [
+        if searched != EVAL_ITEMS or new_searches != 0 or [
                 {k: v for k, v in r.items() if k != "key"}
                 for r in rows2] != rows:
-            raise SystemExit(f"evaluate: the cache pass took {hits2} of "
-                             f"{EVAL_ITEMS} items from the cache and ran "
+            raise SystemExit(f"evaluate: predict searched {searched} of "
+                             f"{EVAL_ITEMS} items, the cache pass ran "
                              f"{new_searches} new searches")
         if improved.num_programs != EVAL_MODEL_MODE_PROGRAMS \
                 or not improved.compiled:
             raise SystemExit(f"evaluate: model mode kept {improved}")
-        if eng.num_active or eng.num_free_slots != eng.num_slots \
-                or eng.num_free_pages != free0 - eng.prefix_pages_used:
-            raise SystemExit("evaluate: slots or pages still held after "
-                             "prediction")
-
-        # ---- score, as examples/eval.py::score -------------------------
-        refs = [ex["code"] for ex in testset]
-        codes = [row["code"] for row in rows]
-        reset_launch_counts()
-
-        def timed(name, fn):
-            sync()
-            t = time.perf_counter()
-            out = fn()
-            sync()
-            stages[f"{name}_s"] = time.perf_counter() - t
-            return out
-
-        pairs, captions = [], []
-        for row, ex in zip(rows, testset):
-            img = TikzDocument(row["code"]).rasterize()
-            if img is not None:
-                pairs.append((img, ex["image"]))
-                captions.append(ex["caption"])
-        renders = [a for a, _ in pairs]
-        ref_images = [b for _, b in pairs]
-        metrics = {
-            "CompileSuccessRate": len(renders) / max(len(rows), 1),
-            "MeanTokenEfficiency": harness.mean_token_efficiency(
-                [row["lengths"] for row in rows]),
-            "MeanSamplingThroughput": harness.mean_sampling_throughput(
-                [row["num_programs"] for row in rows]),
-        }
-        selfsim = ImageSim.from_detikzify(params, cfg, processor=processor,
-                                          mode="cos")
-        metrics["SelfSim"] = timed("selfsim", lambda: float(
-            selfsim.score_batch(renders, ref_images).mean()))
-
-        def kid():
-            m = KernelInceptionDistance(params.vision, cfg,
-                                        subset_size=min(50, len(renders)))
-            m.update(ref_images, real=True)
-            m.update(renders, real=False)
-            return m.compute()
-
-        metrics["KID"], kid_std = timed("kid", kid)
-
-        def bleu():
-            m = CrystalBLEU(refs, cache_dir=os.path.join(tmp, "bleu"))
-            m.update(codes, [[r] for r in refs])
-            # which corpus pass chose the trivially shared n-grams
-            result["crystalbleu_shared_ngrams"] = "native" if isinstance(
-                m.shared, crystalbleu.HashedNgramSet) else "python"
-            return m.compute()
-
-        metrics["CrystalBLEU"] = timed("crystalbleu", bleu)
-
-        def eed():
-            m = TexEditDistance()
-            m.update(codes, [[r] for r in refs])
-            return m.compute()
-
-        metrics["TexEditDistance"] = timed("eed", eed)
+        if n_pools != [1, 1]:
+            raise SystemExit(f"evaluate: predict built {n_pools} pools, "
+                             "expected one a pass")
+        if any(held.values()):
+            raise SystemExit(f"evaluate: slots or pages still held: {held}")
 
         # DreamSim: the published ensemble layout, random, in and out
         t0 = time.perf_counter()
         branches = write_dreamsim_branches(torch, tmp, rehearsal, seed + 14)
         stages["dreamsim_write_s"] = time.perf_counter() - t0
-        dreamsim = timed("dreamsim_load", lambda: dreamsim_vit.
-                         from_dreamsim_checkpoint(branches, device=device))
         t0 = time.perf_counter()
+        dreamsim = dreamsim_vit.from_dreamsim_checkpoint(branches,
+                                                         device=device)
         manifest = dreamsim_vit.save_ensemble(os.path.join(tmp, "ensemble"),
                                               dreamsim)
         back = dreamsim_vit.load_ensemble(os.path.join(tmp, "ensemble"),
                                           device=device)
-        stages["dreamsim_round_trip_s"] = time.perf_counter() - t0
+        stages["dreamsim_load_round_trip_s"] = time.perf_counter() - t0
         dreamsim_diff = [_tree_diff(a.params, b.params) for a, b in
                          zip(dreamsim.extractors, back.extractors)]
-        dreamsim_self = dreamsim.similarity(ref_images[0], ref_images[0])
-
-        def dreamsim_score(metric, items):
-            for render, ref_img in items:
-                metric.update(ref_img, render)
-            out = metric.compute()
-            metric.reset()
-            return out
-
-        metrics["DreamSim"] = timed("dreamsim", lambda: dreamsim_score(
-            back, pairs))
+        dreamsim_self = dreamsim.similarity(testset[0]["image"],
+                                            testset[0]["image"])
+        del dreamsim
 
         # ClipScore: so400m's two towers, random, in and out (bf16 on the
         # card, K1's type)
         dtype = torch.float32 if rehearsal else torch.bfloat16
-        towers = timed("clip_init", lambda: random_siglip_towers(
-            torch, device, dtype, rehearsal, seed + 15))
+        t0 = time.perf_counter()
+        towers = random_siglip_towers(torch, device, dtype, rehearsal,
+                                      seed + 15)
         clip_dir = os.path.join(tmp, "siglip")
-        clip_bytes = timed("clip_write", lambda: mload.save_siglip_towers(
-            clip_dir, towers))
-        loaded = timed("clip_load", lambda: mload.load_siglip_towers(
-            clip_dir, dtype=dtype, device=device))
+        clip_bytes = mload.save_siglip_towers(clip_dir, towers)
+        loaded = mload.load_siglip_towers(clip_dir, dtype=dtype,
+                                          device=device)
+        stages["clip_write_load_s"] = time.perf_counter() - t0
         clip_diff = {"vision": state_diff(torch, loaded.vision,
                                           towers.vision),
                      "text": state_diff(torch, loaded.text, towers.text),
@@ -3286,41 +3357,25 @@ def evaluate_phase(torch, device, rehearsal: bool, seed: int, params, cfg,
         clip = clip_metric(loaded, clip_tokenizer(
             loaded.text.embeddings.token.shape[0]))
 
-        def clipscore():
-            clip.update(renders, captions)
-            out = clip.compute()
-            clip.reset()
-            return out
-
-        metrics["ClipScore"] = timed("clipscore", clipscore)
-
-        # the redacted variants (FakeBackend's render_redacted; no fitz)
-        redacted = [(harness.redacted_render(TikzDocument(row["code"]),
-                                             rot13=True),
-                     ex["image"], ex["caption"])
-                    for row, ex in zip(rows, testset)]
-        redacted = [(r, i, c) for r, i, c in redacted if r is not None]
-        metrics["SelfSim_redacted"] = timed("selfsim_redacted", lambda: float(
-            selfsim.score_batch([r for r, _, _ in redacted],
-                                [i for _, i, _ in redacted]).mean()))
-        metrics["DreamSim_redacted"] = timed(
-            "dreamsim_redacted", lambda: dreamsim_score(
-                back, [(r, i) for r, i, _ in redacted]))
-
-        def clip_redacted():
-            clip.update([r for r, _, _ in redacted],
-                        [c for _, _, c in redacted])
-            out = clip.compute()
-            clip.reset()
-            return out
-
-        metrics["ClipScore_redacted"] = timed("clipscore_redacted",
-                                              clip_redacted)
+        # ---- score, the script's own -----------------------------------
+        reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        metrics = eval_script.score("v2-8b", rows, testset, params, pcfg,
+                                    processor, clip_metric=clip,
+                                    dreamsim_metric=back)
+        sync()
+        stages["score_s"] = time.perf_counter() - t0
         score_counts = launch_counts()
+        result["crystalbleu_shared_ngrams"] = "native" if isinstance(
+            bleus[-1].shared, crystalbleu.HashedNgramSet) else "python"
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-        del pipe.simulate                  # the pipeline's own method
-    pipe.close()
+        for k, v in script.items():
+            setattr(eval_script, k, v)
+        replicas.ReplicaPool = pool_cls
+        for pool in pools:
+            pool.close()
 
     ranges = {"CompileSuccessRate": (1.0, 1.0),
               "MeanTokenEfficiency": (0.0, 1.0),
@@ -3330,17 +3385,19 @@ def evaluate_phase(torch, device, rehearsal: bool, seed: int, params, cfg,
               "TexEditDistance": (0.0, 1.0), "DreamSim": (-1.0, 1.0),
               "DreamSim_redacted": (-1.0, 1.0),
               "ClipScore": (0.0, 1.0), "ClipScore_redacted": (0.0, 1.0)}
-    out_of_range = {k: v for k, v in metrics.items()
-                    if not (math.isfinite(v) and ranges[k][0] <= v
-                            <= ranges[k][1])}
+    out_of_range = {k: metrics.get(k) for k in ranges
+                    if not (k in metrics and math.isfinite(metrics[k])
+                            and ranges[k][0] <= metrics[k] <= ranges[k][1])}
     # ClipScore is a sigmoid: open interval
     for k in ("ClipScore", "ClipScore_redacted"):
-        if not 0.0 < metrics[k] < 1.0:
-            out_of_range[k] = metrics[k]
+        if not 0.0 < metrics.get(k, 0.0) < 1.0:
+            out_of_range[k] = metrics.get(k)
     result.update({
-        "weights": "int8 + fused", "metrics": metrics, "KID_std": kid_std,
-        "stages_s": stages, "cache": {"first_pass_hits": hits,
-                                      "second_pass_hits": hits2,
+        "weights": "int8 (load quantize=True)", "metrics": metrics,
+        "stages_s": stages, "cache": {"first_pass_hits":
+                                          EVAL_ITEMS - searched,
+                                      "second_pass_hits":
+                                          EVAL_ITEMS - new_searches,
                                       "second_pass_new_searches":
                                           new_searches},
         "predictions": [{"num_programs": r["num_programs"],
@@ -3363,7 +3420,11 @@ def evaluate_phase(torch, device, rehearsal: bool, seed: int, params, cfg,
                       "text_layers": loaded.text_cfg.num_hidden_layers,
                       "loaded_vs_written": clip_diff,
                       "dtype": str(dtype).replace("torch.", "")},
-        "launches_predict": predict_counts, "launches_score": score_counts,
+        "launches_predict": predict_counts,
+        "launches_cache_pass": cache_counts,
+        "launches_model_mode": model_mode_counts,
+        "launches_score": score_counts,
+        "pools_built": n_pools, "held_after": held,
     })
     emit(result)
     problems = []
@@ -3378,6 +3439,8 @@ def evaluate_phase(torch, device, rehearsal: bool, seed: int, params, cfg,
         problems.append("ClipScore weights did not round-trip")
     if result["crystalbleu_shared_ngrams"] != "native":
         problems.append("CrystalBLEU's corpus pass did not run native")
+    if any(cache_counts.values()):
+        problems.append(f"the cache pass launched kernels: {cache_counts}")
     if not rehearsal:
         for name in ("flash_attention", "paged_decode", "int8_gemv"):
             if predict_counts[name] <= 0:
@@ -3387,7 +3450,477 @@ def evaluate_phase(torch, device, rehearsal: bool, seed: int, params, cfg,
     if problems:
         raise SystemExit(f"evaluate: {'; '.join(problems)}")
     return {"evaluate_predict": predict_counts,
+            "evaluate_model_mode": model_mode_counts,
             "evaluate_score": score_counts}
+
+
+def _greedy_parity(torch, cfg, want: list, got: list, rows: dict,
+                   run: str) -> dict:
+    """Greedy streams of one figure per entry, ``want`` from the single
+    pipeline and ``got`` from ``run``: (tokens, logits by stream index).
+    They may part only at a near-tie (``spec_greedy``'s rule): at the first
+    differing token the single run's top-1 - top-2 logit gap must be at
+    most tau = 2 max|got - want| over the logits both computed from the
+    same tokens."""
+    diffs, gaps, same, total = [], [], 0, 0
+    for i, (w, g) in enumerate(zip(want, got)):
+        n = min(len(w), len(g))
+        same += sum(x == y for x, y in zip(w[:n], g[:n]))
+        total += len(w)
+        d = next((j for j in range(n) if w[j] != g[j]), None)
+        if d == 0:
+            raise SystemExit(f"replicas: figure {i} of {run} parted from "
+                             "the single pipeline at its first token")
+        for j in range(1, len(w) if d is None else d + 1):
+            a, b = rows.get(("single", i, j)), rows.get((run, i, j))
+            if a is not None and b is not None:
+                diffs.append(float((a - b).abs().max()))
+        if d is not None:
+            top = rows[("single", i, d)].clone()
+            top[cfg.image_token_id] = -float("inf")
+            v2 = torch.topk(top, 2).values
+            gaps.append({"figure": i, "token_index": d,
+                         "top1_top2_gap": float(v2[0] - v2[1])})
+    tau = 2 * max(diffs) if diffs else 0.0
+    return {"identical_token_share": same / max(total, 1),
+            "matched_positions": len(diffs),
+            "max_abs_logits_diff": max(diffs) if diffs else None,
+            "tau": tau, "divergences": gaps,
+            "ok": all(g["top1_top2_gap"] <= tau for g in gaps)}
+
+
+def replicas_phase(torch, device, rehearsal: bool, seed: int, params, cfg,
+                   max_new_tokens: int) -> dict:
+    """``parallel.ReplicaPool`` on the int8 + fused v2-8b weights (SelfSim
+    EMD pipelines in fast mode, FakeBackend renders), first (a) with
+    ``devices=None`` (one replica on each card: one here), then (b) with
+    two replicas on ``cuda:0`` sharing the weights, each with its own
+    engine and page pool. For each: ``map_until_compilable`` over
+    ``REPLICA_ITEMS`` figures (fast mode, parallelism 8): every item
+    answered once, and in (b) both workers took items (each replica's first
+    search waits, up to a minute, until every replica has started one);
+    then a greedy ``map_sample`` of ``REPLICA_GREEDY`` figures at
+    ``max_new_tokens`` tokens, held against one greedy pipeline on the same
+    figures (``_greedy_parity``). K2's launches must equal the replicas'
+    own decode steps times the layers, and the greedy map's K1, K2 and K5
+    launches those of the single pipeline's same work: no count is lost
+    to the worker threads. Items/s and the card's peak memory are
+    recorded; (b) against (a) is not a claim. Returns launch counts by
+    path."""
+    import threading
+
+    from detikzify_torch.infer import DetikzifyPipeline
+    from detikzify_torch.models import detikzify
+    from detikzify_torch.ops import launch_counts, reset_launch_counts
+    from detikzify_torch.parallel import ReplicaPool
+    from detikzify_torch.processing import ByteTokenizer, DetikzifyProcessor
+
+    def sync():
+        if not rehearsal:
+            torch.cuda.synchronize()
+
+    _free(torch, rehearsal)
+    processor = DetikzifyProcessor(smoke_tokenizer(
+        ByteTokenizer, cfg, cfg.image_seq_len + max_new_tokens), cfg)
+    layers = cfg.text.num_hidden_layers
+    figs = synthetic_figures(REPLICA_ITEMS, seed + 21)
+    greedy = figs[:REPLICA_GREEDY]
+    ident = {id(f): i for i, f in enumerate(greedy)}
+
+    # each greedy sample's tokens and decode logits, keyed by (run,
+    # figure, stream index); the run and figure of a thread's sample() in
+    # a thread-local. Rows are kept on the card with their positions and
+    # keyed after the run, so recording adds no host sync
+    local = threading.local()
+    streams, raw, rows = {}, [], {}
+    decode_step_paged = detikzify.decode_step_paged
+
+    def record(params_, cfg_, tokens, positions, *a, **kw):
+        logits, pool_ = decode_step_paged(params_, cfg_, tokens, positions,
+                                          *a, **kw)
+        ctx = getattr(local, "ctx", None)
+        if ctx is not None:
+            run, fig, eng = ctx
+            for ro in list(eng._rollouts.values()):
+                raw.append((run, fig, ro.prompt_len,
+                            positions[ro.slot].clone(),
+                            logits[ro.slot].float().clone()))
+        return logits, pool_
+
+    def key_rows():
+        # the input at stream index j gives the logits of j + 1
+        for run, fig, plen, pos, row in raw:
+            rows[(run, fig, int(pos) - plen + 1)] = row
+        raw.clear()
+
+    def traced(pipe, run: str):
+        """``pipe.sample`` and its engine's accepted tokens, recorded."""
+        eng = pipe.engine
+        sample, accept = pipe.sample, eng._accept_token
+
+        def accepting(ro, tok):
+            ctx = getattr(local, "ctx", None)
+            if ctx is not None:
+                streams.setdefault(ctx[:2], []).append(int(tok))
+            return accept(ro, tok)
+
+        def sampling(image=None, **kw):
+            local.ctx = (run, ident[id(image)], eng)
+            try:
+                return sample(image=image, **kw)
+            finally:
+                local.ctx = None
+
+        eng._accept_token = accepting
+        pipe.sample = sampling
+
+    def decode_steps(pipes):
+        return sum(p.engine.counters["decode_steps"] for p in pipes)
+
+    greedy_kw = dict(temperature=0.0, max_new_tokens=max_new_tokens)
+    detikzify.decode_step_paged = record
+    result = {"phase": "replicas", "weights": "int8 + fused",
+              "items": REPLICA_ITEMS, "greedy_figures": REPLICA_GREEDY,
+              "new_tokens": max_new_tokens, "runs": {}}
+    paths, parity = {}, {}
+    try:
+        # the single greedy pipeline the replicas are held against
+        single = DetikzifyPipeline(params, cfg, processor, metric="fast",
+                                   num_slots=8, device=device, seed=seed)
+        traced(single, "single")
+        reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            for img in greedy:
+                single.sample(image=img, **greedy_kw)
+        sync()
+        single_s = time.perf_counter() - t0
+        paths["replicas_single"] = single_counts = launch_counts()
+        single.close()
+        del single
+        key_rows()
+        want = [streams[("single", i)] for i in range(len(greedy))]
+
+        for run, devices in (
+                ("one", ["cpu"] if rehearsal else None),
+                ("two", [device, device])):
+            _free(torch, rehearsal)
+            if not rehearsal:
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            pool = ReplicaPool(params, cfg, processor, devices=devices,
+                               metric="fast", num_slots=8)
+            build_s = time.perf_counter() - t0
+            pipes = pool.pipelines
+            shared = all(p.engine.params is params for p in pipes)
+            pools = {p.engine.cache.k.data_ptr() for p in pipes}
+            # which replica searched which item; every replica's first
+            # search waits until each replica has begun one
+            gate = threading.Barrier(len(pipes))
+            taken = [0] * len(pipes)
+
+            def gated(r, simulate):
+                def simulate_(*a, **kw):
+                    if taken[r] == 0:
+                        gate.wait(timeout=60)
+                    taken[r] += 1
+                    return simulate(*a, **kw)
+                return simulate_
+
+            for r, p in enumerate(pipes):
+                p.simulate = gated(r, p.simulate)
+            steps0 = decode_steps(pipes)
+            reset_launch_counts()
+            sync()
+            t0 = time.perf_counter()
+            results = pool.map_until_compilable(figs, parallelism=8)
+            sync()
+            map_s = time.perf_counter() - t0
+            map_counts = launch_counts()
+            map_steps = decode_steps(pipes) - steps0
+            bad = [r for r in results if isinstance(r, Exception)
+                   or r.num_programs < 1]
+            for r, p in enumerate(pipes):
+                del p.simulate                 # the pipeline's own method
+                traced(p, run)
+            steps0 = decode_steps(pipes)
+            reset_launch_counts()
+            sync()
+            t0 = time.perf_counter()
+            docs = pool.map_sample(greedy, **greedy_kw)
+            sync()
+            greedy_s = time.perf_counter() - t0
+            greedy_counts = launch_counts()
+            greedy_steps = decode_steps(pipes) - steps0
+            peak = (None if rehearsal else torch.cuda.max_memory_allocated())
+            held = [p.engine.num_active for p in pipes]
+            pool.close()
+            del pool, pipes
+            key_rows()
+            got = [streams.get((run, i), []) for i in range(len(greedy))]
+            parity[run] = _greedy_parity(torch, cfg, want, got, rows, run)
+            paths[f"replicas_{run}"] = {
+                k: map_counts[k] + greedy_counts[k] for k in map_counts}
+            result["runs"][run] = {
+                "devices": [str(d) for d in (devices or ["cuda:0"])],
+                "replicas": len(taken), "shared_weights": shared,
+                "distinct_page_pools": len(pools), "pool_build_s": build_s,
+                "map_until_compilable": {
+                    "seconds": map_s, "items_per_s": len(figs) / map_s,
+                    "items_by_replica": taken, "failed": len(bad),
+                    "num_programs": [getattr(r, "num_programs", None)
+                                     for r in results],
+                    "decode_steps": map_steps, "launches": map_counts},
+                "map_sample": {
+                    "seconds": greedy_s,
+                    "figures_per_s": len(greedy) / greedy_s,
+                    "codes_nonempty": sum(bool(getattr(d, "code", ""))
+                                          for d in docs),
+                    "decode_steps": greedy_steps,
+                    "launches": greedy_counts,
+                    **{k: v for k, v in parity[run].items() if k != "ok"}},
+                "card_peak_bytes": peak, "slots_held_after": held}
+            problems = []
+            if bad or sum(taken) != len(figs):
+                problems.append(f"{len(bad)} items failed, {sum(taken)} "
+                                f"searched of {len(figs)}")
+            if run == "two" and (min(taken) == 0 or not shared
+                                 or len(pools) != 2):
+                problems.append(f"items by replica {taken}, shared "
+                                f"weights {shared}, {len(pools)} pools")
+            if any(held) or any(isinstance(d, Exception) for d in docs):
+                problems.append(f"slots held {held} or a sample raised")
+            if not parity[run]["ok"]:
+                problems.append(f"greedy streams parted above tau: "
+                                f"{parity[run]}")
+            if not rehearsal:
+                for what, counts, steps in (
+                        ("map_until_compilable", map_counts, map_steps),
+                        ("map_sample", greedy_counts, greedy_steps)):
+                    if counts["paged_decode"] != steps * layers or any(
+                            counts[k] <= 0 for k in
+                            ("flash_attention", "paged_decode",
+                             "int8_gemv")):
+                        problems.append(
+                            f"{what} launched {counts} over {steps} decode "
+                            f"steps of {layers} layers")
+                if {k: greedy_counts[k] for k in
+                        ("flash_attention", "paged_decode", "int8_gemv")} \
+                        != {k: single_counts[k] for k in
+                            ("flash_attention", "paged_decode",
+                             "int8_gemv")}:
+                    problems.append(f"the greedy map launched "
+                                    f"{greedy_counts}, the single pipeline "
+                                    f"{single_counts} for the same work")
+            if problems:
+                emit(result)
+                raise SystemExit(f"replicas ({run}): {'; '.join(problems)}")
+    finally:
+        detikzify.decode_step_paged = decode_step_paged
+        raw.clear()
+        rows.clear()
+    result["single"] = {"seconds": single_s, "launches": single_counts}
+    emit(result)
+    _free(torch, rehearsal)
+    return paths
+
+
+def _png_paths(n: int, seed: int, where: Path) -> list:
+    paths = []
+    for i, img in enumerate(synthetic_figures(n, seed)):
+        path = where / f"figure{i}.png"
+        img.save(path)
+        paths.append(str(path))
+    return paths
+
+
+def infer_cli_phase(torch, device, rehearsal: bool, seed: int, cfg,
+                    export_dir: str, max_new_tokens: int) -> dict:
+    """The REPL of ``detikzify_torch.examples.infer`` in process, on the
+    ``load`` phase's exported bf16 v2-8b checkpoint (SelfSim, the
+    default), stdin two PNG paths written under ``build/``: once one-shot
+    with ``--output`` (each program printed, the file written), once with
+    ``--mcts --timeout 20 --parallelism 8``. Wall seconds and K1, K2
+    launches of each run."""
+    import io
+    import shutil
+    import tempfile
+    from contextlib import redirect_stdout
+
+    from detikzify_torch.examples import infer as infer_script
+    from detikzify_torch.ops import launch_counts, reset_launch_counts
+
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="infer_", dir=build))
+    result, paths, problems = {"phase": "infer_cli", "weights": "bf16",
+                               "entry": "detikzify_torch.examples.infer",
+                               "runs": {}}, {}, []
+    stdin = sys.stdin
+    try:
+        pngs = _png_paths(2, seed + 31, tmp)
+        tex = tmp / "best.tex"
+        where = "cpu" if rehearsal else "cuda"
+        for run, extra in (
+                ("one_shot", ["--output", str(tex)]),
+                ("mcts", ["--mcts", "--timeout", "20",
+                          "--parallelism", "8"])):
+            _free(torch, rehearsal)
+            out = io.StringIO()
+            sys.stdin = io.StringIO("\n".join(pngs) + "\n")
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            with checkpoint_tokenizer(cfg, cfg.image_seq_len
+                                      + max_new_tokens), \
+                    redirect_stdout(out):
+                infer_script.main(["--model", export_dir, "--device",
+                                   where, *extra])
+            wall = time.perf_counter() - t0
+            counts = launch_counts()
+            paths[f"infer_cli_{run}"] = counts
+            text = out.getvalue()
+            row = {"seconds": wall, "stdout_lines": len(text.splitlines()),
+                   "saved": text.count("saved to"),
+                   "scores": text.count("[score "),
+                   "launches": counts}
+            if run == "one_shot":
+                row["tex_bytes"] = tex.stat().st_size if tex.exists() else 0
+                if row["saved"] != 2 or not row["tex_bytes"]:
+                    problems.append(f"one-shot saved {row['saved']} "
+                                    f"programs, {row.get('tex_bytes')} "
+                                    "bytes")
+            elif row["scores"] < 2:
+                problems.append(f"MCTS printed {row['scores']} scores for "
+                                "two figures")
+            if "no output" in text:
+                problems.append(f"{run}: a figure had no output")
+            if not rehearsal:
+                for name in ("flash_attention", "paged_decode"):
+                    if counts[name] <= 0:
+                        problems.append(f"{run} never launched {name}")
+            result["runs"][run] = row
+    finally:
+        sys.stdin = stdin
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit(result)
+    if problems:
+        raise SystemExit(f"infer_cli: {'; '.join(problems)}")
+    return paths
+
+
+def serve_bench_phase(torch, device, rehearsal: bool) -> dict:
+    """``detikzify_torch.examples.serve_bench.main`` in process at its
+    documented shape: ``detikzify-ds-1.3b`` zero-initialized, int8 +
+    fused, 16 slots, decode block 128, its default tokens, with
+    ``SERVE_BENCH_ARGV``'s requests and clients (the rehearsal: ``--tiny``
+    on the CPU, 6 requests). Its report line, and K1, K2 and K5
+    launches."""
+    import io
+    from contextlib import redirect_stdout
+
+    from detikzify_torch.examples import serve_bench
+    from detikzify_torch.ops import launch_counts, reset_launch_counts
+
+    argv = (["--tiny", "--device", "cpu", "--requests", "6", "--clients",
+             "3", "--max-new-tokens", "8"] if rehearsal
+            else SERVE_BENCH_ARGV)
+    _free(torch, rehearsal)
+    if not rehearsal:
+        torch.cuda.reset_peak_memory_stats()
+    out = io.StringIO()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with redirect_stdout(out):
+        serve_bench.main(argv)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    report = json.loads(out.getvalue().strip().splitlines()[-1])
+    requests = int(argv[argv.index("--requests") + 1])
+    result = {"phase": "serve_bench", "argv": argv,
+              "entry": "detikzify_torch.examples.serve_bench",
+              "preset": "tiny-test" if rehearsal else "detikzify-ds-1.3b",
+              "weights": "fp32" if rehearsal else "zeros, int8 + fused",
+              "seconds": wall, "report": report, "launches": counts,
+              "card_peak_bytes": None if rehearsal
+              else torch.cuda.max_memory_allocated()}
+    emit(result)
+    problems = []
+    if report["failed"] != 0 or report["requests"] != requests + 1 \
+            or report["fused_fraction"] <= 0:
+        problems.append(f"report {report}")
+    if not rehearsal:
+        for name in ("flash_attention", "paged_decode", "int8_gemv"):
+            if counts[name] <= 0:
+                problems.append(f"never launched {name}")
+    if problems:
+        raise SystemExit(f"serve_bench: {'; '.join(problems)}")
+    _free(torch, rehearsal)
+    return counts
+
+
+def trace_phase(torch, device, rehearsal: bool, seed: int, params,
+                processor) -> dict:
+    """``utils.profiling.trace`` around one ``sample()`` of 32 tokens on the
+    int8 + fused weights, its prefill inside ``annotate("prefill")``, both
+    timed on the host by ``utils.profiling.Timer``: the
+    trace file under ``build/`` must hold the annotation and, on the card,
+    K1's and K2's device functions (``KERNEL_FUNCTIONS``)."""
+    import shutil
+    import tempfile
+
+    from detikzify_torch.infer import DetikzifyPipeline
+    from detikzify_torch.ops import launch_counts, reset_launch_counts
+    from detikzify_torch.utils.profiling import Timer, annotate, trace
+
+    _free(torch, rehearsal)
+    pipe = DetikzifyPipeline(params, processor.cfg, processor, metric="fast",
+                             num_slots=8, device=device, seed=seed)
+    eng = pipe.engine
+    start = eng.start
+
+    timer = Timer()
+
+    def annotated_start(*a, **kw):
+        with annotate("prefill"), timer("prefill"):
+            return start(*a, **kw)
+
+    eng.start = annotated_start
+    fig = synthetic_figures(1, seed + 41)[0]
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="trace_", dir=build)
+    try:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with trace(tmp), timer("sample"):
+            doc = pipe.sample(image=fig, max_new_tokens=32)
+            if not rehearsal:
+                torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        files = sorted(Path(tmp).rglob("*.pt.trace.json*"))
+        text = files[0].read_text(errors="replace") if files else ""
+        found = {"prefill": '"prefill"' in text,
+                 **{name: any(f in text for f in KERNEL_FUNCTIONS[name])
+                    for name in ("flash_attention", "paged_decode")}}
+        result = {"phase": "trace", "seconds": wall,
+                  "files": [f.name for f in files],
+                  "trace_bytes": sum(f.stat().st_size for f in files),
+                  "found": found, "code_chars": len(doc.code),
+                  "host_phases": timer.summary(), "launches": counts}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        pipe.close()
+    emit(result)
+    want = ["prefill"] + ([] if rehearsal
+                          else ["flash_attention", "paged_decode"])
+    missing = [k for k in want if not found[k]]
+    if len(files) != 1 or missing or timer.counts["prefill"] < 1:
+        raise SystemExit(f"trace: {len(files)} trace files, missing "
+                         f"{missing}, {timer.counts['prefill']} prefills "
+                         "timed")
+    return counts
 
 
 def train_batch(processor, n: int, seed: int, max_length: int) -> dict:
@@ -4475,22 +5008,42 @@ def main(argv=None) -> int:
     del emb
     paths.update(tikzero_phases(torch, device, rehearsal, args.seed, params,
                                 processor, args.max_new_tokens))
-    # export the bf16 weights and load them back int8: what simulate runs
-    paths["load"], qparams = load_phase(torch, device, rehearsal, params,
-                                        processor)
-    del params
-    paths["simulate"] = simulate_phase(
-        torch, device, rehearsal, args.seed, qparams, processor,
-        args.max_new_tokens,
-        preset="tiny-test" if rehearsal else "detikzify-v2-8b")
-    paths.update(simulate_spec_phase(torch, device, rehearsal, args.seed,
-                                     qparams, processor, args.max_new_tokens))
-    paths["serve"] = serve_phase(torch, device, rehearsal, args.seed,
-                                 qparams, processor.cfg, args.max_new_tokens)
-    paths.update(evaluate_phase(torch, device, rehearsal, args.seed, qparams,
-                                processor.cfg, args.max_new_tokens))
-    del qparams
+    # export the bf16 weights and load them back int8: what simulate runs;
+    # the exported checkpoint stays for the phases that load it through
+    # the command-line entry points
+    (ROOT / "build").mkdir(exist_ok=True)
+    export_dir = tempfile.mkdtemp(prefix="load_", dir=ROOT / "build")
+    try:
+        paths["load"], qparams = load_phase(torch, device, rehearsal, params,
+                                            processor, export_dir)
+        del params
+        paths["simulate"] = simulate_phase(
+            torch, device, rehearsal, args.seed, qparams, processor,
+            args.max_new_tokens,
+            preset="tiny-test" if rehearsal else "detikzify-v2-8b")
+        paths.update(simulate_spec_phase(torch, device, rehearsal, args.seed,
+                                         qparams, processor,
+                                         args.max_new_tokens))
+        paths["serve"] = serve_phase(torch, device, rehearsal, args.seed,
+                                     qparams, processor.cfg,
+                                     args.max_new_tokens)
+        paths.update(evaluate_phase(torch, device, rehearsal, args.seed,
+                                    processor.cfg, export_dir,
+                                    args.max_new_tokens))
+        paths.update(replicas_phase(torch, device, rehearsal, args.seed,
+                                    qparams, processor.cfg,
+                                    args.max_new_tokens))
+        paths["trace"] = trace_phase(torch, device, rehearsal, args.seed,
+                                     qparams, processor)
+        del qparams
+        _free(torch, rehearsal)
+        paths.update(infer_cli_phase(torch, device, rehearsal, args.seed,
+                                     processor.cfg, export_dir,
+                                     args.max_new_tokens))
+    finally:
+        shutil.rmtree(export_dir, ignore_errors=True)
     _free(torch, rehearsal)
+    paths["serve_bench"] = serve_bench_phase(torch, device, rehearsal)
     paths.update(v1_phases(torch, device, rehearsal, args.seed,
                            args.max_new_tokens))
     _free(torch, rehearsal)

@@ -24,7 +24,8 @@ there and only its int8 form is placed on the card
 TikZero adapters: ``load_adapter`` attaches an adapter and its frozen
 caption model, as ``load`` does for a checkpoint with an ``adapter/``
 folder when ``adapter_embedding_model`` names the caption model. Its
-weight half, ``load_adapter_params``, needs no ``transformers``.
+weight half, ``load_adapter_params``, needs no ``transformers``, nor does
+``load_embedding_model``, the caption model alone.
 ``save_adapter`` writes the reference's bare adapter keys and
 ``save_embedding_model`` a plain LLaMA checkpoint (``model.*`` keys and a
 flat ``config.json``, the layout of ``meta-llama/Llama-3.2-1B``).
@@ -230,17 +231,29 @@ def load_adapter_params(adapter_path: str, vcfg: VisionConfig,
                         ) -> Tuple[Adapter, AdapterConfig, Llama, TextConfig]:
     """The weight half of ``load_adapter``: (adapter, its config, caption
     model, its config), both models on ``device``. Each is built on
-    ``meta`` and filled with tensors viewing the mapped files; the caption
-    model's ``model.*`` keys read as ``text_model.*`` (a tied model has no
-    ``lm_head``). ``acfg`` defaults to ``AdapterConfig`` with the caption
-    model's width."""
-    embed_path = _resolve(embedding_model)
-    embed_cfg = import_hf.text_config_from_hf_json(
-        os.path.join(embed_path, "config.json"))
+    ``meta`` and filled with tensors viewing the mapped files (the caption
+    model through ``load_embedding_model``). ``acfg`` defaults to
+    ``AdapterConfig`` with the caption model's width."""
+    embed, embed_cfg = load_embedding_model(embedding_model, dtype=dtype,
+                                            device=device)
     acfg = acfg or AdapterConfig(embedding_hidden_size=embed_cfg.hidden_size)
     adapter = import_hf.import_adapter(
         import_hf.load_state_dict_from_safetensors(adapter_path), vcfg, acfg,
         dtype=dtype)
+    return adapter.to(device), acfg, embed, embed_cfg
+
+
+@torch.no_grad()
+def load_embedding_model(embedding_model: str, *, dtype=torch.bfloat16,
+                         device="cuda") -> Tuple[Llama, TextConfig]:
+    """The frozen caption model of a TikZero adapter (a plain LLaMA
+    checkpoint such as ``meta-llama/Llama-3.2-1B``) on ``device``, and its
+    config. Built on ``meta`` and filled with tensors viewing the mapped
+    file; its ``model.*`` keys read as ``text_model.*`` (a tied model has no
+    ``lm_head``)."""
+    embed_path = _resolve(embedding_model)
+    embed_cfg = import_hf.text_config_from_hf_json(
+        os.path.join(embed_path, "config.json"))
     state = import_hf.load_state_dict_from_safetensors(embed_path)
     state = {("text_model." + k[len("model."):] if k.startswith("model.")
               else k): v for k, v in state.items()}
@@ -251,7 +264,7 @@ def load_adapter_params(adapter_path: str, vcfg: VisionConfig,
         raise ValueError(f"caption model lacks {len(missing)} weights: "
                          f"{missing[:10]}")
     embed.requires_grad_(False)
-    return adapter.to(device), acfg, embed.to(device), embed_cfg
+    return embed.to(device), embed_cfg
 
 
 def load_adapter(params, cfg: DetikzifyConfig, processor, adapter_path: str,

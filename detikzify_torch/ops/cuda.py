@@ -10,7 +10,9 @@ never loads a stale build.
 
 Every kernel has a :class:`CudaKernel` handle with a plain integer
 ``launches`` counter. The counter is bumped in exactly one place: after a
-launch of the kernel returned ``cudaSuccess``.
+launch of the kernel returned ``cudaSuccess``, under the handle's lock, as
+several threads may launch one kernel (``parallel.ReplicaPool``'s
+workers, the server's scheduler).
 """
 from __future__ import annotations
 
@@ -54,6 +56,7 @@ class CudaKernel:
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.launches = 0
+        self._count_lock = threading.Lock()
         self.build_log = ""
         self._fn = None
         self._err = None
@@ -116,7 +119,8 @@ class CudaKernel:
         if rc != 0:
             msg = self._err(rc).decode(errors="replace")
             raise RuntimeError(f"{self.name}: CUDA error {rc}: {msg}")
-        self.launches += 1
+        with self._count_lock:
+            self.launches += 1
 
 
 P = ctypes.c_void_p

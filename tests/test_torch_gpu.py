@@ -903,3 +903,110 @@ def test_unembed_backward_on_card(cuda):
         assert got.dtype == torch.bfloat16
         err = float((got.float() - want).abs().max())
         assert err <= 2.0 ** -6 * float(want.abs().max()), err
+
+
+def test_paged_kernel_ds13_sixteen_slots(cuda):
+    """K2 at serve_bench's engine: DeepSeek-1.3B's 16/16 heads of 128 over
+    16 slots of 6 pages of 128, lengths from the 301-token prompt to the
+    640-row limit."""
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    b, nh, nkv, hd, page, m = 16, 16, 16, 128, 128, 6
+    n_pages = b * m + 1
+    pool_k = _rnd(gen, cuda, n_pages, page, nkv, hd)
+    pool_v = _rnd(gen, cuda, n_pages, page, nkv, hd)
+    tab = torch.randperm(n_pages, generator=gen, device=cuda)[:b * m]
+    tab = tab.reshape(b, m).to(torch.int32).contiguous()
+    lengths = torch.tensor([301 + (640 - 301) * i // 15 for i in range(b)],
+                           dtype=torch.int32, device=cuda)
+    q = _rnd(gen, cuda, b, nh, hd)
+    before = paged.KERNEL.launches
+    got = paged.decode_attend_paged(q, pool_k, pool_v, tab, lengths)
+    assert paged.KERNEL.launches == before + 1
+    _close(got, paged.decode_attend_paged_plain(q, pool_k, pool_v, tab,
+                                                lengths),
+           paged.decode_attend_paged_plain(q, pool_k, pool_v.abs(), tab,
+                                           lengths))
+
+
+# DeepSeek-1.3B's fused products (qkv, o, gateup, down) at serve_bench's 16
+# slots, and v2-8b's unfused k/v and gate/up, which examples/eval.py's
+# predict runs (its quantized load does not fuse), at 8
+@pytest.mark.parametrize("rows,k,n", [
+    (16, 2048, 6144), (16, 2048, 2048), (16, 2048, 11008), (16, 5504, 2048),
+    (8, 4096, 1024), (8, 4096, 14336)])
+def test_int8_gemv_serve_bench_and_eval_shapes(cuda, rows, k, n):
+    gen = torch.Generator(device=cuda).manual_seed(rows + k + n)
+    x, q, scale = _k5_inputs(gen, cuda, rows, k, n)
+    before = quant_matmul.KERNEL.launches
+    got = quant_matmul.int8_matmul(x, q, scale)
+    assert quant_matmul.KERNEL.launches == before + 1
+    _k5_close(got, x, q, scale, torch.bfloat16)
+
+
+def test_ds13_lm_head_takes_the_plain_product(cuda):
+    """DeepSeek-1.3B's lm_head (N = 32258, not a multiple of 128) is
+    outside K5's eligibility rule in both packages: no launch."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x, q, scale = _k5_inputs(gen, cuda, 16, 2048, 32258)
+    before = quant_matmul.KERNEL.launches
+    got = quant_matmul.int8_matmul(x, q, scale, torch.float32)
+    assert quant_matmul.KERNEL.launches == before
+    want = quant_matmul.int8_matmul_plain(x, q, scale, torch.float32)
+    assert torch.equal(got, want)
+
+
+def test_two_replicas_share_one_card(cuda):
+    """``ReplicaPool(devices=["cuda:0", "cuda:0"])`` at v2-8b widths, 2 + 2
+    layers, int8 + fused: both replicas hold the same weight tensors and
+    their own page pools on the card; the workers launch K1, K2 and K5;
+    greedy samples equal a single pipeline's, whichever replica served
+    them."""
+    from PIL import Image, ImageDraw
+
+    from detikzify_torch.config import get_config
+    from detikzify_torch.infer import DetikzifyPipeline
+    from detikzify_torch.models import convert
+    from detikzify_torch.ops.cuda import launch_counts, reset_launch_counts
+    from detikzify_torch.ops.quant import fuse_projections, quantize_params
+    from detikzify_torch.parallel import ReplicaPool
+    from detikzify_torch.processing import ByteTokenizer, DetikzifyProcessor
+
+    base = get_config("detikzify-v2-8b")
+    cfg = base.replace(vision=base.vision.replace(num_hidden_layers=2),
+                       text=base.text.replace(num_hidden_layers=2))
+    params = fuse_projections(quantize_params(convert.init_random(
+        cfg, device=cuda, dtype=torch.bfloat16)))
+    tok = ByteTokenizer(vocab_size=cfg.text.vocab_size,
+                        image_token_id=cfg.image_token_id,
+                        bos_token_id=cfg.bos_token_id,
+                        eos_token_id=cfg.eos_token_id,
+                        model_max_length=cfg.image_seq_len + 32)
+    processor = DetikzifyProcessor(tok, cfg)
+    figs = []
+    for i in range(4):
+        img = Image.new("RGB", (300, 200), "white")
+        ImageDraw.Draw(img).rectangle([10 + 9 * i, 10, 250, 150 - 7 * i],
+                                      outline="black", width=3)
+        figs.append(img)
+    single = DetikzifyPipeline(params, cfg, processor, metric="fast",
+                               temperature=0.0, device=cuda)
+    with torch.inference_mode():
+        want = [single.sample(image=f).code for f in figs]
+    single.close()
+    pool = ReplicaPool(params, cfg, processor, devices=["cuda:0", "cuda:0"],
+                       metric="fast", temperature=0.0)
+    try:
+        engines = [p.engine for p in pool.pipelines]
+        assert all(e.params is params for e in engines)
+        assert engines[0].cache.k.data_ptr() != engines[1].cache.k.data_ptr()
+        assert all(e.cache.k.device == cuda for e in engines)
+        reset_launch_counts()
+        docs = pool.map_sample(figs)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+    finally:
+        pool.close()
+    assert [d.code for d in docs] == want
+    steps = sum(e.counters["decode_steps"] for e in engines)
+    assert counts["paged_decode"] == steps * cfg.text.num_hidden_layers > 0
+    assert counts["flash_attention"] > 0 and counts["int8_gemv"] > 0

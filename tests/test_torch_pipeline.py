@@ -615,7 +615,9 @@ def test_chip_smoke_cpu_rehearsal():
     """The smoke script's phases run end to end at tiny-test on the CPU:
     the v2 phases, the TikZero adapter's (``tikzero_sample``,
     ``tikzero_simulate``), the checkpoint round trip (``load``), the HTTP
-    server (``serve``), the evaluation protocol (``evaluate``), the v1
+    server (``serve``), the evaluation protocol through the port's
+    ``examples.eval`` (``evaluate``), the command line (``replicas``,
+    ``trace``, ``infer_cli``, ``serve_bench``), the v1
     family's phases, training (K1's backward, the training reference,
     ``train``, ``trainer``, ``pretrain``) and post-training (the adapter
     and GRPO references, ``grpo``, ``adapter_pretrain``,
@@ -634,8 +636,11 @@ def test_chip_smoke_cpu_rehearsal():
     paths = {"sample", "contiguous", "spec_greedy", "tikzero_sample",
              "tikzero_simulate", "load", "simulate", "simulate_spec",
              "simulate_spec_gated", "serve", "evaluate_predict",
-             "evaluate_score", "v1_sample", "v1_simulate", "train",
-             "pretrain", "grpo", "adapter_pretrain", "adapter_train"}
+             "evaluate_model_mode", "evaluate_score", "replicas_single",
+             "replicas_one", "replicas_two", "trace", "infer_cli_one_shot",
+             "infer_cli_mcts", "serve_bench", "v1_sample", "v1_simulate",
+             "train", "pretrain", "grpo", "adapter_pretrain",
+             "adapter_train"}
     assert all(set(row["launches_by_path"]) == paths for row in kernels)
     # the v1 family's kernel shapes sit beside the v2 ones
     row_names = {row["name"] for row in kernels}
@@ -651,6 +656,13 @@ def test_chip_smoke_cpu_rehearsal():
     # log-prob pass
     assert {"flash_attention/distill_tower", "flash_attention/distill_cross",
             "flash_attention/grpo_logprobs"} <= row_names
+    # and the command line's: serve_bench's DS-1.3b engine (K2 over 16
+    # slots, K5 at its fused products at 16 rows) and eval's unfused int8
+    assert {"paged_decode/ds13_16slots"} | {
+        f"int8_gemv/ds13_{p}/rows16" for p in ("qkv", "o", "gateup",
+                                                "down")} | {
+        f"int8_gemv/unfused_{p}/rows8" for p in ("k_v", "gate_up")} \
+        <= row_names
     phases, refs = {}, []
     for line in lines[:-2]:
         obj = json.loads(line)
@@ -731,6 +743,9 @@ def test_chip_smoke_cpu_rehearsal():
             "flash_attention/clip_vision"} <= row_names
     assert ev["cache"] == {"first_pass_hits": 0, "second_pass_hits": 4,
                            "second_pass_new_searches": 0}
+    # one pool a predict pass, and no engine left holding slots or pages
+    assert ev["pools_built"] == [1, 1]
+    assert ev["held_after"] == {"predict": [], "cache_pass": []}
     assert ev["model_mode"]["num_programs"] == ev["model_mode"][
         "expansions"] > 1
     m = ev["metrics"]
@@ -750,6 +765,31 @@ def test_chip_smoke_cpu_rehearsal():
     assert clip["scalars_equal"] and clip["vision"]["differing_entries"] == 0
     assert clip["text"]["differing_entries"] == 0
     assert not list((ROOT / "build").glob("eval_*"))
+    assert ev["entry"] == "detikzify_torch.examples.eval"
+    assert not any(ev["launches_cache_pass"].values())
+    # the command line: ReplicaPool on one and on two replicas, the infer
+    # REPL, serve_bench, a trace with its annotation
+    rep = phases["replicas"]
+    for run, n in (("one", 1), ("two", 2)):
+        r = rep["runs"][run]
+        assert r["replicas"] == n and r["shared_weights"]
+        assert r["distinct_page_pools"] == n
+        mu = r["map_until_compilable"]
+        assert mu["failed"] == 0 and sum(mu["items_by_replica"]) == 2
+        assert min(mu["items_by_replica"]) > 0
+        assert r["map_sample"]["identical_token_share"] == 1.0
+        assert r["map_sample"]["matched_positions"] > 0
+    cli = phases["infer_cli"]["runs"]
+    assert cli["one_shot"]["saved"] == 2 and cli["one_shot"]["tex_bytes"]
+    assert cli["mcts"]["scores"] >= 2
+    sb = phases["serve_bench"]["report"]
+    assert sb["requests"] == 7 and sb["failed"] == 0
+    assert sb["fused_fraction"] > 0
+    assert phases["trace"]["found"]["prefill"]
+    assert phases["trace"]["host_phases"]["prefill"]["count"] >= 1
+    assert phases["trace"]["host_phases"]["sample"]["count"] == 1
+    assert not list((ROOT / "build").glob("infer_*"))
+    assert not list((ROOT / "build").glob("trace_*"))
     # training: K1's backward with its mutant, the gradient reference, the
     # step at two accumulations, the trainer's save and resume, pretrain
     assert "flash_attention/train_decoder" in row_names
