@@ -346,10 +346,16 @@ EVAL_MODEL_MODE_PROGRAMS = 16
 REPLICA_ITEMS, REPLICA_GREEDY = 2, 2
 # serve_bench's traffic on the card: its defaults are 48 requests from 16
 # clients, which its fused waves' staggered starts (two 128-step blocks a
-# member) stretched to 577 s (PR 13 call 1); 4 requests from 4 clients
-SERVE_BENCH_ARGV = ["--requests", "4", "--clients", "4"]
+# member) stretched to 577 s; 4 requests from 4 clients took 101 s of a
+# 1123 s run once the pipelined, verify_real, spec_acceptance and mesh
+# phases were in, so 2 requests from 2 clients of 80 tokens
+SERVE_BENCH_ARGV = ["--requests", "2", "--clients", "2",
+                    "--max-new-tokens", "80"]
 SERVE_MCTS_EXPANSIONS = 16  # the search that sampling requests run beside
 SERVE_PAIR_EXPANSIONS = 8   # each of the two concurrent searches
+# the pipelined phase: greedy tokens a slot and the decode block
+PIPE_NEW_TOKENS, PIPE_BLOCK = 256, 16
+VERIFY_REAL_ITEMS = 2   # eval_smoke's test items in the verify_real phase
 # training at bench.py's train_bench shape: detikzify-ds-1.3b full
 # fine-tune, bf16 weights, micro-batch 4 at sequence 640 (300 image tokens
 # + code), remat, 8-bit Adam moments, grad_accum 1 and 2
@@ -4876,6 +4882,468 @@ def grpo_phase(torch, device, rehearsal: bool, seed: int, params, cfg,
         raise SystemExit(f"grpo: {result}")
 
 
+def _decode_rows(records) -> dict:
+    """(slot, write position) -> that decode step's logits row, from the
+    (positions, logits) pairs a recording ``decode_step_paged`` kept."""
+    rows = {}
+    for positions, logits in records:
+        for slot, p in enumerate(positions.tolist()):
+            rows[(slot, p)] = logits[slot]
+    records.clear()
+    return rows
+
+
+def _checked_dispatch(torch, eng) -> None:
+    """Run every ``_dispatch`` of ``eng`` under
+    ``torch.cuda.set_sync_debug_mode("error")``: any operation that waits
+    on the device inside it raises."""
+    dispatch = eng._dispatch
+
+    def checked(k):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            dispatch(k)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    eng._dispatch = checked
+
+
+def pipelined_phase(torch, device, rehearsal: bool, seed: int, params,
+                    processor, n_new: int) -> dict:
+    """``DecodeEngine(pipelined=True)`` on the int8 + fused v2-8b: eight
+    figures (prompts of 300 image tokens), ``n_new`` greedy tokens each,
+    decode block ``PIPE_BLOCK``, eager and then pipelined. Every pipelined
+    dispatch runs under the sync debug mode "error". The streams may part
+    only at a near-tie: at the first differing token the eager run's
+    top-1 - top-2 logit gap must be at most tau = 2 max|pipelined - eager|
+    over the positions both runs computed from the same tokens (the
+    pipelined page bound can be larger, which changes K2's split). Then
+    one pipelined ``speculate=4`` run (K4). Tokens/s of each, the ms of a
+    decode step (the verify/plain ratio on this model), and one pipelined
+    block under torch.profiler (busy and idle share). The launches of the
+    pipelined run and of the speculative one are counted from 0 just before
+    each and read just after: the paths ``pipelined`` and
+    ``pipelined_spec``."""
+    from detikzify_torch.models import detikzify
+    from detikzify_torch.ops import launch_counts, reset_launch_counts
+
+    cfg = processor.cfg
+    prompts, emb = _greedy_prompts(torch, device, params, processor, seed)
+    decode_step_paged = detikzify.decode_step_paged
+    records = []
+
+    def record(params_, cfg_, tokens, positions, *a, **kw):
+        logits, pool = decode_step_paged(params_, cfg_, tokens, positions,
+                                         *a, **kw)
+        records.append((positions, logits))    # no host read here
+        return logits, pool
+
+    def sync():
+        if not rehearsal:
+            torch.cuda.synchronize()
+
+    def run(eng, new_tokens):
+        ros = eng.start_many(prompts, image_embeds=emb,
+                             max_new_tokens=new_tokens)
+        sync()
+        t0 = time.perf_counter()
+        while not all(ro.finished for ro in ros) or eng.has_inflight:
+            eng.step()
+        sync()
+        wall = time.perf_counter() - t0
+        out = [(ro.slot, list(ro.token_ids), ro.prompt_len) for ro in ros]
+        new = sum(ro.new_tokens for ro in ros)
+        for ro in ros:
+            eng.release(ro)
+        return out, {"wall_s": wall, "new_tokens": new,
+                     "tokens_per_s": new / wall,
+                     "decode_steps": eng.counters["decode_steps"],
+                     "decode_dispatches": eng.counters["decode_dispatches"],
+                     "step_ms": wall * 1e3 / max(
+                         eng.counters["decode_steps"], 1)}
+
+    kw = dict(decode_block=PIPE_BLOCK)
+    detikzify.decode_step_paged = record
+    try:
+        eager, eager_run = run(_engine(torch, params, cfg, device, seed,
+                                       **kw), n_new)
+        eager_rows = _decode_rows(records)
+        eng = _engine(torch, params, cfg, device, seed, pipelined=True, **kw)
+        if not rehearsal:
+            _checked_dispatch(torch, eng)
+        # the launches of the pipelined run alone
+        reset_launch_counts()
+        piped, piped_run = run(eng, n_new)
+        counts = launch_counts()
+        piped_rows = _decode_rows(records)
+    finally:
+        detikzify.decode_step_paged = decode_step_paged
+    if [x[0] for x in piped] != [x[0] for x in eager]:
+        raise SystemExit("the two engines placed the figures on different "
+                         "slots")
+    diverge, same, total = [], 0, 0
+    for (slot, want, plen), (_, got, _) in zip(eager, piped):
+        n = min(len(want), len(got))
+        same += sum(x == y for x, y in zip(want[plen:n], got[plen:n]))
+        total += len(want) - plen
+        diverge.append(next((j for j in range(plen, n)
+                             if want[j] != got[j]), None))
+    pairs = []
+    for (slot, want, plen), d in zip(eager, diverge):
+        hi = len(want) - 2 if d is None else d - 1
+        for p in range(plen, hi + 1):
+            a, b = eager_rows.get((slot, p)), piped_rows.get((slot, p))
+            if a is not None and b is not None:
+                pairs.append((a, b))
+    diffs = (torch.stack([(a.float() - b.float()).abs().amax()
+                          for a, b in pairs]).tolist() if pairs else [])
+    tau = 2 * max(diffs) if diffs else 0.0
+    gaps = []
+    for (slot, want, plen), d in zip(eager, diverge):
+        if d is None:
+            continue
+        row = eager_rows.get((slot, d - 1))
+        if row is None:
+            raise SystemExit(f"slot {slot}: pipelined and eager streams "
+                             "differ at their first token")
+        top = row.float().clone()
+        top[cfg.image_token_id] = -float("inf")
+        v2 = torch.topk(top, 2).values
+        gaps.append({"slot": slot, "token_index": d - plen,
+                     "top1_top2_gap": float(v2[0] - v2[1])})
+    del eager_rows, piped_rows
+    _free(torch, rehearsal)
+
+    spec_eng = _engine(torch, params, cfg, device, seed, pipelined=True,
+                       speculate=SPECULATE, spec_min_rate=0.0, **kw)
+    if not rehearsal:
+        _checked_dispatch(torch, spec_eng)
+    reset_launch_counts()
+    spec, spec_run = run(spec_eng, n_new)
+    spec_counts = launch_counts()
+    spec_run["spec_rate"] = spec_eng.spec_rate
+    spec_run["identical_to_eager_share"] = sum(
+        a[1] == b[1] for a, b in zip(spec, eager)) / len(eager)
+    del spec_eng
+    _free(torch, rehearsal)
+
+    profile = None
+    if not rehearsal:
+        # one pipelined block in its steady state (a block in flight)
+        e = _engine(torch, params, cfg, device, seed, pipelined=True, **kw)
+        e.start_many(prompts, image_embeds=emb,
+                     max_new_tokens=8 * PIPE_BLOCK)
+        for _ in range(3):
+            e.step()
+        prof, wall_ms = _profile_window(torch, e.step)
+        profile = _window_time(prof, wall_ms)
+        del e, prof
+        _free(torch, rehearsal)
+    del emb
+    result = {
+        "phase": "pipelined", "weights": "int8 + fused", "slots": len(eager),
+        "prompt_tokens": eager[0][2], "new_tokens": n_new,
+        "decode_block": PIPE_BLOCK, "eager": eager_run,
+        "pipelined": piped_run, "speculative_pipelined": spec_run,
+        "verify_plain_step_ratio": spec_run["step_ms"]
+        / piped_run["step_ms"],
+        "dispatch_sync_check": "every pipelined dispatch under "
+                               "set_sync_debug_mode('error')"
+                               if not rehearsal else "not on the CPU",
+        "identical_token_share": same / max(total, 1),
+        "first_divergence_per_slot": [None if d is None else d - p[2]
+                                      for d, p in zip(diverge, eager)],
+        "matched_positions": len(diffs),
+        "max_abs_pipelined_minus_eager": max(diffs) if diffs else None,
+        "tau": tau, "tau_rule": "2 max|pipelined - eager| over matched "
+                                "positions",
+        "divergences": gaps, "pipelined_block_profile": profile,
+        "launches": {"pipelined": counts, "pipelined_spec": spec_counts},
+        "nvidia_smi": None if rehearsal else nvidia_smi()}
+    emit(result)
+    for g in gaps:
+        if not g["top1_top2_gap"] <= tau:
+            raise SystemExit(f"pipelined greedy parted from eager greedy at "
+                             f"a gap above tau={tau}: {g}")
+    if rehearsal and gaps:
+        raise SystemExit("pipelined and eager greedy streams differ on the "
+                         "CPU")
+    if not rehearsal:
+        for path, got, names in (
+                ("pipelined", counts,
+                 ("flash_attention", "paged_decode", "int8_gemv")),
+                ("pipelined_spec", spec_counts,
+                 ("flash_attention", "paged_verify", "int8_gemv"))):
+            for name in names:
+                if got[name] <= 0:
+                    raise SystemExit(f"{path} never launched {name}")
+    return {"pipelined": counts, "pipelined_spec": spec_counts}
+
+
+def _step_ms(torch, eng, prompts, rehearsal: bool, blocks: int = 4) -> float:
+    """ms of one decode step of ``eng`` with every prompt live: two blocks
+    to warm up, then ``blocks`` timed, each waited for."""
+    ros = [eng.start(list(p), max_new_tokens=(blocks + 3)
+                     * eng.decode_block * (1 + eng.spec), lazy=True)
+           for p in prompts]
+    for _ in range(2):
+        eng.step()
+    if not rehearsal:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(blocks):
+        eng.step()
+    if not rehearsal:
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (blocks * eng.decode_block)
+    for ro in ros:
+        eng.release(ro)
+    return ms
+
+
+def spec_acceptance_phase(torch, device, rehearsal: bool, seed: int) -> dict:
+    """``python -m detikzify_torch.examples.spec_acceptance`` on the card
+    (its ``main``): ``run_measurement`` with the committed byte-level BPE
+    (``spec_bpe_300.json``) over ``generate_corpus(300, seed=0)``, the spec
+    model at 2 heads of 64 in bf16 (4 of 32 in fp32 in the rehearsal, 60
+    steps and 8 prompts) overfit for 400 steps, then greedy and T=0.8
+    speculative rates with and without hints over 24 prompts. The loss
+    must fall below 1.5 and the hinted greedy rate must exceed the
+    unhinted one. Then the ms of a verify step (speculate=4) over the ms
+    of a plain step, eight live slots of the same model (random weights:
+    a step's time does not depend on them): the break-even rate of
+    ``spec_min_rate`` on the card. The launches are the example's alone,
+    counted from 0 just before it and read just after."""
+    from detikzify_torch.dataset.synthetic import generate_corpus
+    from detikzify_torch.engine import DecodeEngine
+    from detikzify_torch.evaluate import spec_acceptance as sa
+    from detikzify_torch.evaluate.bpe import ByteLevelBPE
+    from detikzify_torch.examples import spec_acceptance as example
+    from detikzify_torch.models import convert
+    from detikzify_torch.ops import launch_counts, reset_launch_counts
+    from detikzify_torch.ops.sampling import SamplingParams
+
+    argv = ["--device", str(device)] + (
+        ["--steps", "60", "--eval", "8"] if rehearsal else [])
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = example.main(argv)
+    measure_s = time.perf_counter() - t0
+    # the example's launches alone, not the step timing's below
+    counts = launch_counts()
+
+    tok = ByteLevelBPE.from_file()
+    # the spec model's hidden size is 128
+    cfg = sa.spec_model_config(len(tok), num_heads=128 // out["head_dim"],
+                               dtype=out["dtype"])
+    params = convert.init_random(cfg, device=device,
+                                 dtype=getattr(torch, out["dtype"]),
+                                 seed=seed)
+    prompts = [[cfg.bos_token_id] + tok.encode(c)[:8]
+               for c in generate_corpus(8, seed=0)]
+
+    def engine(spec):
+        # EOS is the (banned) image token: every slot stays live
+        return DecodeEngine(params, cfg, num_slots=8,
+                            max_len=cfg.model_max_length, speculate=spec,
+                            spec_min_rate=0.0, decode_block=16,
+                            eos_token_id=cfg.image_token_id,
+                            cache_dtype=getattr(torch, out["dtype"]),
+                            sampling=SamplingParams(temperature=0.0),
+                            device=device, seed=seed)
+    plain_ms = _step_ms(torch, engine(0), prompts, rehearsal)
+    verify_ms = _step_ms(torch, engine(SPECULATE), prompts, rehearsal)
+    result = {"phase": "spec_acceptance", "vocab": len(tok),
+              "measurement": out, "measure_s": measure_s,
+              "plain_step_ms": plain_ms, "verify_step_ms": verify_ms,
+              "verify_plain_ratio": verify_ms / plain_ms,
+              "speculate": SPECULATE, "launches": counts,
+              "nvidia_smi": None if rehearsal else nvidia_smi()}
+    emit(result)
+    if not out["overfit_loss"] < 1.5:
+        raise SystemExit(f"spec_acceptance: the overfit loss "
+                         f"{out['overfit_loss']} is not below 1.5")
+    if not out["spec_rate_bpe_t0_hint"] > out["spec_rate_bpe_t0"]:
+        raise SystemExit(f"spec_acceptance: hinted greedy drafts do not "
+                         f"beat unhinted ones: {out}")
+    if not rehearsal:
+        if (out["head_dim"], out["dtype"]) != (64, "bfloat16"):
+            raise SystemExit(f"spec_acceptance ran at {out}")
+        # every rate is measured on a speculative engine (K4)
+        for name in ("flash_attention", "paged_verify"):
+            if counts[name] <= 0:
+                raise SystemExit(f"spec_acceptance never launched {name}")
+    del params
+    _free(torch, rehearsal)
+    return counts
+
+
+def mesh_phase(torch, device, rehearsal: bool, seed: int, params, cfg,
+               processor) -> dict:
+    """The data axis on one card: ``Trainer`` (JAX's ``TrainConfig``
+    defaults, ``fsdp=True``) over ``make_mesh()`` of a one-rank process
+    group (nccl on ``tcp://127.0.0.1`` at a free port; gloo in the
+    rehearsal) against the same ``Trainer`` with no group, each on a copy
+    of the train phase's weights: the ``trainer`` phase's 8 figures, micro
+    1 x grad_accum 2, 2 steps. Every step's loss within
+    ``TRAIN_REF_LOSS_TOL`` relative of the unmeshed one's; the sharded
+    model's weights whole again after ``train``. Then
+    ``parallel.dryrun.entry()``: the DS-1.3b forward on zero weights. The
+    group is destroyed after. The launches are the meshed trainer's alone,
+    counted from 0 just before it and read just after."""
+    import copy
+    import math
+
+    import torch.distributed as dist
+
+    from detikzify_torch.dataset.synthetic import generate_corpus
+    from detikzify_torch.ops import launch_counts, reset_launch_counts
+    from detikzify_torch.parallel.dryrun import _free_port, entry
+    from detikzify_torch.parallel.mesh import make_mesh
+    from detikzify_torch.train import TrainConfig, Trainer
+    from detikzify_torch.train.data import SketchDataset
+
+    def sync():
+        if not rehearsal:
+            torch.cuda.synchronize()
+
+    def dataset():
+        return SketchDataset([{"image": f, "text": c} for f, c in zip(
+            synthetic_figures(8, seed + 21), generate_corpus(8, seed))],
+            sketch_ratio=0.5, seed=seed)
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    out_dir = tempfile.mkdtemp(prefix="mesh_", dir=ROOT / "build")
+    tc = TrainConfig(output_dir=out_dir,
+                     epochs=1, micro_batch_size=1, grad_accum=2,
+                     max_length=64 if rehearsal else TRAIN_SEQ,
+                     sketch_ratio=0.5, logging_steps=1, seed=seed)
+
+    def run(mesh):
+        weights = copy.deepcopy(params)
+        trainer = Trainer(weights, cfg, processor, dataset(), tc, mesh=mesh,
+                          device=device, log_fn=lambda m: None)
+        trainer.ckpt.save = lambda *a, **k: None   # no checkpoint here
+        losses, step = [], trainer._step_fn
+
+        def recorded(state, batch):
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+            return state, metrics
+        trainer._step_fn = recorded
+        sync()
+        t0 = time.perf_counter()
+        state = trainer.train(resume=False, max_steps=2)
+        sync()
+        out = {"losses": losses, "train_s": time.perf_counter() - t0,
+               "steps": state.step}
+        if not rehearsal:
+            out["max_memory_allocated_bytes"] = \
+                torch.cuda.max_memory_allocated()
+        placement = getattr(weights, "placement", None)
+        if placement is not None:
+            out["placement"] = {"data": placement.world,
+                                "sharded_tensors": len(
+                                    placement._sharded()),
+                                "whole_after_train": placement.is_full}
+        del trainer, state, weights
+        _free(torch, rehearsal)
+        return out
+
+    try:
+        if not rehearsal:
+            torch.cuda.reset_peak_memory_stats()
+        plain = run(None)
+        if not rehearsal:
+            torch.cuda.reset_peak_memory_stats()
+        dist.init_process_group(
+            "gloo" if rehearsal else "nccl",
+            init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+            world_size=1)
+        try:
+            mesh = make_mesh(device=device)
+            # the launches of the meshed trainer alone
+            reset_launch_counts()
+            meshed = run(mesh)
+            counts = launch_counts()
+            meshed["mesh"] = mesh.shape
+        finally:
+            dist.destroy_process_group()
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    errs = [abs(a - b) / abs(b) for a, b in zip(meshed["losses"],
+                                                plain["losses"])]
+    result = {"phase": "mesh", "preset": "tiny-test" if rehearsal
+              else TRAIN_PRESET, "backend": "gloo" if rehearsal else "nccl",
+              "fsdp": tc.fsdp, "micro_batch": 1, "grad_accum": 2,
+              "unmeshed": plain, "meshed": meshed, "loss_rel_err": errs,
+              "tolerance": f"loss {TRAIN_REF_LOSS_TOL} relative",
+              "launches": counts}
+    if not rehearsal:
+        fn, args = entry(device)
+        logits = fn(*args)
+        result["entry"] = {"logits_shape": list(logits.shape),
+                           "finite": bool(torch.isfinite(logits).all())}
+        del fn, args, logits
+        _free(torch, rehearsal)
+    emit(result)
+    if (len(errs) != 2 or not all(math.isfinite(x) for x in meshed["losses"])
+            or max(errs) > TRAIN_REF_LOSS_TOL
+            or not meshed.get("placement", {}).get("whole_after_train")):
+        raise SystemExit(f"mesh: the meshed trainer disagrees: {result}")
+    if not rehearsal:
+        if not result["entry"]["finite"]:
+            raise SystemExit("mesh: entry()'s forward is not finite")
+        if counts["flash_attention"] <= 0:
+            raise SystemExit("mesh never launched flash_attention")
+    return counts
+
+
+def verify_real_phase(torch, device, rehearsal: bool, seed: int, cfg,
+                      export_dir: str, max_new_tokens: int) -> dict:
+    """``detikzify_torch.tools.verify_real``'s ``import`` (int8 load) and
+    ``eval_smoke`` (``VERIFY_REAL_ITEMS`` synthetic items: search to the
+    first compilable program, then every metric of ``examples.eval``'s
+    ``score``) on the ``load`` phase's exported checkpoint, the smoke
+    tokenizer standing in for the checkpoint's. The three reference steps
+    must report ``not_run``."""
+    from detikzify_torch.ops import launch_counts, reset_launch_counts
+    from detikzify_torch.tools import verify_real
+
+    work = tempfile.mkdtemp(prefix="verify_real_", dir=ROOT / "build")
+    try:
+        _, args = verify_real.parse_args(
+            ["--checkpoint", f"v2-8b={export_dir}", "--device", str(device),
+             "--eval-items", str(VERIFY_REAL_ITEMS), "--workdir", work]
+            + ([] if rehearsal else ["--quantize"]))
+        reset_launch_counts()
+        with checkpoint_tokenizer(cfg, cfg.image_seq_len + max_new_tokens):
+            t0 = time.perf_counter()
+            out = verify_real.verify_checkpoint(
+                "v2-8b", export_dir, args, steps=("import", "eval_smoke"))
+            wall = time.perf_counter() - t0
+        counts = launch_counts()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    _free(torch, rehearsal)
+    verdict = verify_real.verdict_of({"v2-8b": out})
+    result = {"phase": "verify_real", "steps": {
+        k: v for k, v in out.items() if isinstance(v, dict)},
+        "verdict": verdict["verdict"], "wall_s": wall, "launches": counts}
+    emit(result)
+    steps = result["steps"]
+    if not (steps["import"]["ok"] and steps["eval_smoke"]["ok"]
+            and verdict["verdict"] == "pass"
+            and all(steps[s]["ok"] is None
+                    for s in verify_real.REFERENCE_STEPS)):
+        raise SystemExit(f"verify_real failed: {result}")
+    if not rehearsal:
+        for name in ("flash_attention", "paged_decode", "int8_gemv"):
+            if counts[name] <= 0:
+                raise SystemExit(f"verify_real never launched {name}")
+    return counts
+
+
 def training_phases(torch, device, rehearsal: bool, seed: int) -> dict:
     """The training reference, then ``train`` (the step and the
     ``Trainer``) and ``pretrain``; the post-training reference, ``grpo`` on
@@ -4889,6 +5357,8 @@ def training_phases(torch, device, rehearsal: bool, seed: int) -> dict:
     params, cfg, processor = train_phase(torch, device, rehearsal, seed)
     trainer_phase(torch, device, rehearsal, seed, params, cfg, processor)
     paths = {"train": launch_counts()}
+    paths["mesh"] = mesh_phase(torch, device, rehearsal, seed, params, cfg,
+                               processor)
     reset_launch_counts()
     pretrain_phase(torch, device, rehearsal, seed, params, cfg, processor)
     paths["pretrain"] = launch_counts()
@@ -5024,12 +5494,18 @@ def main(argv=None) -> int:
         paths.update(simulate_spec_phase(torch, device, rehearsal, args.seed,
                                          qparams, processor,
                                          args.max_new_tokens))
+        paths.update(pipelined_phase(
+            torch, device, rehearsal, args.seed, qparams, processor,
+            min(PIPE_NEW_TOKENS, 2 * args.max_new_tokens)))
         paths["serve"] = serve_phase(torch, device, rehearsal, args.seed,
                                      qparams, processor.cfg,
                                      args.max_new_tokens)
         paths.update(evaluate_phase(torch, device, rehearsal, args.seed,
                                     processor.cfg, export_dir,
                                     args.max_new_tokens))
+        paths["verify_real"] = verify_real_phase(
+            torch, device, rehearsal, args.seed, processor.cfg, export_dir,
+            args.max_new_tokens)
         paths.update(replicas_phase(torch, device, rehearsal, args.seed,
                                     qparams, processor.cfg,
                                     args.max_new_tokens))
@@ -5044,6 +5520,8 @@ def main(argv=None) -> int:
         shutil.rmtree(export_dir, ignore_errors=True)
     _free(torch, rehearsal)
     paths["serve_bench"] = serve_bench_phase(torch, device, rehearsal)
+    paths["spec_acceptance"] = spec_acceptance_phase(torch, device, rehearsal,
+                                                     args.seed)
     paths.update(v1_phases(torch, device, rehearsal, args.seed,
                            args.max_new_tokens))
     _free(torch, rehearsal)

@@ -23,9 +23,12 @@
 
 Per-slot token/position state lives on the device; the host keeps plain-int
 mirrors updated from fetched results. The host-side page accounting and the
-speculative gating are the JAX engine's, line for line. Not ported here:
-the ``pipelined`` dispatch mode, the gather/scatter decode and verify views
-and the attention-backend pin (see ROADMAP).
+speculative gating are the JAX engine's, line for line. With
+``pipelined=True`` block N+1 is launched before block N's tokens are read:
+no dispatch waits on the device (host arrays go up from pinned memory, and
+each block's tokens come down into pinned memory behind an event recorded
+when it is launched). Not ported here: the gather/scatter decode and verify
+views and the attention-backend pin (see ROADMAP).
 """
 from __future__ import annotations
 
@@ -85,6 +88,41 @@ class Rollout:
         return len(self.token_ids)
 
 
+class _Fetch:
+    """Device tensors on their way to the host. ``pinned`` (pipelined
+    stepping on a card): the copy goes into pinned memory, issued with the
+    launch that produced them, and an event marks its end, so reading
+    waits for that event only, never for work launched after it.
+    Otherwise the first read copies them (eager stepping: a wait for all
+    the work launched)."""
+
+    def __init__(self, *tensors: Optional[torch.Tensor],
+                 pinned: bool = False):
+        self._tensors, self._host, self._event = tensors, None, None
+        dev = next((t.device for t in tensors if t is not None), None)
+        if pinned and dev is not None and dev.type == "cuda":
+            self._host = []
+            for t in tensors:
+                if t is None:
+                    self._host.append(None)
+                    continue
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                h.copy_(t, non_blocking=True)
+                self._host.append(h)
+            # on the stream the copies went to: the tensors' device's,
+            # whichever device is current
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(dev))
+
+    def numpy(self) -> List[Optional[np.ndarray]]:
+        if self._host is None:
+            self._host = [None if t is None else t.cpu()
+                          for t in self._tensors]
+        elif self._event is not None:
+            self._event.synchronize()
+        return [None if h is None else h.numpy() for h in self._host]
+
+
 class DecodeEngine:
     def __init__(
         self,
@@ -98,6 +136,7 @@ class DecodeEngine:
         eos_token_id: Optional[int] = None,
         prefix_budget_bytes: int = 2 << 30,
         decode_block: int = 16,
+        pipelined: bool = False,
         page_size: int = 128,
         speculate: int = 0,
         spec_min_rate: float = 1.3,
@@ -124,7 +163,15 @@ class DecodeEngine:
         back to plain decoding, with a recoverable exponential-backoff
         probe (``_update_spec_gating``); 0 disables the bail-out. The 1.3
         default is the JAX package's measured break-even of the verify
-        forward on the TPU, kept as it is."""
+        forward on the TPU, kept as it is. On an NVIDIA H100 80GB HBM3
+        at 700 W a verify step cost 1.11-1.27x a plain one at v2-8b int8
+        with 8 slots (``chip_smoke.py``'s ``pipelined`` phase) and
+        1.04-1.49x on the small spec model (its ``spec_acceptance``
+        phase).
+
+        ``pipelined=True``: ``step()`` launches block N+1 before it reads
+        block N's tokens, so the host's token handling overlaps the
+        device; finishes are seen one block later (see ``step``)."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("DecodeEngine: no CUDA device; pass "
@@ -136,6 +183,7 @@ class DecodeEngine:
         self.cfg = cfg
         self.num_slots = num_slots
         self.decode_block = decode_block
+        self.pipelined = pipelined
         self.page = page_size
         self.spec = int(speculate)
         self.spec_min_rate = spec_min_rate
@@ -201,10 +249,13 @@ class DecodeEngine:
                 dtype=torch.int32, device=dev)
             self._hint_dev = torch.full((num_slots, self.max_len), -1,
                                         dtype=torch.int32, device=dev)
-        # whether the last dispatched block speculated (the JAX engine's
-        # pipelined slack reads it), and which slots' device histories went
-        # stale through plain blocks (resynced before the next speculative
-        # block)
+        # pipelined stepping: the block dispatched last step (its token
+        # fetch, counts or None, k, {slot: rollout} snapshot)
+        self._inflight = None
+        # whether the last dispatched block speculated (the pipelined
+        # ``_kv_limit`` slack reads it), and which slots' device histories
+        # went stale through plain blocks (resynced before the next
+        # speculative block)
         self._last_dispatch_spec = False
         self._buf_stale = np.zeros((num_slots,), bool)
         self._active = np.zeros((num_slots,), bool)       # host-controlled
@@ -213,7 +264,8 @@ class DecodeEngine:
             np.asarray([sampling.temperature, sampling.top_p,
                         float(sampling.top_k)], np.float32),
             (num_slots, 1))
-        self._first_pending: Dict[int, torch.Tensor] = {}  # slot -> dev scalar
+        # slot -> (fetch of its start wave's first tokens, row in the wave)
+        self._first_pending: Dict[int, Tuple[_Fetch, int]] = {}
         self._prefix_store: Dict[object, StoredPrefix] = {}
         self._prefix_lru: List[object] = []
         # O(1)-ish longest-prefix lookup: (namespace, length, hash(ids))
@@ -240,7 +292,15 @@ class DecodeEngine:
     # ------------------------------------------------------------------
 
     def _put(self, x, dtype=torch.int32) -> torch.Tensor:
-        """Host array -> tensor on the engine's device."""
+        """Host array -> tensor on the engine's device. Pipelined on a
+        card it goes from pinned memory without blocking the host: a copy
+        from pageable memory would wait for the block in flight. The
+        pinned buffer comes from PyTorch's caching host allocator, which
+        reuses it only once the copy has ended."""
+        if self.pipelined and self.device.type == "cuda":
+            t = torch.from_numpy(np.ascontiguousarray(np.asarray(x)))
+            return t.to(dtype).pin_memory().to(self.device,
+                                               non_blocking=True)
         return torch.as_tensor(np.asarray(x), device=self.device).to(dtype)
 
     def _samp_cols(self, samp: torch.Tensor):
@@ -730,10 +790,11 @@ class DecodeEngine:
             self._buf_stale[np.asarray(slots)] = False
         else:
             firsts = self._start_wave(*args)
+        fetch = _Fetch(firsts, pinned=self.pipelined)
         for i, ro in enumerate(rollouts):
             self._rollouts[ro.slot] = ro
             self._active[ro.slot] = True
-            self._first_pending[ro.slot] = firsts[i]
+            self._first_pending[ro.slot] = (fetch, i)
         # boundary pages were only read by the wave just enqueued; anything
         # that recycles them writes in a LATER launch on the same stream
         for pid in boundary_pins:
@@ -855,12 +916,10 @@ class DecodeEngine:
         return rollouts
 
     def _fetch_firsts(self) -> List[Tuple[int, int]]:
-        slots = list(self._first_pending)
-        if not slots:
-            return []
-        values = torch.stack([self._first_pending[s] for s in slots]).tolist()
+        out = [(slot, int(fetch.numpy()[0][i]))
+               for slot, (fetch, i) in self._first_pending.items()]
         self._first_pending.clear()
-        return list(zip(slots, values))
+        return out
 
     def flush(self) -> List[Rollout]:
         """Fetch pending first tokens to the host; returns rollouts that
@@ -925,15 +984,21 @@ class DecodeEngine:
     # stepping
     # ------------------------------------------------------------------
 
-    def _kv_limit(self, k: int) -> int:
+    def _kv_limit(self, k: int, speculative: bool) -> int:
         """Smallest bucket covering every live slot's rows after k more
-        steps. (The JAX engine adds slack here for its ``pipelined`` mode,
-        which the port does not have.)"""
+        steps (+ slack for pipelined dispatch: the block in flight advances
+        up to decode_block tokens -- times spec+1 when IT speculated --
+        beyond the host's stale lengths; the slack therefore follows the
+        PREVIOUS dispatch's mode too, not just this one's: per-class gating
+        can flip spec->plain while a speculative block is in flight)."""
         live = [len(ro.token_ids) for slot, ro in self._rollouts.items()
                 if self._active[slot]]
         if not live:
             return self.max_len
-        need = max(live) + k
+        slack = 1 + (self.spec if (speculative or self._last_dispatch_spec)
+                     else 0)
+        need = max(live) + k + (self.decode_block * slack
+                                if self.pipelined else 0)
         for b in BUCKETS:
             if need <= b <= self.max_len:
                 return b
@@ -944,7 +1009,8 @@ class DecodeEngine:
         in pages. Speculative blocks advance up to spec+1 tokens a step and
         also need the verify window's spec+1 rows clear of the bound."""
         per_step = 1 + (self.spec if speculative else 0)
-        return -(-self._kv_limit(k * per_step + per_step) // self.page)
+        return -(-self._kv_limit(k * per_step + per_step, speculative)
+                 // self.page)
 
     @property
     def _spec_on(self) -> bool:
@@ -970,7 +1036,13 @@ class DecodeEngine:
         went stale: plain blocks (dispatched while every class was bailed
         out) advance positions without writing ``_buf_dev``, so a later
         speculative block would draft against holes. The host's accepted
-        ``token_ids`` are the truth for live slots."""
+        ``token_ids`` are the truth for live slots. Under ``pipelined=True``
+        the host lags the block in flight by up to one block, so rows the
+        in-flight PLAIN block advanced past stay -1 for this dispatch -- a
+        bounded acceptance dent, never a correctness fault (the n-gram
+        search finds no match there). ``_consume`` re-marks those slots
+        stale when that plain block's tokens land, so the NEXT resync heals
+        the hole from the then-complete host ids."""
         stale = [s for s in np.flatnonzero(self._buf_stale)
                  if self._active[s] and s in self._rollouts]
         if not stale:
@@ -984,10 +1056,10 @@ class DecodeEngine:
         self._buf_stale[np.asarray(stale)] = False
         self.counters["buf_resyncs"] += 1
 
-    def _dispatch(self, k: int):
-        """Launch one decode block (speculative or plain) and snapshot which
-        rollout owned each slot. Returns (tokens, counts or None, k,
-        owners) for ``_consume``."""
+    def _dispatch(self, k: int) -> None:
+        """Launch one decode block (speculative or plain), start the fetch
+        of its tokens and snapshot which rollout owned each slot, as
+        ``_inflight``. Nothing here waits on the device."""
         self.counters["decode_dispatches"] += 1
         self.counters["decode_steps"] += k
         use_spec = self._use_spec()
@@ -1008,24 +1080,24 @@ class DecodeEngine:
         self._last_dispatch_spec = use_spec
         owners = {slot: ro for slot, ro in self._rollouts.items()
                   if self._active[slot]}
-        return toks_dev, counts_dev, k, owners
+        self._inflight = (_Fetch(toks_dev, counts_dev,
+                                 pinned=self.pipelined), k, owners)
 
     def _consume(self, inflight) -> List[Rollout]:
-        """Fetch a dispatched block's tokens (one host sync, shared with any
-        pending first tokens) and deliver them to their rollouts."""
+        """Wait for a dispatched block's tokens (and any pending first
+        tokens) and deliver them to their rollouts."""
         firsts = self._fetch_firsts()
         spec_run = False
         if inflight is None:
             toks, counts, k, owners = None, None, 0, {}
         else:
-            toks_dev, counts_dev, k, owners = inflight
-            toks = toks_dev.cpu().numpy()        # [k, S] or [k, S, spec+1]
-            if counts_dev is None:               # plain: 1 token a step
+            fetch, k, owners = inflight
+            toks, counts = fetch.numpy()         # [k, S] or [k, S, spec+1]
+            if counts is None:                   # plain: 1 token a step
                 toks = toks[:, :, None]
                 counts = np.ones(toks.shape[:2], np.int32)
             else:
                 spec_run = True
-                counts = counts_dev.cpu().numpy()
 
         finished = []
         for slot, tok in firsts:
@@ -1069,6 +1141,16 @@ class DecodeEngine:
                         break
                 if ro.finished:
                     break
+        if inflight is not None and not spec_run and self.spec > 0:
+            # a PLAIN block's tokens just landed in the host's token_ids,
+            # but the device history never saw them (plain blocks do not
+            # write it). Re-mark the block's slots stale: under
+            # ``pipelined=True`` a speculative dispatch may have resynced
+            # and cleared them from the host's INCOMPLETE ids while this
+            # block was in flight, which would leave a lasting -1 hole.
+            # Eager stepping marked them at dispatch: a no-op there.
+            for slot in owners:
+                self._buf_stale[slot] = True
         self._update_spec_gating()
         return finished
 
@@ -1129,17 +1211,42 @@ class DecodeEngine:
 
     def step(self, k: Optional[int] = None) -> List[Rollout]:
         """Advance decoding by one block of k steps (default
-        ``decode_block``); one host sync fetches the block's tokens and any
-        pending first tokens. Returns rollouts that finished."""
+        ``decode_block``). Returns rollouts that finished.
+
+        Eager by default: launch a block, wait for its tokens. With
+        ``pipelined=True`` block N+1 launches BEFORE block N's tokens are
+        read -- the device runs while the host handles tokens, and finishes
+        are seen one block later (the first call after a start only primes
+        the pipeline and returns ``[]``)."""
         k = self.decode_block if k is None else k
-        inflight = self._dispatch(k) if self._active.any() else None
-        return self._consume(inflight)
+        if not self.pipelined:
+            if self._active.any():
+                self._dispatch(k)
+            prev, self._inflight = self._inflight, None
+            return self._consume(prev)
+        prev, self._inflight = self._inflight, None
+        if self._active.any():
+            self._dispatch(k)
+        if prev is None and self._inflight is not None \
+                and not self._first_pending:
+            return []                    # pipeline primed; tokens next call
+        return self._consume(prev)
+
+    @property
+    def has_inflight(self) -> bool:
+        return self._inflight is not None
+
+    def flush_steps(self) -> List[Rollout]:
+        """Drain the block in flight without dispatching a new one."""
+        prev, self._inflight = self._inflight, None
+        return self._consume(prev)
 
     def run(self, max_steps: Optional[int] = None) -> List[Rollout]:
         """Step until every rollout finishes; returns them all."""
         done: List[Rollout] = []
         steps = 0
-        while self._active.any() or self._first_pending:
+        while (self._active.any() or self._first_pending
+               or self._inflight is not None):
             done.extend(self.step())
             steps += 1
             if max_steps is not None and steps >= max_steps:

@@ -122,7 +122,11 @@ class ImageSim:
     def _norm(self, pixels: torch.Tensor) -> torch.Tensor:
         """uint8 pixels are normalised here; float pixels pass through."""
         if pixels.dtype == torch.uint8:
-            return (pixels.float() / 255.0 - self.image_mean) / self.image_std
+            # a scalar or a per-channel list (a checkpoint's statistics)
+            mean, std = (torch.as_tensor(np.asarray(s, np.float32),
+                                         device=pixels.device)
+                         for s in (self.image_mean, self.image_std))
+            return (pixels.float() / 255.0 - mean) / std
         return pixels
 
     @torch.inference_mode()

@@ -193,15 +193,10 @@ def main(argv=None):
     args = parse_args(argv)
     device = args.device
     if args.distributed:
-        import torch
-        import torch.distributed as dist
+        from detikzify_torch.parallel.mesh import join_group
 
         # torchrun's environment (RANK, WORLD_SIZE, MASTER_ADDR/PORT)
-        on_card = torch.device(device).type == "cuda"
-        dist.init_process_group("nccl" if on_card else "gloo")
-        if on_card:
-            device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
-            torch.cuda.set_device(device)
+        device = str(join_group(device))
     import datasets
 
     ds = datasets.load_from_disk(args.testset)

@@ -33,6 +33,9 @@ def parse_args(argv=None):
     p.add_argument("--mse_loss", action="store_true",
                    help="distill with L2 instead of cosine similarity "
                         "(reference tikzero/pretrain.py --mse_loss)")
+    p.add_argument("--distributed", action="store_true",
+                   help="join the torch.distributed group torchrun "
+                        "describes (nccl on the card, gloo on the CPU)")
     p.add_argument("--device", default="cuda",
                    help="device of the tower, adapter and caption model "
                         "('cpu' runs the kernels' plain versions)")
@@ -41,6 +44,10 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
+    if args.distributed:
+        from detikzify_torch.parallel.mesh import join_group
+
+        args.device = str(join_group(args.device))
 
     import torch
 

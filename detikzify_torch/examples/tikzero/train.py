@@ -35,6 +35,9 @@ def parse_args(argv=None):
     p.add_argument("--micro_batch_size", type=int, default=4)
     p.add_argument("--epochs", type=int, default=1)
     p.add_argument("--learning_rate", type=float, default=5e-5)
+    p.add_argument("--distributed", action="store_true",
+                   help="join the torch.distributed group torchrun "
+                        "describes (nccl on the card, gloo on the CPU)")
     p.add_argument("--device", default="cuda",
                    help="device of the weights and the step ('cpu' runs "
                         "the kernels' plain versions)")
@@ -43,6 +46,10 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
+    if args.distributed:
+        from detikzify_torch.parallel.mesh import join_group
+
+        args.device = str(join_group(args.device))
 
     from detikzify_torch.models.load import (load, load_adapter,
                                              save_pretrained)

@@ -299,9 +299,18 @@ def params_to_numpy(params: nn.Module,
     the JAX ``Params``. ``values`` maps a weight to the tensor to write in
     its place (its gradient, say); weights it does not hold are written
     themselves. ``params_from_numpy`` of the result gives ``params`` back
-    bit for bit."""
+    bit for bit. A model stored sharded on a mesh (its ``placement``) is
+    written as whole leaves: every rank of the mesh must call this."""
+    placement = getattr(params, "placement", None)
     values = {} if values is None else values
     tree: Dict = {}
+    if placement is not None and not placement.is_full:
+        # the whole tensors are freed again after: copy, never view them
+        with placement.gathered():
+            for leaf in leaves(params):
+                for t in leaf.tensors:
+                    values.setdefault(t, t.detach().clone())
+            return params_to_numpy(params, values)
     for leaf in leaves(params):
         arrays = []
         for t in leaf.tensors:

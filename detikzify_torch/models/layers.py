@@ -55,6 +55,14 @@ def apply_remat(block, remat):
     return wrapped
 
 
+def run_layer(block, lp: nn.Module, x: torch.Tensor, *args):
+    """``block(x, *args)``, the layer whose weights are ``lp``. A layer
+    stored sharded over a mesh's data axis (``parallel.mesh``: its
+    ``fsdp_unit``) is gathered around its forward and backward."""
+    unit = getattr(lp, "fsdp_unit", None)
+    return block(x, *args) if unit is None else unit.run(block, x, *args)
+
+
 class LayerNorm(nn.Module):
     """Parameters of a layer norm (``scale``, ``bias``), applied by
     ``layer_norm``."""

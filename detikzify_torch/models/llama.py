@@ -50,7 +50,7 @@ from ..ops.paged import decode_attend_paged, decode_verify_attend_paged
 from ..ops.quant import QuantLinear
 from ..ops.quant_matmul import int8_matmul, matmul_f32
 from .layers import (ACTIVATIONS, RMSNorm, apply_remat, apply_rope, linear,
-                     rms_norm, rope_cos_sin, rope_inv_freq)
+                     rms_norm, rope_cos_sin, rope_inv_freq, run_layer)
 
 
 class Attention(nn.Module):
@@ -182,7 +182,7 @@ def forward(params: Llama, cfg: TextConfig, inputs_embeds: torch.Tensor, *,
     block = apply_remat(block, remat)
     x = inputs_embeds
     for lp in params.layers:
-        x = block(x, lp)
+        x = run_layer(block, lp, x, lp)
     return rms_norm(params.norm, x, cfg.rms_norm_eps)
 
 

@@ -22,7 +22,8 @@ from torch import nn
 
 from ..config import AdapterConfig, VisionConfig
 from ..ops.flash import flash_attention
-from .layers import ACTIVATIONS, LayerNorm, apply_remat, layer_norm, linear
+from .layers import (ACTIVATIONS, LayerNorm, apply_remat, layer_norm, linear,
+                     run_layer)
 
 
 class AdapterInputs(NamedTuple):
@@ -204,7 +205,7 @@ def _blocks(params: SiglipVision, cfg: VisionConfig,
     x = x + params.embeddings.position
     states = []
     for idx, lp in enumerate(params.layers[:num_layers]):
-        x = block(x, idx, lp)
+        x = run_layer(block, lp, x, idx, lp)
         if keep:
             states.append(x)
     return x, states

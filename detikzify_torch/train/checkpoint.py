@@ -9,6 +9,11 @@ and the step, read back with ``torch.load(weights_only=True)``. Saves are
 synchronous, so ``wait`` has nothing to wait for. ``save_params_npz``
 writes the JAX tree's keys (``proj/kernel`` ``[in, out]``, ...), so a
 projector file of either package loads in both.
+
+On a mesh (``parallel.mesh.place_params``) every rank calls ``save`` and
+``restore`` together: ``save`` gathers the whole leaves and moments and
+rank 0 writes them in the same format, and ``restore`` gives each rank its
+part again, whatever the mesh's shape was when the file was written.
 """
 from __future__ import annotations
 
@@ -20,9 +25,10 @@ from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
-from ..models.convert import params_to_numpy
+from ..models.convert import leaves, params_to_numpy
 from .step import TrainState
 
 _STEP_RE = re.compile(r"^checkpoint-(\d+)$")
@@ -57,19 +63,35 @@ class Checkpointer:
         """Save a ``TrainState``, or a module's weights alone (the
         post-training loops save the part they train)."""
         path = _ckpt_dir(self.output_dir, step)
-        os.makedirs(path, exist_ok=True)
         if isinstance(state, nn.Module):
-            blob = {"params": state.state_dict(), "step": step}
-        else:
-            blob = {"params": state.params.state_dict(),
-                    "opt_state": state.opt_state, "step": state.step}
+            self._write(path, step, {"params": state.state_dict(),
+                                     "step": step}, meta)
+            return path
+        placement = getattr(state.params, "placement", None)
+        if placement is None:
+            self._write(path, step, {"params": state.params.state_dict(),
+                                     "opt_state": state.opt_state,
+                                     "step": state.step}, meta)
+            return path
+        with placement.gathered():
+            opt_state = placement.gather_state(
+                state.opt_state, {l.path: l for l in leaves(state.params)})
+            if placement.rank == 0 and _process_rank() == 0:
+                self._write(path, step, {"params": state.params.state_dict(),
+                                         "opt_state": opt_state,
+                                         "step": state.step}, meta)
+        if placement.mesh.distributed:
+            dist.barrier()
+        return path
+
+    def _write(self, path, step, blob, meta) -> None:
+        os.makedirs(path, exist_ok=True)
         torch.save(blob, os.path.join(path, "state.pt"))
         # meta.json is the completeness marker get_last_checkpoint keys on:
         # written only once the state is on disk
         with open(os.path.join(path, "meta.json"), "w") as f:
             json.dump({"step": step, **(meta or {})}, f)
         self._gc()
-        return path
 
     def restore(self, path: str, template: TrainState) -> TrainState:
         """Restore into ``template``: its parameters are overwritten in
@@ -79,8 +101,16 @@ class Checkpointer:
         device = next(params.parameters()).device
         saved = torch.load(os.path.join(path, "state.pt"),
                            map_location=device, weights_only=True)
-        params.load_state_dict(saved["params"])
-        return TrainState(params, saved["opt_state"], int(saved["step"]))
+        placement = getattr(params, "placement", None)
+        if placement is None:
+            params.load_state_dict(saved["params"])
+            return TrainState(params, saved["opt_state"], int(saved["step"]))
+        with placement.gathered():
+            params.load_state_dict(saved["params"])
+            placement.refresh_masters()
+        opt_state = placement.shard_state(
+            saved["opt_state"], {l.path: l for l in leaves(params)})
+        return TrainState(params, opt_state, int(saved["step"]))
 
     def restore_latest(self, template: TrainState):
         path = get_last_checkpoint(self.output_dir)
@@ -100,6 +130,11 @@ class Checkpointer:
         for step in steps[:-self.max_to_keep]:
             shutil.rmtree(_ckpt_dir(self.output_dir, step),
                           ignore_errors=True)
+
+
+def _process_rank() -> int:
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() \
+        else 0
 
 
 def save_params_npz(path: str, params, only: Optional[str] = None) -> None:

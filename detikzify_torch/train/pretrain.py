@@ -11,7 +11,7 @@ from typing import List, Optional
 
 from ..config import DetikzifyConfig
 from ..processing import DetikzifyProcessor
-from .checkpoint import save_params_npz
+from .checkpoint import _process_rank, save_params_npz
 from .data import fits_in_context
 from .trainer import TrainConfig, Trainer
 
@@ -31,6 +31,7 @@ def pretrain(
     epochs: int = 1,
     max_length: Optional[int] = None,
     device=None,
+    mesh=None,
     seed: int = 0,
     log_fn=print,
 ):
@@ -51,10 +52,12 @@ def pretrain(
         seed=seed,
         trainable="projector",
     )
-    trainer = Trainer(params, cfg, processor, kept, tc, device=device,
-                      log_fn=log_fn)
+    trainer = Trainer(params, cfg, processor, kept, tc, mesh=mesh,
+                      device=device, log_fn=log_fn)
     state = trainer.train(resume=not overwrite)
-    # partial-state save: projector only (reference pretrain.py:104-111)
-    save_params_npz(f"{output_dir}/modality_projector.npz", state.params,
-                    only="connector")
+    # partial-state save: projector only (reference pretrain.py:104-111),
+    # written once
+    if _process_rank() == 0:
+        save_params_npz(f"{output_dir}/modality_projector.npz", state.params,
+                        only="connector")
     return state.params, processor

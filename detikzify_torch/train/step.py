@@ -17,9 +17,19 @@
 The optimizer works on the leaves of the JAX tree (``convert.leaves``): a
 stacked leaf's layers, and a dense kernel in its ``[in, out]`` order, make
 one flat vector for the 8-bit moments' blocks, as in the JAX package.
+
+On a mesh (``parallel.mesh.place_params``) the step takes this rank's rows
+of the global batch, weighs each micro-batch's loss by this rank's share of
+its label tokens, and sums the gradients over the data axis, so the update
+is the unsharded one. With ``fsdp`` each layer is whole only around its
+own forward and backward (``Placement.streaming``), the gradients of the
+sharded tensors are reduce-scattered to this rank's slices, and each rank
+updates its slice of every sharded leaf (its whole 256-element blocks for
+the 8-bit moments, for which the update gathers one leaf at a time).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Dict, List, Mapping, NamedTuple, Optional
 
@@ -203,15 +213,21 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, params, grads: Mapping[torch.Tensor, torch.Tensor],
-               state: dict) -> dict:
+               state: dict, placement=None,
+               norm: Optional[torch.Tensor] = None) -> dict:
         """Apply one update to ``params`` in place from ``grads`` (each
         trainable tensor's gradient, keyed by the tensor) and return the
-        new optimizer state."""
+        new optimizer state. On a mesh (``placement``) ``grads`` hold this
+        rank's part of the gradients summed over the data axis (see
+        ``_reduce_grads``) and ``norm`` their global norm; the update
+        writes this rank's master slices and the state holds this rank's
+        part of the moments."""
         count = state["count"]
         train = self.leaves(params)
         gs = {leaf.path: [grads[t] for t in leaf.tensors] for leaf in train}
         if self.grad_clip is not None:
-            norm = global_norm([g for v in gs.values() for g in v])
+            if norm is None:
+                norm = global_norm([g for v in gs.values() for g in v])
             keep = norm < self.grad_clip
             one = torch.ones((), device=norm.device)
             div = torch.where(keep, one, norm)
@@ -222,21 +238,34 @@ class AdamW:
         bc2 = _bias_correction(self.b2, count + 1)
         lr = -self.schedule(count)
         moments = {}
+        blocks = _blocks(placement, self)
         for leaf in train:
             st = state["moments"][leaf.path]
-            if self.mode == "quant8":
-                us, moments[leaf.path] = self._quant8(leaf, gs[leaf.path],
-                                                      st, bc1, bc2)
-            else:
-                us, moments[leaf.path] = self._dense(gs[leaf.path], st, bc1,
+            g = gs[leaf.path]
+            if blocks:              # this rank's run of the leaf's blocks
+                u, moments[leaf.path] = self._quant8(torch.cat(g), st, bc1,
                                                      bc2)
-            for p, u in zip(leaf.tensors, us):
-                if self.weight_decay:
-                    u = u + self.weight_decay * p
-                # the learning rate is cast to the update's dtype first
-                u = u * _rounded(lr, u.dtype)
-                p.copy_((p + u).to(p.dtype))
+                self._write_blocks(leaf, u, lr, placement)
+                continue
+            ps = list(leaf.tensors)
+            if self.mode == "quant8":
+                u, moments[leaf.path] = self._quant8(_flat(leaf, g), st,
+                                                     bc1, bc2)
+                us = _unflat(leaf, u)
+            else:
+                if placement is not None:
+                    ps = [placement.master(t) for t in ps]
+                us, moments[leaf.path] = self._dense(g, st, bc1, bc2)
+            for p, u in zip(ps, us):
+                self._apply(p, u, lr)
         return {"count": count + 1, "moments": moments}
+
+    def _apply(self, p: torch.Tensor, u: torch.Tensor, lr: float) -> None:
+        if self.weight_decay:
+            u = u + self.weight_decay * p
+        # the learning rate is cast to the update's dtype first
+        u = u * _rounded(lr, u.dtype)
+        p.copy_((p + u).to(p.dtype))
 
     def _dense(self, gs, st, bc1, bc2):
         b1, b2, eps = self.b1, self.b2, self.eps
@@ -257,9 +286,11 @@ class AdamW:
             nu.append(v)
         return us, {"mu": mu, "nu": nu}
 
-    def _quant8(self, leaf, gs, st, bc1, bc2):
+    def _quant8(self, g, st, bc1, bc2):
+        """``g``: a leaf's gradient in the JAX tree's element order, all of
+        it or a run of its whole blocks (``st`` holds those blocks'
+        moments) -> the update of the same elements and the new moments."""
         b1, b2, eps = self.b1, self.b2, self.eps
-        g = _flat(leaf, gs)
         n = g.numel()
         gf = torch.nn.functional.pad(g.float(), (0, -n % QUANT_BLOCK)
                                      ).reshape(-1, QUANT_BLOCK)
@@ -272,7 +303,21 @@ class AdamW:
         mq, ms = self._quant(m)
         vq, vs = self._quant(v)
         u = u.reshape(-1)[:n].to(g.dtype)
-        return _unflat(leaf, u), {"mq": mq, "ms": ms, "vq": vq, "vs": vs}
+        return u, {"mq": mq, "ms": ms, "vq": vq, "vs": vs}
+
+    def _write_blocks(self, leaf, u, lr, placement) -> None:
+        """Apply ``u``, the update of this rank's blocks of ``leaf``, and
+        gather every rank's updated elements back into the whole tensors
+        and their master slices (the leaf whole only meanwhile)."""
+        n = sum(t.numel() for t in leaf.tensors)
+        e0, e1, per = _element_range(placement, n)
+        with placement.gathered(leaf.tensors):
+            seg = _flat(leaf, leaf.tensors)[e0:e1].clone()
+            self._apply(seg, u, lr)
+            new = placement.all_gather_rows(seg, per, n)
+            for t, part in zip(leaf.tensors, _unflat(leaf, new)):
+                t.copy_(part)
+            placement.refresh_masters(leaf.tensors)
 
     def _quant(self, x):
         # the fp32 reciprocal of the constant, as XLA computes the JAX
@@ -323,52 +368,187 @@ def make_train_step(
     ``loss_fn(params, cfg, batch)`` replaces the default loss. ``metrics``
     hold the mean loss and the global norm of the averaged gradients
     before clipping."""
+    default_loss = loss_fn is None
     if loss_fn is None:
         loss_fn = label_smoothing_free_loss
     else:
         user_fn = loss_fn
         loss_fn = lambda p, c, b, r: user_fn(p, c, b)  # noqa: E731
 
+    def grads_of(params, trained, mb, scale):
+        loss = loss_fn(params, cfg, mb, remat)
+        gs = torch.autograd.grad(loss if scale == 1 else loss * scale,
+                                 trained, allow_unused=True)
+        # a leaf the loss does not reach has a zero gradient, as in JAX
+        return loss.detach(), [torch.zeros_like(p) if g is None else g
+                               for g, p in zip(gs, trained)]
+
     def train_step(state: TrainState, batch: Mapping):
+        """On a mesh ``batch`` holds this rank's rows (the ``data``
+        coordinate's block of the global batch). Micro-batch i is global
+        rows ``[i*mb, (i+1)*mb)``; its loss is the mean over all its label
+        tokens, so this rank's part is weighted by its share of them."""
         params = state.params
+        placement = getattr(params, "placement", None)
         trained = [p for p in params.parameters() if p.requires_grad]
         if not trained:
             raise ValueError("no parameter requires a gradient: call "
                              "trainable_mask first")
-
-        def grads_of(mb):
-            loss = loss_fn(params, cfg, mb, remat)
-            gs = torch.autograd.grad(loss, trained, allow_unused=True)
-            # a leaf the loss does not reach has a zero gradient, as in JAX
-            return loss.detach(), [torch.zeros_like(p) if g is None else g
-                                   for g, p in zip(gs, trained)]
-
-        if grad_accum == 1:
-            loss, grads = grads_of(batch)
-        else:
-            split = {k: v.reshape((grad_accum, -1) + tuple(v.shape[1:]))
-                     for k, v in batch.items()}
-            loss = torch.zeros((), dtype=torch.float32,
-                               device=trained[0].device)
-            acc = [torch.zeros(p.shape, dtype=accum_dtype or p.dtype,
-                               device=p.device) for p in trained]
-            for i in range(grad_accum):
-                mloss, gs = grads_of({k: v[i] for k, v in split.items()})
-                loss = loss + mloss
+        n_local = next(iter(batch.values())).shape[0]
+        world, rank = ((1, 0) if placement is None
+                       else (placement.world, placement.rank))
+        n_global = n_local * world
+        if n_global % grad_accum:
+            raise ValueError(f"global batch {n_global} does not split into "
+                             f"{grad_accum} micro-batches")
+        mb, first = n_global // grad_accum, rank * n_local
+        parts = []                      # (micro, local row slice)
+        for i in range(grad_accum):
+            lo, hi = max(i * mb, first), min((i + 1) * mb, first + n_local)
+            if lo < hi:
+                parts.append((i, slice(lo - first, hi - first)))
+        scales, per_layer = _part_scales(placement, grad_accum, parts,
+                                         batch, default_loss)
+        live = [(rows, w) for (_, rows), w in zip(parts, scales) if w]
+        dev = trained[0].device
+        loss = torch.zeros((), dtype=torch.float32, device=dev)
+        acc = None
+        with (contextlib.nullcontext() if placement is None
+              else placement.streaming(per_layer)):
+            for rows, scale in live:
+                mloss, gs = grads_of(params, trained,
+                                     {k: v[rows] for k, v in batch.items()},
+                                     scale)
+                loss = loss + mloss * scale
+                if len(live) == 1:
+                    acc = gs
+                    continue
+                if acc is None:
+                    acc = [torch.zeros(p.shape, dtype=accum_dtype or p.dtype,
+                                       device=p.device) for p in trained]
                 for a, g in zip(acc, gs):
                     a.add_(g.to(a.dtype))
                 del gs
-            loss = loss / grad_accum
-            grads = [(a / grad_accum).to(p.dtype)
-                     for a, p in zip(acc, trained)]
-            del acc
-        metrics = {"loss": loss, "grad_norm": global_norm(grads)}
-        opt_state = optimizer.update(params, dict(zip(trained, grads)),
-                                     state.opt_state)
+        if acc is None:                 # no label token on this rank
+            acc = [torch.zeros_like(p) for p in trained]
+        if placement is None:
+            # one micro-batch: its gradients themselves, no second copy
+            grads = {p: a if grad_accum == 1 and a.dtype == p.dtype
+                     else (a / grad_accum).to(p.dtype)
+                     for a, p in zip(acc, trained)}
+            norm = None
+            metrics = {"grad_norm": global_norm(list(grads.values()))}
+        else:
+            loss = placement.all_reduce(loss)
+            grads, norm = _reduce_grads(placement, optimizer,
+                                        optimizer.leaves(params),
+                                        dict(zip(trained, acc)), grad_accum)
+            metrics = {"grad_norm": norm}
+        del acc
+        metrics["loss"] = loss / grad_accum
+        opt_state = optimizer.update(params, grads, state.opt_state,
+                                     placement=placement, norm=norm)
+        if placement is not None:
+            placement.release()
         return TrainState(params, opt_state, state.step + 1), metrics
 
     return train_step
 
 
+def _blocks(placement, optimizer: AdamW) -> bool:
+    """The 8-bit moments split on whole blocks over the data axis."""
+    return (placement is not None and placement.fsdp
+            and optimizer.mode == "quant8")
+
+
+def _element_range(placement, n: int):
+    """This rank's elements of a leaf of ``n`` (its whole 256-element
+    blocks, ``Placement.block_range``) and the elements of a full run."""
+    n_blocks = -(-n // QUANT_BLOCK)
+    lo, hi = placement.block_range(n_blocks)
+    per = -(-n_blocks // placement.world) * QUANT_BLOCK
+    return min(lo * QUANT_BLOCK, n), min(hi * QUANT_BLOCK, n), per
+
+
+def _part_scales(placement, grad_accum: int, parts, batch: Mapping,
+                 token_mean: bool):
+    """What each of this rank's parts (micro-batch, rows) counts for in
+    its micro-batch's mean loss: its share of the micro-batch's label
+    tokens (1 with no mesh). And whether every rank runs as many parts:
+    only then are the layers gathered one at a time (collectives that
+    every rank makes alike), else the whole model for the step."""
+    if placement is None:
+        return [1.0] * len(parts), True
+    dev = next(iter(batch.values())).device
+    weight = torch.zeros(grad_accum, dtype=torch.float64, device=dev)
+    for i, rows in parts:
+        weight[i] = _loss_weight({k: v[rows] for k, v in batch.items()},
+                                 token_mean)
+    every = torch.stack(placement.all_gather(weight)).tolist()
+    total = [sum(col) for col in zip(*every)]
+    local = every[placement.rank]
+    scales = [local[i] / total[i] if local[i] else 0.0 for i, _ in parts]
+    runs = {sum(1 for w in row if w) for row in every}
+    return scales, len(runs) == 1
+
+
+def _reduce_grads(placement, optimizer: AdamW, train: List[Leaf],
+                  acc: Dict[torch.Tensor, torch.Tensor], grad_accum: int):
+    """This rank's gradient sums -> this rank's part of the gradients of
+    the global batch's mean loss, with their global norm. A sharded
+    tensor's part is its slice (a reduce-scatter), a replicated one's all
+    of it (an all-reduce). Under 8-bit moments with ``fsdp`` it is this
+    rank's whole blocks of each leaf, in the JAX tree's element order:
+    those cross the sharded dimension's slices, so each tensor is
+    all-reduced and cut; the norm then sums the whole tensors' squares in
+    the unsharded step's order."""
+    blocks = _blocks(placement, optimizer)
+    grads, whole, split = {}, [], []
+    for leaf in train:
+        e0, e1, _ = _element_range(
+            placement, sum(t.numel() for t in leaf.tensors))
+        off = 0
+        for t in leaf.tensors:
+            if blocks:
+                g = (placement.all_reduce(acc.pop(t)) / grad_accum
+                     ).to(t.dtype)
+                whole.append(g.float().square().sum())
+                flat = (g.t() if leaf.transposed else g).reshape(-1)
+                a = min(max(e0 - off, 0), t.numel())
+                b = min(max(e1 - off, a), t.numel())
+                grads[t] = flat[a:b].clone()
+                off += t.numel()
+                continue
+            g = (placement.reduce_grad(t, acc.pop(t)) / grad_accum
+                 ).to(t.dtype)
+            grads[t] = g
+            (split if placement.splits(t) else whole).append(
+                g.float().square().sum())
+    sq = torch.stack(whole).sum() if whole else torch.zeros(
+        (), device=next(iter(grads.values())).device)
+    if split:
+        sq = sq + placement.all_reduce(torch.stack(split).sum())
+    return grads, sq.sqrt()
+
+
+def _loss_weight(batch: Mapping, token_mean: bool) -> float:
+    """What a micro-batch's part counts for in its mean loss: its label
+    tokens (the rule of ``detikzify.forward``'s loss), or its rows for a
+    caller's loss."""
+    if not token_mean:
+        return float(next(iter(batch.values())).shape[0])
+    valid = batch["labels"][:, 1:] != -100
+    mask = batch.get("attention_mask")
+    if mask is not None:
+        valid = valid & mask[:, 1:].bool()
+    return float(valid.sum())
+
+
 def init_state(params: nn.Module, optimizer: AdamW) -> TrainState:
-    return TrainState(params, optimizer.init(params), 0)
+    """A fresh state; on a mesh, with this rank's part of the moments."""
+    opt_state = optimizer.init(params)
+    placement = getattr(params, "placement", None)
+    if placement is not None:
+        opt_state = placement.shard_state(
+            opt_state, {leaf.path: leaf for leaf in optimizer.leaves(params)})
+    return TrainState(params, opt_state, 0)

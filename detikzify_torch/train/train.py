@@ -32,6 +32,7 @@ def train(
     max_length: Optional[int] = None,
     gradient_checkpointing: bool = False,
     device=None,
+    mesh=None,
     seed: int = 0,
     log_fn=print,
 ):
@@ -56,6 +57,6 @@ def train(
     )
     trainer = Trainer(params, cfg, processor,
                       SketchDataset(kept, sketch_ratio, seed=seed),
-                      tc, device=device, log_fn=log_fn)
+                      tc, mesh=mesh, device=device, log_fn=log_fn)
     state = trainer.train(resume=not overwrite)
     return state.params, processor

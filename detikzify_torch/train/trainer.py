@@ -2,13 +2,15 @@
 (counterpart of ``detikzify_tpu/train/trainer.py``).
 
 The HF-Trainer responsibilities the reference relies on
-(``train/train.py:105-147``) live here: the step runs on one ``device``,
-data loading and augmentation stay on the host (numpy), each batch goes to
-the device from pinned memory without blocking the host, checkpoints are
-``train.checkpoint``'s, and "SplitEpochSaveCallback(0.25)" becomes
-``save_epoch_fraction=0.25``. The JAX ``TrainConfig``'s ``fsdp`` and
-``model_axis`` place work over a device mesh; one card has none, so they
-are not kept.
+(``train/train.py:105-147``) live here: the step runs over a
+``("data", "model")`` mesh (``parallel.mesh``: the processes of the
+``torch.distributed`` group, one device each, or one device where there is
+no group), data loading and augmentation stay on the host (numpy), each
+rank takes its rows of the global batch to its device from pinned memory
+without blocking the host, checkpoints are ``train.checkpoint``'s, and
+"SplitEpochSaveCallback(0.25)" becomes ``save_epoch_fraction=0.25``.
+``TrainConfig.fsdp`` stores the weights and moments sharded over the data
+axis; ``model_axis`` > 1 (tensor parallelism) raises in ``place_params``.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from ..config import DetikzifyConfig
+from ..parallel.mesh import local_rows, make_mesh, place_params
 from ..processing import DetikzifyProcessor
 from . import data as data_mod
 from .checkpoint import Checkpointer, get_last_checkpoint
@@ -42,6 +45,8 @@ class TrainConfig:
     seed: int = 0
     trainable: str = "all"                  # or "projector"
     gradient_checkpointing: bool = False
+    fsdp: bool = True
+    model_axis: int = 1
 
 
 def to_device(batch: dict, device) -> dict:
@@ -66,24 +71,44 @@ class Trainer:
         dataset,
         train_cfg: TrainConfig,
         *,
+        mesh=None,
         device=None,
         log_fn: Callable[[str], None] = print,
     ):
+        """``mesh`` (default ``make_mesh(model=model_axis)``): over a
+        ``torch.distributed`` group the weights are placed on it and the
+        global batch must divide by its data axis; without a group the
+        step runs on ``device`` (default: where ``params`` are)."""
         self.cfg = cfg
         self.processor = processor
         self.dataset = dataset
         self.tc = train_cfg
         self.log = log_fn
-        self.device = torch.device(device) if device is not None \
-            else next(params.parameters()).device
+        self.mesh = mesh or make_mesh(model=train_cfg.model_axis,
+                                      device=device)
+        if self.mesh.distributed:
+            self.device = self.mesh.device
+        else:
+            self.device = torch.device(device) if device is not None \
+                else next(params.parameters()).device
 
+        global_bs = train_cfg.micro_batch_size * train_cfg.grad_accum
+        data_size = self.mesh.shape["data"]
+        if global_bs % data_size != 0:
+            raise ValueError(
+                f"global batch {global_bs} (micro {train_cfg.micro_batch_size}"
+                f" x accum {train_cfg.grad_accum}) must be divisible by the "
+                f"mesh data axis ({data_size})")
         steps_per_epoch = max(
             len(dataset) // (train_cfg.micro_batch_size
                              * train_cfg.grad_accum), 1)
         self.steps_per_epoch = steps_per_epoch
         self.total_steps = steps_per_epoch * train_cfg.epochs
 
-        params = params.to(self.device)
+        if self.mesh.distributed or self.mesh.shape["model"] > 1:
+            params = place_params(params, self.mesh, fsdp=train_cfg.fsdp)
+        else:
+            params = params.to(self.device)
         self.optimizer = make_optimizer(
             train_cfg.learning_rate,
             total_steps=self.total_steps,
@@ -134,6 +159,9 @@ class Trainer:
                     continue
                 if max_steps is not None and step >= max_steps:
                     break
+                if self.mesh.distributed:
+                    batch = {k: local_rows(v, self.mesh)
+                             for k, v in batch.items()}
                 self.state, metrics = self._step_fn(
                     self.state, to_device(batch, self.device))
                 step += 1
@@ -149,4 +177,7 @@ class Trainer:
         self.ckpt.save(step, self.state,
                        {"epoch": min(epoch, self.tc.epochs - 1)})
         self.ckpt.wait()
+        placement = getattr(self.state.params, "placement", None)
+        if placement is not None:
+            placement.gather()          # hand back whole weights
         return self.state

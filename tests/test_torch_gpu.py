@@ -1010,3 +1010,43 @@ def test_two_replicas_share_one_card(cuda):
     steps = sum(e.counters["decode_steps"] for e in engines)
     assert counts["paged_decode"] == steps * cfg.text.num_hidden_layers > 0
     assert counts["flash_attention"] > 0 and counts["int8_gemv"] > 0
+
+
+def test_pipelined_dispatch_never_waits_and_matches_eager(cuda):
+    """``DecodeEngine(pipelined=True)`` at ``tiny-test``'s shape with the
+    decoder at 2 heads of 64 in bf16: no pipelined ``_dispatch`` waits on
+    the device (``set_sync_debug_mode("error")`` raises on any such wait),
+    and its greedy streams equal the eager engine's (one page bound in
+    both: the same K2 split)."""
+    from detikzify_torch.config import tiny_test_config
+    from detikzify_torch.engine import DecodeEngine
+    from detikzify_torch.models import convert
+    from detikzify_torch.ops.sampling import SamplingParams
+
+    cfg = tiny_test_config(vocab_size=512)
+    cfg = cfg.replace(text=cfg.text.replace(
+        hidden_size=128, intermediate_size=256, num_attention_heads=2,
+        num_key_value_heads=2))
+    params = convert.init_random(cfg, device=cuda, dtype=torch.bfloat16)
+    prompts = [[cfg.bos_token_id] + [5 + i] * (3 + i) for i in range(4)]
+    outs = []
+    for pipelined in (False, True):
+        eng = DecodeEngine(params, cfg, num_slots=4, max_len=256,
+                           decode_block=8, pipelined=pipelined,
+                           sampling=SamplingParams(temperature=0.0),
+                           device=cuda)
+        if pipelined:
+            dispatch = eng._dispatch
+
+            def checked(k, dispatch=dispatch):
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    dispatch(k)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            eng._dispatch = checked
+        ros = [eng.start(p, max_new_tokens=40, lazy=True) for p in prompts]
+        eng.run()
+        outs.append([list(r.token_ids) for r in ros])
+        assert eng.counters["decode_dispatches"] > 2
+    assert outs[0] == outs[1]

@@ -619,9 +619,12 @@ def test_chip_smoke_cpu_rehearsal():
     ``examples.eval`` (``evaluate``), the command line (``replicas``,
     ``trace``, ``infer_cli``, ``serve_bench``), the v1
     family's phases, training (K1's backward, the training reference,
-    ``train``, ``trainer``, ``pretrain``) and post-training (the adapter
-    and GRPO references, ``grpo``, ``adapter_pretrain``,
-    ``adapter_train``)."""
+    ``train``, ``trainer``, ``mesh``, ``pretrain``), post-training (the
+    adapter and GRPO references, ``grpo``, ``adapter_pretrain``,
+    ``adapter_train``), the pipelined engine (``pipelined``,
+    ``pipelined_spec``), the BPE
+    speculation measurement (``spec_acceptance``) and the verification
+    tool (``verify_real``)."""
     env = dict(os.environ, OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "chip_smoke.py", "--cpu-rehearsal",
                           "--max-new-tokens", "8"], cwd=ROOT, env=env,
@@ -640,7 +643,8 @@ def test_chip_smoke_cpu_rehearsal():
              "replicas_one", "replicas_two", "trace", "infer_cli_one_shot",
              "infer_cli_mcts", "serve_bench", "v1_sample", "v1_simulate",
              "train", "pretrain", "grpo", "adapter_pretrain",
-             "adapter_train"}
+             "adapter_train", "pipelined", "pipelined_spec", "verify_real",
+             "spec_acceptance", "mesh"}
     assert all(set(row["launches_by_path"]) == paths for row in kernels)
     # the v1 family's kernel shapes sit beside the v2 ones
     row_names = {row["name"] for row in kernels}
