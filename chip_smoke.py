@@ -45,8 +45,9 @@ Phases, each printing one JSON line:
 5. main    -- random-weight ``detikzify-v2-8b`` at full width and depth in
               bf16: three ``DetikzifyPipeline.sample()`` requests and one
               ``sample_batch()`` of three figures, 128 new tokens each;
-6. profile -- one more ``sample()`` request of 32 tokens under
-              torch.profiler: the card's busy time and idle share;
+6. profile -- one more ``sample()`` request of ``PROFILE_NEW_TOKENS``
+              (16) tokens under torch.profiler: the card's busy time and
+              idle share;
 7. contiguous -- the same bf16 weights through the contiguous-cache API:
               ``detikzify.prefill`` of eight figures into a ``KVCache`` of
               8 x 2048 rows, greedy ``decode_step`` (K3), one
@@ -61,7 +62,8 @@ Phases, each printing one JSON line:
               ``save_adapter`` / ``save_embedding_model`` and loaded back
               by ``load_adapter_params``, bit for bit; on the same bf16
               weights, ``sample()`` with a figure and a caption and with a
-              caption alone (the adapter's blank image), 128 new tokens;
+              caption alone (the adapter's blank image),
+              ``SIDE_NEW_TOKENS`` (64) new tokens;
               the caption-conditioned encoder pass timed against the plain
               one;
 10. tikzero_simulate -- ``simulate()`` with the caption: 8 expansions,
@@ -300,6 +302,25 @@ K1_TIKZERO_CASES = (
     ("cross", 2, 900, 64, 16, 16, 72, "mask", (17, 64)),
     ("caption", 2, 64, 64, 32, 8, 64, "causal_mask", (23, 64)),
 )
+# the tp phase's shapes: v2-8b over a model axis of 2, each rank's shard.
+# K1 on the tower and MAP head at 8 of the 16 heads of 72, the prefill
+# window at 16/4 of the 32/8 heads of 128; K2 and K4 at 16/4 heads (the
+# GQA group stays 4); K5 at the column-parallel fused qkv (N 3072), gateup
+# (N 14336) and lm_head (N 64128) and the row-parallel o (K 2048) and down
+# (K 7168), at 8 rows and 40 (the verify forward)
+K1_TP_CASES = (
+    ("tp2_vision", 3, 900, 900, 8, 8, 72, "full"),
+    ("tp2_map_head", 3, 1, 900, 8, 8, 72, "full"),
+    ("tp2_prefill_window", 3, 512, 640, 16, 4, 128, "window"),
+)
+K2_TP_CASE = dict(K2_CASE, NH=16, NKV=4)
+K4_TP_CASE = dict(K4_CASE, NH=16, NKV=4)
+K5_TP_CASES = (
+    ("tp2_qkv", 4096, 3072, "bf16"), ("tp2_o", 2048, 4096, "bf16"),
+    ("tp2_gateup", 4096, 14336, "bf16"), ("tp2_down", 7168, 4096, "bf16"),
+    ("tp2_lm_head", 4096, 64128, "fp32"),
+)
+K5_TP_ROWS = (8, 40)
 # meta-llama/Llama-3.2-1B's config.json: the TikZero caption model
 LLAMA32_1B = dict(
     vocab_size=128256, hidden_size=2048, intermediate_size=8192,
@@ -354,7 +375,22 @@ SERVE_BENCH_ARGV = ["--requests", "2", "--clients", "2",
 SERVE_MCTS_EXPANSIONS = 16  # the search that sampling requests run beside
 SERVE_PAIR_EXPANSIONS = 8   # each of the two concurrent searches
 # the pipelined phase: greedy tokens a slot and the decode block
-PIPE_NEW_TOKENS, PIPE_BLOCK = 256, 16
+# (256 tokens until PR 15: 128 keep 8 blocks a run, and the cut holds the
+# whole script under its limit with the tp phase in; see SIDE_NEW_TOKENS)
+PIPE_NEW_TOKENS, PIPE_BLOCK = 128, 16
+# the phases beside the main path generate this many tokens a request, not
+# --max-new-tokens (128): tikzero_sample/simulate, serve, evaluate,
+# verify_real, replicas, infer_cli and v1_sample/simulate. Their checks
+# hold fusion, ordering under a search, caching, parity with one pipeline
+# and checkpoints, none of which needs a longer rollout. The whole script
+# took 1348 s on an H100 at 700 W with the tp phase in and no cut (PR 15,
+# call 2), over its 1200 s limit; these halved rollouts, PIPE_NEW_TOKENS
+# and PROFILE_NEW_TOKENS bring it back under
+SIDE_NEW_TOKENS = 64
+# the profiled requests (one sample(), one simulate() wave): the
+# profiler's reading of a 32-token request's events took ~25-45 s of each
+# profile (call 2); 16 tokens keep several decode steps in the window
+PROFILE_NEW_TOKENS = 16
 VERIFY_REAL_ITEMS = 2   # eval_smoke's test items in the verify_real phase
 # training at bench.py's train_bench shape: detikzify-ds-1.3b full
 # fine-tune, bf16 weights, micro-batch 4 at sequence 640 (300 image tokens
@@ -386,6 +422,17 @@ TIKZERO_PLUS_LAYERS = 8     # adapter_train's decoder: 8 of Llama-3.1-8B's 32
 TIKZERO_PLUS_ITEMS, TIKZERO_PLUS_MICRO = 8, 4
 TIKZERO_PLUS_LR = 5e-5
 GRPO_GENERATIONS, GRPO_NEW_TOKENS, GRPO_PROMPTS, GRPO_STEPS = 8, 128, 2, 2
+# the tp phase: greedy figures of its sample_batch leg; the decode and
+# verify calls a part whose whole logits rows it keeps for tau; the
+# training leg's layers a tower (DS-1.3b at full width; its 24 and 27
+# would add ~2 x 20 s of gloo collectives over one card); its first-step
+# logits' bound against the unsharded int8 model's; its ranks' time limit
+TP_FIGURES, TP_KEEP_CALLS, TP_TRAIN_LAYERS = 8, 16, 8
+# the speculative leg's tokens a row (SIDE_NEW_TOKENS' reason: K4 and the
+# hinted and unhinted draft classes run from the first verify step)
+TP_SPEC_NEW_TOKENS = 64
+TP_LOGITS_MIN_COSINE = 0.999
+TP_TIMEOUT_S = 900
 K1_BACKWARD_CASES = K1_TRAIN_CASES + (
     ("train_vision", 4, 900, 900, 16, 16, 72, "full", None),
     K1_POSTTRAIN_CASES[1],          # distillation's key-masked cross shape
@@ -570,7 +617,8 @@ def k5_rows(torch, gen, device, rehearsal: bool, timer) -> list:
             [(c, K5_ROWS) for c in K5_CASES]
             + [(c, K5_V1_ROWS) for c in K5_V1_CASES]
             + [(c, K5_EVAL_ROWS) for c in K5_EVAL_CASES]
-            + [(c, K5_DS13_ROWS) for c in K5_DS13_CASES]):
+            + [(c, K5_DS13_ROWS) for c in K5_DS13_CASES]
+            + [(c, K5_TP_ROWS) for c in K5_TP_CASES]):
         if rehearsal:       # tiny shapes: the CPU only checks the wiring
             k, n = 256, 384
         w = torch.randn((n, k), generator=gen, device=device) * k ** -0.5
@@ -633,7 +681,8 @@ def kernel_phase(torch, device, rehearsal: bool, iters: int):
             + [(c[:8], None, c[8]) for c in K1_TIKZERO_CASES]
             + [(c, None, None) for c in K1_EVAL_CASES]
             + [(c[:8], None, c[8]) for c in K1_TRAIN_CASES]
-            + [(c[:8], None, c[8]) for c in K1_POSTTRAIN_CASES]):
+            + [(c[:8], None, c[8]) for c in K1_POSTTRAIN_CASES]
+            + [(c, 300, None) for c in K1_TP_CASES]):
         if rehearsal:   # tiny shapes: the CPU only checks the wiring
             s, t = min(s, 9), 12
             lengths = lengths and tuple(min(n, t) for n in lengths)
@@ -683,7 +732,11 @@ def kernel_phase(torch, device, rehearsal: bool, iters: int):
                        "paged_decode/v1"))
     rows.append(k2_row(torch, gen, device, rehearsal, timer, K2_DS13_CASE,
                        "paged_decode/ds13_16slots"))
+    rows.append(k2_row(torch, gen, device, rehearsal, timer, K2_TP_CASE,
+                       "paged_decode/tp2"))
     rows.append(k4_row(torch, gen, device, rehearsal, timer))
+    rows.append(k4_row(torch, gen, device, rehearsal, timer, K4_TP_CASE,
+                       "paged_verify/tp2"))
     rows.extend(k3_rows(torch, gen, device, rehearsal, timer))
     rows.extend(k5_rows(torch, gen, device, rehearsal, timer))
     return rows
@@ -843,15 +896,16 @@ def k2_row(torch, gen, device, rehearsal: bool, timer, case: dict,
     return row
 
 
-def k4_row(torch, gen, device, rehearsal: bool, timer) -> dict:
+def k4_row(torch, gen, device, rehearsal: bool, timer, case=K4_CASE,
+           name: str = "paged_verify") -> dict:
     """K4, the speculative verify window, against its plain version at the
-    v2-8b shapes of speculate=4; SDPA with a per-row boolean mask over
-    pre-gathered pages is the library yardstick."""
+    v2-8b shapes of speculate=4 (``case``); SDPA with a per-row boolean
+    mask over pre-gathered pages is the library yardstick."""
     import torch.nn.functional as F
 
     from detikzify_torch.ops import paged
 
-    c = dict(K4_CASE)
+    c = dict(case)
     if rehearsal:
         c.update(B=3, NH=4, NKV=2, Hd=64, page=64, m=2, starts=(5, 124, 0))
     b, k1, nh, nkv, hd, page, m = (c[x] for x in ("B", "K1", "NH", "NKV",
@@ -874,8 +928,8 @@ def k4_row(torch, gen, device, rehearsal: bool, timer) -> dict:
                                                     tab, starts)
     tol = tolerance_check(torch, got, want, pv_abs)
     if not tol.pop("ok"):
-        raise SystemExit(f"K4: kernel disagrees with its plain version: "
-                         f"{tol}")
+        raise SystemExit(f"K4 {name}: kernel disagrees with its plain "
+                         f"version: {tol}")
     tol["control_late_limit_max_err_over_tol"] = control_check(
         torch, got, paged.decode_verify_attend_paged_plain(
             q, pool_k, pool_v, tab, starts + 1), pv_abs,
@@ -884,7 +938,7 @@ def k4_row(torch, gen, device, rehearsal: bool, timer) -> dict:
     rows_read = sum(min(s0 + k1, width) for s0 in c["starts"])
     visible = sum(min(s0 + j + 1, width) for s0 in c["starts"]
                   for j in range(k1))
-    row = {"name": "paged_verify", "kernel": "paged_verify", "route": "cuda",
+    row = {"name": name, "kernel": "paged_verify", "route": "cuda",
            "source": "detikzify_torch/csrc/paged_verify.cu",
            "replaces": "detikzify_tpu/ops/paged.py:363",
            "shape": {"B": b, "K1": k1, "NH": nh, "NKV": nkv, "Hd": hd,
@@ -1424,7 +1478,8 @@ def sample_drive(torch, device, rehearsal: bool, seed: int, params,
     emit(result)
     if not rehearsal:
         prof = profile_call(torch, lambda: pipe.sample(
-            image=figs[0], max_new_tokens=32), "sample(), 32 new tokens")
+            image=figs[0], max_new_tokens=PROFILE_NEW_TOKENS),
+            f"sample(), {PROFILE_NEW_TOKENS} new tokens")
         emit(dict(prof, model=preset))
     pipe.close()
     return counts
@@ -1566,8 +1621,9 @@ def simulate_phase(torch, device, rehearsal: bool, seed: int, params,
             lambda: score_pairs(feats, ref.expand_as(feats), metric.mode))
         prof = profile_call(torch, lambda: list(pipe.simulate(
             image=fig, text=text, expansions=8, parallelism=8,
-            max_new_tokens=32)),
-            "simulate(), one wave of 8 expansions, 32 new tokens")
+            max_new_tokens=PROFILE_NEW_TOKENS)),
+            f"simulate(), one wave of 8 expansions, {PROFILE_NEW_TOKENS} "
+            "new tokens")
         result["wave_device_idle_share"] = prof["device_idle_share"]
         result["wave_k1_ms"] = prof["kernel_ms"]["flash_attention"]
     emit(result)
@@ -1585,7 +1641,7 @@ def tikzero_phases(torch, device, rehearsal: bool, seed: int, params,
     ``save_embedding_model``) and loaded back by ``load_adapter_params``
     (the weight half of ``load_adapter``), bit for bit. Then
     ``tikzero_sample``: ``sample()`` with a figure and a caption and with
-    the caption alone, 128 new tokens each, the counters reset just before
+    the caption alone, ``max_new_tokens`` each, the counters reset just before
     and read just after; the caption-conditioned encoder pass and the
     caption model are timed beside the plain encoder pass. Then
     ``tikzero_simulate`` (``simulate_phase`` with the caption). Returns the
@@ -2482,9 +2538,10 @@ def simulate_spec_phase(torch, device, rehearsal: bool, seed: int, params,
             "launches": counts}
         if not rehearsal and min_rate == 0.0:
             prof = profile_call(torch, lambda: list(pipe.simulate(
-                image=fig, expansions=8, parallelism=8, max_new_tokens=32)),
-                "speculative simulate(), one wave of 8 expansions, 32 new "
-                "tokens")
+                image=fig, expansions=8, parallelism=8,
+                max_new_tokens=PROFILE_NEW_TOKENS)),
+                "speculative simulate(), one wave of 8 expansions, "
+                f"{PROFILE_NEW_TOKENS} new tokens")
             result["wave_device_idle_share"] = prof["device_idle_share"]
             emit(result)
             emit(prof)
@@ -5299,6 +5356,636 @@ def mesh_phase(torch, device, rehearsal: bool, seed: int, params, cfg,
     return counts
 
 
+# --- the tp phase: the mesh's model axis ------------------------------------
+
+class LogitRecorder:
+    """Wraps the engine's three forwards (``detikzify.prefill_paged``,
+    ``decode_step_paged``, ``decode_verify_step_paged_zerocopy``) and
+    ``DecodeEngine._start_wave`` while installed: for each logits row, keyed
+    by (``part``, slot, input position), its argmax and top-1 - top-2 gap
+    (``<image>`` masked, as sampling bans it), and the row itself for every
+    start wave and the first ``keep`` decode or verify calls of a part.
+    Everything stays on the device until ``collect``; a later row of a key
+    replaces an earlier one (a verify column recomputed from the committed
+    tokens)."""
+
+    def __init__(self, torch, image_token_id: int, keep: int):
+        self.torch, self.image_token_id, self.keep = torch, image_token_id, keep
+        self.part, self._slots = None, None
+        self._calls, self._n = [], {}
+
+    def _add(self, slots, pos, logits, always: bool) -> None:
+        torch = self.torch
+        rows = logits.reshape(-1, logits.shape[-1]).float()
+        masked = rows.clone()
+        masked[:, self.image_token_id] = -float("inf")
+        top = torch.topk(masked, 2, dim=-1)
+        n = self._n.get(self.part, 0)
+        if not always:
+            self._n[self.part] = n + 1
+        keep = always or n < self.keep
+        self._calls.append((self.part, slots.reshape(-1), pos.reshape(-1),
+                            top.indices[:, 0], top.values[:, 0]
+                            - top.values[:, 1], rows if keep else None))
+
+    @contextlib.contextmanager
+    def installed(self):
+        from detikzify_torch.engine import decode as engine_mod
+        from detikzify_torch.models import detikzify
+
+        torch = self.torch
+        orig = (detikzify.prefill_paged, detikzify.decode_step_paged,
+                detikzify.decode_verify_step_paged_zerocopy,
+                engine_mod.DecodeEngine._start_wave)
+
+        def start_wave(eng, slots, *a, **kw):
+            self._slots = slots
+            return orig[3](eng, slots, *a, **kw)
+
+        def prefill(params, cfg, ids, emb, start, seq_len, *a, **kw):
+            logits, pool = orig[0](params, cfg, ids, emb, start, seq_len,
+                                   *a, **kw)
+            self._add(self._slots, start + seq_len - 1, logits, True)
+            return logits, pool
+
+        def decode(params, cfg, tokens, positions, *a, **kw):
+            logits, pool = orig[1](params, cfg, tokens, positions, *a, **kw)
+            self._add(torch.arange(tokens.shape[0], device=tokens.device),
+                      positions, logits, False)
+            return logits, pool
+
+        def verify(params, cfg, block, start, *a, **kw):
+            logits, pool = orig[2](params, cfg, block, start, *a, **kw)
+            b, k1 = block.shape
+            dev = block.device
+            self._add(torch.arange(b, device=dev)[:, None].expand(b, k1),
+                      start[:, None] + torch.arange(k1, device=dev)[None],
+                      logits, False)
+            return logits, pool
+
+        (detikzify.prefill_paged, detikzify.decode_step_paged,
+         detikzify.decode_verify_step_paged_zerocopy,
+         engine_mod.DecodeEngine._start_wave) = (prefill, decode, verify,
+                                                 start_wave)
+        try:
+            yield self
+        finally:
+            (detikzify.prefill_paged, detikzify.decode_step_paged,
+             detikzify.decode_verify_step_paged_zerocopy,
+             engine_mod.DecodeEngine._start_wave) = orig
+
+    def collect(self):
+        """({key: (argmax, gap)}, {key: fp32 row on the host})."""
+        top, rows = {}, {}
+        for part, slots, pos, arg, gap, full in self._calls:
+            keys = [(part, s, p) for s, p in zip(slots.tolist(),
+                                                 pos.tolist())]
+            for key, a, g in zip(keys, arg.tolist(), gap.tolist()):
+                top[key] = (a, g)
+            if full is not None:
+                full = full.cpu()
+                for i, key in enumerate(keys):
+                    rows[key] = full[i]
+            elif any(key in rows for key in keys):
+                for key in keys:            # a newer row without a copy
+                    rows.pop(key, None)
+        self._calls.clear()
+        return top, rows
+
+
+def tp_legs(torch, device, rehearsal: bool, seed: int, params, processor,
+            n_new: int, rec: LogitRecorder, hint=None) -> dict:
+    """The tp phase's inference legs on ``params`` (unsharded, or this
+    rank's shard), each rollout's tokens keyed by its part:
+
+      * ``sample_batch``: ``DetikzifyPipeline.sample_batch`` of
+        ``TP_FIGURES`` figures, greedy, ``n_new`` tokens (K1 on the tower
+        and the prefill, K2, K5);
+      * ``restore_seed`` / ``restore``: figure 0's prompt and first 8
+        tokens continued 8 more, the first 12 stored as a prefix and
+        restored for a 16-token continuation;
+      * ``burst``: a ``start_many`` of three rows, the stored prefix
+        restored beside figure 1's prompt and figure 0's prompt with two
+        tokens, 16 tokens each;
+      * ``spec`` (its launches counted apart): a speculative engine
+        (speculate=4, spec_min_rate=0) on figures 0 and 1, figure 0 hinted
+        with ``hint`` (the unsharded run's continuation of it; its own
+        when None), ``TP_SPEC_NEW_TOKENS`` tokens (K4).
+    """
+    from detikzify_torch.infer import DetikzifyPipeline
+    from detikzify_torch.ops import launch_counts, reset_launch_counts
+
+    def sync():
+        if not rehearsal:
+            torch.cuda.synchronize()
+
+    cfg = processor.cfg
+    figs = synthetic_figures(TP_FIGURES, seed + 41)
+    pipe = DetikzifyPipeline(params, cfg, processor, temperature=0.0,
+                             metric="fast", num_slots=8, device=device,
+                             seed=seed)
+    eng = pipe.engine
+    made = []
+    make = eng._make_rollout
+
+    def recording_make(*a, **kw):
+        ro = make(*a, **kw)
+        made.append((rec.part, ro))
+        return ro
+
+    eng._make_rollout = recording_make
+    out = {"streams": {}, "launches": {}}
+    reset_launch_counts()
+    sync()
+    rec.part = "sample_batch"
+    tokens0 = eng.counters["decode_tokens"]
+    t0 = time.perf_counter()
+    pipe.sample_batch(figs, max_new_tokens=n_new)
+    sync()
+    out["sample_batch_s"] = time.perf_counter() - t0
+    out["decode_tokens"] = eng.counters["decode_tokens"] - tokens0
+    out["decode_tokens_per_s"] = out["decode_tokens"] / out["sample_batch_s"]
+    # the batch's wall time over its decode steps (its one start wave and
+    # the vision pass included)
+    out["ms_per_decode_step"] = (1e3 * out["sample_batch_s"]
+                                 / max(eng.counters["decode_steps"], 1))
+    ro0 = made[0][1]
+    prompt0 = list(ro0.token_ids[:ro0.prompt_len])
+    full0 = list(ro0.token_ids)
+    n0 = len(prompt0)
+    if hint is None:        # the unsharded run: its own continuation
+        hint = full0[n0:]
+    emb = eng.encode_image(processor(images=[pipe.load(f) for f in figs[:2]])
+                           .pixel_values)
+
+    rec.part = "restore_seed"
+    r = eng.start(full0[:n0 + 8], image_embeds=emb[:1], max_new_tokens=8)
+    eng.run()
+    seed_ids = list(r.token_ids)
+    eng.store_prefix("tp", r, length=n0 + 12)
+    eng.release(r)
+    rec.part = "restore"
+    _, sp = eng.best_prefix(seed_ids[:n0 + 12])
+    r = eng.start(seed_ids[:n0 + 12], image_embeds=emb[:1],
+                  max_new_tokens=16, prefix=sp)
+    eng.run()
+    eng.release(r)
+    rec.part = "burst"
+    prompt1 = list(made[1][1].token_ids[:made[1][1].prompt_len])
+    ros = eng.start_many([seed_ids[:n0 + 12], prompt1, full0[:n0 + 2]],
+                         image_embeds=torch.cat([emb[:1], emb[1:], emb[:1]]),
+                         max_new_tokens=16, prefixes=[sp, None, None])
+    eng.run()
+    for ro in ros:
+        eng.release(ro)
+    out["prefix_starts"] = eng.counters["prefix_starts"]
+    sync()
+    out["launches"]["tp"] = launch_counts()
+    del eng._make_rollout
+    pipe.close()
+    del pipe, eng
+
+    rec.part = "spec"
+    reset_launch_counts()
+    spec = _engine(torch, params, cfg, device, seed, speculate=SPECULATE,
+                   spec_min_rate=0.0)
+    make = spec._make_rollout
+    spec._make_rollout = recording_make
+    t0 = time.perf_counter()
+    n_spec = min(TP_SPEC_NEW_TOKENS, n_new)
+    ros = [spec.start(prompt0, image_embeds=emb[:1], max_new_tokens=n_spec,
+                      hint=hint[:n_spec], lazy=True),
+           spec.start(prompt1, image_embeds=emb[1:], max_new_tokens=n_spec,
+                      lazy=True)]
+    spec.run()
+    sync()
+    out["spec_s"] = time.perf_counter() - t0
+    out["n_new"], out["n_spec"] = n_new, n_spec
+    out["spec_counters"] = {k: v for k, v in spec.counters.items()
+                            if k.startswith("spec_")}
+    out["launches"]["tp_spec"] = launch_counts()
+    for ro in ros:
+        spec.release(ro)
+    del spec._make_rollout, spec, emb
+    for part, ro in made:
+        out["streams"].setdefault(part, []).append(
+            (ro.slot, ro.prompt_len, list(ro.token_ids)))
+    if out["prefix_starts"] < 2:
+        raise SystemExit(f"tp legs: {out['prefix_starts']} prefix "
+                         "restores, expected 2")
+    if out["spec_counters"]["spec_steps"] <= 0:
+        raise SystemExit("tp legs: the speculative engine never verified")
+    return out
+
+
+def tp_train_run(torch, device, rehearsal: bool, seed: int, mesh) -> dict:
+    """The tp phase's training leg: ``Trainer`` (JAX's ``TrainConfig``
+    defaults, ``fsdp=True``) on ``detikzify-ds-1.3b`` bf16 weights drawn
+    from ``seed``, cut to ``TP_TRAIN_LAYERS`` layers a tower, 8 synthetic
+    figures, micro 1 x grad_accum 1 at ``TRAIN_SEQ``, 2 steps; over
+    ``mesh`` or unmeshed. Losses, seconds, peak memory."""
+    from detikzify_torch.dataset.synthetic import generate_corpus
+    from detikzify_torch.models import convert
+    from detikzify_torch.processing import ByteTokenizer, DetikzifyProcessor
+    from detikzify_torch.train import TrainConfig, Trainer
+    from detikzify_torch.train.data import SketchDataset
+
+    cfg = _train_config(rehearsal, None if rehearsal else TP_TRAIN_LAYERS)
+    processor = DetikzifyProcessor(smoke_tokenizer(ByteTokenizer, cfg), cfg)
+    gen = torch.Generator(device=device).manual_seed(seed + 5)
+    params = convert.init_random(cfg, device=device, generator=gen,
+                                 dtype=torch.float32 if rehearsal
+                                 else torch.bfloat16)
+    data = SketchDataset([{"image": f, "text": c} for f, c in zip(
+        synthetic_figures(8, seed + 21), generate_corpus(8, seed))],
+        sketch_ratio=0.5, seed=seed)
+    (ROOT / "build").mkdir(exist_ok=True)
+    out_dir = tempfile.mkdtemp(prefix="tp_train_", dir=ROOT / "build")
+    tc = TrainConfig(output_dir=out_dir, epochs=1, micro_batch_size=1,
+                     grad_accum=1, max_length=64 if rehearsal else TRAIN_SEQ,
+                     sketch_ratio=0.5, logging_steps=1, seed=seed)
+    try:
+        if not rehearsal:
+            torch.cuda.reset_peak_memory_stats(device)
+        trainer = Trainer(params, cfg, processor, data, tc, mesh=mesh,
+                          device=device, log_fn=lambda m: None)
+        trainer.ckpt.save = lambda *a, **k: None   # no checkpoint here
+        losses, times, step = [], [], trainer._step_fn
+
+        def recorded(state, batch):
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+            times.append(time.perf_counter() - t0)
+            return state, metrics
+        trainer._step_fn = recorded
+        trainer.train(resume=False, max_steps=2)
+        out = {"losses": losses, "step_s": times,
+               "layers": cfg.text.num_hidden_layers}
+        if not rehearsal:
+            out["max_memory_allocated_bytes"] = \
+                torch.cuda.max_memory_allocated(device)
+        del trainer
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return out
+
+
+def tp_reference(torch, device, rehearsal: bool, seed: int, qparams,
+                 processor, n_new: int) -> dict:
+    """The unsharded runs the tp phase is held against, on the int8 +
+    fused weights before they are freed: its legs (recorded) and its
+    training leg unmeshed."""
+    rec = LogitRecorder(torch, processor.cfg.image_token_id, TP_KEEP_CALLS)
+    if not rehearsal:
+        torch.cuda.reset_peak_memory_stats()
+    with rec.installed():
+        legs = tp_legs(torch, device, rehearsal, seed, qparams, processor,
+                       n_new, rec)
+    legs["top"], legs["rows"] = rec.collect()
+    if not rehearsal:
+        legs["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    _free(torch, rehearsal)
+    return {"legs": legs,
+            "train": tp_train_run(torch, device, rehearsal, seed, None)}
+
+
+def tp_rank_main(args) -> int:
+    """One rank of the tp phase (``--tp-rank``): joins the group, loads the
+    exported checkpoint int8 on the host, keeps its shard over a
+    ``(data=1, model=world)`` mesh on its card, fuses it, runs ``tp_legs``
+    recorded, then the training leg over the same mesh, and writes what it
+    saw to ``<tp-dir>/rank<r>.pt``."""
+    faulthandler.enable(all_threads=True)
+    sys.path.insert(0, str(ROOT))
+    import torch
+    import torch.distributed as dist
+
+    from detikzify_torch.models.load import load_params
+    from detikzify_torch.ops import launch_counts, reset_launch_counts
+    from detikzify_torch.ops.quant import fuse_projections, params_nbytes
+    from detikzify_torch.parallel.mesh import join_group, make_mesh, \
+        place_params
+    from detikzify_torch.processing import ByteTokenizer, DetikzifyProcessor
+
+    rehearsal = args.cpu_rehearsal
+    tp_dir = Path(args.tp_dir)
+    inputs = json.loads((tp_dir / "inputs.json").read_text())
+    dev = join_group("cpu" if rehearsal else "cuda", args.tp_backend,
+                     init_method=args.tp_init, rank=args.tp_rank,
+                     world_size=args.tp_world)
+    if not rehearsal:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    out = {"rank": args.tp_rank, "device": str(dev)}
+    try:
+        t0 = time.perf_counter()
+        params, cfg = load_params(inputs["export_dir"], quantize=True,
+                                  device="cpu",
+                                  dtype=torch.float32 if rehearsal
+                                  else torch.bfloat16)
+        out["host_load_s"] = time.perf_counter() - t0
+        # the card is the unsharded reference's until the parent says go
+        deadline = time.monotonic() + TP_TIMEOUT_S
+        while not (tp_dir / "go.json").exists():
+            if time.monotonic() > deadline:
+                raise SystemExit("tp rank: no go.json from the parent")
+            time.sleep(0.2)
+        inputs.update(json.loads((tp_dir / "go.json").read_text()))
+        t0 = time.perf_counter()
+        mesh = make_mesh(data=1, model=args.tp_world, device=dev)
+        params = place_params(params, mesh, identical=True)
+        fuse_projections(params)
+        if not rehearsal:
+            torch.cuda.synchronize(dev)
+        out["place_s"] = time.perf_counter() - t0
+        out["weights_bytes"] = params_nbytes(params)
+        out["heads"] = list(params.text.layers[0].attn.heads)
+        processor = DetikzifyProcessor(smoke_tokenizer(ByteTokenizer, cfg),
+                                       cfg)
+        rec = LogitRecorder(torch, cfg.image_token_id, TP_KEEP_CALLS)
+        if not rehearsal:
+            torch.cuda.reset_peak_memory_stats(dev)
+        with rec.installed():
+            legs = tp_legs(torch, dev, rehearsal, inputs["seed"], params,
+                           processor, inputs["n_new"], rec,
+                           hint=inputs["hint"])
+        legs["top"], legs["rows"] = rec.collect()
+        if not rehearsal:
+            legs["max_memory_allocated_bytes"] = \
+                torch.cuda.max_memory_allocated(dev)
+        out["legs"] = legs
+        del params, rec
+        _free(torch, rehearsal)
+        reset_launch_counts()
+        out["train"] = tp_train_run(
+            torch, dev, rehearsal, inputs["seed"],
+            make_mesh(data=1, model=args.tp_world, device=dev))
+        out["train"]["launches"] = launch_counts()
+        # gloo's sum of a bf16 tensor (the collectives carry fp32 either
+        # way): whether this build offers it, on this device
+        try:
+            x = torch.ones(4, dtype=torch.bfloat16, device=dev)
+            dist.all_reduce(x)
+            out["bf16_all_reduce"] = float(x[0])
+        except RuntimeError as exc:
+            out["bf16_all_reduce"] = f"refused: {exc}"[:200]
+        # one decode step's collectives, each timed over 50 calls: a row-
+        # parallel sum of 8 slots' hidden states and the gather of their
+        # fp32 logits over the vocabulary
+        out["collective_ms"] = {}
+        for name, n in (("hidden_sum_8x%d" % cfg.text.hidden_size,
+                         cfg.text.hidden_size),
+                        ("logits_gather_8x%d" % cfg.text.vocab_size,
+                         cfg.text.vocab_size)):
+            x = torch.ones((8, n), device=dev)
+            dist.all_reduce(x)
+            if not rehearsal:
+                torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            for _ in range(50):
+                dist.all_reduce(x)
+            if not rehearsal:
+                torch.cuda.synchronize(dev)
+            out["collective_ms"][name] = (time.perf_counter() - t0) * 20
+        torch.save(out, tp_dir / f"rank{args.tp_rank}.pt")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _tp_compare(torch, want: dict, got: dict) -> dict:
+    """Each rollout of ``got`` against the unsharded one of ``want``
+    (``spec_greedy``'s rule): they may part only at a near-tie, where the
+    unsharded top-1 - top-2 gap is at most tau = 2 max|got - want| over
+    the kept rows both computed from the same tokens (up to and at the
+    first differing token)."""
+    diffs, gaps, same, total = [], [], 0, 0
+    for part, streams in want["streams"].items():
+        for (slot, plen, w), (_, _, g) in zip(streams, got["streams"][part]):
+            n = min(len(w), len(g))
+            same += sum(x == y for x, y in zip(w[plen:n], g[plen:n]))
+            total += len(w) - plen
+            d = next((j for j in range(plen, n) if w[j] != g[j]), None)
+            last = (len(w) - 1 if d is None else d) - 1  # input positions
+            for p in range(plen - 1, last + 1):
+                a = want["rows"].get((part, slot, p))
+                b = got["rows"].get((part, slot, p))
+                if a is not None and b is not None:
+                    diffs.append(float((a - b).abs().max()))
+            if d is not None:
+                gaps.append({"part": part, "slot": slot,
+                             "token_index": d - plen,
+                             "top1_top2_gap": want["top"][
+                                 (part, slot, d - 1)][1]})
+    tau = 2 * max(diffs) if diffs else 0.0
+    return {"identical_token_share": same / max(total, 1),
+            "matched_rows": len(diffs),
+            "max_abs_logits_diff": max(diffs) if diffs else None,
+            "tau": tau, "divergences": gaps,
+            "ok": bool(diffs) and all(g["top1_top2_gap"] <= tau
+                                      for g in gaps)}
+
+
+@contextlib.contextmanager
+def tp_ranks(torch, rehearsal: bool, seed: int, export_dir: str, n_new: int,
+             ranks: int = 2):
+    """Start the tp phase's ``ranks`` processes (this script with
+    ``--tp-rank``): nccl with one rank a card where the machine has as many
+    cards, else gloo with every rank on ``cuda:0``. Each loads the export
+    int8 on the host at once, beside the unsharded reference, and waits for
+    ``tp_phase`` (its ``go.json``) before it touches the card. Every rank
+    still running when the block ends is killed."""
+    from detikzify_torch.parallel.dryrun import _free_port
+
+    cards = 0 if rehearsal else torch.cuda.device_count()
+    backend = "gloo" if rehearsal or cards < ranks else "nccl"
+    tp_dir = Path(tempfile.mkdtemp(prefix="tp_", dir=ROOT / "build"))
+    (tp_dir / "inputs.json").write_text(json.dumps({
+        "export_dir": export_dir, "seed": seed, "n_new": n_new}))
+    cmd = [sys.executable, str(ROOT / "chip_smoke.py"), "--tp-dir",
+           str(tp_dir), "--tp-init", f"tcp://127.0.0.1:{_free_port()}",
+           "--tp-world", str(ranks), "--tp-backend", backend]
+    if rehearsal:
+        cmd.append("--cpu-rehearsal")
+    env = dict(os.environ, OMP_NUM_THREADS="1" if rehearsal else
+               os.environ.get("OMP_NUM_THREADS", "4"))
+    env.pop("LOCAL_RANK", None)
+    run = {"dir": tp_dir, "ranks": ranks, "backend": backend,
+           "cards": cards, "procs": [], "logs": []}
+    try:
+        for r in range(ranks):
+            log = open(tp_dir / f"rank{r}.log", "w")
+            run["logs"].append(log)
+            run["procs"].append(subprocess.Popen(
+                cmd + ["--tp-rank", str(r)], cwd=ROOT, env=env,
+                stdout=log, stderr=subprocess.STDOUT))
+        yield run
+    finally:
+        for p in run["procs"]:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in run["logs"]:
+            log.close()
+        shutil.rmtree(tp_dir, ignore_errors=True)
+
+
+def tp_phase(torch, device, rehearsal: bool, ref: dict, run: dict) -> dict:
+    """The mesh's model axis: releases the ranks of ``run`` (``tp_ranks``),
+    each of which keeps its tensor-parallel shard of the int8 export at
+    full width and depth and runs ``tp_legs`` and ``tp_train_run``
+    (``tp_rank_main``), then holds what they saw against ``ref``
+    (``tp_reference``). Checks: the first-step logits within
+    ``TP_LOGITS_MIN_COSINE`` of the unsharded ones, every rollout equal to
+    the unsharded one up to a near-tie (``_tp_compare``), the ranks'
+    rollouts identical, K1, K2, K4 and K5 launched on every rank, the
+    training losses within ``TRAIN_REF_LOSS_TOL`` of the unmeshed
+    ``Trainer``'s."""
+    import math
+
+    tp_dir, ranks, procs = run["dir"], run["ranks"], run["procs"]
+    cards, backend = run["cards"], run["backend"]
+    legs = ref["legs"]
+    hint = legs["streams"]["sample_batch"][0]
+    t0 = time.perf_counter()
+    (tp_dir / "go.tmp").write_text(json.dumps({"hint": hint[2][hint[1]:]}))
+    (tp_dir / "go.tmp").rename(tp_dir / "go.json")
+    deadline = time.monotonic() + TP_TIMEOUT_S
+    while any(p.poll() is None for p in procs):
+        if (time.monotonic() > deadline
+                or any(p.returncode not in (None, 0) for p in procs)):
+            break
+        time.sleep(0.5)
+    ranks_s = time.perf_counter() - t0
+    if any(p.poll() != 0 for p in procs):
+        tails = {r: (tp_dir / f"rank{r}.log").read_text()[-3000:]
+                 for r in range(ranks)}
+        raise SystemExit(f"tp: a rank failed (exit codes "
+                         f"{[p.poll() for p in procs]}): {tails}")
+    got = [torch.load(tp_dir / f"rank{r}.pt", weights_only=False)
+           for r in range(ranks)]
+
+    firsts = sorted({(s, plen - 1) for s, plen, _ in
+                     legs["streams"]["sample_batch"]})
+    want = torch.stack([legs["rows"][("sample_batch", s, p)]
+                        for s, p in firsts])
+    have = torch.stack([got[0]["legs"]["rows"][("sample_batch", s, p)]
+                        for s, p in firsts])
+    logits = _compare_logits(torch, have, want)
+    logits["tolerance"] = f"min cosine >= {TP_LOGITS_MIN_COSINE}"
+    parity = _tp_compare(torch, legs, got[0]["legs"])
+    same_ranks = all(g["legs"]["streams"] == got[0]["legs"]["streams"]
+                     for g in got[1:])
+    counts = {path: {} for path in ("tp", "tp_spec", "tp_train")}
+    per_rank = []
+    for g in got:
+        lc = dict(g["legs"]["launches"], tp_train=g["train"]["launches"])
+        for path, c in lc.items():
+            for name, n in c.items():
+                counts[path][name] = counts[path].get(name, 0) + n
+        per_rank.append({
+            "rank": g["rank"], "device": g["device"], "heads": g["heads"],
+            "weights_bytes": g["weights_bytes"],
+            "host_load_s": g["host_load_s"], "place_s": g["place_s"],
+            "sample_batch_s": g["legs"]["sample_batch_s"],
+            "decode_tokens_per_s": g["legs"]["decode_tokens_per_s"],
+            "ms_per_decode_step": g["legs"]["ms_per_decode_step"],
+            "spec_s": g["legs"]["spec_s"],
+            "spec_counters": g["legs"]["spec_counters"],
+            "max_memory_allocated_bytes": g["legs"].get(
+                "max_memory_allocated_bytes"),
+            "train": {k: v for k, v in g["train"].items()
+                      if k != "launches"},
+            "launches": lc, "bf16_all_reduce": g["bf16_all_reduce"],
+            "collective_ms": g["collective_ms"]})
+    train_want = ref["train"]["losses"]
+    train_errs = [abs(a - b) / abs(b) for a, b in
+                  zip(got[0]["train"]["losses"], train_want)]
+    result = {
+        "phase": "tp", "preset": "tiny-test" if rehearsal
+        else "detikzify-v2-8b", "weights": "int8 + fused", "ranks": ranks,
+        "backend": "gloo" if rehearsal else backend, "cards": cards,
+        "figures": TP_FIGURES, "new_tokens": legs["n_new"],
+        "spec_new_tokens": legs["n_spec"], "speculate": SPECULATE,
+        "ranks_s": ranks_s, "first_step_logits": logits,
+        "greedy_parity": {k: v for k, v in parity.items() if k != "ok"},
+        "tau_rule": "2 max|TP - unsharded| over the kept rows computed "
+                    "from the same tokens",
+        "ranks_identical": same_ranks,
+        "unsharded": {
+            "sample_batch_s": legs["sample_batch_s"],
+            "decode_tokens_per_s": legs["decode_tokens_per_s"],
+            "ms_per_decode_step": legs["ms_per_decode_step"],
+            "spec_s": legs["spec_s"], "spec_counters": legs["spec_counters"],
+            "max_memory_allocated_bytes": legs.get(
+                "max_memory_allocated_bytes"),
+            "train": ref["train"]},
+        "per_rank": per_rank,
+        "train_loss_rel_err": train_errs,
+        "train_tolerance": f"loss {TRAIN_REF_LOSS_TOL} relative",
+        "launches": counts}
+    emit(result)
+    if logits["min_cosine"] < TP_LOGITS_MIN_COSINE:
+        raise SystemExit(f"tp: first-step logits off the unsharded ones: "
+                         f"{logits}")
+    if not parity["ok"]:
+        raise SystemExit(f"tp: greedy streams parted from the unsharded "
+                         f"ones above a near-tie: {parity}")
+    if not same_ranks:
+        raise SystemExit("tp: the ranks drew different tokens")
+    if (len(train_errs) != 2 or not all(math.isfinite(x) for x in
+                                        got[0]["train"]["losses"])
+            or max(train_errs) > TRAIN_REF_LOSS_TOL):
+        raise SystemExit(f"tp: the tensor-parallel trainer disagrees: "
+                         f"{train_errs}")
+    if not rehearsal:
+        need = {"tp": ("flash_attention", "paged_decode", "int8_gemv"),
+                "tp_spec": ("paged_verify", "int8_gemv"),
+                "tp_train": ("flash_attention",)}
+        for rank in per_rank:
+            for path, names in need.items():
+                for name in names:
+                    if rank["launches"][path].get(name, 0) <= 0:
+                        raise SystemExit(f"tp: rank {rank['rank']} never "
+                                         f"launched {name} on {path}")
+    return counts
+
+
+def tp_only(torch, device, rehearsal: bool, args) -> int:
+    """``--tp-only``: the tp phase alone on a random v2-8b drawn from the
+    seed, exported by ``save_pretrained`` and quantized and fused in place
+    for the unsharded reference."""
+    from detikzify_torch.config import get_config
+    from detikzify_torch.models import convert
+    from detikzify_torch.models.load import save_pretrained
+    from detikzify_torch.ops.quant import fuse_projections, quantize_params
+    from detikzify_torch.processing import ByteTokenizer, DetikzifyProcessor
+
+    cfg = get_config("tiny-test" if rehearsal else "detikzify-v2-8b")
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = convert.init_random(cfg, device=device, generator=gen,
+                                 dtype=torch.float32 if rehearsal
+                                 else torch.bfloat16)
+    processor = DetikzifyProcessor(smoke_tokenizer(ByteTokenizer, cfg), cfg)
+    (ROOT / "build").mkdir(exist_ok=True)
+    export_dir = tempfile.mkdtemp(prefix="load_", dir=ROOT / "build")
+    try:
+        save_pretrained(export_dir, params, cfg)
+        fuse_projections(quantize_params(params))
+        ref = tp_reference(torch, device, rehearsal, args.seed, params,
+                           processor, args.max_new_tokens)
+        del params
+        _free(torch, rehearsal)
+        for ranks in args.tp_ranks:
+            with tp_ranks(torch, rehearsal, args.seed, export_dir,
+                          args.max_new_tokens, ranks) as run:
+                tp_phase(torch, device, rehearsal, ref, run)
+    finally:
+        shutil.rmtree(export_dir, ignore_errors=True)
+    return 0
+
+
 def verify_real_phase(torch, device, rehearsal: bool, seed: int, cfg,
                       export_dir: str, max_new_tokens: int) -> dict:
     """``detikzify_torch.tools.verify_real``'s ``import`` (int8 load) and
@@ -5413,7 +6100,21 @@ def main(argv=None) -> int:
                     help="timed launches per kernel measurement")
     ap.add_argument("--skip-main", action="store_true",
                     help="build and hold the kernels only")
+    ap.add_argument("--tp-ranks", default="2",
+                    type=lambda s: [int(x) for x in s.split(",")],
+                    help="the tp phase's model axis (nccl with one rank a "
+                         "card when the machine has that many cards, else "
+                         "gloo on cuda:0); --tp-only takes a list, 2,4")
+    ap.add_argument("--tp-only", action="store_true",
+                    help="build the kernels, draw a random v2-8b, export "
+                         "it and run the tp phase alone (no result line)")
+    for flag, kind in (("--tp-rank", int), ("--tp-world", int),
+                       ("--tp-dir", str), ("--tp-init", str),
+                       ("--tp-backend", str)):     # a rank of the tp phase
+        ap.add_argument(flag, type=kind, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.tp_rank is not None:
+        return tp_rank_main(args)
     # a crash in native code prints every thread's Python stack
     faulthandler.enable(all_threads=True)
 
@@ -5452,6 +6153,8 @@ def main(argv=None) -> int:
         emit({"phase": "build", "seconds": time.perf_counter() - t0,
               "ptxas": ptxas})
 
+    if args.tp_only:
+        return tp_only(torch, device, rehearsal, args)
     rows = kernel_phase(torch, device, rehearsal, args.iters)
     if args.skip_main:      # a kernel-only run prints no result line
         emit({"kernels": rows})
@@ -5476,8 +6179,9 @@ def main(argv=None) -> int:
         torch, device, rehearsal, args.seed, params, processor, prompts, emb,
         args.max_new_tokens)
     del emb
+    side = min(SIDE_NEW_TOKENS, args.max_new_tokens)
     paths.update(tikzero_phases(torch, device, rehearsal, args.seed, params,
-                                processor, args.max_new_tokens))
+                                processor, side))
     # export the bf16 weights and load them back int8: what simulate runs;
     # the exported checkpoint stays for the phases that load it through
     # the command-line entry points
@@ -5498,32 +6202,34 @@ def main(argv=None) -> int:
             torch, device, rehearsal, args.seed, qparams, processor,
             min(PIPE_NEW_TOKENS, 2 * args.max_new_tokens)))
         paths["serve"] = serve_phase(torch, device, rehearsal, args.seed,
-                                     qparams, processor.cfg,
-                                     args.max_new_tokens)
+                                     qparams, processor.cfg, side)
         paths.update(evaluate_phase(torch, device, rehearsal, args.seed,
-                                    processor.cfg, export_dir,
-                                    args.max_new_tokens))
+                                    processor.cfg, export_dir, side))
         paths["verify_real"] = verify_real_phase(
             torch, device, rehearsal, args.seed, processor.cfg, export_dir,
-            args.max_new_tokens)
+            side)
         paths.update(replicas_phase(torch, device, rehearsal, args.seed,
-                                    qparams, processor.cfg,
-                                    args.max_new_tokens))
+                                    qparams, processor.cfg, side))
         paths["trace"] = trace_phase(torch, device, rehearsal, args.seed,
                                      qparams, processor)
-        del qparams
+        with tp_ranks(torch, rehearsal, args.seed, export_dir,
+                      args.max_new_tokens, args.tp_ranks[0]) as run:
+            tp_ref = tp_reference(torch, device, rehearsal, args.seed,
+                                  qparams, processor, args.max_new_tokens)
+            del qparams
+            _free(torch, rehearsal)
+            paths.update(tp_phase(torch, device, rehearsal, tp_ref, run))
+        del tp_ref
         _free(torch, rehearsal)
         paths.update(infer_cli_phase(torch, device, rehearsal, args.seed,
-                                     processor.cfg, export_dir,
-                                     args.max_new_tokens))
+                                     processor.cfg, export_dir, side))
     finally:
         shutil.rmtree(export_dir, ignore_errors=True)
     _free(torch, rehearsal)
     paths["serve_bench"] = serve_bench_phase(torch, device, rehearsal)
     paths["spec_acceptance"] = spec_acceptance_phase(torch, device, rehearsal,
                                                      args.seed)
-    paths.update(v1_phases(torch, device, rehearsal, args.seed,
-                           args.max_new_tokens))
+    paths.update(v1_phases(torch, device, rehearsal, args.seed, side))
     _free(torch, rehearsal)
     k1_backward_phase(torch, device, rehearsal, args.iters)
     paths.update(training_phases(torch, device, rehearsal, args.seed))

@@ -208,9 +208,19 @@ class DecodeEngine:
         # pool pages through page tables. The last pool page is a shared
         # TRASH page: rows at/beyond ``_trash_start`` write there, never
         # through a (possibly stale) table.
+        # over a model axis (``parallel.mesh.place_params``) the pool holds
+        # this rank's KV heads, and every rank runs this same schedule
         tcfg = cfg.text
+        placement = getattr(params, "placement", None)
+        if placement is not None and placement.mesh.shape["data"] > 1:
+            raise ValueError(
+                f"DecodeEngine over a {placement.mesh.shape} mesh: a data "
+                "axis would repeat the same work on each row; place the "
+                "weights on a (data=1, model=m) mesh, or run one engine a "
+                "device with parallel.ReplicaPool")
+        kv_heads = llama.kv_heads(params.text)
         page_bytes = (2 * tcfg.num_hidden_layers * page_size
-                      * tcfg.num_key_value_heads * tcfg.head_dim
+                      * kv_heads * tcfg.head_dim
                       * torch.finfo(cache_dtype).bits // 8)
         budget_pages = int(min(max(prefix_budget_bytes // page_bytes, 2),
                                4096))
@@ -218,7 +228,8 @@ class DecodeEngine:
         self._trash_page = n_pages - 1
         dev = self.device
         self.cache = llama.init_paged_cache(cfg.text, n_pages, page_size,
-                                            cache_dtype, device=dev)
+                                            cache_dtype, device=dev,
+                                            kv_heads=kv_heads)
         self.generator = torch.Generator(device=dev).manual_seed(seed)
         self._tab_dev = torch.full((num_slots, self._m_cap),
                                    self._trash_page, dtype=torch.int32,

@@ -31,8 +31,8 @@ def parse_args(argv=None):
     p.add_argument("--batch_size", type=int, default=256)
     p.add_argument("--micro_batch_size", type=int, default=1)
     p.add_argument("--model_axis", type=int, default=1,
-                   help="tensor-parallel mesh axis size (only 1 is placed "
-                        "yet)")
+                   help="tensor-parallel mesh axis size: each layer split "
+                        "over that many ranks of the group")
     p.add_argument("--distributed", action="store_true",
                    help="join the torch.distributed group torchrun "
                         "describes (nccl on the card, gloo on the CPU)")

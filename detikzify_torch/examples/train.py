@@ -2,12 +2,14 @@
 """Stage-2 fine-tuning entry (counterpart of ``examples/train.py``;
 reference ``examples/train.py``). One process on one device, or with
 ``--distributed`` one process per card under torchrun, the weights and
-moments sharded over the mesh's data axis (``parallel.mesh``):
+moments sharded over the mesh's data axis (``parallel.mesh``) and, with
+``--model_axis M``, each layer split over M ranks (tensor parallelism):
 
     python -m detikzify_torch.examples.train --base_model CKPT \
         --datikz DIR --output DIR [--device cuda|cpu]
     torchrun --nproc_per_node N -m detikzify_torch.examples.train \
-        --distributed --base_model CKPT --datikz DIR --output DIR
+        --distributed [--model_axis M] --base_model CKPT --datikz DIR \
+        --output DIR
 
 The dataset is a ``datasets.load_from_disk`` folder, so ``main`` needs
 ``datasets``."""
@@ -33,8 +35,8 @@ def parse_args(argv=None):
     p.add_argument("--epochs", type=int, default=5)
     p.add_argument("--gradient_checkpointing", action="store_true")
     p.add_argument("--model_axis", type=int, default=1,
-                   help="tensor-parallel mesh axis size (only 1 is placed "
-                        "yet)")
+                   help="tensor-parallel mesh axis size: each layer split "
+                        "over that many ranks of the group")
     p.add_argument("--distributed", action="store_true",
                    help="join the torch.distributed group torchrun "
                         "describes (nccl on the card, gloo on the CPU)")

@@ -300,7 +300,8 @@ def params_to_numpy(params: nn.Module,
     its place (its gradient, say); weights it does not hold are written
     themselves. ``params_from_numpy`` of the result gives ``params`` back
     bit for bit. A model stored sharded on a mesh (its ``placement``) is
-    written as whole leaves: every rank of the mesh must call this."""
+    written as whole leaves, over the data and the model axis: every rank
+    of the mesh must call this."""
     placement = getattr(params, "placement", None)
     values = {} if values is None else values
     tree: Dict = {}
@@ -311,10 +312,13 @@ def params_to_numpy(params: nn.Module,
                 for t in leaf.tensors:
                     values.setdefault(t, t.detach().clone())
             return params_to_numpy(params, values)
+    tp = placement is not None and placement.tp.size > 1
     for leaf in leaves(params):
         arrays = []
         for t in leaf.tensors:
-            t = values.get(t, t).detach().cpu()
+            x = values.get(t, t)
+            # over a model axis: the whole from every rank's part
+            t = (placement.whole(t, x) if tp else x).detach().cpu()
             if t.dtype == torch.bfloat16:
                 t = t.float()
             arrays.append(t.t() if leaf.transposed else t)

@@ -58,7 +58,9 @@ def apply_remat(block, remat):
 def run_layer(block, lp: nn.Module, x: torch.Tensor, *args):
     """``block(x, *args)``, the layer whose weights are ``lp``. A layer
     stored sharded over a mesh's data axis (``parallel.mesh``: its
-    ``fsdp_unit``) is gathered around its forward and backward."""
+    ``fsdp_unit``) is gathered around its forward and backward: over a
+    model axis too, the gather rebuilds this rank's tensor-parallel shard,
+    not the whole leaf."""
     unit = getattr(lp, "fsdp_unit", None)
     return block(x, *args) if unit is None else unit.run(block, x, *args)
 
@@ -84,7 +86,20 @@ class RMSNorm(nn.Module):
 def linear(p: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """Dense layer ``x W^T + b`` (the JAX ``einsum('...i,io->...o')``); an
     int8 ``QuantLinear`` goes through ``int8_matmul`` (kernel K5 for
-    decode-regime products on the card), then adds its bias."""
+    decode-regime products on the card), then adds its bias. A layer
+    placed over a model axis (its ``tp_role``, ``parallel.tp.Role``)
+    computes this rank's columns, or sums this rank's partial product over
+    the group before its bias."""
+    role = getattr(p, "tp_role", None)
+    if role is not None and role.kind == "row":
+        if isinstance(p, QuantLinear):
+            part = int8_matmul(x, p.q, p.scale, out_dtype=torch.float32)
+        else:
+            part = F.linear(x, p.weight)
+        y = role.tp.reduce(part).to(x.dtype)
+        return y if p.bias is None else y + p.bias
+    if role is not None:
+        x = role.tp.enter(x)
     if isinstance(p, QuantLinear):
         y = int8_matmul(x, p.q, p.scale)
         return y if p.bias is None else y + p.bias

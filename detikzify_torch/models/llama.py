@@ -60,6 +60,9 @@ class Attention(nn.Module):
         d, hd = cfg.hidden_size, cfg.head_dim
         nh, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
         bias = cfg.attention_bias
+        # this rank's head counts (``parallel.mesh.place_params`` lowers
+        # them to its shard on a model axis)
+        self.heads, self.head_dim = (nh, nkv), hd
         self.q = nn.Linear(d, nh * hd, bias=bias, **kw)
         self.k = nn.Linear(d, nkv * hd, bias=bias, **kw)
         self.v = nn.Linear(d, nkv * hd, bias=bias, **kw)
@@ -101,27 +104,50 @@ class Llama(nn.Module):
 
 
 def embed(params: Llama, token_ids: torch.Tensor) -> torch.Tensor:
-    return params.embed_tokens[token_ids.long()]
+    """Token embeddings; over a model axis the table is split over hidden
+    (``embed_tp``) and the rows are gathered."""
+    x = params.embed_tokens[token_ids.long()]
+    tp = getattr(params, "embed_tp", None)
+    return x if tp is None else tp.gather(x)
 
 
 def unembed(params: Llama, hidden: torch.Tensor) -> torch.Tensor:
     """Final-norm'd hidden -> fp32 logits, accumulated in fp32 and never
     rounded through bf16 (JAX ``preferred_element_type=float32``). An int8
-    head is K5's product with an fp32 output."""
+    head is K5's product with an fp32 output. Over a model axis a head
+    split over the vocabulary gathers its logits; a tied head contracts
+    this rank's hidden columns with its slice of the embedding and sums
+    the partial logits."""
     head = params.lm_head
+    role = getattr(head, "tp_role", None)
+    if head is None and getattr(params, "embed_tp", None) is not None:
+        tp = params.embed_tp
+        w = params.embed_tokens
+        part = tp.enter(hidden)[..., tp.rank * w.shape[1]:
+                                (tp.rank + 1) * w.shape[1]]
+        return tp.reduce(matmul_f32(part, w))
+    if role is not None:
+        hidden = role.tp.enter(hidden)
     if isinstance(head, QuantLinear):
-        return int8_matmul(hidden, head.q, head.scale,
-                           out_dtype=torch.float32)
-    return matmul_f32(hidden, head.weight if head is not None
-                      else params.embed_tokens)
+        logits = int8_matmul(hidden, head.q, head.scale,
+                             out_dtype=torch.float32)
+    else:
+        logits = matmul_f32(hidden, head.weight if head is not None
+                            else params.embed_tokens)
+    return logits if role is None else role.tp.gather(logits)
+
+
+def kv_heads(params: Llama) -> int:
+    """The KV heads this rank's page pool holds (all of them unless the
+    weights are placed over a model axis)."""
+    return params.layers[0].attn.heads[1]
 
 
 def _qkv(lp: DecoderLayer, x: torch.Tensor, cfg: TextConfig, cos, sin):
     """Rotated q, k and v from separate q/k/v projections or from one
     fused ``qkv`` (``ops.quant.fuse_projections``)."""
     lead = x.shape[:-1]            # [B, S] full-seq / [B] decode
-    hd, nh, nkv = cfg.head_dim, cfg.num_attention_heads, \
-        cfg.num_key_value_heads
+    (nh, nkv), hd = lp.attn.heads, lp.attn.head_dim   # this rank's
     if hasattr(lp.attn, "qkv"):
         q, k, v = torch.split(linear(lp.attn.qkv, x),
                               [nh * hd, nkv * hd, nkv * hd], dim=-1)
@@ -315,9 +341,12 @@ class PagedKV(NamedTuple):
 
 
 def init_paged_cache(cfg: TextConfig, n_pages: int, page: int,
-                     dtype=torch.bfloat16, device="cuda") -> PagedKV:
+                     dtype=torch.bfloat16, device="cuda",
+                     kv_heads: Optional[int] = None) -> PagedKV:
+    """The page pool of ``kv_heads`` KV heads (the config's by default;
+    a rank of a model axis holds its own, ``kv_heads(params)``)."""
     shape = (cfg.num_hidden_layers, n_pages, page,
-             cfg.num_key_value_heads, cfg.head_dim)
+             kv_heads or cfg.num_key_value_heads, cfg.head_dim)
     return PagedKV(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))
 

@@ -36,9 +36,12 @@ class AdapterInputs(NamedTuple):
 
 
 class Attention(nn.Module):
-    def __init__(self, d: int, *, device=None, dtype=None):
+    def __init__(self, d: int, num_heads: int, *, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
+        # this rank's heads (``parallel.mesh.place_params`` lowers them to
+        # its shard on a model axis) and their width
+        self.heads, self.head_dim = num_heads, d // num_heads
         self.q = nn.Linear(d, d, **kw)
         self.k = nn.Linear(d, d, **kw)
         self.v = nn.Linear(d, d, **kw)
@@ -58,7 +61,7 @@ class EncoderLayer(nn.Module):
         kw = dict(device=device, dtype=dtype)
         d = cfg.hidden_size
         self.ln1 = LayerNorm(d, **kw)
-        self.attn = Attention(d, **kw)
+        self.attn = Attention(d, cfg.num_attention_heads, **kw)
         self.ln2 = LayerNorm(d, **kw)
         self.mlp = MLP(d, cfg.intermediate_size, **kw)
 
@@ -81,7 +84,7 @@ class MAPHead(nn.Module):
         kw = dict(device=device, dtype=dtype)
         d = cfg.hidden_size
         self.probe = nn.Parameter(torch.zeros(1, 1, d, **kw))
-        self.attn = Attention(d, **kw)
+        self.attn = Attention(d, cfg.num_attention_heads, **kw)
         self.ln = LayerNorm(d, **kw)
         self.mlp = MLP(d, cfg.intermediate_size, **kw)
 
@@ -138,16 +141,18 @@ def patchify(pixel_values: torch.Tensor, patch: int) -> torch.Tensor:
     return x.reshape(b, gh * gw, c * patch * patch)
 
 
-def _mha(p: Attention, x_q: torch.Tensor, x_kv: torch.Tensor,
-         num_heads: int, *, kv_mask=None) -> torch.Tensor:
-    b, s, d = x_q.shape
-    hd = d // num_heads
+def _mha(p: Attention, x_q: torch.Tensor, x_kv: torch.Tensor, *,
+         kv_mask=None) -> torch.Tensor:
+    """Attention over the module's own heads: all of them, or this rank's
+    over a model axis (``o`` then sums the ranks' partial products)."""
+    b, s, _ = x_q.shape
+    nh, hd = p.heads, p.head_dim
     t = x_kv.shape[1]
-    q = linear(p.q, x_q).reshape(b, s, num_heads, hd)
-    k = linear(p.k, x_kv).reshape(b, t, num_heads, hd)
-    v = linear(p.v, x_kv).reshape(b, t, num_heads, hd)
+    q = linear(p.q, x_q).reshape(b, s, nh, hd)
+    k = linear(p.k, x_kv).reshape(b, t, nh, hd)
+    v = linear(p.v, x_kv).reshape(b, t, nh, hd)
     out = flash_attention(q, k, v, kv_mask=kv_mask)
-    return linear(p.o, out.reshape(b, s, d))
+    return linear(p.o, out.reshape(b, s, nh * hd))
 
 
 def _cross_attn_layer(ap, x: torch.Tensor, adapter: AdapterInputs,
@@ -189,7 +194,6 @@ def _blocks(params: SiglipVision, cfg: VisionConfig,
     backward (``layers.apply_remat``)."""
     act = ACTIVATIONS[cfg.hidden_act]
     eps = cfg.layer_norm_eps
-    nh = cfg.num_attention_heads
     dtype = params.embeddings.patch.weight.dtype
     every = (adapter.config.cross_attn_every_n_layers
              if adapter is not None else 0)
@@ -197,7 +201,7 @@ def _blocks(params: SiglipVision, cfg: VisionConfig,
     def block(x, idx, lp):
         if every and (idx + 1) % every == 0:
             x = _cross_attn_layer(adapter.params[idx], x, adapter, eps)
-        return _encoder_layer(lp, x, act, eps, nh)
+        return _encoder_layer(lp, x, act, eps)
 
     block = apply_remat(block, remat)
     x = linear(params.embeddings.patch,
@@ -211,10 +215,10 @@ def _blocks(params: SiglipVision, cfg: VisionConfig,
     return x, states
 
 
-def _encoder_layer(lp: EncoderLayer, x: torch.Tensor, act, eps: float,
-                   nh: int) -> torch.Tensor:
+def _encoder_layer(lp: EncoderLayer, x: torch.Tensor, act,
+                   eps: float) -> torch.Tensor:
     h = layer_norm(lp.ln1, x, eps)
-    x = x + _mha(lp.attn, h, h, nh)
+    x = x + _mha(lp.attn, h, h)
     h = layer_norm(lp.ln2, x, eps)
     return x + linear(lp.mlp.fc2, act(linear(lp.mlp.fc1, h)))
 
@@ -245,7 +249,6 @@ def apply(params: SiglipVision, cfg: VisionConfig,
     backward."""
     act = ACTIVATIONS[cfg.hidden_act]
     eps = cfg.layer_norm_eps
-    nh = cfg.num_attention_heads
     x, states = _blocks(params, cfg, pixel_values,
                         keep=output_hidden_states, adapter=adapter,
                         remat=remat)
@@ -254,7 +257,7 @@ def apply(params: SiglipVision, cfg: VisionConfig,
     hp: Optional[MAPHead] = params.head
     if hp is not None:
         probe = hp.probe.expand(x.shape[0], 1, x.shape[-1]).to(x.dtype)
-        pooled = _mha(hp.attn, probe, x, nh)
+        pooled = _mha(hp.attn, probe, x)
         h = layer_norm(hp.ln, pooled, eps)
         h = linear(hp.mlp.fc2, act(linear(hp.mlp.fc1, h)))
         pooled = (pooled + h)[:, 0]
@@ -275,12 +278,11 @@ def apply_text(params: SiglipText, cfg: VisionConfig,
     K1 over all T positions, with no key mask, as in the JAX tower."""
     act = ACTIVATIONS[cfg.hidden_act]
     eps = cfg.layer_norm_eps
-    nh = cfg.num_attention_heads
     emb = params.embeddings
     ids = input_ids.to(emb.token.device).long()
     x = emb.token[ids] + emb.position[:ids.shape[1]]
     for lp in params.layers:
-        x = _encoder_layer(lp, x, act, eps, nh)
+        x = _encoder_layer(lp, x, act, eps)
     x = layer_norm(params.final_ln, x, eps)
     pooled = linear(params.head, x[:, -1])
     return {"last_hidden_state": x, "pooler_output": pooled}

@@ -190,6 +190,9 @@ def fuse_module(module: nn.Module, fused: str) -> bool:
     cat = _concat_linear([getattr(module, p) for p in names])
     if cat is None:
         return False
+    role = getattr(getattr(module, names[0]), "tp_role", None)
+    if role is not None:     # a rank's slices: its columns of the fusion
+        cat.tp_role = role
     for p in names:
         delattr(module, p)
     setattr(module, fused, cat)
@@ -200,7 +203,10 @@ def fuse_projections(params: nn.Module) -> nn.Module:
     """Pack q/k/v into one ``qkv`` and gate/up into one ``gateup``
     projection in every text-tower layer, in place (inference-time: 7
     decode projections per layer become 4). The vision tower keeps its
-    layout. Accepts ``Params`` or the text tower; returns its argument."""
+    layout. Accepts ``Params`` or the text tower; returns its argument.
+    On weights placed over a model axis each rank fuses its own slices
+    (``[q_r; k_r; v_r]``, ``[gate_r; up_r]``), never a cut of the whole
+    fusion."""
     text = getattr(params, "text", params)
     for layer in text.layers:
         fuse_module(layer.attn, "qkv")

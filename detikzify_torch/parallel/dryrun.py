@@ -1,12 +1,15 @@
 """Entry points for a quick check of the port (counterpart of the
 repository's ``__graft_entry__.py``): one device's forward at a real
-configuration, and a dry run of the data axis over several processes.
+configuration, and a dry run of the mesh over several processes.
 
     python -m detikzify_torch.parallel.dryrun [N]
 
-runs ``dryrun_multi_device(N)`` (default 2) on the CPU. The JAX dry run's
-tensor-parallel legs (its decode, burst and speculative engines over a
-model axis) wait with that axis (``parallel.mesh.TP_ITEM``).
+runs ``dryrun_multi_device(N)`` (default 2) on the CPU: a training step
+over a ``(data, model)`` mesh of N gloo processes (``model = 2`` when N is
+even, as the JAX dry run takes it), then the JAX dry run's three
+tensor-parallel inference legs over a ``(data=1, model=2)`` mesh of two
+gloo processes (``tp_decode``, ``tp_burst``, ``tp_spec``: each rank's
+greedy streams equal the unsharded engine's), then two replicas.
 """
 from __future__ import annotations
 
@@ -62,7 +65,8 @@ def _free_port() -> int:
 
 def _train_rank(rank: int, world: int, init: str) -> None:
     """One rank of the dry run: a ``grad_accum=2`` FSDP step of
-    ``tiny-test`` over a ``(data=world, model=1)`` mesh."""
+    ``tiny-test`` over a ``(data=world/m, model=m)`` mesh, ``m = 2`` when
+    ``world`` is even."""
     import torch.distributed as dist
 
     from ..config import tiny_test_config
@@ -75,7 +79,7 @@ def _train_rank(rank: int, world: int, init: str) -> None:
     dist.init_process_group("gloo", init_method=init, rank=rank,
                             world_size=world)
     try:
-        mesh = make_mesh(device="cpu")
+        mesh = make_mesh(model=2 if world % 2 == 0 else 1, device="cpu")
         cfg = tiny_test_config(vocab_size=512)
         params = convert.init_random(cfg, device="cpu", dtype=torch.float32)
         params = place_params(params, mesh, fsdp=True)
@@ -105,14 +109,134 @@ def _train_rank(rank: int, world: int, init: str) -> None:
         dist.destroy_process_group()
 
 
+PROMPT = (5, 6, 7)            # after BOS: the JAX dry run's prompt
+
+
+def tp_decode(params, cfg, device="cpu"):
+    """The JAX dry run's first leg: greedy decode of the prompt, its prefix
+    stored and restored for a second rollout -> (both streams)."""
+    from ..engine import DecodeEngine
+    from ..ops.sampling import SamplingParams
+
+    prompt = [cfg.bos_token_id, *PROMPT]
+    eng = DecodeEngine(params, cfg, num_slots=2, max_len=64,
+                       cache_dtype=torch.float32, device=device,
+                       sampling=SamplingParams(temperature=0.0))
+    ro = eng.start(list(prompt), max_new_tokens=10)
+    eng.run()
+    toks = list(ro.token_ids)
+    eng.store_prefix("node", ro, length=len(prompt) + 3)
+    eng.release(ro)
+    _, sp = eng.best_prefix(toks[:len(prompt) + 3])
+    r2 = eng.start(toks[:len(prompt) + 3], max_new_tokens=4, prefix=sp)
+    eng.run()
+    assert eng.counters["prefix_starts"] >= 1
+    return toks, list(r2.token_ids)
+
+
+def tp_burst(params, cfg, device="cpu"):
+    """The second leg: a ``start_many`` burst of three rows with mixed
+    prefixes (one restored, two fresh) -> their streams."""
+    from ..engine import DecodeEngine
+    from ..ops.sampling import SamplingParams
+
+    prompt = [cfg.bos_token_id, *PROMPT]
+    eng = DecodeEngine(params, cfg, num_slots=4, max_len=64,
+                       cache_dtype=torch.float32, device=device,
+                       sampling=SamplingParams(temperature=0.0))
+    ro = eng.start(list(prompt), max_new_tokens=8)
+    eng.run()
+    toks = list(ro.token_ids)
+    eng.store_prefix("n0", ro, length=len(prompt) + 4)
+    eng.release(ro)
+    _, sp = eng.best_prefix(toks[:len(prompt) + 4])
+    ros = eng.start_many(
+        [toks[:len(prompt) + 4], list(prompt), toks[:len(prompt) + 2]],
+        max_new_tokens=5, prefixes=[sp, None, None])
+    eng.run()
+    out = [list(r.token_ids) for r in ros]
+    assert eng.counters["prefix_starts"] >= 1
+    for r in ros:
+        eng.release(r)
+    return out
+
+
+def tp_spec(params, cfg, device="cpu"):
+    """The third leg: the speculative engine (2 drafts, no gating, blocks
+    of 4) with a hinted and an unhinted row -> their streams."""
+    from ..engine import DecodeEngine
+    from ..ops.sampling import SamplingParams
+
+    prompt = [cfg.bos_token_id, *PROMPT]
+    eng = DecodeEngine(params, cfg, num_slots=2, max_len=64,
+                       cache_dtype=torch.float32, speculate=2,
+                       spec_min_rate=0.0, decode_block=4, device=device,
+                       sampling=SamplingParams(temperature=0.0))
+    r1 = eng.start(list(prompt), max_new_tokens=10, lazy=True)
+    r2 = eng.start(list(prompt) + [9], max_new_tokens=10, lazy=True,
+                   hint=[5, 6, 7, 8])
+    eng.run()
+    out = [list(r1.token_ids), list(r2.token_ids)]
+    assert eng.counters["spec_steps"] > 0
+    eng.release(r1)
+    eng.release(r2)
+    return out
+
+
+TP_LEGS = (("decode", tp_decode), ("burst", tp_burst), ("spec", tp_spec))
+
+
+def _tp_rank(rank: int, world: int, init: str, n_devices: int) -> None:
+    """One rank of the dry run's tensor-parallel legs: ``tiny-test`` over a
+    ``(data=1, model=world)`` mesh against the unsharded engine."""
+    import torch.distributed as dist
+
+    from ..config import tiny_test_config
+    from ..models import convert
+    from .mesh import make_mesh, place_params
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=world)
+    try:
+        cfg = tiny_test_config(vocab_size=512)
+        base = convert.init_random(cfg, device="cpu", dtype=torch.float32)
+        tp = place_params(
+            convert.init_random(cfg, device="cpu", dtype=torch.float32),
+            make_mesh(data=1, model=world, device="cpu"), identical=True)
+        lines = {
+            "decode": lambda o: (f"TP decode token-match ok "
+                                 f"({len(o[0]) - len(PROMPT) - 1} new "
+                                 f"tokens, prefix restore ok)"),
+            "burst": lambda o: ("TP burst start_many token-match ok "
+                                "(mixed prefixes, 3 rows)"),
+            "spec": lambda o: ("TP speculative decode token-match ok "
+                               "(hinted + unhinted rows)")}
+        for name, leg in TP_LEGS:
+            want, got = leg(base, cfg), leg(tp, cfg)
+            assert got == want, \
+                f"TP {name} diverges from unsharded: {got} vs {want}"
+            if rank == 0:
+                print(f"dryrun_multi_device({n_devices}): "
+                      f"{lines[name](want)}", flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
 def dryrun_multi_device(n_devices: int) -> None:
-    """Run one FSDP training step over ``n_devices`` gloo CPU processes,
-    then a ``ReplicaPool`` gathering 4 items over two CPU replicas."""
+    """Run one FSDP training step over ``n_devices`` gloo CPU processes
+    (tensor-parallel over pairs when ``n_devices`` is even), the three
+    tensor-parallel engine legs over two, then a ``ReplicaPool`` gathering
+    4 items over two CPU replicas."""
     import torch.multiprocessing as mp
 
     init = f"tcp://127.0.0.1:{_free_port()}"
     mp.start_processes(_train_rank, args=(n_devices, init),
                        nprocs=n_devices, join=True, start_method="spawn")
+    if n_devices % 2 == 0:
+        init = f"tcp://127.0.0.1:{_free_port()}"
+        mp.start_processes(_tp_rank, args=(2, init, n_devices), nprocs=2,
+                           join=True, start_method="spawn")
 
     from PIL import Image
 

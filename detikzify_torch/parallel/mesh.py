@@ -2,28 +2,36 @@
 ``detikzify_tpu/parallel/mesh.py``) on ``torch.distributed``.
 
 One process drives one device. ``make_mesh`` lays the processes of the
-group out as a ``DeviceMesh`` with dims named ``("data", "model")``;
-``param_spec`` is the JAX package's rule, a pure function of the JAX tree's
-leaf path and shape that names the mesh axis of each dimension; and
-``place_params`` stores a model over the ``data`` axis:
+group out as a ``("data", "model")`` grid (rank ``d * model + m``) with a
+process group for each row and column; ``param_spec`` is the JAX package's
+rule, a pure function of the JAX tree's leaf path and shape that names the
+mesh axis of each dimension; and ``place_params`` stores a model on the
+mesh:
 
-  * ``fsdp=False``: every rank holds the whole weights (broadcast from rank
-    0); the train step averages the gradients over ``data`` (DDP);
-  * ``fsdp=True``: each leaf whose spec names ``data`` is kept as this
-    rank's slice of that dimension (ZeRO-3 storage), and its Adam moments
-    likewise. Inside a train step (``Placement.streaming``) each decoder
-    and vision layer is whole only around its own forward and backward
-    (``models.layers.run_layer``), the other sharded leaves (embeddings,
-    head, connector) for the step; the gradients of the sharded tensors
-    are reduce-scattered to this rank's slices and the update writes the
-    master slices. The 8-bit moments (``quant8``) are block-scaled over
-    the leaf's flat JAX-order vector, so they are split on whole
-    256-element blocks (``Placement.block_range``), not on
-    ``param_spec``'s dimension: a slice boundary that cut a block would
-    change its scale. Their update gathers one leaf at a time.
+  * over ``model`` (tensor parallelism, ``parallel.tp``): each rank keeps
+    the slice of each weight that ``param_spec`` gives its coordinate, cut
+    on whole heads for q/k/v/o (a rank's query heads and the KV heads they
+    read; where the KV heads do not divide by the ranks, a KV head is held
+    by every rank that reads it and its gradient is summed over them), and
+    the layers learn their collectives (``tp_role``); the engine, the
+    pipeline and the train step then run every rank's shard in lockstep;
+  * ``fsdp=False`` over ``data``: every rank holds the weights (broadcast
+    from rank 0); the train step averages the gradients over ``data``
+    (DDP);
+  * ``fsdp=True`` over ``data``: each leaf whose spec names ``data`` is
+    kept as this rank's slice of that dimension of its tensor-parallel
+    shard (ZeRO-3 storage), and its Adam moments likewise. Inside a train
+    step (``Placement.streaming``) each decoder and vision layer is whole
+    only around its own forward and backward (``models.layers.run_layer``),
+    the other sharded leaves (embeddings, head, connector) for the step;
+    the gradients of the sharded tensors are reduce-scattered to this
+    rank's slices and the update writes the master slices.
 
-The ``model`` (tensor-parallel) axis has its rule here but no placement:
-``place_params`` raises for ``model > 1`` (``ROADMAP.md`` queue 1).
+The 8-bit moments (``quant8``) are block-scaled over the whole leaf's flat
+JAX-order vector, so they are split on whole 256-element blocks over
+``data`` (``Placement.block_range``), not on ``param_spec``'s dimension,
+and are the same on every rank of a model group: their update rebuilds one
+leaf at a time whole over both axes.
 """
 from __future__ import annotations
 
@@ -36,10 +44,9 @@ import torch.distributed as dist
 from torch import nn
 
 from ..models.convert import Leaf, leaves
+from .tp import Cut, Role, TensorParallel, head_range
 
 AXES = ("data", "model")
-#: where the tensor-parallel placement waits
-TP_ITEM = ("the mesh's `model` (tensor-parallel) axis, ROADMAP.md queue 1")
 
 Spec = Tuple[Optional[str], ...]
 
@@ -51,25 +58,35 @@ def _group_initialized() -> bool:
 def local_device() -> torch.device:
     """This process's device: ``cuda:<LOCAL_RANK>`` (torchrun's variable,
     else the group rank modulo the cards) when there is a card, else the
-    CPU."""
+    CPU. Ranks beyond the cards share them."""
     if not torch.cuda.is_available():
         return torch.device("cpu")
     if "LOCAL_RANK" in os.environ:
         idx = int(os.environ["LOCAL_RANK"])
     else:
         idx = (dist.get_rank() if _group_initialized() else 0)
-        idx %= torch.cuda.device_count()
+    idx %= torch.cuda.device_count()
     return torch.device("cuda", idx)
 
 
-def join_group(device="cuda") -> torch.device:
+def join_group(device="cuda", backend: Optional[str] = None, *,
+               init_method: Optional[str] = None,
+               rank: Optional[int] = None,
+               world_size: Optional[int] = None) -> torch.device:
     """Join the ``torch.distributed`` group that torchrun's environment
-    describes (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``/``MASTER_PORT``):
-    nccl on the card, gloo on the CPU. Returns this process's device (a
-    card's ``cuda`` becomes ``cuda:<LOCAL_RANK>``)."""
+    describes (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``/``MASTER_PORT``),
+    or the one ``init_method``, ``rank`` and ``world_size`` name. The
+    backend is the caller's: by default nccl on the card (one rank a card)
+    and gloo on the CPU; ranks that share a card pass ``"gloo"`` (nccl
+    refuses two ranks on one device). Returns this process's device (a
+    card's ``cuda`` becomes ``cuda:<LOCAL_RANK>``, or the rank modulo the
+    cards)."""
     on_card = torch.device(device).type == "cuda"
     if not _group_initialized():
-        dist.init_process_group("nccl" if on_card else "gloo")
+        kw = {} if init_method is None else dict(
+            init_method=init_method, rank=rank, world_size=world_size)
+        dist.init_process_group(
+            backend or ("nccl" if on_card else "gloo"), **kw)
     if not on_card:
         return torch.device(device)
     dev = local_device()
@@ -79,29 +96,51 @@ def join_group(device="cuda") -> torch.device:
 
 class Mesh:
     """A ``("data", "model")`` mesh over the processes of the default
-    group, one device each; without a group, one device and no
-    ``device_mesh``."""
+    group, one device each (``groups``: each axis's process group through
+    this rank, None for an axis of one; ``coords``: this rank's index
+    along each axis); without a group, one device."""
 
-    def __init__(self, data: int, model: int, device,
-                 device_mesh=None):
+    def __init__(self, data: int, model: int, device, groups=None,
+                 coords: Tuple[int, int] = (0, 0)):
         self.shape = {"data": data, "model": model}
         self.device = torch.device(device)
-        self.device_mesh = device_mesh
+        self.groups = groups
+        self.coords = dict(zip(AXES, coords))
 
     @property
     def distributed(self) -> bool:
-        return self.device_mesh is not None
+        return self.groups is not None
 
     def group(self, axis: str):
-        return self.device_mesh.get_group(axis) if self.distributed else None
+        return self.groups[axis] if self.distributed else None
 
     def coordinate(self, axis: str) -> int:
         """This process's index along ``axis``."""
-        return (self.device_mesh.get_local_rank(axis) if self.distributed
-                else 0)
+        return self.coords[axis]
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, device={self.device})"
+
+
+def _axis_groups(data: int, model: int, rank: int) -> dict:
+    """Each axis's group through ``rank`` on a ``data x model`` grid. Every
+    rank creates every group, in one order; an axis of one needs none and
+    an axis of the whole world is the default group."""
+    world = data * model
+    grid = torch.arange(world).reshape(data, model)
+    out = {}
+    for axis, lines in (("model", grid.tolist()),
+                        ("data", grid.t().tolist())):
+        if len(lines[0]) == 1:
+            out[axis] = None
+        elif len(lines[0]) == world:
+            out[axis] = dist.group.WORLD
+        else:
+            for ranks in lines:
+                g = dist.new_group(ranks)
+                if rank in ranks:
+                    out[axis] = g
+    return out
 
 
 def make_mesh(data: Optional[int] = None, model: int = 1,
@@ -117,13 +156,11 @@ def make_mesh(data: Optional[int] = None, model: int = 1,
     device = torch.device(device) if device is not None else local_device()
     if not _group_initialized():
         return Mesh(data, model, device)
-    from torch.distributed.device_mesh import DeviceMesh
-
     if device.type == "cuda":
         torch.cuda.set_device(device)
-    dm = DeviceMesh(device.type, torch.arange(world).reshape(data, model),
-                    mesh_dim_names=AXES)
-    return Mesh(data, model, device, dm)
+    rank = dist.get_rank()
+    return Mesh(data, model, device, _axis_groups(data, model, rank),
+                (rank // model, rank % model))
 
 
 # ---------------------------------------------------------------------------
@@ -196,6 +233,98 @@ def shard_params(params: nn.Module, mesh: Mesh, fsdp: bool = False
     return out
 
 
+# ---------------------------------------------------------------------------
+# tensor-parallel cut
+# ---------------------------------------------------------------------------
+
+def _cut(mod: nn.Module, name: str, dim: int, lo: int, hi: int,
+         cuts: dict, owner: bool = True, shared: bool = False) -> None:
+    """Keep rows ``[lo, hi)`` of dimension ``dim`` of ``mod``'s tensor
+    ``name``: a parameter keeps its object (and ``requires_grad``), a
+    buffer is replaced."""
+    t = getattr(mod, name)
+    part = t.detach().narrow(dim, lo, hi - lo).clone()
+    cuts[(mod, name)] = Cut(dim, lo, hi, t.shape[dim], owner, shared)
+    if isinstance(t, nn.Parameter):
+        t.data = part
+    else:
+        setattr(mod, name, part)
+
+
+def _cut_dense(lin: nn.Module, kind: str, lo: int, hi: int, tp, cuts: dict,
+               owner: bool = True, shared: bool = False) -> None:
+    """A column-parallel layer keeps output rows ``[lo, hi)`` (and their
+    bias and int8 scales), a row-parallel one input columns ``[lo, hi)``
+    (its bias and scales stay whole: they apply after the sum)."""
+    from ..ops.quant import QuantLinear
+
+    names = ("q", "scale") if isinstance(lin, QuantLinear) else ("weight",)
+    if kind == "col":
+        for name in names + (("bias",) if lin.bias is not None else ()):
+            _cut(lin, name, 0, lo, hi, cuts, owner, shared)
+        lin.out_features = hi - lo
+    else:
+        _cut(lin, names[0], 1, lo, hi, cuts)
+        lin.in_features = hi - lo
+    lin.tp_role = Role(kind, tp)
+
+
+@torch.no_grad()
+def _cut_model(params: nn.Module, tp: TensorParallel) -> dict:
+    """Cut ``params`` in place to this rank's tensor-parallel shard (see
+    the module's docstring); returns each cut tensor's ``Cut`` keyed by
+    (module, attribute): a move to another device replaces buffers."""
+    from ..models import llama, siglip
+
+    r, m = tp.rank, tp.size
+    cuts: dict = {}
+    for mod in list(params.modules()):
+        if isinstance(mod, (llama.Attention, siglip.Attention)):
+            if hasattr(mod, "qkv"):
+                raise ValueError("place the weights on the mesh before "
+                                 "ops.quant.fuse_projections")
+            nh, nkv = (mod.heads if isinstance(mod, llama.Attention)
+                       else (mod.heads, mod.heads))
+            hd = mod.head_dim
+            (q0, q1), (k0, k1) = head_range(r, m, nh, nkv)
+            shared = (k1 - k0) * m > nkv
+            owner = r == 0 or head_range(r - 1, m, nh, nkv)[1] != (k0, k1)
+            _cut_dense(mod.q, "col", q0 * hd, q1 * hd, tp, cuts)
+            for name in ("k", "v"):
+                _cut_dense(getattr(mod, name), "col", k0 * hd, k1 * hd, tp,
+                           cuts, owner, shared)
+            _cut_dense(mod.o, "row", q0 * hd, q1 * hd, tp, cuts)
+            mod.heads = ((q1 - q0, k1 - k0)
+                         if isinstance(mod, llama.Attention) else q1 - q0)
+        elif isinstance(mod, (llama.MLP, siglip.MLP)):
+            if hasattr(mod, "gateup"):
+                raise ValueError("place the weights on the mesh before "
+                                 "ops.quant.fuse_projections")
+            col, row = (("gate", "up"), "down") if isinstance(
+                mod, llama.MLP) else (("fc1",), "fc2")
+            width = getattr(mod, col[0]).out_features
+            if width % m:            # JAX's guard: kept whole
+                continue
+            n = width // m
+            for name in col:
+                _cut_dense(getattr(mod, name), "col", r * n, (r + 1) * n,
+                           tp, cuts)
+            _cut_dense(getattr(mod, row), "row", r * n, (r + 1) * n, tp,
+                       cuts)
+        elif isinstance(mod, llama.Llama):
+            d = mod.embed_tokens.shape[1]
+            if d % m == 0:           # [V, D]: hidden on 'model'
+                _cut(mod, "embed_tokens", 1, r * d // m, (r + 1) * d // m,
+                     cuts)
+                mod.embed_tp = tp
+            head = mod.lm_head
+            if head is not None and head.out_features % m == 0:
+                n = head.out_features // m
+                _cut_dense(head, "col", r * n, (r + 1) * n, tp, cuts)
+                head.tp_role = Role("vocab", tp)
+    return cuts
+
+
 def _data_dim(leaf: Leaf, spec: Spec) -> Optional[int]:
     """The dimension of each of the leaf's port tensors that ``spec``
     shards over 'data' (None: not sharded)."""
@@ -256,27 +385,34 @@ class _Unit:
 
 
 class Placement:
-    """A model placed on a mesh's data axis (``place_params``): the spec of
-    each leaf, and with ``fsdp`` the master slices of the sharded tensors.
-    A sharded model's whole tensors are valid only between ``gather`` and
-    ``release`` (``gathered()``); inside ``streaming()`` (a train step)
-    each decoder and vision layer is whole only around its own forward and
-    backward, the rest for the whole step. Every rank makes these calls
-    together."""
+    """A model placed on a mesh (``place_params``): the spec of each leaf,
+    this rank's tensor-parallel cut of each tensor (``cuts``; the module's
+    tensors are this rank's shards), and with ``fsdp`` the master slices
+    of the shards over the data axis. A sharded model's shards are valid
+    only between ``gather`` and ``release`` (``gathered()``); inside
+    ``streaming()`` (a train step) each decoder and vision layer is whole
+    only around its own forward and backward, the rest for the whole step.
+    Every rank makes these calls together."""
 
-    def __init__(self, params: nn.Module, mesh: Mesh, fsdp: bool):
+    def __init__(self, params: nn.Module, mesh: Mesh, fsdp: bool,
+                 specs: Dict[str, Spec], cuts: Dict[int, Cut]):
         from ..models import llama, siglip
 
         self.mesh, self.fsdp = mesh, fsdp
         self.group = mesh.group("data")
         self.world = mesh.shape["data"]
         self.rank = mesh.coordinate("data")
-        self.specs = shard_params(params, mesh, fsdp)
+        self.tp = TensorParallel(mesh.group("model"),
+                                 mesh.coordinate("model"),
+                                 mesh.shape["model"])
+        self.specs = specs
         self.in_step = False           # inside ``streaming()``
         self._entries: Dict[int, _Entry] = {}
+        self._cuts: Dict[int, Optional[Cut]] = {}
         for leaf in leaves(params):
             dim = _data_dim(leaf, self.specs[leaf.path]) if fsdp else None
             for t in leaf.tensors:
+                self._cuts[id(t)] = cuts.get(id(t))
                 if dim is None or not t.is_floating_point():
                     self._entries[id(t)] = _Entry(t, None, None)
                     continue
@@ -310,12 +446,57 @@ class Placement:
         return t if e.dim is None else e.shard
 
     def splits(self, t: torch.Tensor) -> bool:
-        """This rank holds a strict slice of ``t``."""
+        """This rank holds a strict slice of ``t`` over the data axis."""
         return self._entries[id(t)].dim is not None and self.world > 1
+
+    def cut(self, t: torch.Tensor) -> Optional[Cut]:
+        """``t``'s tensor-parallel cut (None: whole on every rank). A
+        tensor made after the placement (a fused projection) has none to
+        give: it raises."""
+        if id(t) not in self._cuts:
+            raise ValueError(
+                "a tensor made after the placement (fused projections?) "
+                "has no whole over the model axis")
+        return self._cuts[id(t)]
+
+    def whole(self, t: torch.Tensor, x: Optional[torch.Tensor] = None
+              ) -> torch.Tensor:
+        """The whole over the model axis of ``x`` (``t`` itself by
+        default), this rank's part of ``t``'s shape: rebuilt from every
+        rank's part (a collective) where ``t`` is cut."""
+        return self.tp.whole(t if x is None else x, self.cut(t))
+
+    def part(self, t: torch.Tensor, whole: torch.Tensor) -> torch.Tensor:
+        """This rank's part of ``whole``, a tensor of ``t``'s whole shape
+        (a view)."""
+        c = self.cut(t)
+        return whole if c is None else whole.narrow(c.dim, c.lo,
+                                                    c.hi - c.lo)
+
+    def whole_numel(self, t: torch.Tensor) -> int:
+        c = self.cut(t)
+        return t.numel() if c is None else t.numel() // (c.hi - c.lo) \
+            * c.size
+
+    def model_reduce_grad(self, t: torch.Tensor, g: torch.Tensor
+                          ) -> torch.Tensor:
+        """``g`` summed over the ranks that hold the same rows of ``t``
+        (KV heads shared over the model axis); else ``g`` itself."""
+        c = self.cut(t)
+        return g if c is None or not c.shared else self.tp.sum_shared(g, c)
+
+    @property
+    def block_world(self) -> int:
+        """The ranks over which the 8-bit moments' blocks are split: the
+        data axis with ``fsdp``, else one (every rank holds them all)."""
+        return self.world if self.fsdp else 1
 
     def block_range(self, n_blocks: int) -> Tuple[int, int]:
         """This rank's whole 256-element blocks of a leaf's 8-bit moments:
-        contiguous runs of ``ceil(n_blocks / world)``."""
+        contiguous runs of ``ceil(n_blocks / world)`` over the data axis
+        with ``fsdp``, else all of them."""
+        if self.block_world == 1:
+            return 0, n_blocks
         per = -(-n_blocks // self.world)
         lo = min(self.rank * per, n_blocks)
         return lo, min(lo + per, n_blocks)
@@ -398,16 +579,16 @@ class Placement:
         for e in self._of(tensors):
             e.shard.copy_(self._slice(e.full, e.dim))
 
-    # --- collectives ---------------------------------------------------
+    # --- collectives over the data axis ----------------------------------
 
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        if self.mesh.distributed:
+        if self.world > 1:
             dist.all_reduce(x, group=self.group)
         return x
 
     def all_gather(self, x: torch.Tensor) -> List[torch.Tensor]:
         """Every rank's ``x`` (one shape on all), in rank order."""
-        if not self.mesh.distributed:
+        if self.world == 1:
             return [x]
         parts = [torch.empty_like(x) for _ in range(self.world)]
         dist.all_gather(parts, x.contiguous(), group=self.group)
@@ -430,7 +611,7 @@ class Placement:
         """Concatenate the ranks' leading rows in rank order, each rank
         holding the run ``block_range`` gives it (``per`` rows, fewer or
         none at the end), ``total`` rows in all."""
-        if not self.mesh.distributed:
+        if self.block_world == 1:
             return x
         raw = x.view(torch.uint8) if x.element_size() == 1 else x
         pad = raw.new_zeros((per,) + tuple(raw.shape[1:]))
@@ -438,18 +619,38 @@ class Placement:
         out = torch.cat(self.all_gather(pad))[:total]
         return out.view(x.dtype) if x.element_size() == 1 else out
 
-    # --- optimizer state -------------------------------------------------
+    # --- whole weights and optimizer state -------------------------------
 
-    def shard_state(self, opt_state: dict, leaves_by_path) -> dict:
+    def state_dict(self, params: nn.Module) -> dict:
+        """``params.state_dict()`` of whole tensors over both axes (every
+        rank gets it; call inside ``gathered()``)."""
+        return {k: self.whole(t).detach()
+                for k, t in params.state_dict(keep_vars=True).items()}
+
+    @torch.no_grad()
+    def load_state_dict(self, params: nn.Module, whole: dict) -> None:
+        """Write each rank's parts of ``whole`` (a ``state_dict`` of whole
+        tensors) into ``params`` and their master slices."""
+        with self.gathered():
+            for k, t in params.state_dict(keep_vars=True).items():
+                t.data.copy_(self.part(t, whole[k]))
+            self.refresh_masters()
+
+    def shard_state(self, opt_state: dict, leaves_by_path,
+                    cut: bool = True) -> dict:
         """Whole optimizer moments -> this rank's part (dense moments by
-        ``local``, 8-bit ones by ``block_range``)."""
-        return self._map_state(opt_state, leaves_by_path, gather=False)
+        its tensor-parallel cut, unless ``cut`` is False: moments already
+        of this rank's shards, and data slice; 8-bit ones, always of the
+        whole leaves, by ``block_range``)."""
+        return self._map_state(opt_state, leaves_by_path, gather=False,
+                               cut=cut)
 
     def gather_state(self, opt_state: dict, leaves_by_path) -> dict:
         """This rank's optimizer moments -> whole ones (every rank)."""
         return self._map_state(opt_state, leaves_by_path, gather=True)
 
-    def _map_state(self, opt_state, leaves_by_path, gather: bool) -> dict:
+    def _map_state(self, opt_state, leaves_by_path, gather: bool,
+                   cut: bool = True) -> dict:
         moments = {}
         for path, st in opt_state["moments"].items():
             leaf = leaves_by_path[path]
@@ -457,18 +658,20 @@ class Placement:
                 moments[path] = {k: self._blocks(v, gather)
                                  for k, v in st.items()}
             else:
-                moments[path] = {k: [self._part(t, x, gather)
+                moments[path] = {k: [self._part(t, x, gather, cut)
                                      for t, x in zip(leaf.tensors, v)]
                                  for k, v in st.items()}
         return {**opt_state, "moments": moments}
 
-    def _part(self, t, x, gather: bool):
+    def _part(self, t, x, gather: bool, cut: bool = True):
         e = self._entries[id(t)]
-        if e.dim is None:
-            return x
         if not gather:
-            return self._slice(x, e.dim).clone()
-        return torch.cat(self.all_gather(x), dim=e.dim)
+            x = self.part(t, x) if cut else x
+            return x.clone() if e.dim is None else \
+                self._slice(x, e.dim).clone()
+        if e.dim is not None:
+            x = torch.cat(self.all_gather(x), dim=e.dim)
+        return self.whole(t, x)
 
     def _blocks(self, x, gather: bool):
         if not self.fsdp:
@@ -481,24 +684,37 @@ class Placement:
         return self.all_gather_rows(x, -(-total // self.world), total)
 
 
-def place_params(params: nn.Module, mesh: Mesh, fsdp: bool = False
-                 ) -> nn.Module:
+def place_params(params: nn.Module, mesh: Mesh, fsdp: bool = False,
+                 identical: bool = False) -> nn.Module:
     """Put ``params`` on this process's device of ``mesh``, the same
-    weights on every rank (rank 0's), stored as ``param_spec`` says over
-    the data axis; the module's ``placement`` attribute holds the
-    ``Placement``. Tensor-parallel placement (``model > 1``) is not
-    written yet (``TP_ITEM``)."""
+    weights on every rank (rank 0's, broadcast; ``identical``: every rank
+    holds them already, loaded from one checkpoint or drawn from one seed,
+    and none is sent), stored as ``param_spec`` says: this rank's
+    tensor-parallel shard over the model axis, and over the data axis its
+    master slices with ``fsdp``. The module's ``placement`` attribute holds
+    the ``Placement``. With ``identical`` the cut is made where the weights
+    are, before they move (load on the host: only the shard goes to the
+    card). Place before ``ops.quant.fuse_projections``; quantize before or
+    after (a per-output-channel int8 scale survives either cut)."""
+    if mesh.shape["model"] > 1 and not mesh.distributed:
+        raise ValueError(f"a model axis of {mesh.shape['model']} needs a "
+                         "torch.distributed group (make_mesh)")
+    specs = shard_params(params, mesh, fsdp)
+    if mesh.distributed and not identical:
+        params = params.to(mesh.device)
+        with torch.no_grad():
+            for t in list(params.parameters()) + list(params.buffers()):
+                dist.broadcast(t.data, src=0)
+    cuts = {}
     if mesh.shape["model"] > 1:
-        raise NotImplementedError(
-            f"placement over a model axis of {mesh.shape['model']}: "
-            f"{TP_ITEM}")
+        cuts = _cut_model(params, TensorParallel(
+            mesh.group("model"), mesh.coordinate("model"),
+            mesh.shape["model"]))
     params = params.to(mesh.device)
     if not mesh.distributed:
         return params
-    with torch.no_grad():
-        for t in list(params.parameters()) + list(params.buffers()):
-            dist.broadcast(t.data, src=0, group=mesh.group("data"))
-    placement = Placement(params, mesh, fsdp)
+    cuts = {id(getattr(mod, name)): c for (mod, name), c in cuts.items()}
+    placement = Placement(params, mesh, fsdp, specs, cuts)
     params.placement = placement
     placement.release()
     return params

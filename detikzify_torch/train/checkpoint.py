@@ -11,9 +11,11 @@ writes the JAX tree's keys (``proj/kernel`` ``[in, out]``, ...), so a
 projector file of either package loads in both.
 
 On a mesh (``parallel.mesh.place_params``) every rank calls ``save`` and
-``restore`` together: ``save`` gathers the whole leaves and moments and
-rank 0 writes them in the same format, and ``restore`` gives each rank its
-part again, whatever the mesh's shape was when the file was written.
+``restore`` together: ``save`` gathers the whole leaves and moments, over
+the data and the model axis, and rank 0 writes them in the same format,
+and ``restore`` gives each rank its part again, whatever the mesh's shape
+was when the file was written (a ``data x model`` of 4x2 restores into
+2x4).
 """
 from __future__ import annotations
 
@@ -76,8 +78,9 @@ class Checkpointer:
         with placement.gathered():
             opt_state = placement.gather_state(
                 state.opt_state, {l.path: l for l in leaves(state.params)})
-            if placement.rank == 0 and _process_rank() == 0:
-                self._write(path, step, {"params": state.params.state_dict(),
+            whole = placement.state_dict(state.params)
+            if _process_rank() == 0:
+                self._write(path, step, {"params": whole,
                                          "opt_state": opt_state,
                                          "step": state.step}, meta)
         if placement.mesh.distributed:
@@ -105,9 +108,7 @@ class Checkpointer:
         if placement is None:
             params.load_state_dict(saved["params"])
             return TrainState(params, saved["opt_state"], int(saved["step"]))
-        with placement.gathered():
-            params.load_state_dict(saved["params"])
-            placement.refresh_masters()
+        placement.load_state_dict(params, saved["params"])
         opt_state = placement.shard_state(
             saved["opt_state"], {l.path: l for l in leaves(params)})
         return TrainState(params, opt_state, int(saved["step"]))

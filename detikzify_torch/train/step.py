@@ -135,10 +135,11 @@ def _flat(leaf: Leaf, tensors) -> torch.Tensor:
                       for t in tensors])
 
 
-def _unflat(leaf: Leaf, flat: torch.Tensor) -> List[torch.Tensor]:
-    """The inverse of ``_flat``: one tensor a layer, in the port's layout."""
+def _unflat(leaf: Leaf, flat: torch.Tensor, like=None) -> List[torch.Tensor]:
+    """The inverse of ``_flat``: one tensor a layer, in the port's layout
+    (of ``like``'s shapes, the leaf's own by default)."""
     out, i = [], 0
-    for t in leaf.tensors:
+    for t in (leaf.tensors if like is None else like):
         shape = t.t().shape if leaf.transposed else t.shape
         part = flat[i:i + t.numel()].reshape(shape)
         out.append(part.t() if leaf.transposed else part)
@@ -191,10 +192,14 @@ class AdamW:
 
     def init(self, params) -> dict:
         moments = {}
+        placement = getattr(params, "placement", None)
         for leaf in self.leaves(params):
             ts = leaf.tensors
             if self.mode == "quant8":
-                nb = -(-sum(t.numel() for t in ts) // QUANT_BLOCK)
+                # blocks of the whole leaf, over a model axis too
+                nb = -(-sum(t.numel() if placement is None
+                            else placement.whole_numel(t) for t in ts)
+                       // QUANT_BLOCK)
                 dev = ts[0].device
 
                 def zq():
@@ -308,15 +313,17 @@ class AdamW:
     def _write_blocks(self, leaf, u, lr, placement) -> None:
         """Apply ``u``, the update of this rank's blocks of ``leaf``, and
         gather every rank's updated elements back into the whole tensors
-        and their master slices (the leaf whole only meanwhile)."""
-        n = sum(t.numel() for t in leaf.tensors)
-        e0, e1, per = _element_range(placement, n)
+        and their master slices (the leaf whole only meanwhile, over the
+        model axis too: each rank then keeps its part)."""
         with placement.gathered(leaf.tensors):
-            seg = _flat(leaf, leaf.tensors)[e0:e1].clone()
+            whole = [placement.whole(t) for t in leaf.tensors]
+            n = sum(w.numel() for w in whole)
+            e0, e1, per = _element_range(placement, n)
+            seg = _flat(leaf, whole)[e0:e1].clone()
             self._apply(seg, u, lr)
             new = placement.all_gather_rows(seg, per, n)
-            for t, part in zip(leaf.tensors, _unflat(leaf, new)):
-                t.copy_(part)
+            for t, part in zip(leaf.tensors, _unflat(leaf, new, whole)):
+                t.copy_(placement.part(t, part))
             placement.refresh_masters(leaf.tensors)
 
     def _quant(self, x):
@@ -456,9 +463,11 @@ def make_train_step(
 
 
 def _blocks(placement, optimizer: AdamW) -> bool:
-    """The 8-bit moments split on whole blocks over the data axis."""
-    return (placement is not None and placement.fsdp
-            and optimizer.mode == "quant8")
+    """The 8-bit moments of a placed model: split on whole blocks over the
+    data axis (``fsdp``), or over a model axis the whole leaf's blocks on
+    every rank; either way the update rebuilds one leaf at a time."""
+    return (placement is not None and optimizer.mode == "quant8"
+            and (placement.fsdp or placement.tp.size > 1))
 
 
 def _element_range(placement, n: int):
@@ -466,7 +475,7 @@ def _element_range(placement, n: int):
     blocks, ``Placement.block_range``) and the elements of a full run."""
     n_blocks = -(-n // QUANT_BLOCK)
     lo, hi = placement.block_range(n_blocks)
-    per = -(-n_blocks // placement.world) * QUANT_BLOCK
+    per = -(-n_blocks // placement.block_world) * QUANT_BLOCK
     return min(lo * QUANT_BLOCK, n), min(hi * QUANT_BLOCK, n), per
 
 
@@ -503,31 +512,46 @@ def _reduce_grads(placement, optimizer: AdamW, train: List[Leaf],
     all-reduced and cut; the norm then sums the whole tensors' squares in
     the unsharded step's order."""
     blocks = _blocks(placement, optimizer)
-    grads, whole, split = {}, [], []
+    grads = {}
+    # squares by where they are summed: [replicated, split over data] for
+    # tensors whole over the model axis and for this rank's cut of the
+    # others (a KV head held by several ranks counts on its owner alone)
+    sqs = [[[], []], [[], []]]
     for leaf in train:
         e0, e1, _ = _element_range(
-            placement, sum(t.numel() for t in leaf.tensors))
+            placement, sum(placement.whole_numel(t) for t in leaf.tensors))
         off = 0
         for t in leaf.tensors:
+            g = placement.model_reduce_grad(t, acc.pop(t))
             if blocks:
-                g = (placement.all_reduce(acc.pop(t)) / grad_accum
-                     ).to(t.dtype)
-                whole.append(g.float().square().sum())
+                g = placement.whole(
+                    t, (placement.all_reduce(g) / grad_accum).to(t.dtype))
+                sqs[0][0].append(g.float().square().sum())
                 flat = (g.t() if leaf.transposed else g).reshape(-1)
-                a = min(max(e0 - off, 0), t.numel())
-                b = min(max(e1 - off, a), t.numel())
+                a = min(max(e0 - off, 0), g.numel())
+                b = min(max(e1 - off, a), g.numel())
                 grads[t] = flat[a:b].clone()
-                off += t.numel()
+                off += g.numel()
                 continue
-            g = (placement.reduce_grad(t, acc.pop(t)) / grad_accum
-                 ).to(t.dtype)
+            g = (placement.reduce_grad(t, g) / grad_accum).to(t.dtype)
             grads[t] = g
-            (split if placement.splits(t) else whole).append(
+            cut = placement.cut(t)
+            if cut is not None and not cut.owner:
+                continue
+            sqs[cut is not None][placement.splits(t)].append(
                 g.float().square().sum())
-    sq = torch.stack(whole).sum() if whole else torch.zeros(
-        (), device=next(iter(grads.values())).device)
-    if split:
-        sq = sq + placement.all_reduce(torch.stack(split).sum())
+    dev = next(iter(grads.values())).device
+
+    def total(parts):
+        return torch.stack(parts).sum() if parts else torch.zeros(
+            (), device=dev)
+
+    (whole, split), (cut_whole, cut_split) = [[total(p) for p in pair]
+                                              for pair in sqs]
+    sq = whole + placement.all_reduce(split)
+    if placement.tp.size > 1:
+        sq = sq + placement.tp.all_reduce(
+            cut_whole + placement.all_reduce(cut_split))
     return grads, sq.sqrt()
 
 
@@ -549,6 +573,8 @@ def init_state(params: nn.Module, optimizer: AdamW) -> TrainState:
     opt_state = optimizer.init(params)
     placement = getattr(params, "placement", None)
     if placement is not None:
+        # dense moments of this rank's shards, 8-bit ones of whole leaves
         opt_state = placement.shard_state(
-            opt_state, {leaf.path: leaf for leaf in optimizer.leaves(params)})
+            opt_state, {leaf.path: leaf for leaf in optimizer.leaves(params)},
+            cut=False)
     return TrainState(params, opt_state, 0)

@@ -10,7 +10,9 @@ rank takes its rows of the global batch to its device from pinned memory
 without blocking the host, checkpoints are ``train.checkpoint``'s, and
 "SplitEpochSaveCallback(0.25)" becomes ``save_epoch_fraction=0.25``.
 ``TrainConfig.fsdp`` stores the weights and moments sharded over the data
-axis; ``model_axis`` > 1 (tensor parallelism) raises in ``place_params``.
+axis; ``model_axis`` > 1 splits each layer over that many ranks (tensor
+parallelism, ``parallel.tp``), FSDP then sharding each rank's part over
+the data axis.
 """
 from __future__ import annotations
 
@@ -179,5 +181,7 @@ class Trainer:
         self.ckpt.wait()
         placement = getattr(self.state.params, "placement", None)
         if placement is not None:
-            placement.gather()          # hand back whole weights
+            # whole over the data axis; over a model axis each rank keeps
+            # its part (``convert.params_to_numpy`` gives the whole leaves)
+            placement.gather()
         return self.state

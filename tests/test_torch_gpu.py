@@ -1050,3 +1050,141 @@ def test_pipelined_dispatch_never_waits_and_matches_eager(cuda):
         outs.append([list(r.token_ids) for r in ros])
         assert eng.counters["decode_dispatches"] > 2
     assert outs[0] == outs[1]
+
+
+# --- the mesh's model axis on one card ----------------------------------------
+
+_TP_WORKER = r'''
+import json
+import sys
+
+import torch
+
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+from detikzify_torch.config import DetikzifyConfig, TextConfig, VisionConfig
+from detikzify_torch.engine import DecodeEngine
+from detikzify_torch.models import convert
+from detikzify_torch.ops import launch_counts, reset_launch_counts
+from detikzify_torch.ops.quant import fuse_projections, quantize_params
+from detikzify_torch.ops.sampling import SamplingParams
+from detikzify_torch.parallel.mesh import join_group, make_mesh, place_params
+
+root, init, rank, weights, out = sys.argv[1:6]
+rank = int(rank)
+dev = join_group("cuda", "gloo", init_method=init, rank=rank, world_size=2)
+# every kernel's limits at m = 2: heads of 64, K and N multiples of 128
+cfg = DetikzifyConfig(
+    vision=VisionConfig(hidden_size=128, intermediate_size=256,
+                        num_hidden_layers=2, num_attention_heads=2,
+                        image_size=42, patch_size=14),
+    text=TextConfig(vocab_size=1024, hidden_size=256, intermediate_size=512,
+                    num_hidden_layers=2, num_attention_heads=4,
+                    num_key_value_heads=2, max_position_embeddings=1024,
+                    rope_theta=10000.0),
+    image_token_id=1021, bos_token_id=1022, eos_token_id=1023,
+    pad_token_id=0, concat_factor=3, model_max_length=256)
+
+
+def model():
+    p = convert.init_random(cfg, device=dev, dtype=torch.bfloat16, seed=11)
+    return quantize_params(p) if weights == "int8" else p
+
+
+def run(params, rec):
+    prompt = [cfg.image_token_id] * cfg.image_seq_len + [cfg.bos_token_id]
+    emb = torch.randn((2, cfg.image_seq_len, cfg.text.hidden_size),
+                      generator=torch.Generator(device=dev).manual_seed(3),
+                      device=dev).to(torch.bfloat16)
+    out = {"streams": {}}
+    reset_launch_counts()
+    with rec.installed():
+        for part, spec in (("plain", 0), ("spec", 4)):
+            rec.part = part
+            eng = DecodeEngine(params, cfg, num_slots=2, max_len=256,
+                               speculate=spec, spec_min_rate=0.0,
+                               sampling=SamplingParams(temperature=0.0),
+                               device=dev)
+            ros = eng.start_many([prompt + [5, 6, 7], prompt + [9]],
+                                 image_embeds=emb, max_new_tokens=24)
+            eng.run()
+            out["streams"][part] = [(r.slot, r.prompt_len, list(r.token_ids))
+                                    for r in ros]
+    torch.cuda.synchronize(dev)
+    out["launches"] = launch_counts()
+    out["top"], out["rows"] = rec.collect()
+    return out
+
+
+def recorder():
+    return chip_smoke.LogitRecorder(torch, cfg.image_token_id, 8)
+
+
+base = model()
+if weights == "int8":
+    fuse_projections(base)
+want = run(base, recorder())
+del base
+tp = place_params(model(), make_mesh(data=1, model=2, device=dev),
+                  identical=True)
+if weights == "int8":
+    fuse_projections(tp)
+got = run(tp, recorder())
+first = sorted({(part, s, n - 1) for part, st in want["streams"].items()
+                for s, n, _ in st})
+a = torch.stack([want["rows"][k] for k in first])
+b = torch.stack([got["rows"][k] for k in first])
+cmp = chip_smoke._tp_compare(torch, want, got)
+json.dump({"cosine": float(torch.nn.functional.cosine_similarity(
+               a, b, dim=-1).min()),
+           "parity_ok": cmp["ok"], "tau": cmp["tau"],
+           "divergences": cmp["divergences"],
+           "streams": got["streams"], "launches": got["launches"],
+           "heads": list(tp.text.layers[0].attn.heads)},
+          open(out, "w"))
+torch.distributed.destroy_process_group()
+'''
+
+
+@pytest.mark.parametrize("weights", ["bf16", "int8"])
+def test_tensor_parallel_ranks_on_one_card(cuda, tmp_path, weights):
+    """Two gloo ranks on ``cuda:0`` over a (data=1, model=2) mesh at a
+    small shape every kernel takes: the first-step logits within cosine
+    0.999 of the unsharded model, its greedy plain and speculative streams
+    equal up to a near-tie (``chip_smoke.py``'s tau rule), the ranks'
+    streams identical, and K1, K2, K4 and K5 (int8) launched on each."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=root)
+    env.pop("LOCAL_RANK", None)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _TP_WORKER, root, f"tcp://127.0.0.1:{port}",
+         str(r), weights, str(tmp_path / f"rank{r}.json")], env=env,
+        stderr=subprocess.PIPE, text=True) for r in range(2)]
+    try:
+        for p in procs:
+            p.wait(timeout=300)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p in procs:
+        assert p.returncode == 0, p.stderr.read()[-3000:]
+    got = [json.load(open(tmp_path / f"rank{r}.json")) for r in range(2)]
+    assert got[0]["streams"] == got[1]["streams"]
+    for g in got:
+        assert g["heads"] == [2, 1]
+        assert g["cosine"] >= 0.999
+        assert g["parity_ok"], (g["tau"], g["divergences"])
+        names = ["flash_attention", "paged_decode", "paged_verify"]
+        if weights == "int8":
+            names.append("int8_gemv")
+        assert all(g["launches"][n] > 0 for n in names), g["launches"]

@@ -21,8 +21,11 @@ the CPU.
     the layers; when a rank has no label token it keeps the whole model
     for the step and equals data parallel;
   * a checkpoint saved by four FSDP ranks restores into two, weights and
-    8-bit moments whole and equal;
-  * ``model > 1`` raises ``NotImplementedError`` naming the queued item.
+    8-bit moments whole and equal.
+
+The model axis is held in ``tests/test_torch_tp.py`` (placement, forward,
+engine, pipeline) and ``tests/test_torch_tp_train.py`` (training and the
+4 x 2 -> 2 x 4 restore).
 """
 import os
 import subprocess
@@ -86,13 +89,6 @@ def test_shard_params_guard_matches_jax():
                   for leaf in convert.leaves(tparams)}
         for p, leaf in jax.tree_util.tree_flatten_with_path(jparams)[0]:
             assert shapes[jmesh._path_str(p)] == leaf.shape
-
-
-def test_model_axis_raises_and_names_the_roadmap_item():
-    params = convert.init_random(t_tiny_test_config(vocab_size=512),
-                                 device="cpu", dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        tmesh.place_params(params, tmesh.Mesh(1, 2, "cpu"))
 
 
 def test_make_mesh_without_a_group_is_one_device():

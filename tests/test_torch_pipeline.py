@@ -623,8 +623,9 @@ def test_chip_smoke_cpu_rehearsal():
     adapter and GRPO references, ``grpo``, ``adapter_pretrain``,
     ``adapter_train``), the pipelined engine (``pipelined``,
     ``pipelined_spec``), the BPE
-    speculation measurement (``spec_acceptance``) and the verification
-    tool (``verify_real``)."""
+    speculation measurement (``spec_acceptance``), the verification
+    tool (``verify_real``) and the mesh's model axis over two gloo ranks
+    (``tp``, ``tp_spec``, ``tp_train``)."""
     env = dict(os.environ, OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "chip_smoke.py", "--cpu-rehearsal",
                           "--max-new-tokens", "8"], cwd=ROOT, env=env,
@@ -644,7 +645,7 @@ def test_chip_smoke_cpu_rehearsal():
              "infer_cli_mcts", "serve_bench", "v1_sample", "v1_simulate",
              "train", "pretrain", "grpo", "adapter_pretrain",
              "adapter_train", "pipelined", "pipelined_spec", "verify_real",
-             "spec_acceptance", "mesh"}
+             "spec_acceptance", "mesh", "tp", "tp_spec", "tp_train"}
     assert all(set(row["launches_by_path"]) == paths for row in kernels)
     # the v1 family's kernel shapes sit beside the v2 ones
     row_names = {row["name"] for row in kernels}
@@ -794,6 +795,24 @@ def test_chip_smoke_cpu_rehearsal():
     assert phases["trace"]["host_phases"]["sample"]["count"] == 1
     assert not list((ROOT / "build").glob("infer_*"))
     assert not list((ROOT / "build").glob("trace_*"))
+    # the mesh's model axis: two gloo ranks over the exported int8 weights,
+    # their streams and logits against the unsharded model's
+    tp = phases["tp"]
+    assert tp["ranks"] == 2 and tp["backend"] == "gloo"
+    assert tp["ranks_identical"]
+    assert tp["first_step_logits"]["min_cosine"] >= 0.999
+    assert tp["greedy_parity"]["matched_rows"] > 0
+    assert all(g["top1_top2_gap"] <= tp["greedy_parity"]["tau"]
+               for g in tp["greedy_parity"]["divergences"])
+    assert [r["heads"] for r in tp["per_rank"]] == [[2, 1], [2, 1]]
+    assert max(tp["train_loss_rel_err"]) <= 1e-2
+    assert {"flash_attention/tp2_vision", "flash_attention/tp2_map_head",
+            "flash_attention/tp2_prefill_window", "paged_decode/tp2",
+            "paged_verify/tp2"} | {
+        f"int8_gemv/tp2_{p}/rows{m}" for p in ("qkv", "o", "gateup",
+                                                "down", "lm_head")
+        for m in (8, 40)} <= row_names
+    assert not list((ROOT / "build").glob("tp_*"))
     # training: K1's backward with its mutant, the gradient reference, the
     # step at two accumulations, the trainer's save and resume, pretrain
     assert "flash_attention/train_decoder" in row_names
