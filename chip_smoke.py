@@ -9,7 +9,8 @@ Phases, each printing one JSON line:
 2. build   -- compile every hand-written kernel (one nvcc per source, all
               at once) and time it;
 3. kernels -- hold each kernel (K1-K5) against its plain PyTorch version on
-              the card, in bf16, at the main path's shapes (K4: the verify
+              the card, in bf16 (and K1-K4's fp32 kernels in fp32, see
+              below), at the main path's shapes (K4: the verify
               window of speculate=4 with a dead slot and one past the table
               edge; K3: a 2048-row cache and a 1024-row kv_limit view; K5:
               every int8 product of the simulate paths at 1, 8, 40 and 64
@@ -29,7 +30,14 @@ Phases, each printing one JSON line:
               the command line's (K2 over serve_bench's 16 DS-1.3b slots,
               K5 at DS-1.3b's fused products at 16 rows and at v2-8b's
               unfused k/v and gate/up products, which eval's int8 load
-              gives, at 8),
+              gives, at 8) and the DS-7b phase's (K2 at MHA, 32/32 heads
+              of 128; K5 at DeepSeek-7B's fused products at 1 and 8
+              rows), and K1-K4's fp32 kernels at ClipScore's fp32 towers
+              (K1 on the text tower, the vision tower and its MAP head)
+              and at the spec model's head_dim 32 in fp32 and in bf16
+              (K1 on its training pass and its prefill window, K2, K4 and
+              K3), each fp32 one held to 2^-16 of the mass with an output
+              rounded through bf16 as a control that must fail,
               and time kernel, plain version and the PyTorch library
               call (CUDA events, median of many launches, L2 flushed before
               each), next to the least time the card needs for the same
@@ -41,7 +49,8 @@ Phases, each printing one JSON line:
               ``tikzero-adapter`` (2 vision layers with their cross-attention
               blocks, a 2-layer caption model at Llama-3.2-1B's widths);
               and ClipScore's two towers at so400m-384's widths, 2 + 2
-              layers, pooled outputs and scores;
+              layers, in fp32 as the JAX metric builds them (K1's fp32
+              kernel), pooled outputs and scores;
 5. main    -- random-weight ``detikzify-v2-8b`` at full width and depth in
               bf16: three ``DetikzifyPipeline.sample()`` requests and one
               ``sample_batch()`` of three figures, 128 new tokens each;
@@ -106,7 +115,8 @@ Phases, each printing one JSON line:
               through its ``.pth`` files and back through
               ``save_ensemble``/``load_ensemble``), ClipScore (a random
               ``google/siglip-so400m-patch14-384`` two-tower written and
-              loaded back in bf16), and the redacted variants;
+              loaded back in fp32, the JAX metric's type), and the
+              redacted variants;
 16. replicas -- ``parallel.ReplicaPool`` on the int8 + fused weights, one
               replica (``devices=None``) and two sharing ``cuda:0``:
               ``map_until_compilable`` (fast mode), a greedy
@@ -123,6 +133,17 @@ Phases, each printing one JSON line:
               DS-1.3b shape (zeros, int8 + fused, 16 slots, decode block
               128), ``SERVE_BENCH_ARGV``'s requests and clients; the
               export directory is deleted before it;
+19b. spec_acceptance -- the BPE speculation measurement on the JAX
+              package's spec model (4 heads of 32 in fp32: K1's fp32
+              kernel, the fp32 K2 and K4), then the plain and verify step
+              times (``spec_acceptance_steps``);
+19c. ds7b  -- tracked configuration #3, ``detikzify-ds-7b`` int8 +
+              fused at full width and depth (random weights from the
+              seed): 8 slots of 640 rows, decode block 32, T 0.8 / top-p
+              0.95, two runs of 16 streamed rollouts of 128 tokens, each
+              consumer holding every token of its rollout, then one
+              ``sample()`` through the v1 tower with a token and a text
+              streamer; tokens/s, peak memory, one profiled block;
 20. v1_sample -- random-weight ``detikzify-tl-1.1b`` at full width and
               depth (the timm SigLIP tower at 384 px tapped at its
               second-to-last layer, TinyLlama) written as a v1 checkpoint
@@ -205,8 +226,15 @@ from typing import Optional
 ROOT = Path(__file__).resolve().parent
 
 PEAK_BF16_FLOPS = 989e12       # H100 SXM dense bf16 tensor-core peak
+PEAK_FP32_FLOPS = 67e12        # H100 SXM fp32 (FFMA, outside the tensor cores)
 PEAK_BYTES = 3.35e12           # H100 SXM HBM3 bandwidth
 BF16_U = 2.0 ** -8             # bf16 unit roundoff
+# the fp32 kernels' tolerance, in place of bf16's 2u: the fp32 kernels and
+# their plain versions (other summation orders, the kernels' ex2.approx)
+# differ by at most 0.06 of it (9.2e-7 of the mass that reaches an
+# element) at these shapes on an H100, and one rounding through bf16
+# (2^-9) or TF32 products (2^-11) is 2^5-2^7 times it
+F32_TOL = 2.0 ** -16
 
 # (name, B, S, T, NH, NKV, Hd, mode) for K1 at the main path's shapes
 K1_CASES = (
@@ -244,12 +272,25 @@ K5_FP32_SUMS = 2        # fp32 sums whose rounding errors an fp32 K5 check
 # the device functions of each hand-written kernel, as the profiler names
 # them (K1-K4 launch a merge after their split blocks; K5 narrow blocks up
 # to 8 rows, wide ones above, and a reduce after wide blocks split over K)
+# (the decode kernels' functions are templates over the element type: a
+# bf16 one's name holds "<__nv_bfloat16" demangled, "I13__nv_bfloat16"
+# mangled, an fp32 one's "<float" or "If")
+def _typed(*funcs):
+    return {t: tuple(f + m for f in funcs for m in marks)
+            for t, marks in (("bf16", ("<__nv_bfloat16", "I13__nv_bfloat16")),
+                             ("f32", ("<float", "If")))}
+
+
+_PAGED = _typed("paged_split_kernel", "paged_merge_kernel")
+_CONTIG = _typed("contig_split_kernel", "contig_merge_kernel")
+_VERIFY = _typed("verify_split_kernel", "verify_merge_kernel")
 KERNEL_FUNCTIONS = {
     "flash_attention": ("flash_fwd_kernel", "flash_split_kernel",
                         "flash_split_merge_kernel"),
-    "paged_decode": ("paged_split_kernel", "paged_merge_kernel"),
-    "decode_contig": ("contig_split_kernel", "contig_merge_kernel"),
-    "paged_verify": ("verify_split_kernel", "verify_merge_kernel"),
+    "flash_attention_f32": ("flash_f32_kernel",),
+    "paged_decode": _PAGED["bf16"], "paged_decode_f32": _PAGED["f32"],
+    "decode_contig": _CONTIG["bf16"], "decode_contig_f32": _CONTIG["f32"],
+    "paged_verify": _VERIFY["bf16"], "paged_verify_f32": _VERIFY["f32"],
     "int8_gemv": ("int8_gemv_narrow_kernel", "int8_gemv_kernel",
                   "int8_gemv_reduce_kernel"),
 }
@@ -294,6 +335,25 @@ K5_DS13_CASES = (
     ("ds13_gateup", 2048, 11008, "bf16"), ("ds13_down", 5504, 2048, "bf16"),
 )
 K5_DS13_ROWS = (16,)
+# the ds7b phase (``detikzify-ds-7b``, bench.py's seven_bench: int8 + fused,
+# 8 slots of 640 rows, 301-token prompts, 128 new tokens): K2 at MHA (32
+# query heads over 32 KV heads of 128, G = 1) over the 4 pages a 32-step
+# block attends, lengths 302-429; K5 at DeepSeek-7B's fused products at 1
+# and 8 rows. Its lm_head (N = 32258, not a multiple of 128) takes the
+# plain dequant product by the JAX eligibility rule
+K2_DS7_CASE = dict(B=8, NH=32, NKV=32, Hd=128, page=128, m=4,
+                   lengths=(302, 320, 338, 356, 374, 392, 410, 429))
+K5_DS7_CASES = (
+    ("ds7_qkv", 4096, 12288, "bf16"), ("ds7_o", 4096, 4096, "bf16"),
+    ("ds7_gateup", 4096, 22016, "bf16"), ("ds7_down", 11008, 4096, "bf16"),
+)
+K5_DS7_ROWS = (1, 8)
+# the ds7b phase's engine and traffic (bench.py's seven_bench): 8 slots of
+# 640 rows, 32-step decode blocks, T 0.8 / top-p 0.95, rollouts of 128
+# tokens, two runs of 2 x 8 rollouts after a warm-up of 8 x 16
+DS7_PRESET = "detikzify-ds-7b"
+DS7_SLOTS, DS7_MAX_LEN, DS7_BLOCK = 8, 640, 32
+DS7_NEW_TOKENS, DS7_WARMUP_TOKENS, DS7_RUNS = 128, 16, 2
 # K1 at the TikZero adapter's shapes, (name, B, S, T, NH, NKV, Hd, mode,
 # key lengths): the gated cross-attention (900 patch queries over a caption
 # padded on the right to 64 tokens, 16/16 heads at Hd 72) and the caption
@@ -345,6 +405,32 @@ K1_EVAL_CASES = (
     ("clip_text", 8, 64, 64, 16, 16, 72, "full"),
     ("clip_vision", 4, 729, 729, 16, 16, 72, "full"),
 )
+# K1 in float32 at ClipScore's towers as the JAX metric builds them (fp32,
+# the evaluate phase's): the text tower, the vision tower and its MAP head
+K1_EVAL_F32_CASES = (
+    ("clip_text_f32", 8, 64, 64, 16, 16, 72, "full"),
+    ("clip_vision_f32", 4, 729, 729, 16, 16, 72, "full"),
+    ("clip_map_head_f32", 4, 1, 729, 16, 16, 72, "full"),
+)
+# the spec_acceptance model (JAX's: 4 heads of 32, fp32, an fp32 page pool
+# of 128-row pages, max_len 640, 8 slots, 9-token prompts, 48 new tokens):
+# K1 on the overfit's causal pass (8 rows of 128) and on the engine's
+# prefill window (one 9-token prompt in a 16-row bucket over 16 + 128
+# rows); K2 and K4 over one page of every slot (plain and speculate=4
+# steps); K3 over a contiguous 640-row cache (the contiguous API at this
+# model). Each also in bf16 at head_dim 32 (a caller's bf16 spec model)
+SPEC_PROMPT = 9
+K1_SPEC_CASES = (
+    ("spec_train", 8, 128, 128, 4, 4, 32, "causal"),
+    ("spec_prefill", 1, 16, 144, 4, 4, 32, "window"),
+)
+K2_SPEC_CASE = dict(B=8, NH=4, NKV=4, Hd=32, page=128, m=1,
+                    lengths=(10, 16, 22, 28, 34, 40, 46, 57))
+K4_SPEC_CASE = dict(B=8, K1=5, NH=4, NKV=4, Hd=32, page=128, m=1,
+                    starts=(9, 15, 21, 27, 33, 39, 45, 52))
+K3_SPEC_CASE = dict(B=8, L=640, NH=4, NKV=4, Hd=32,
+                    lengths=(70, 130, 190, 250, 310, 370, 430, 640),
+                    limits=(None, 320))
 # google/siglip-so400m-patch14-384's config.json: both towers share the
 # layer geometry; the text tower's vocabulary and positions
 SIGLIP_SO400M = dict(hidden_size=1152, intermediate_size=4304,
@@ -431,6 +517,11 @@ TP_FIGURES, TP_KEEP_CALLS, TP_TRAIN_LAYERS = 8, 16, 8
 # the speculative leg's tokens a row (SIDE_NEW_TOKENS' reason: K4 and the
 # hinted and unhinted draft classes run from the first verify step)
 TP_SPEC_NEW_TOKENS = 64
+# the whole script's tp legs (``--tp-only`` keeps --max-new-tokens): a
+# decode step over gloo with both ranks on one card took 215-688 ms, so a
+# 64-token leg took 14-44 s of the run; 32 tokens still hold every stream
+# against the unsharded model and the first-step logits
+TP_NEW_TOKENS = 32
 TP_LOGITS_MIN_COSINE = 0.999
 TP_TIMEOUT_S = 900
 K1_BACKWARD_CASES = K1_TRAIN_CASES + (
@@ -499,19 +590,22 @@ class Timer:
 
 
 def k1_inputs(torch, gen, device, b, s, t, nh, nkv, hd, mode, prompt=300,
-              lengths=None):
+              lengths=None, dtype=None):
+    dtype = dtype or torch.bfloat16
+
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=device,
-                           dtype=torch.float32).to(torch.bfloat16)
+                           dtype=torch.float32).to(dtype)
 
     q, k, v = rnd(b, s, nh, hd), rnd(b, t, nkv, hd), rnd(b, t, nkv, hd)
     kw = {}
     visible_keys = b * s * t
     if mode == "window":
-        # two fresh prompts and one row restored from a 128-row prefix
-        # (q_offsets > 0), as the engine's fused start builds them
-        offs = [0, 0, 128]
-        lims = [prompt, prompt, 128 + prompt]
+        # fresh prompts and, from the third row on, one restored from a
+        # 128-row prefix (q_offsets > 0), as the engine's fused start
+        # builds them
+        offs = [0 if i != 2 else 128 for i in range(b)]
+        lims = [prompt + o for o in offs]
         kw = dict(q_offsets=torch.tensor(offs, dtype=torch.int32,
                                          device=device),
                   kv_limits=torch.tensor(lims, dtype=torch.int32,
@@ -540,13 +634,17 @@ def tolerance_check(torch, got, want, pv_abs) -> dict:
     reaches each output element. Both sides round the output to bf16 once,
     and each rounds the probabilities to bf16 at a different point (the
     plain version after normalising, K1 before; K2 keeps p in fp32 where
-    the plain version rounds it), each costing at most u * pv_abs."""
+    the plain version rounds it), each costing at most u * pv_abs. An fp32
+    plain version (fp32 inputs) is held to ``F32_TOL`` in place of 2u."""
+    f32 = want.dtype == torch.float32
     err = (got.float() - want.float()).abs()
-    bound = 2 * BF16_U * (pv_abs.float() + want.float().abs())
+    bound = (F32_TOL if f32 else 2 * BF16_U) * (pv_abs.float()
+                                                + want.float().abs())
     ok = (bool(torch.isfinite(got.float()).all())
           and bool((err <= bound).all()))
     return {"max_abs_err": float(err.max()),
-            "tolerance": "2^-7 * (plain(|v|) + |plain|) elementwise",
+            "tolerance": ("2^-16" if f32 else "2^-7")
+            + " * (plain(|v|) + |plain|) elementwise",
             "max_err_over_tol": float((err / bound).max()),
             "tol_over_median_abs_plain": float(
                 bound.median() / want.float().abs().median()),
@@ -564,13 +662,22 @@ def control_check(torch, got, mutant, pv_abs, what: str) -> float:
     return ctl["max_err_over_tol"]
 
 
-def bound(nbytes: float, flops: float) -> dict:
-    """The least time the card needs: bytes over the HBM rate, or bf16
-    operations over the tensor-core peak, whichever is larger."""
-    by_bytes = nbytes / PEAK_BYTES >= flops / PEAK_BF16_FLOPS
-    return {"bound_ms": max(nbytes / PEAK_BYTES,
-                            flops / PEAK_BF16_FLOPS) * 1e3,
+def bound(nbytes: float, flops: float, peak: float = PEAK_BF16_FLOPS
+          ) -> dict:
+    """The least time the card needs: bytes over the HBM rate, or the
+    operations over ``peak`` (the bf16 tensor-core peak; the fp32 FFMA
+    peak for the fp32 kernels), whichever is larger."""
+    by_bytes = nbytes / PEAK_BYTES >= flops / peak
+    return {"bound_ms": max(nbytes / PEAK_BYTES, flops / peak) * 1e3,
             "bound_by": "bytes" if by_bytes else "operations"}
+
+
+def f32_control(torch, got, want, pv_abs, what: str) -> float:
+    """The fp32 kernels' control: their output rounded through bf16 must
+    fail ``F32_TOL``, or the tolerance could not tell an fp32 kernel from
+    a bf16 one."""
+    return control_check(torch, got.to(torch.bfloat16).float(), want,
+                         pv_abs, f"{what} rounded through bf16")
 
 
 def k5_tolerance_check(torch, got, want, mag, k: int, out_dtype) -> dict:
@@ -618,6 +725,7 @@ def k5_rows(torch, gen, device, rehearsal: bool, timer) -> list:
             + [(c, K5_V1_ROWS) for c in K5_V1_CASES]
             + [(c, K5_EVAL_ROWS) for c in K5_EVAL_CASES]
             + [(c, K5_DS13_ROWS) for c in K5_DS13_CASES]
+            + [(c, K5_DS7_ROWS) for c in K5_DS7_CASES]
             + [(c, K5_TP_ROWS) for c in K5_TP_CASES]):
         if rehearsal:       # tiny shapes: the CPU only checks the wiring
             k, n = 256, 384
@@ -674,37 +782,55 @@ def kernel_phase(torch, device, rehearsal: bool, iters: int):
 
     gen = torch.Generator(device=device).manual_seed(1234)
     timer = None if rehearsal else Timer(torch, device, iters)
+    bf16, f32 = torch.bfloat16, torch.float32
     rows = []
-    for (name, b, s, t, nh, nkv, hd, mode), prompt, lengths in (
-            [(c, 300, None) for c in K1_CASES + K1_SERVE_CASES]
-            + [(c, V1_PROMPT, None) for c in K1_V1_CASES]
-            + [(c[:8], None, c[8]) for c in K1_TIKZERO_CASES]
-            + [(c, None, None) for c in K1_EVAL_CASES]
-            + [(c[:8], None, c[8]) for c in K1_TRAIN_CASES]
-            + [(c[:8], None, c[8]) for c in K1_POSTTRAIN_CASES]
-            + [(c, 300, None) for c in K1_TP_CASES]):
+    for (name, b, s, t, nh, nkv, hd, mode), prompt, lengths, dtype in (
+            [(c, 300, None, bf16) for c in K1_CASES + K1_SERVE_CASES]
+            + [(c, V1_PROMPT, None, bf16) for c in K1_V1_CASES]
+            + [(c[:8], None, c[8], bf16) for c in K1_TIKZERO_CASES]
+            + [(c, None, None, bf16) for c in K1_EVAL_CASES]
+            + [(c[:8], None, c[8], bf16) for c in K1_TRAIN_CASES]
+            + [(c[:8], None, c[8], bf16) for c in K1_POSTTRAIN_CASES]
+            + [(c, 300, None, bf16) for c in K1_TP_CASES]
+            + [(c, None, None, f32) for c in K1_EVAL_F32_CASES]
+            + [(c, SPEC_PROMPT, None, dt) for dt in (f32, bf16)
+               for c in K1_SPEC_CASES]):
         if rehearsal:   # tiny shapes: the CPU only checks the wiring
             s, t = min(s, 9), 12
             lengths = lengths and tuple(min(n, t) for n in lengths)
         q, k, v, kw, vis = k1_inputs(torch, gen, device, b, s, t, nh, nkv,
-                                     hd, mode, prompt, lengths)
+                                     hd, mode, prompt, lengths, dtype)
+        is_f32 = dtype == f32
+        if is_f32 and not name.endswith("_f32"):
+            name += "_f32"
+        elif dtype == bf16 and hd == 32:
+            name += "_bf16"
+        kernel = "flash_attention_f32" if is_f32 else "flash_attention"
         got = flash.flash_attention(q, k, v, **kw)
         want = attention.attend_plain(q, k, v, **kw)
-        tol = tolerance_check(torch, got, want,
-                              attention.attend_plain(q, k, v.abs(), **kw))
+        pv_abs = attention.attend_plain(q, k, v.abs(), **kw)
+        tol = tolerance_check(torch, got, want, pv_abs)
         if not tol.pop("ok"):
             raise SystemExit(f"K1 {name}: kernel disagrees with its plain "
                              f"version: {tol}")
-        row = {"name": f"flash_attention/{name}", "kernel": "flash_attention",
-               "route": "cuda", "source": "detikzify_torch/csrc/flash_attn.cu",
+        if is_f32:
+            tol["bf16_control_max_err_over_tol"] = f32_control(
+                torch, got, want, pv_abs, f"K1 {name}")
+        row = {"name": f"flash_attention/{name}", "kernel": kernel,
+               "route": "cuda",
+               "source": "detikzify_torch/csrc/"
+               + ("flash_attn_f32.cu" if is_f32 else "flash_attn.cu"),
                "replaces": "detikzify_tpu/ops/flash.py:187",
                "shape": {"B": b, "S": s, "T": t, "NH": nh, "NKV": nkv,
                          "Hd": hd, "mode": mode,
+                         "dtype": str(dtype).replace("torch.", ""),
                          **({"key_lengths": list(lengths)} if lengths
                             else {})},
                **tol}
-        row.update(bound(2 * (q.numel() * 2 + k.numel() + v.numel())
-                         + (b * t if lengths else 0), 4 * nh * hd * vis))
+        esize = q.element_size()
+        row.update(bound(esize * (2 * q.numel() + k.numel() + v.numel())
+                         + (b * t if lengths else 0), 4 * nh * hd * vis,
+                         PEAK_FP32_FLOPS if is_f32 else PEAK_BF16_FLOPS))
         if timer is not None:
             import torch.nn.functional as F
 
@@ -734,10 +860,21 @@ def kernel_phase(torch, device, rehearsal: bool, iters: int):
                        "paged_decode/ds13_16slots"))
     rows.append(k2_row(torch, gen, device, rehearsal, timer, K2_TP_CASE,
                        "paged_decode/tp2"))
+    rows.append(k2_row(torch, gen, device, rehearsal, timer, K2_DS7_CASE,
+                       "paged_decode/ds7b"))
     rows.append(k4_row(torch, gen, device, rehearsal, timer))
     rows.append(k4_row(torch, gen, device, rehearsal, timer, K4_TP_CASE,
                        "paged_verify/tp2"))
     rows.extend(k3_rows(torch, gen, device, rehearsal, timer))
+    for dtype in (f32, bf16):
+        tag = "f32" if dtype == f32 else "bf16"
+        rows.append(k2_row(torch, gen, device, rehearsal, timer,
+                           K2_SPEC_CASE, f"paged_decode/spec_{tag}", dtype))
+        rows.append(k4_row(torch, gen, device, rehearsal, timer,
+                           K4_SPEC_CASE, f"paged_verify/spec_{tag}", dtype))
+        rows.extend(k3_rows(torch, gen, device, rehearsal, timer,
+                            K3_SPEC_CASE, f"decode_contig/spec_{tag}",
+                            dtype))
     rows.extend(k5_rows(torch, gen, device, rehearsal, timer))
     return rows
 
@@ -840,43 +977,59 @@ def k1_backward_phase(torch, device, rehearsal: bool, iters: int) -> dict:
     return result
 
 
+def _dtype_tag(torch, dtype) -> tuple:
+    """(kernel name suffix, element bytes, operations peak) of a dtype the
+    decode kernels take."""
+    if dtype == torch.float32:
+        return "_f32", 4, PEAK_FP32_FLOPS
+    return "", 2, PEAK_BF16_FLOPS
+
+
 def k2_row(torch, gen, device, rehearsal: bool, timer, case: dict,
-           name: str) -> dict:
-    """K2, decode over the page pool, against its plain version; SDPA with
-    a length mask over pre-gathered pages is the library yardstick."""
+           name: str, dtype=None) -> dict:
+    """K2, decode over the page pool (bf16, or float32 through its fp32
+    entry point), against its plain version; SDPA with a length mask over
+    pre-gathered pages is the library yardstick."""
     from detikzify_torch.ops import paged
 
+    dtype = dtype or torch.bfloat16
+    suffix, esize, peak = _dtype_tag(torch, dtype)
     c = dict(case)
     if rehearsal:
-        c.update(B=2, NH=4, NKV=2, Hd=64, page=16, m=3, lengths=(5, 40))
+        c.update(B=2, NH=4, NKV=2, Hd=c["Hd"] if c["Hd"] == 32 else 64,
+                 page=16, m=3, lengths=(5, 40))
     b, nh, nkv, hd, page, m = (c[x] for x in ("B", "NH", "NKV", "Hd", "page",
                                               "m"))
     n_pages = b * m + 1
     pool_k = torch.randn((n_pages, page, nkv, hd), generator=gen,
-                         device=device).to(torch.bfloat16)
+                         device=device).to(dtype)
     pool_v = torch.randn((n_pages, page, nkv, hd), generator=gen,
-                         device=device).to(torch.bfloat16)
+                         device=device).to(dtype)
     perm = torch.randperm(n_pages, generator=gen, device=device)[:b * m]
     tab = perm.reshape(b, m).to(torch.int32).contiguous()
     lengths = torch.tensor(c["lengths"], dtype=torch.int32, device=device)
-    q = torch.randn((b, nh, hd), generator=gen,
-                    device=device).to(torch.bfloat16)
+    q = torch.randn((b, nh, hd), generator=gen, device=device).to(dtype)
     got = paged.decode_attend_paged(q, pool_k, pool_v, tab, lengths)
     want = paged.decode_attend_paged_plain(q, pool_k, pool_v, tab, lengths)
-    tol = tolerance_check(torch, got, want, paged.decode_attend_paged_plain(
-        q, pool_k, pool_v.abs(), tab, lengths))
+    pv_abs = paged.decode_attend_paged_plain(q, pool_k, pool_v.abs(), tab,
+                                             lengths)
+    tol = tolerance_check(torch, got, want, pv_abs)
     if not tol.pop("ok"):
         raise SystemExit(f"K2 {name}: kernel disagrees with its plain "
                          f"version: {tol}")
+    if suffix:
+        tol["bf16_control_max_err_over_tol"] = f32_control(
+            torch, got, want, pv_abs, f"K2 {name}")
     live = sum(c["lengths"])
-    nbytes = live * nkv * hd * 2 * 2 + 2 * q.numel() * 2
+    nbytes = (live * nkv * hd * 2 + 2 * q.numel()) * esize
     flops = 4 * nh * hd * live
-    row = {"name": name, "kernel": "paged_decode", "route": "cuda",
+    row = {"name": name, "kernel": "paged_decode" + suffix, "route": "cuda",
            "source": "detikzify_torch/csrc/paged_decode.cu",
            "replaces": "detikzify_tpu/ops/paged.py:194",
            "shape": {"B": b, "NH": nh, "NKV": nkv, "Hd": hd, "page": page,
-                     "m": m, "lengths": list(c["lengths"])},
-           **tol, **bound(nbytes, flops)}
+                     "m": m, "lengths": list(c["lengths"]),
+                     "dtype": str(dtype).replace("torch.", "")},
+           **tol, **bound(nbytes, flops, peak)}
     if timer is not None:
         import torch.nn.functional as F
 
@@ -897,24 +1050,27 @@ def k2_row(torch, gen, device, rehearsal: bool, timer, case: dict,
 
 
 def k4_row(torch, gen, device, rehearsal: bool, timer, case=K4_CASE,
-           name: str = "paged_verify") -> dict:
-    """K4, the speculative verify window, against its plain version at the
-    v2-8b shapes of speculate=4 (``case``); SDPA with a per-row boolean
-    mask over pre-gathered pages is the library yardstick."""
+           name: str = "paged_verify", dtype=None) -> dict:
+    """K4, the speculative verify window (bf16, or float32 through its
+    fp32 entry point), against its plain version at the shapes of
+    speculate=4 (``case``; v2-8b's by default); SDPA with a per-row
+    boolean mask over pre-gathered pages is the library yardstick."""
     import torch.nn.functional as F
 
     from detikzify_torch.ops import paged
 
+    dtype = dtype or torch.bfloat16
+    suffix, esize, peak = _dtype_tag(torch, dtype)
     c = dict(case)
     if rehearsal:
-        c.update(B=3, NH=4, NKV=2, Hd=64, page=64, m=2, starts=(5, 124, 0))
+        c.update(B=3, NH=4, NKV=2, Hd=c["Hd"] if c["Hd"] == 32 else 64,
+                 page=64, m=2, starts=(5, 124, 0))
     b, k1, nh, nkv, hd, page, m = (c[x] for x in ("B", "K1", "NH", "NKV",
                                                   "Hd", "page", "m"))
     n_pages = b * m + 1
 
     def rnd(*shape):
-        return torch.randn(shape, generator=gen,
-                           device=device).to(torch.bfloat16)
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
 
     pool_k, pool_v = rnd(n_pages, page, nkv, hd), rnd(n_pages, page, nkv, hd)
     perm = torch.randperm(n_pages, generator=gen, device=device)[:b * m]
@@ -934,17 +1090,21 @@ def k4_row(torch, gen, device, rehearsal: bool, timer, case=K4_CASE,
         torch, got, paged.decode_verify_attend_paged_plain(
             q, pool_k, pool_v, tab, starts + 1), pv_abs,
         "K4 with every causal limit one row late")
+    if suffix:
+        tol["bf16_control_max_err_over_tol"] = f32_control(
+            torch, got, want, pv_abs, f"K4 {name}")
     width = m * page
     rows_read = sum(min(s0 + k1, width) for s0 in c["starts"])
     visible = sum(min(s0 + j + 1, width) for s0 in c["starts"]
                   for j in range(k1))
-    row = {"name": name, "kernel": "paged_verify", "route": "cuda",
+    row = {"name": name, "kernel": "paged_verify" + suffix, "route": "cuda",
            "source": "detikzify_torch/csrc/paged_verify.cu",
            "replaces": "detikzify_tpu/ops/paged.py:363",
            "shape": {"B": b, "K1": k1, "NH": nh, "NKV": nkv, "Hd": hd,
-                     "page": page, "m": m, "starts": list(c["starts"])},
-           **tol, **bound(rows_read * nkv * hd * 2 * 2 + 2 * q.numel() * 2,
-                          4 * nh * hd * visible)}
+                     "page": page, "m": m, "starts": list(c["starts"]),
+                     "dtype": str(dtype).replace("torch.", "")},
+           **tol, **bound((rows_read * nkv * hd * 2 + 2 * q.numel()) * esize,
+                          4 * nh * hd * visible, peak)}
     if timer is not None:
         row["ms"] = timer(lambda: paged.decode_verify_attend_paged(
             q, pool_k, pool_v, tab, starts))
@@ -963,23 +1123,26 @@ def k4_row(torch, gen, device, rehearsal: bool, timer, case=K4_CASE,
     return row
 
 
-def k3_rows(torch, gen, device, rehearsal: bool, timer) -> list:
-    """K3, decode over a contiguous cache, against its plain version: the
-    whole 2048-row cache, then a kv_limit view of 1024 rows read in place;
+def k3_rows(torch, gen, device, rehearsal: bool, timer, case=K3_CASE,
+            name: str = "decode_contig", dtype=None) -> list:
+    """K3, decode over a contiguous cache (bf16, or float32 through its
+    fp32 entry point), against its plain version: the whole cache, then a
+    kv_limit view read in place (v2-8b's 2048 rows and 1024 by default);
     SDPA with a length mask is the library yardstick."""
     import torch.nn.functional as F
 
     from detikzify_torch.ops import attention
 
-    c = dict(K3_CASE)
+    dtype = dtype or torch.bfloat16
+    suffix, esize, peak = _dtype_tag(torch, dtype)
+    c = dict(case)
     if rehearsal:
-        c.update(B=2, L=96, NH=4, NKV=2, Hd=64, lengths=(70, 96),
-                 limits=(None, 80))
+        c.update(B=2, L=96, NH=4, NKV=2, Hd=c["Hd"] if c["Hd"] == 32 else 64,
+                 lengths=(70, 96), limits=(None, 80))
     b, length, nh, nkv, hd = (c[x] for x in ("B", "L", "NH", "NKV", "Hd"))
 
     def rnd(*shape):
-        return torch.randn(shape, generator=gen,
-                           device=device).to(torch.bfloat16)
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
 
     q = rnd(b, nh, hd)
     k_full, v_full = rnd(b, length, nkv, hd), rnd(b, length, nkv, hd)
@@ -999,17 +1162,21 @@ def k3_rows(torch, gen, device, rehearsal: bool, timer) -> list:
         tol["control_block_short_max_err_over_tol"] = control_check(
             torch, got, attention.decode_attend_plain(q, k, v, lens - 64),
             pv_abs, "K3 reading one 64-row block short")
+        if suffix:
+            tol["bf16_control_max_err_over_tol"] = f32_control(
+                torch, got, want, pv_abs, f"K3 {name}")
         live = int(lens.sum())
-        row = {"name": "decode_contig" + ("" if limit is None
-                                          else f"/kv_limit{limit}"),
-               "kernel": "decode_contig", "route": "cuda",
+        row = {"name": name + ("" if limit is None
+                               else f"/kv_limit{limit}"),
+               "kernel": "decode_contig" + suffix, "route": "cuda",
                "source": "detikzify_torch/csrc/decode_contig.cu",
                "replaces": "detikzify_tpu/ops/decode_flash.py:183",
                "shape": {"B": b, "L": k.shape[1], "NH": nh, "NKV": nkv,
                          "Hd": hd, "lengths": lens.tolist(),
-                         "view_of_rows": length if limit else None},
-               **tol, **bound(live * nkv * hd * 2 * 2 + 2 * q.numel() * 2,
-                              4 * nh * hd * live)}
+                         "view_of_rows": length if limit else None,
+                         "dtype": str(dtype).replace("torch.", "")},
+               **tol, **bound((live * nkv * hd * 2 + 2 * q.numel()) * esize,
+                              4 * nh * hd * live, peak)}
         if timer is not None:
             row["ms"] = timer(lambda: attention.decode_attend(q, k, v, lens))
             row["plain_ms"] = timer(lambda: attention.decode_attend_plain(
@@ -1290,6 +1457,18 @@ def smoke_tokenizer(byte_tokenizer, cfg, model_max_length: int = 2048):
                           model_max_length=model_max_length)
 
 
+def device_activity():
+    """The profiler activities of the inference windows: the device's
+    alone. Their paths open no profiler span (only K1's backward does,
+    which ``_profile_step`` reads with the host's events), and reading a
+    window's host events took 15-35 s of a whole run on an H100 (one
+    sample() of 16 tokens: 22 s; the ds7b block: 35 s, 11 s without
+    them, with the same busy time, 217.1 against 216.9 ms)."""
+    from torch.profiler import ProfilerActivity
+
+    return [ProfilerActivity.CUDA]
+
+
 def _device_time(prof, top: int = 10) -> dict:
     """The device side of a torch.profiler run: busy ms (the sum of every
     device event, kernels and copies, whichever thread launched them; not
@@ -1318,16 +1497,16 @@ def _device_time(prof, top: int = 10) -> dict:
 
 def profile_call(torch, fn, label: str) -> dict:
     """``fn()`` timed plainly, then once more under torch.profiler: device
-    busy time against the plain call's wall time."""
-    from torch.profiler import ProfilerActivity, profile
+    busy time against the plain call's wall time. The profiler records the
+    device's activity alone (``device_activity``)."""
+    from torch.profiler import profile
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=device_activity()) as prof:
         fn()
         torch.cuda.synchronize()
     dev = _device_time(prof)
@@ -2626,11 +2805,10 @@ def _profile_window(torch, fn):
     The profile is read later (``_window_time``): its events are parsed
     when first read, on this thread, which holds the interpreter lock for
     seconds and would stall a server thread still at work."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=device_activity()) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -3010,28 +3188,30 @@ def clip_metric(towers, tokenizer):
 
 
 def clip_reference_phase(torch, device, rehearsal: bool, seed: int) -> None:
-    """ClipScore's towers at full width and 2 + 2 layers: both towers'
-    pooled outputs and the scores on the card (bf16, K1) against the same
-    weights on the host CPU (fp32, plain versions)."""
+    """ClipScore's towers at full width and 2 + 2 layers, in fp32 as the
+    JAX metric builds them: both towers' pooled outputs and the scores on
+    the card (K1's fp32 kernel) against the same weights on the host CPU
+    (the plain versions)."""
     import copy
 
     import numpy as np
 
     from detikzify_torch.models import siglip
     from detikzify_torch.models.load import SiglipTowers
+    from detikzify_torch.ops import KERNELS
     from detikzify_torch.processing import preprocess_image
 
     cpu = torch.device("cpu")
     ref = random_siglip_towers(torch, cpu, torch.float32, rehearsal, seed,
                                layers=2)
-    dtype = torch.float32 if rehearsal else torch.bfloat16
-    dut = SiglipTowers(copy.deepcopy(ref.vision).to(device, dtype),
-                       copy.deepcopy(ref.text).to(device, dtype), *ref[2:])
+    dut = SiglipTowers(copy.deepcopy(ref.vision).to(device),
+                       copy.deepcopy(ref.text).to(device), *ref[2:])
     figs = synthetic_figures(3, seed + 11)
     captions = [TIKZERO_CAPTION, "a red square", ""]
     tok = clip_tokenizer(ref.text.embeddings.token.shape[0])
     pixels = torch.from_numpy(np.stack([
         preprocess_image(f, ref.cfg.image_size, do_trim=True) for f in figs]))
+    f32_launches = KERNELS["flash_attention_f32"].launches
     out = {}
     for name, t in (("cpu", ref), ("dut", dut)):
         metric = clip_metric(t, tok)
@@ -3042,22 +3222,27 @@ def clip_reference_phase(torch, device, rehearsal: bool, seed: int) -> None:
         out[name] = (img["pooler_output"].float().cpu(),
                      txt["pooler_output"].float().cpu(),
                      metric.score_batch(figs, captions))
+    f32_launches = KERNELS["flash_attention_f32"].launches - f32_launches
     cos = torch.nn.functional.cosine_similarity
     img_cos = float(cos(out["dut"][0], out["cpu"][0], dim=-1).min())
     txt_cos = float(cos(out["dut"][1], out["cpu"][1], dim=-1).min())
-    result = {"phase": "reference", "model": "clipscore", "weights": "bf16",
+    score_diff = float(np.abs(out["dut"][2] - out["cpu"][2]).max())
+    result = {"phase": "reference", "model": "clipscore", "weights": "fp32",
               "layers": {"vision": 2, "text": 2},
               "image_pooled_min_cosine": img_cos,
               "text_pooled_min_cosine": txt_cos,
               "scores": [float(s) for s in out["dut"][2]],
-              "scores_max_abs_diff": float(np.abs(out["dut"][2]
-                                                  - out["cpu"][2]).max()),
-              "tolerance": "pooled cosine >= 0.999"}
+              "scores_max_abs_diff": score_diff,
+              "flash_attention_f32_launches": f32_launches,
+              "tolerance": "pooled cosine >= 0.9999, scores within 1e-4"}
     emit(result)
-    if not (img_cos >= 0.999 and txt_cos >= 0.999
+    if not (img_cos >= 0.9999 and txt_cos >= 0.9999 and score_diff <= 1e-4
             and np.isfinite(out["dut"][2]).all()):
         raise SystemExit(f"ClipScore towers on the card disagree with the "
                          f"fp32 reference: {result}")
+    if not rehearsal and f32_launches <= 0:
+        raise SystemExit("ClipScore's fp32 towers never launched K1's fp32 "
+                         "kernel")
 
 
 def eval_testset(n: int, seed: int) -> list:
@@ -3399,9 +3584,9 @@ def evaluate_phase(torch, device, rehearsal: bool, seed: int, cfg,
                                             testset[0]["image"])
         del dreamsim
 
-        # ClipScore: so400m's two towers, random, in and out (bf16 on the
-        # card, K1's type)
-        dtype = torch.float32 if rehearsal else torch.bfloat16
+        # ClipScore: so400m's two towers, random, in and out, in fp32 as
+        # the JAX metric builds them (K1's fp32 kernel on the card)
+        dtype = torch.float32
         t0 = time.perf_counter()
         towers = random_siglip_towers(torch, device, dtype, rehearsal,
                                       seed + 15)
@@ -3510,6 +3695,9 @@ def evaluate_phase(torch, device, rehearsal: bool, seed: int, cfg,
                 problems.append(f"prediction never launched {name}")
         if score_counts["flash_attention"] <= 0:
             problems.append("scoring never launched flash_attention")
+        if score_counts["flash_attention_f32"] <= 0:
+            problems.append("ClipScore's fp32 towers never launched "
+                            "flash_attention_f32")
     if problems:
         raise SystemExit(f"evaluate: {'; '.join(problems)}")
     return {"evaluate_predict": predict_counts,
@@ -5158,19 +5346,238 @@ def _step_ms(torch, eng, prompts, rehearsal: bool, blocks: int = 4) -> float:
     return ms
 
 
+def ds7b_config(rehearsal: bool):
+    """``detikzify-ds-7b`` (DeepSeek-Coder-6.7B: 30 layers, MHA with 32
+    heads of 128, vocabulary 32258; the v1 tower, 300 image tokens) at
+    ``model_max_length`` 640, as bench.py's seven_bench runs it. The
+    rehearsal's is tiny-test wired as DS-7b: MHA (as many KV heads as
+    heads), v1 (a biased projector, SelfSim pinned to cos) and a vocabulary
+    of 500, whose lm_head N is not a multiple of 128."""
+    from detikzify_torch.config import get_config, tiny_test_config
+
+    if rehearsal:
+        base = tiny_test_config(vocab_size=500)
+        return base.replace(
+            text=base.text.replace(
+                num_key_value_heads=base.text.num_attention_heads),
+            is_v1=True, projector_bias=True, pooling_mode="cos",
+            model_max_length=DS7_MAX_LEN)
+    return get_config(DS7_PRESET).replace(model_max_length=DS7_MAX_LEN)
+
+
+def ds7b_phase(torch, device, rehearsal: bool, seed: int) -> dict:
+    """Tracked configuration #3, DS-7b int8 streaming decode (bench.py's
+    seven_bench), at full width and depth: random bf16 weights drawn on the
+    card from ``seed``, quantized in place and fused (the 13.4 GB bf16
+    tree fits the card, so ``quantize_params`` runs there rather than
+    ``quantize_params_host``); a ``DecodeEngine`` of 8 slots, max_len 640,
+    decode_block 32, sampling at T 0.8 / top-p 0.95. Traffic: a warm-up of
+    8 rollouts of 16 tokens, then two runs of 2 x 8 rollouts of 128 tokens
+    started lazily on the image prompt (300 image tokens + bos, the tower's
+    embedding of one synthetic figure), each with an ``on_token``
+    consumer; every consumer must have seen exactly its rollout's tokens.
+    Then one ``DetikzifyPipeline.sample()`` on the same engine through the
+    v1 tower with a token streamer and a text streamer attached (the
+    webui/SSE path), consumed on another thread: the streamed ids must
+    decode to the document's code and the text deltas must spell it.
+    K2 runs at G = 1, K5 at the fused qkv (N 12288), o, gateup (N 22016)
+    and down (K 11008); the lm_head (N 32258) takes the dequantized product
+    by JAX's rule. The launches of the two runs and the sample are the
+    path's, counted from 0 just before them; then one decode block of 8
+    live slots is profiled (the card's idle share)."""
+    import threading
+
+    from detikzify_torch.engine import DecodeEngine
+    from detikzify_torch.infer import DetikzifyPipeline
+    from detikzify_torch.models import convert
+    from detikzify_torch.ops import launch_counts, reset_launch_counts
+    from detikzify_torch.ops.cuda import device_scope
+    from detikzify_torch.ops.quant import (QuantLinear, fuse_projections,
+                                           params_nbytes, quantize_params)
+    from detikzify_torch.ops.sampling import SamplingParams
+    from detikzify_torch.processing import ByteTokenizer, DetikzifyProcessor
+    from detikzify_torch.utils.generation import (StreamerList,
+                                                  TextIteratorStreamer,
+                                                  TokenStreamer)
+
+    def sync():
+        if not rehearsal:
+            torch.cuda.synchronize()
+
+    cfg = ds7b_config(rehearsal)
+    if not rehearsal:
+        torch.cuda.reset_peak_memory_stats()
+    stages = {}
+    t0 = time.perf_counter()
+    params = convert.init_random(
+        cfg, device=device, dtype=torch.float32 if rehearsal
+        else torch.bfloat16,
+        generator=torch.Generator(device=device).manual_seed(seed + 71))
+    sync()
+    stages["init_weights_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fuse_projections(quantize_params(params))
+    sync()
+    stages["quantize_fuse_s"] = time.perf_counter() - t0
+    layer = params.text.layers[0]
+    products = {"qkv": layer.attn.qkv, "o": layer.attn.o,
+                "gateup": layer.mlp.gateup, "down": layer.mlp.down,
+                "lm_head": params.text.lm_head}
+    if not all(isinstance(m, QuantLinear) for m in products.values()):
+        raise SystemExit(f"ds7b: not every product is int8: {products}")
+    # [N, K] of each product; K5 takes those with K and N multiples of 128
+    shapes = {name: list(m.q.shape) for name, m in products.items()}
+    k5_eligible = {name: n % 128 == 0 and k % 128 == 0
+                   for name, (n, k) in shapes.items()}
+
+    processor = DetikzifyProcessor(
+        smoke_tokenizer(ByteTokenizer, cfg, DS7_MAX_LEN), cfg)
+    eng = DecodeEngine(
+        params, cfg, num_slots=DS7_SLOTS, max_len=DS7_MAX_LEN,
+        decode_block=DS7_BLOCK, prefix_budget_bytes=64 << 20,
+        sampling=SamplingParams(temperature=0.8, top_p=0.95, top_k=0),
+        device=device, seed=seed)
+    pipe = DetikzifyPipeline(params, cfg, processor, metric="fast",
+                             engine=eng, device=device, seed=seed)
+    fig = synthetic_figures(1, seed + 72)[0]
+    emb = eng.encode_image(processor(images=[pipe.load(fig)]).pixel_values)
+    prompt = [cfg.image_token_id] * cfg.image_seq_len + [cfg.bos_token_id]
+
+    def run_streaming(n: int, max_new: int) -> dict:
+        streams = [[] for _ in range(n)]
+        results, started, active = {}, 0, []
+        t0 = time.perf_counter()
+        while started < n or active:
+            while started < n and eng.num_free_slots > 0:
+                active.append((started, eng.start(
+                    list(prompt), image_embeds=emb, max_new_tokens=max_new,
+                    lazy=True, on_token=streams[started].append)))
+                started += 1
+            eng.step()
+            for i, ro in list(active):
+                if ro.finished:
+                    results[i] = list(ro.token_ids[ro.prompt_len:])
+                    eng.release(ro)
+                    active.remove((i, ro))
+        sync()
+        seconds = time.perf_counter() - t0
+        if any(streams[i] != results[i] for i in range(n)):
+            raise SystemExit("ds7b: a consumer's tokens differ from its "
+                             "rollout's")
+        tokens = sum(len(r) for r in results.values())
+        if sum(len(st) for st in streams) != tokens:
+            raise SystemExit("ds7b: the consumers did not see every token")
+        return {"rollouts": n, "tokens": tokens, "seconds": seconds,
+                "tokens_per_s": tokens / seconds,
+                "finished_at_eos": sum(
+                    bool(r) and r[-1] == cfg.eos_token_id
+                    for r in results.values())}
+
+    free0 = eng.num_free_pages
+    warm = run_streaming(DS7_SLOTS, DS7_WARMUP_TOKENS)
+    reset_launch_counts()
+    steps0 = eng.counters["decode_steps"]
+    runs = [run_streaming(2 * DS7_SLOTS, DS7_NEW_TOKENS)
+            for _ in range(DS7_RUNS)]
+    decode_steps = eng.counters["decode_steps"] - steps0
+
+    # the webui/SSE path: sample() with streamers, consumed on this thread
+    ids, text = TokenStreamer(), TextIteratorStreamer(processor)
+    out = {}
+
+    streams = StreamerList([ids, text])
+
+    def work():
+        try:
+            with device_scope(eng.device):
+                out["doc"] = pipe.sample(image=fig,
+                                         max_new_tokens=DS7_NEW_TOKENS,
+                                         on_token=streams.put)
+        except BaseException as err:      # to the consumer
+            streams.propagate_error(err)
+        else:
+            streams.end()
+
+    t0 = time.perf_counter()
+    worker = threading.Thread(target=work, daemon=True)
+    worker.start()
+    streamed_text = "".join(text)
+    worker.join()
+    stages["streamed_sample_s"] = time.perf_counter() - t0
+    streamed_ids = list(ids)
+    counts = launch_counts()
+    code = out["doc"].code
+    if processor.decode(streamed_ids, skip_special_tokens=True) != code:
+        raise SystemExit("ds7b: the streamed ids do not decode to the "
+                         "sampled document")
+    if not code.startswith(streamed_text) or not streamed_ids:
+        raise SystemExit("ds7b: the streamed text does not spell the "
+                         "sampled document")
+    if eng.num_active or eng.num_free_pages != free0 - eng.prefix_pages_used:
+        raise SystemExit("ds7b: slots or pages still held after the runs")
+    if not rehearsal:
+        for name in ("flash_attention", "paged_decode", "int8_gemv"):
+            if counts[name] <= 0:
+                raise SystemExit(f"ds7b never launched {name}")
+    result = {"phase": "ds7b", "preset": "tiny-test (ds-7b wiring)"
+              if rehearsal else DS7_PRESET,
+              "weights": "int8 + fused", "layers": cfg.text.num_hidden_layers,
+              "heads": [cfg.text.num_attention_heads,
+                        cfg.text.num_key_value_heads, cfg.text.head_dim],
+              "slots": DS7_SLOTS, "max_len": DS7_MAX_LEN,
+              "decode_block": DS7_BLOCK,
+              "sampling": {"temperature": 0.8, "top_p": 0.95},
+              "prompt_tokens": len(prompt),
+              "weights_bytes": params_nbytes(params),
+              "products_nk": shapes, "k5_eligible": k5_eligible,
+              "stages_s": stages, "warmup": warm, "runs": runs,
+              "ds7b_stream_tok_s": max(r["tokens_per_s"] for r in runs),
+              "decode_steps": decode_steps,
+              "streamed_sample": {"tokens": len(streamed_ids),
+                                  "code_chars": len(code),
+                                  "text_chars": len(streamed_text)},
+              "launches": counts}
+    if not rehearsal:
+        result["max_memory_allocated_bytes"] = \
+            torch.cuda.max_memory_allocated()
+        result["nvidia_smi"] = nvidia_smi()
+    emit(result)
+    if not rehearsal:
+        # one 32-step block with the 8 slots live, under the profiler
+        ros = [eng.start(list(prompt), image_embeds=emb,
+                         max_new_tokens=4 * DS7_BLOCK, lazy=True)
+               for _ in range(DS7_SLOTS)]
+        eng.step()
+        t_prof = time.perf_counter()
+        prof = profile_call(torch, eng.step,
+                            f"ds7b decode block of {DS7_BLOCK} steps, "
+                            f"{DS7_SLOTS} live slots")
+        prof["profile_s"] = time.perf_counter() - t_prof
+        while not all(ro.finished for ro in ros):
+            eng.step()
+        for ro in ros:
+            eng.release(ro)
+        emit(dict(prof, model=DS7_PRESET))
+    pipe.close()
+    del pipe, eng, params, emb
+    _free(torch, rehearsal)
+    return {"ds7b": counts}
+
+
 def spec_acceptance_phase(torch, device, rehearsal: bool, seed: int) -> dict:
     """``python -m detikzify_torch.examples.spec_acceptance`` on the card
     (its ``main``): ``run_measurement`` with the committed byte-level BPE
-    (``spec_bpe_300.json``) over ``generate_corpus(300, seed=0)``, the spec
-    model at 2 heads of 64 in bf16 (4 of 32 in fp32 in the rehearsal, 60
-    steps and 8 prompts) overfit for 400 steps, then greedy and T=0.8
-    speculative rates with and without hints over 24 prompts. The loss
-    must fall below 1.5 and the hinted greedy rate must exceed the
-    unhinted one. Then the ms of a verify step (speculate=4) over the ms
-    of a plain step, eight live slots of the same model (random weights:
-    a step's time does not depend on them): the break-even rate of
-    ``spec_min_rate`` on the card. The launches are the example's alone,
-    counted from 0 just before it and read just after."""
+    (``spec_bpe_300.json``) over ``generate_corpus(300, seed=0)``, on the
+    JAX package's spec model (4 heads of 32 in fp32, an fp32 page pool:
+    K1's fp32 kernel, the fp32 K2 and K4; 60 steps and 8 prompts in the
+    rehearsal) overfit for 400 steps, then greedy and T=0.8 speculative
+    rates with and without hints over 24 prompts. The loss must fall
+    below 1.5 and the hinted greedy rate must exceed the unhinted one.
+    Then the ms of a verify step (speculate=4) over the ms of a plain step,
+    eight live slots of the same model (random weights: a step's time does
+    not depend on them): the break-even rate of ``spec_min_rate`` on the
+    card. The example's launches and the step timing's are two paths,
+    each counted from 0 just before it and read just after."""
     from detikzify_torch.dataset.synthetic import generate_corpus
     from detikzify_torch.engine import DecodeEngine
     from detikzify_torch.evaluate import spec_acceptance as sa
@@ -5186,17 +5593,13 @@ def spec_acceptance_phase(torch, device, rehearsal: bool, seed: int) -> dict:
     t0 = time.perf_counter()
     out = example.main(argv)
     measure_s = time.perf_counter() - t0
-    # the example's launches alone, not the step timing's below
     counts = launch_counts()
 
     tok = ByteLevelBPE.from_file()
-    # the spec model's hidden size is 128
-    cfg = sa.spec_model_config(len(tok), num_heads=128 // out["head_dim"],
-                               dtype=out["dtype"])
+    cfg = sa.spec_model_config(len(tok))
     params = convert.init_random(cfg, device=device,
-                                 dtype=getattr(torch, out["dtype"]),
-                                 seed=seed)
-    prompts = [[cfg.bos_token_id] + tok.encode(c)[:8]
+                                 dtype=getattr(torch, cfg.dtype), seed=seed)
+    prompts = [[cfg.bos_token_id] + tok.encode(c)[:SPEC_PROMPT - 1]
                for c in generate_corpus(8, seed=0)]
 
     def engine(spec):
@@ -5205,16 +5608,19 @@ def spec_acceptance_phase(torch, device, rehearsal: bool, seed: int) -> dict:
                             max_len=cfg.model_max_length, speculate=spec,
                             spec_min_rate=0.0, decode_block=16,
                             eos_token_id=cfg.image_token_id,
-                            cache_dtype=getattr(torch, out["dtype"]),
+                            cache_dtype=getattr(torch, cfg.dtype),
                             sampling=SamplingParams(temperature=0.0),
                             device=device, seed=seed)
+    reset_launch_counts()
     plain_ms = _step_ms(torch, engine(0), prompts, rehearsal)
     verify_ms = _step_ms(torch, engine(SPECULATE), prompts, rehearsal)
+    step_counts = launch_counts()
     result = {"phase": "spec_acceptance", "vocab": len(tok),
               "measurement": out, "measure_s": measure_s,
               "plain_step_ms": plain_ms, "verify_step_ms": verify_ms,
               "verify_plain_ratio": verify_ms / plain_ms,
               "speculate": SPECULATE, "launches": counts,
+              "launches_steps": step_counts,
               "nvidia_smi": None if rehearsal else nvidia_smi()}
     emit(result)
     if not out["overfit_loss"] < 1.5:
@@ -5223,16 +5629,21 @@ def spec_acceptance_phase(torch, device, rehearsal: bool, seed: int) -> dict:
     if not out["spec_rate_bpe_t0_hint"] > out["spec_rate_bpe_t0"]:
         raise SystemExit(f"spec_acceptance: hinted greedy drafts do not "
                          f"beat unhinted ones: {out}")
+    if (out["head_dim"], out["dtype"]) != (32, "float32"):
+        raise SystemExit(f"spec_acceptance ran at {out}, not the JAX "
+                         "model's head_dim 32 in float32")
     if not rehearsal:
-        if (out["head_dim"], out["dtype"]) != (64, "bfloat16"):
-            raise SystemExit(f"spec_acceptance ran at {out}")
-        # every rate is measured on a speculative engine (K4)
-        for name in ("flash_attention", "paged_verify"):
-            if counts[name] <= 0:
+        # every rate is measured on a speculative engine (K4), the step
+        # timing on a plain one too (K2), all of it in fp32
+        for name, where in (("flash_attention_f32", counts),
+                            ("paged_verify_f32", counts),
+                            ("paged_decode_f32", step_counts),
+                            ("paged_verify_f32", step_counts)):
+            if where[name] <= 0:
                 raise SystemExit(f"spec_acceptance never launched {name}")
     del params
     _free(torch, rehearsal)
-    return counts
+    return {"spec_acceptance": counts, "spec_acceptance_steps": step_counts}
 
 
 def mesh_phase(torch, device, rehearsal: bool, seed: int, params, cfg,
@@ -6212,10 +6623,11 @@ def main(argv=None) -> int:
                                     qparams, processor.cfg, side))
         paths["trace"] = trace_phase(torch, device, rehearsal, args.seed,
                                      qparams, processor)
-        with tp_ranks(torch, rehearsal, args.seed, export_dir,
-                      args.max_new_tokens, args.tp_ranks[0]) as run:
+        tp_new = min(TP_NEW_TOKENS, args.max_new_tokens)
+        with tp_ranks(torch, rehearsal, args.seed, export_dir, tp_new,
+                      args.tp_ranks[0]) as run:
             tp_ref = tp_reference(torch, device, rehearsal, args.seed,
-                                  qparams, processor, args.max_new_tokens)
+                                  qparams, processor, tp_new)
             del qparams
             _free(torch, rehearsal)
             paths.update(tp_phase(torch, device, rehearsal, tp_ref, run))
@@ -6227,8 +6639,8 @@ def main(argv=None) -> int:
         shutil.rmtree(export_dir, ignore_errors=True)
     _free(torch, rehearsal)
     paths["serve_bench"] = serve_bench_phase(torch, device, rehearsal)
-    paths["spec_acceptance"] = spec_acceptance_phase(torch, device, rehearsal,
-                                                     args.seed)
+    paths.update(spec_acceptance_phase(torch, device, rehearsal, args.seed))
+    paths.update(ds7b_phase(torch, device, rehearsal, args.seed))
     paths.update(v1_phases(torch, device, rehearsal, args.seed, side))
     _free(torch, rehearsal)
     k1_backward_phase(torch, device, rehearsal, args.iters)

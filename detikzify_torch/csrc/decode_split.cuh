@@ -19,7 +19,7 @@
 // nothing of a split it cannot see reaches its output. The merge kernel
 // combines the partials of one query row in split order with no atomics,
 // so repeated runs give the same bits, and writes out = acc / max(l, 1e-30)
-// in bf16, as the TPU kernels do.
+// in the caches' type (bf16 or fp32), as the TPU kernels do.
 //
 // Inside a block each warp owns 32 rows of the split. A warp issues its own
 // cp.async copies of its K rows, then of its V rows (two groups, all of the
@@ -36,6 +36,15 @@
 // warps' partials are combined in shared memory into the block's one
 // partial.
 //
+// The same partials come from a second body for float32 pools and caches
+// (split_partial on float pointers): the same splits, warps and merge, with
+// every product an fp32 FFMA (no TF32, no tensor core) and P kept in fp32,
+// as the plain versions keep it for fp32 values. Each lane owns one key row
+// of its warp's 32 for the scores (its K row read as float4 from shared
+// memory, the query rows broadcast) and one head-dim column in 32 for P V
+// (each P value shuffled from the lane of its key). The merge writes the
+// caches' type. Both bodies take head_dim 32, 64 and 128.
+//
 // The caller describes one (slot, KV head) with a Slot: members b, h, nkv,
 // R and length, and
 //   size_t qrow(int r)   row index of query row r in q and out (rows of HD);
@@ -51,6 +60,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "sm90.cuh"
 
@@ -107,6 +118,36 @@ inline RowPlan plan_rows(int R) {
   return {(nt + npass - 1) / npass, npass};
 }
 
+// The block's one partial from its warps' (max, sum) in m, l [WARPS][NR]
+// and unnormalised accumulators red [WARPS][nr][HD] (fp32, shared memory):
+// record rec0 + c for each of the pass's nr query rows c.
+template <int HD, int WARPS, int NR>
+__device__ __forceinline__ void combine_warps(const float (*m)[NR],
+                                              const float (*l)[NR],
+                                              const float* red, int nr,
+                                              const Partials& part,
+                                              size_t rec0) {
+  for (int e = threadIdx.x; e < nr * HD; e += WARPS * 32) {
+    const int c = e / HD;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, m[w][c]);
+    float sum = 0.f, a = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      if (m[w][c] == -INFINITY) continue;     // a warp the row cannot see
+      const float wt = ex2(m[w][c] - mx);
+      sum += wt * l[w][c];
+      a += wt * red[w * nr * HD + e];
+    }
+    part.acc[rec0 * HD + e] = a;
+    if (e % HD == 0) {
+      part.ml[(rec0 + c) * 2] = mx;
+      part.ml[(rec0 + c) * 2 + 1] = sum;
+    }
+  }
+}
+
 // One block: query rows [rp0, rp0 + 8 * NTP) of the slot against keys
 // [split * SPLIT, (split + 1) * SPLIT), each row below its limit.
 template <int HD, int NTP, int WARPS, class Slot>
@@ -114,7 +155,7 @@ __device__ __forceinline__ void split_partial(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const Partials& part, int split,
     int nsplit, int rp0, float scale_log2, const Slot& s) {
-  constexpr int SPLIT = WARPS * WROWS, THREADS = WARPS * 32, NR = 8 * NTP;
+  constexpr int SPLIT = WARPS * WROWS, NR = 8 * NTP;
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   const int r0 = split * SPLIT;
   if (r0 >= s.length) return;                // a dead split: no partial
@@ -312,37 +353,180 @@ __device__ __forceinline__ void split_partial(
     }
   }
   __syncthreads();
-  const size_t rec = (((size_t)s.b * s.nkv + s.h) * nsplit + split) * s.R + rp0;
-  for (int e = tid; e < nr * HD; e += THREADS) {
-    const int c = e / HD;
-    float mx = -INFINITY;
+  combine_warps<HD, WARPS, NR>(sm.m, sm.l, red, nr, part,
+                               (((size_t)s.b * s.nkv + s.h) * nsplit + split)
+                                   * s.R + rp0);
+}
+
+template <int HD, int NTP, int WARPS>
+struct SmemF32 {
+  // K rows padded by 4 floats: the 8 lanes of a quarter-warp reading their
+  // own rows' float4 fall on distinct banks
+  float k[WARPS * WROWS][HD + 4];
+  float v[WARPS * WROWS][HD];
+  float q[8 * NTP][HD];                      // the pass's rows, scaled
+  float m[WARPS][8 * NTP], l[WARPS][8 * NTP];
+};
+
+// The float32 body: the same block, partials and limits as the bf16 one,
+// every product an fp32 FFMA. Lane `lane` of a warp scores key row
+// r0 + w0 + lane against the pass's query rows, then adds P V into head
+// columns lane + 32 j, each P value shuffled from the lane of its key.
+template <int HD, int NTP, int WARPS, class Slot>
+__device__ __forceinline__ void split_partial(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const Partials& part, int split,
+    int nsplit, int rp0, float scale_log2, const Slot& s) {
+  constexpr int SPLIT = WARPS * WROWS, THREADS = WARPS * 32, NR = 8 * NTP;
+  constexpr int CH = HD / 4;                 // 16-byte chunks per row
+  constexpr int DL = HD / 32;                // head columns per lane
+  static_assert(HD % 32 == 0, "head_dim 32, 64 or 128");
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const int r0 = split * SPLIT;
+  if (r0 >= s.length) return;                // a dead split: no partial
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  SmemF32<HD, NTP, WARPS>& sm =
+      *reinterpret_cast<SmemF32<HD, NTP, WARPS>*>(smem_raw);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int r1 = min(r0 + SPLIT, s.length);
+  const int w0 = warp * WROWS;
+  const bool live = r0 + w0 < r1;
+  const int nr = min(NR, s.R - rp0);         // query rows of this pass
+
+  if (live) {
+    // this warp's 32 rows: K, then V, as two copy groups
+    const size_t base0 = s.kv(r0 + w0);
+    const int rs = s.nkv * HD;
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, sm.m[w][c]);
-    float l = 0.f, a = 0.f;
+    for (int kv = 0; kv < 2; ++kv) {
+      const float* src = kv ? v : k;
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) {
-      if (sm.m[w][c] == -INFINITY) continue;   // a warp the row cannot see
-      const float wt = ex2(sm.m[w][c] - mx);
-      l += wt * sm.l[w][c];
-      a += wt * red[w * nr * HD + e];
-    }
-    part.acc[rec * HD + e] = a;
-    if (e % HD == 0) {
-      part.ml[(rec + c) * 2] = mx;
-      part.ml[(rec + c) * 2 + 1] = l;
+      for (int it = 0; it < WROWS * CH / 32; ++it) {
+        const int e = lane + 32 * it;
+        const int r = e / CH, cc = e % CH;
+        const bool full = r0 + w0 + r < r1;
+        const size_t off = full ? base0 + (size_t)r * rs + cc * 4 : 0;
+        float* dst = kv ? &sm.v[w0 + r][cc * 4] : &sm.k[w0 + r][cc * 4];
+        cp_async16(smem_u32(dst), src + off, full);
+      }
+      cp_async_commit();
     }
   }
+  for (int e = tid; e < NR * HD; e += THREADS) {
+    const int r = e / HD;
+    sm.q[r][e % HD] =
+        r < nr ? q[s.qrow(rp0 + r) * HD + e % HD] * scale_log2 : 0.f;
+  }
+  __syncthreads();                           // the query rows are staged
+
+  float acc[NR][DL];
+  float m2[NR], l2[NR];
+#pragma unroll
+  for (int r = 0; r < NR; ++r) {
+    m2[r] = -INFINITY;
+    l2[r] = 0.f;
+#pragma unroll
+    for (int j = 0; j < DL; ++j) acc[r][j] = 0.f;
+  }
+
+  if (live) {
+    cp_async_wait<1>();                      // K rows landed
+    __syncwarp();
+    const int key = r0 + w0 + lane;
+    float sc[NR];
+#pragma unroll
+    for (int r = 0; r < NR; ++r) sc[r] = 0.f;
+#pragma unroll 4
+    for (int c4 = 0; c4 < CH; ++c4) {
+      const float4 kk = *reinterpret_cast<const float4*>(&sm.k[w0 + lane][4 * c4]);
+#pragma unroll
+      for (int r = 0; r < NR; ++r) {
+        const float4 qq = *reinterpret_cast<const float4*>(&sm.q[r][4 * c4]);
+        sc[r] = fmaf(qq.x, kk.x, sc[r]);
+        sc[r] = fmaf(qq.y, kk.y, sc[r]);
+        sc[r] = fmaf(qq.z, kk.z, sc[r]);
+        sc[r] = fmaf(qq.w, kk.w, sc[r]);
+      }
+    }
+    // per query row: keys at or past its limit get the sentinel; max and
+    // sum over the warp's 32 keys; a row that sees none of them gets max
+    // -inf, sum 0 and p = 0
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+      const int lim = r < nr ? s.limit(rp0 + r) : 0;
+      const float x = key < lim ? sc[r] : NEG_SENTINEL;
+      float mx = x;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const bool seen = mx != NEG_SENTINEL;
+      const float p = ex2(x - (seen ? mx : 0.f));
+      float sum = p;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      m2[r] = seen ? mx : -INFINITY;
+      l2[r] = sum;
+      sc[r] = p;
+    }
+
+    cp_async_wait<0>();                      // V rows landed
+    __syncwarp();
+#pragma unroll 4
+    for (int c = 0; c < WROWS; ++c) {
+      float vv[DL];
+#pragma unroll
+      for (int j = 0; j < DL; ++j) vv[j] = sm.v[w0 + c][lane + 32 * j];
+#pragma unroll
+      for (int r = 0; r < NR; ++r) {
+        const float p = __shfl_sync(0xffffffffu, sc[r], c);
+#pragma unroll
+        for (int j = 0; j < DL; ++j) acc[r][j] = fmaf(p, vv[j], acc[r][j]);
+      }
+    }
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+      sm.m[warp][r] = m2[r];
+      sm.l[warp][r] = l2[r];
+    }
+  }
+  __syncthreads();                           // every warp is done with K, V
+
+  // the warps' accumulators, [WARPS][nr][HD] fp32, over the K and V rows
+  float* red = &sm.k[0][0];
+  static_assert(sizeof(float) * WARPS * NR * HD <= sizeof(sm.k) + sizeof(sm.v),
+                "the accumulators fit in the K and V rows");
+#pragma unroll
+  for (int r = 0; r < NR; ++r) {
+    if (r < nr) {
+#pragma unroll
+      for (int j = 0; j < DL; ++j)
+        red[(warp * nr + r) * HD + lane + 32 * j] = acc[r][j];
+    }
+  }
+  __syncthreads();
+  combine_warps<HD, WARPS, NR>(sm.m, sm.l, red, nr, part,
+                               (((size_t)s.b * s.nkv + s.h) * nsplit + split)
+                                   * s.R + rp0);
 }
+
+__device__ __forceinline__ void store_out(__nv_bfloat16* o, float x) {
+  *o = __float2bfloat16(x);
+}
+__device__ __forceinline__ void store_out(float* o, float x) { *o = x; }
 
 // One block per (query row r, KV head, slot), one thread per output
 // column: out row r of the slot from the ceil(length / SPLIT) live splits.
 // The split weights exp2(m_s - max) go to shared memory first, MERGE_CHUNK
 // at a time, so the sum over the splits issues independent loads; it runs
 // in split order (no atomics). A split the row cannot see (m_s = -inf)
-// has weight 0.
-template <int HD, int WARPS, class Slot>
+// has weight 0. The output is bf16 or fp32, the caches' type.
+template <int HD, int WARPS, class T, class Slot>
 __device__ __forceinline__ void merge_partials(
-    const Partials& part, __nv_bfloat16* __restrict__ out, int nsplit, int r,
+    const Partials& part, T* __restrict__ out, int nsplit, int r,
     const Slot& s) {
   constexpr int SPLIT = WARPS * WROWS;
   __shared__ float sw[MERGE_CHUNK];
@@ -350,9 +534,9 @@ __device__ __forceinline__ void merge_partials(
   asm volatile("griddepcontrol.wait;\n" ::: "memory");   // the partials
   const int live = (s.length + SPLIT - 1) / SPLIT;
   const int d = threadIdx.x;
-  __nv_bfloat16* o = out + s.qrow(r) * HD + d;
+  T* o = out + s.qrow(r) * HD + d;
   if (live == 0) {                           // an empty slot
-    *o = __float2bfloat16(0.f);
+    store_out(o, 0.f);
     return;
   }
   const size_t rec0 = ((size_t)s.b * s.nkv + s.h) * nsplit * s.R + r;
@@ -389,20 +573,24 @@ __device__ __forceinline__ void merge_partials(
     for (int i = 0; i < n; ++i) a += sw[i] * acc[(size_t)(c0 + i) * as];
     if (!last) __syncthreads();              // sw is staged again
   }
-  *o = __float2bfloat16(a * s_inv);
+  store_out(o, a * s_inv);
 }
 
 // Launch the split kernel over grid (nsplit, NKV * npass, B) and the merge
 // kernel over (R, NKV, B) as its programmatic dependent: the merge may be
 // scheduled as the split blocks start and waits for their grid to finish,
-// so its launch overlaps the split kernel's tail. Returns a cudaError_t.
-template <int HD, int NTP, int WARPS, class Args>
+// so its launch overlaps the split kernel's tail. T is the element type
+// (bf16 or float), which sets the split block's shared memory. Returns a
+// cudaError_t.
+template <int HD, int NTP, int WARPS, class T, class Args>
 int launch_split_merge(void (*split_kernel)(Args, Partials, int, int, float),
                        void (*merge_kernel)(Args, Partials, int),
                        const Args& args, Partials part, int B, int NKV,
                        int R, int nsplit, int npass, float scale_log2,
                        cudaStream_t st) {
-  constexpr size_t smem = sizeof(Smem<HD, NTP, WARPS>);
+  constexpr size_t smem = std::is_same<T, float>::value
+                               ? sizeof(SmemF32<HD, NTP, WARPS>)
+                               : sizeof(Smem<HD, NTP, WARPS>);
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(

@@ -36,12 +36,13 @@
 //   head_dim 72 is tiled at 80: columns 0-63 swizzled, 64-79 unswizzled with
 //   their own n16 product for P V; cp.async zero-fills the pad columns
 //   72-79 of Q, K and V in shared memory (a copy of source size 0), and the
-//   pad columns are never written to device memory. Key tiles that no
-//   query row of the block can see (beyond the causal diagonal or the
-//   per-batch window) are skipped. P enters the PV product as bf16
-//   (unnormalised, in (0, 1]) and is normalised once at the end; the TPU
-//   kernel normalises before the bf16 cast, so the two differ by bf16
-//   rounding of p and of the output.
+//   pad columns are never written to device memory. head_dim 32 is tiled
+//   at 64 the same way (columns 32-63 zero in shared memory, never
+//   written). Key tiles that no query row of the block can see (beyond
+//   the causal diagonal or the per-batch window) are skipped. P enters
+//   the PV product as bf16 (unnormalised, in (0, 1]) and is normalised
+//   once at the end; the TPU kernel normalises before the bf16 cast, so
+//   the two differ by bf16 rounding of p and of the output.
 // * S <= 16 (the MAP head's probe query): no 64-row tile is padded for
 //   one query. A cluster of 8 blocks splits the keys of each (head, batch)
 //   (flash-decoding); each block computes, for its keys and every query
@@ -347,6 +348,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int j = 0; j < NO / 4; ++j) {
     const int col = 8 * j + cq;
+    if (col >= Hd) continue;        // head_dim 32 tiled at 64: pad columns
     if (ra < S)
       *reinterpret_cast<__nv_bfloat162*>(oa + col) =
           __floats2bfloat162_rn(o[4 * j] * inva, o[4 * j + 1] * inva);
@@ -573,8 +575,9 @@ extern "C" {
 
 // q [B,S,NH,Hd], k/v [B,T,NKV,Hd], out [B,S,NH,Hd]: contiguous bf16.
 // kv_mask [B,T] bool or NULL; q_off/kv_lim [B] int32 (per_batch) or NULL.
-// Hd must be 64, 72 or 128: the head dims of the port's models (72 is
-// tiled at 80); no other tile is built.
+// Hd must be 32, 64, 72 or 128: the head dims of the port's models (72 is
+// tiled at 80, 32 at 64); no other tile is built. Float32 inputs take
+// flash_attn_f32.cu.
 int detikzify_flash_attention(const void* q, const void* k, const void* v,
                               void* out, const void* kv_mask,
                               const void* q_off, const void* kv_lim, int B,
@@ -596,6 +599,8 @@ int detikzify_flash_attention(const void* q, const void* k, const void* v,
   const float sl = scale * LOG2E;
   if (S <= SMALL_S) {
     switch (Hd) {
+      case 32:
+        return launch_split<32>(qq, kk, vv, oo, mk, B, S, T, NH, NKV, sl, st);
       case 64:
         return launch_split<64>(qq, kk, vv, oo, mk, B, S, T, NH, NKV, sl, st);
       case 72:
@@ -608,6 +613,7 @@ int detikzify_flash_attention(const void* q, const void* k, const void* v,
     }
   }
   switch (Hd) {
+    case 32:
     case 64:
       return launch_tiles_any<64>(qq, kk, vv, oo, mk, B, S, T, NH, NKV, Hd,
                                   sl, st);

@@ -10,7 +10,11 @@
 // through its page table, and every limit is clamped to the table's
 // m * page rows exactly as the TPU kernel clamps it (paged.py:244-249). A
 // dead slot arrives with start 0 and sees rows [0, j + 1): its output
-// stays finite.
+// stays finite. The TPU kernel reads a pool of any dtype; this one takes
+// bf16 pools (detikzify_paged_verify) and float32 pools
+// (detikzify_paged_verify_f32, every product an fp32 FFMA and p kept in
+// fp32), at head_dim 32, 64 and 128 (the JAX package sends head_dim 32 to
+// XLA; the same function here).
 //
 // What bounds it on the H100: every valid K/V row is read once and used
 // for 2 * G * K1 * Hd FLOP per element pair (G * K1 = 20 query rows at
@@ -51,10 +55,11 @@ constexpr int MAXR = 64;         // query rows per (slot, KV head): G * K1
 constexpr int MAXK1 = 8;         // verify-window rows per slot
 constexpr int PAGE_ALIGN = 64;   // the wrapper's page rule
 
+template <class T>
 struct Args {
-  const __nv_bfloat16 *q, *pool_k, *pool_v;
+  const T *q, *pool_k, *pool_v;
   const int *tab, *starts;
-  __nv_bfloat16* out;
+  T* out;
   int K1, NH, NKV, page, m, tab_stride;
 };
 
@@ -76,8 +81,8 @@ struct VerifySlot {
   }
 };
 
-template <int HD>
-__device__ __forceinline__ VerifySlot slot(const Args& a, int b, int h) {
+template <int HD, class T>
+__device__ __forceinline__ VerifySlot slot(const Args<T>& a, int b, int h) {
   const int G = a.NH / a.NKV, width = a.m * a.page;
   const int start = max(a.starts[b], 0);
   return {b, h, a.NKV, G * a.K1, min(start + a.K1, width),
@@ -85,9 +90,9 @@ __device__ __forceinline__ VerifySlot slot(const Args& a, int b, int h) {
           a.NH, a.K1, G, start, width};
 }
 
-template <int HD, int NTP>
+template <class T, int HD, int NTP>
 __global__ void __launch_bounds__(WARPS * 32, ds::min_blocks(NTP, WARPS))
-verify_split_kernel(Args a, ds::Partials part, int nsplit, int npass,
+verify_split_kernel(Args<T> a, ds::Partials part, int nsplit, int npass,
                     float sl) {
   const int h = blockIdx.y / npass, pass = blockIdx.y % npass;
   ds::split_partial<HD, NTP, WARPS>(a.q, a.pool_k, a.pool_v, part,
@@ -95,48 +100,39 @@ verify_split_kernel(Args a, ds::Partials part, int nsplit, int npass,
                                     slot<HD>(a, blockIdx.z, h));
 }
 
-template <int HD>
+template <class T, int HD>
 __global__ void __launch_bounds__(HD)
-verify_merge_kernel(Args a, ds::Partials part, int nsplit) {
+verify_merge_kernel(Args<T> a, ds::Partials part, int nsplit) {
   ds::merge_partials<HD, WARPS>(part, a.out, nsplit, blockIdx.x,
                                 slot<HD>(a, blockIdx.z, blockIdx.y));
 }
 
-template <int HD, int NTP>
-int launch_tiles(const Args& a, ds::Partials part, int B, int R, int nsplit,
-                 int npass, float sl, cudaStream_t st) {
-  return ds::launch_split_merge<HD, NTP, WARPS>(
-      verify_split_kernel<HD, NTP>, verify_merge_kernel<HD>, a, part, B,
-      a.NKV, R, nsplit, npass, sl, st);
+template <class T, int HD, int NTP>
+int launch_tiles(const Args<T>& a, ds::Partials part, int B, int R,
+                 int nsplit, int npass, float sl, cudaStream_t st) {
+  return ds::launch_split_merge<HD, NTP, WARPS, T>(
+      verify_split_kernel<T, HD, NTP>, verify_merge_kernel<T, HD>, a, part,
+      B, a.NKV, R, nsplit, npass, sl, st);
 }
 
-template <int HD>
-int launch(const Args& a, ds::Partials part, int B, int R, int nsplit,
+template <class T, int HD>
+int launch(const Args<T>& a, ds::Partials part, int B, int R, int nsplit,
            float sl, cudaStream_t st) {
   const ds::RowPlan p = ds::plan_rows(R);
   if (p.ntp == 1)
-    return launch_tiles<HD, 1>(a, part, B, R, nsplit, p.npass, sl, st);
+    return launch_tiles<T, HD, 1>(a, part, B, R, nsplit, p.npass, sl, st);
   if (p.ntp == 2)
-    return launch_tiles<HD, 2>(a, part, B, R, nsplit, p.npass, sl, st);
-  return launch_tiles<HD, 3>(a, part, B, R, nsplit, p.npass, sl, st);
+    return launch_tiles<T, HD, 2>(a, part, B, R, nsplit, p.npass, sl, st);
+  return launch_tiles<T, HD, 3>(a, part, B, R, nsplit, p.npass, sl, st);
 }
 
-}  // namespace
-
-extern "C" {
-
-// q [B,K1,NH,Hd] bf16 contiguous, pool_k/pool_v [P,page,NKV,Hd] bf16
-// contiguous, tab [B, >= m] int32 with row stride tab_stride, starts [B]
-// int32, out [B,K1,NH,Hd] bf16, scratch fp32 of at least
-// B * NKV * ceil(m * page / 128) * (NH / NKV) * K1 * (Hd + 2) floats
-// (`scratch_floats`). Hd in {64, 128}; page a multiple of 64; K1 <= 8 and
-// (NH / NKV) * K1 <= 64.
-int detikzify_paged_verify(const void* q, const void* pool_k,
-                           const void* pool_v, const void* tab,
-                           const void* starts, void* out, void* scratch,
-                           long long scratch_floats, int B, int K1, int NH,
-                           int NKV, int Hd, int page, int m, int tab_stride,
-                           float scale, void* stream) {
+// the entry points' body, for T = bf16 or float
+template <class T>
+int paged_verify(const void* q, const void* pool_k, const void* pool_v,
+                 const void* tab, const void* starts, void* out,
+                 void* scratch, long long scratch_floats, int B, int K1,
+                 int NH, int NKV, int Hd, int page, int m, int tab_stride,
+                 float scale, void* stream) {
   if (B <= 0) return (int)cudaSuccess;
   if (NKV <= 0 || NH % NKV != 0 || K1 <= 0 || K1 > MAXK1 ||
       (NH / NKV) * K1 > MAXR || page % PAGE_ALIGN != 0 || m <= 0)
@@ -148,21 +144,57 @@ int detikzify_paged_verify(const void* q, const void* pool_k,
     return (int)cudaErrorInvalidValue;
   float* f = static_cast<float*>(scratch);
   const ds::Partials part{f, f + recs * Hd};
-  const Args a{static_cast<const __nv_bfloat16*>(q),
-               static_cast<const __nv_bfloat16*>(pool_k),
-               static_cast<const __nv_bfloat16*>(pool_v),
-               static_cast<const int*>(tab),
-               static_cast<const int*>(starts),
-               static_cast<__nv_bfloat16*>(out),
-               K1, NH, NKV, page, m, tab_stride};
+  const Args<T> a{static_cast<const T*>(q), static_cast<const T*>(pool_k),
+                  static_cast<const T*>(pool_v),
+                  static_cast<const int*>(tab),
+                  static_cast<const int*>(starts), static_cast<T*>(out),
+                  K1, NH, NKV, page, m, tab_stride};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float sl = scale * ds::LOG2E;
-  if (Hd == 128) return launch<128>(a, part, B, R, nsplit, sl, st);
-  if (Hd == 64) return launch<64>(a, part, B, R, nsplit, sl, st);
+  if (Hd == 128) return launch<T, 128>(a, part, B, R, nsplit, sl, st);
+  if (Hd == 64) return launch<T, 64>(a, part, B, R, nsplit, sl, st);
+  if (Hd == 32) return launch<T, 32>(a, part, B, R, nsplit, sl, st);
   return (int)cudaErrorInvalidValue;
 }
 
+}  // namespace
+
+extern "C" {
+
+// q [B,K1,NH,Hd] contiguous, pool_k/pool_v [P,page,NKV,Hd] contiguous,
+// out [B,K1,NH,Hd]: bf16 (detikzify_paged_verify) or float32
+// (detikzify_paged_verify_f32); tab [B, >= m] int32 with row stride
+// tab_stride, starts [B] int32, scratch fp32 of at least
+// B * NKV * ceil(m * page / 128) * (NH / NKV) * K1 * (Hd + 2) floats
+// (`scratch_floats`). Hd in {32, 64, 128}; page a multiple of 64; K1 <= 8
+// and (NH / NKV) * K1 <= 64.
+int detikzify_paged_verify(const void* q, const void* pool_k,
+                           const void* pool_v, const void* tab,
+                           const void* starts, void* out, void* scratch,
+                           long long scratch_floats, int B, int K1, int NH,
+                           int NKV, int Hd, int page, int m, int tab_stride,
+                           float scale, void* stream) {
+  return paged_verify<__nv_bfloat16>(q, pool_k, pool_v, tab, starts, out,
+                                     scratch, scratch_floats, B, K1, NH, NKV,
+                                     Hd, page, m, tab_stride, scale, stream);
+}
+
+int detikzify_paged_verify_f32(const void* q, const void* pool_k,
+                               const void* pool_v, const void* tab,
+                               const void* starts, void* out, void* scratch,
+                               long long scratch_floats, int B, int K1,
+                               int NH, int NKV, int Hd, int page, int m,
+                               int tab_stride, float scale, void* stream) {
+  return paged_verify<float>(q, pool_k, pool_v, tab, starts, out, scratch,
+                             scratch_floats, B, K1, NH, NKV, Hd, page, m,
+                             tab_stride, scale, stream);
+}
+
 const char* detikzify_paged_verify_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+const char* detikzify_paged_verify_f32_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

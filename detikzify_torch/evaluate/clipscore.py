@@ -5,7 +5,8 @@ Reference ``detikzify/evaluate/clipscore.py:12-69``: score =
 sigmoid(cos(img_emb, txt_emb) * exp(logit_scale) + logit_bias), averaged.
 Both towers run in one batched pass on their device: the vision tower
 (``siglip.apply``) and the text tower (``siglip.apply_text``), each
-layer's attention through K1 on the card, which takes bf16 weights only;
+layer's attention through K1 on the card (its fp32 kernel for the fp32
+towers JAX builds by default, its bf16 one where a caller asks for bf16);
 the normalisation and the sigmoid are plain PyTorch in fp32.
 
 ``models.load.load_siglip_towers`` reads a ``SiglipModel`` checkpoint's
@@ -44,20 +45,17 @@ class ClipScore:
         self._sum, self._n = 0.0, 0
 
     @classmethod
-    def from_siglip_checkpoint(cls, path: str, dtype=None, device="cuda",
-                               **kw) -> "ClipScore":
+    def from_siglip_checkpoint(cls, path: str, dtype=torch.float32,
+                               device="cuda", **kw) -> "ClipScore":
         """Build the two-tower metric from a local transformers
         ``SiglipModel`` checkpoint directory (the reference instantiates
         google/siglip-so400m-patch14-384 from the hub,
-        reference clipscore.py:23-34). ``dtype`` defaults to bfloat16 on
-        the card (K1's type) and float32 on the CPU."""
+        reference clipscore.py:23-34). ``dtype`` defaults to float32 on
+        every device, as the JAX metric's; a caller may pass bfloat16."""
         import transformers
 
         from ..models.load import load_siglip_towers
 
-        if dtype is None:
-            dtype = (torch.float32 if torch.device(device).type == "cpu"
-                     else torch.bfloat16)
         t = load_siglip_towers(path, dtype=dtype, device=device)
         tokenizer = transformers.AutoTokenizer.from_pretrained(path)
         return cls(t.vision, t.text, t.cfg, tokenizer,

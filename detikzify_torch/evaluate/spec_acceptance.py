@@ -12,11 +12,10 @@ deployments:
   * with and without cross-rollout hints (the MCTS parent-continuation
     draft source).
 
-On the CPU the model is the JAX package's exactly (4 heads of 32, fp32).
-The card's kernels take bf16 with head_dim 64 or more (K1, K2, K4), so on a
-card it runs at the same hidden size as 2 heads of 64 in bf16
-(``spec_model_config(..., num_heads=2, dtype="bfloat16")``); the result
-names the ``head_dim`` and ``dtype`` it ran at.
+On every device the model is the JAX package's exactly: 4 heads of 32 in
+fp32, with an fp32 page pool (on the card through K1's fp32 kernel and the
+fp32 K2 and K4); the result names the ``head_dim`` and ``dtype`` it ran
+at.
 """
 from __future__ import annotations
 
@@ -54,23 +53,20 @@ def train_bpe_tokenizer(corpus: Sequence[str], vocab_size: int = 512
     return ByteLevelBPE(model["vocab"], merges)
 
 
-def spec_model_config(vocab_size: int, num_heads: int = 4,
-                      dtype: str = "float32") -> DetikzifyConfig:
-    """Small-but-capable decoder for overfitting the corpus: hidden 128,
-    4 layers; ``num_heads`` 4 (head_dim 32, the JAX package's) or 2
-    (head_dim 64, the card's kernels)."""
+def spec_model_config(vocab_size: int) -> DetikzifyConfig:
+    """Small-but-capable decoder for overfitting the corpus: the JAX
+    package's, hidden 128, 4 layers of 4 heads of 32, fp32."""
     return DetikzifyConfig(
         vision=VisionConfig(hidden_size=48, intermediate_size=96,
                             num_hidden_layers=2, num_attention_heads=4,
                             image_size=42, patch_size=14),
         text=TextConfig(vocab_size=vocab_size + 1, hidden_size=128,
                         intermediate_size=256, num_hidden_layers=4,
-                        num_attention_heads=num_heads,
-                        num_key_value_heads=num_heads,
+                        num_attention_heads=4, num_key_value_heads=4,
                         max_position_embeddings=1024, rope_theta=10000.0),
         image_token_id=vocab_size,      # unused: text-only overfit
         bos_token_id=1, eos_token_id=2, pad_token_id=0,
-        model_max_length=640, dtype=dtype)
+        model_max_length=640, dtype="float32")
 
 
 def overfit(cfg: DetikzifyConfig, token_rows: List[List[int]],
@@ -127,8 +123,9 @@ def measure_spec_rate(params, cfg: DetikzifyConfig,
                       max_new: int = 48, num_slots: int = 8,
                       use_hints: bool = False, seed: int = 0) -> float:
     """Run all prompts through a speculative engine on ``params``' device
-    (fp32 page pool on the CPU, bf16 on a card); returns measured
-    tokens-per-step (1 = no draft accepted, speculate+1 = all)."""
+    with a page pool of the model's dtype (fp32, as the JAX function's);
+    returns measured tokens-per-step (1 = no draft accepted, speculate+1 =
+    all)."""
     from ..engine import DecodeEngine
     from ..ops.sampling import SamplingParams
 
@@ -136,7 +133,7 @@ def measure_spec_rate(params, cfg: DetikzifyConfig,
     eng = DecodeEngine(
         params, cfg, num_slots=num_slots, max_len=cfg.model_max_length,
         speculate=speculate, spec_min_rate=0.0,
-        cache_dtype=torch.float32 if dev.type == "cpu" else torch.bfloat16,
+        cache_dtype=getattr(torch, cfg.dtype),
         sampling=SamplingParams(temperature=temperature, top_p=0.95),
         prefix_budget_bytes=1 << 24, device=dev, seed=seed)
     queue = list(range(len(prompts)))
@@ -160,14 +157,11 @@ def run_measurement(tok: Optional[ByteLevelBPE] = None,
                     n_eval: int = 24, log_fn=print, *,
                     device="cuda") -> Dict[str, object]:
     """Full pipeline: corpus -> BPE (``tok``, default the committed
-    vocabulary) -> overfit -> acceptance table. On a card the model has 2
-    heads of 64 in bf16, on the CPU JAX's 4 heads of 32 in fp32."""
-    on_card = torch.device(device).type == "cuda"
-    num_heads = 2 if on_card else 4
-    dtype = "bfloat16" if on_card else "float32"
+    vocabulary) -> overfit -> acceptance table, on JAX's model (4 heads of
+    32 in fp32) on every device."""
     corpus = generate_corpus(n_programs, seed=0)
     tok = tok if tok is not None else ByteLevelBPE.from_file()
-    cfg = spec_model_config(len(tok), num_heads=num_heads, dtype=dtype)
+    cfg = spec_model_config(len(tok))
     rows = [tok.encode(c, add_special_tokens=False) for c in corpus]
     params, loss = overfit(cfg, rows, steps=steps, log_fn=log_fn,
                            device=device)
@@ -177,7 +171,8 @@ def run_measurement(tok: Optional[ByteLevelBPE] = None,
         prompts.append([cfg.bos_token_id] + row[:8])
         conts.append(row[8:])
     out: Dict[str, object] = {"overfit_loss": round(loss, 3),
-                              "head_dim": cfg.text.head_dim, "dtype": dtype}
+                              "head_dim": cfg.text.head_dim,
+                              "dtype": cfg.dtype}
     # JAX's three rates, and the greedy rate with hints beside them
     for name, t, hints in [("spec_rate_bpe_t0", 0.0, False),
                            ("spec_rate_bpe_t0_hint", 0.0, True),

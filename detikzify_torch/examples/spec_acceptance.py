@@ -7,8 +7,8 @@ Reads the committed byte-level BPE vocabulary (no ``tokenizers`` or
 synthetic-TikZ corpus it was trained on, and measures the decode engine's
 speculative tokens-per-step at T=0 / T=0.8, with and without MCTS-style
 parent-continuation hints. Prints one JSON line, which names the
-``head_dim`` and ``dtype`` the model ran at (2 heads of 64 in bf16 on the
-card, the JAX package's 4 heads of 32 in fp32 on the CPU).
+``head_dim`` and ``dtype`` the model ran at: the JAX package's 4 heads of
+32 in fp32, on the card as on the CPU.
 
     python -m detikzify_torch.examples.spec_acceptance [--device cuda|cpu]
 """

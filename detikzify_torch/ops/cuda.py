@@ -9,10 +9,13 @@ never loads a stale build.
 ``build_all()`` starts one ``nvcc`` per source, all at once.
 
 Every kernel has a :class:`CudaKernel` handle with a plain integer
-``launches`` counter. The counter is bumped in exactly one place: after a
-launch of the kernel returned ``cudaSuccess``, under the handle's lock, as
-several threads may launch one kernel (``parallel.ReplicaPool``'s
-workers, the server's scheduler).
+``launches`` counter. A kernel's float32 variant (``*_f32``: K1's own
+source, K2-K4's second entry point in the same source) has a handle and a
+counter of its own; handles that share a source share its one library.
+The counter is bumped in exactly one place: after a launch of the kernel
+returned ``cudaSuccess``, under the handle's lock, as several threads may
+launch one kernel (``parallel.ReplicaPool``'s workers, the server's
+scheduler).
 """
 from __future__ import annotations
 
@@ -128,23 +131,37 @@ I = ctypes.c_int
 L = ctypes.c_longlong
 F = ctypes.c_float
 
+_K1_ARGS = [P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, I, P]
+_K2_ARGS = [P, P, P, P, P, P, P, L, I, I, I, I, I, I, I, F, P]
+_K3_ARGS = [P, P, P, P, P, P, L, I, I, I, I, I, L, F, P]
+_K4_ARGS = [P, P, P, P, P, P, P, L, I, I, I, I, I, I, I, I, F, P]
+_DECODE_HEADERS = ["decode_split.cuh", "sm90.cuh"]
+
 KERNELS: Dict[str, CudaKernel] = {
     "flash_attention": CudaKernel(
         "flash_attention", "flash_attn.cu", "detikzify_flash_attention",
-        [P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, I, P],
-        headers=["sm90.cuh"]),
+        _K1_ARGS, headers=["sm90.cuh"]),
+    "flash_attention_f32": CudaKernel(
+        "flash_attention_f32", "flash_attn_f32.cu",
+        "detikzify_flash_attention_f32", _K1_ARGS, headers=["sm90.cuh"]),
     "paged_decode": CudaKernel(
         "paged_decode", "paged_decode.cu", "detikzify_paged_decode",
-        [P, P, P, P, P, P, P, L, I, I, I, I, I, I, I, F, P],
-        headers=["decode_split.cuh", "sm90.cuh"]),
+        _K2_ARGS, headers=_DECODE_HEADERS),
+    "paged_decode_f32": CudaKernel(
+        "paged_decode_f32", "paged_decode.cu", "detikzify_paged_decode_f32",
+        _K2_ARGS, headers=_DECODE_HEADERS),
     "decode_contig": CudaKernel(
         "decode_contig", "decode_contig.cu", "detikzify_decode_contig",
-        [P, P, P, P, P, P, L, I, I, I, I, I, L, F, P],
-        headers=["decode_split.cuh", "sm90.cuh"]),
+        _K3_ARGS, headers=_DECODE_HEADERS),
+    "decode_contig_f32": CudaKernel(
+        "decode_contig_f32", "decode_contig.cu",
+        "detikzify_decode_contig_f32", _K3_ARGS, headers=_DECODE_HEADERS),
     "paged_verify": CudaKernel(
         "paged_verify", "paged_verify.cu", "detikzify_paged_verify",
-        [P, P, P, P, P, P, P, L, I, I, I, I, I, I, I, I, F, P],
-        headers=["decode_split.cuh", "sm90.cuh"]),
+        _K4_ARGS, headers=_DECODE_HEADERS),
+    "paged_verify_f32": CudaKernel(
+        "paged_verify_f32", "paged_verify.cu", "detikzify_paged_verify_f32",
+        _K4_ARGS, headers=_DECODE_HEADERS),
     "int8_gemv": CudaKernel(
         "int8_gemv", "int8_gemv.cu", "detikzify_int8_gemv",
         [P, P, P, P, P, I, I, I, I, I, I, P], headers=["sm90.cuh"]),
@@ -154,6 +171,8 @@ KERNELS: Dict[str, CudaKernel] = {
 #: key rows of one (slot, KV head) per block of the split body that K2, K3
 #: and K4 share (``csrc/decode_split.cuh``)
 SPLIT_ROWS = 128
+#: head dims that split body is built for, in bf16 and in fp32
+SPLIT_HEAD_DIMS = (32, 64, 128)
 
 
 def split_scratch(rows: int, n_keys: int, hd: int, device):
@@ -169,22 +188,27 @@ def split_scratch(rows: int, n_keys: int, hd: int, device):
 
 
 def build_all() -> Dict[str, str]:
-    """Compile every kernel that is not built yet, all nvcc processes in
-    parallel, then load each library. Returns each kernel's build log."""
-    started = {name: k._start_build() for name, k in KERNELS.items()}
+    """Compile every library that is not built yet, one nvcc process per
+    source, all in parallel, then load each kernel. Returns each kernel's
+    build log (a variant shows its source's)."""
+    builder: Dict[Path, CudaKernel] = {}
+    for k in KERNELS.values():
+        builder.setdefault(k.library, k)
+    started = {lib: k._start_build() for lib, k in builder.items()}
     errors = []
-    for name, st in started.items():
+    for lib, st in started.items():
         if st is None:
             continue
         try:
-            KERNELS[name]._finish_build(st)
+            builder[lib]._finish_build(st)
         except RuntimeError as e:
             errors.append(str(e))
     if errors:
         raise RuntimeError("\n".join(errors))
     for k in KERNELS.values():
         k._load()
-    return {name: k.build_log for name, k in KERNELS.items()}
+    return {name: builder[k.library].build_log
+            for name, k in KERNELS.items()}
 
 
 def reset_launch_counts() -> None:

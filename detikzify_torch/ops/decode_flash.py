@@ -15,7 +15,8 @@ stride is passed to the kernel, which reads it in place. The kernel cuts
 each slot's rows into blocks of ``SPLIT_ROWS`` and merges their fp32
 partials, in scratch sized from L (never from ``lengths``);
 ``ops.paged.decode_attend_contiguous_split`` repeats that arithmetic in
-PyTorch for the tests.
+PyTorch for the tests. bf16 caches and float32 caches (``KERNEL_F32``:
+every product an fp32 FFMA) are taken, as the JAX kernel reads any dtype.
 """
 from __future__ import annotations
 
@@ -23,11 +24,10 @@ from typing import Optional
 
 import torch
 
-from .cuda import KERNELS, split_scratch, stream_handle
+from .cuda import KERNELS, SPLIT_HEAD_DIMS, split_scratch, stream_handle
 
 KERNEL = KERNELS["decode_contig"]
-#: head dims the kernel is built for (the JAX kernel takes 128 only)
-HEAD_DIMS = (64, 128)
+KERNEL_F32 = KERNELS["decode_contig_f32"]
 
 
 def decode_attend_contiguous(
@@ -50,9 +50,11 @@ def decode_attend_contiguous(
             raise ValueError(f"decode_contig: {name} on {x.device}, "
                              "expected a CUDA device (CPU tensors take "
                              "ops.attention.decode_attend_plain)")
-        if x.dtype != torch.bfloat16:
-            raise ValueError(f"decode_contig: {name} is {x.dtype}; the "
-                             "kernel takes bfloat16")
+        if (x.dtype not in (torch.bfloat16, torch.float32)
+                or x.dtype != q.dtype):
+            raise ValueError(f"decode_contig: {name} is {x.dtype}, q "
+                             f"{q.dtype}; the kernel takes bfloat16 or "
+                             "float32, one dtype")
         if x.data_ptr() % 16:
             raise ValueError(f"decode_contig: {name} is not 16-byte aligned")
     if not q.is_contiguous():
@@ -60,15 +62,16 @@ def decode_attend_contiguous(
     row = (nkv * hd, hd, 1)
     if (k_cache.shape[0] != b or tuple(k_cache.stride()[1:]) != row
             or k_cache.stride() != v_cache.stride()
-            or k_cache.stride(0) % 8):
+            or k_cache.stride(0) * k_cache.element_size() % 16):
         raise ValueError(f"decode_contig: caches of strides "
                          f"{k_cache.stride()} / {v_cache.stride()}; needs "
                          f"[B={b}, L, NKV, Hd] with rows and heads "
                          "contiguous, the same strides for k and v, and a "
                          "batch stride that keeps 16-byte alignment")
-    if chd != hd or hd not in HEAD_DIMS:
+    if chd != hd or hd not in SPLIT_HEAD_DIMS:
         raise ValueError(f"decode_contig: head_dim {hd} (cache {chd}); the "
-                         f"kernel takes {HEAD_DIMS}")
+                         f"kernel takes {SPLIT_HEAD_DIMS} (the JAX kernel "
+                         "takes 128 only)")
     if nh % nkv or nh // nkv > 8:
         raise ValueError(f"decode_contig: NH={nh}, NKV={nkv}; needs NH a "
                          "multiple of NKV with at most 8 query rows per "
@@ -80,7 +83,8 @@ def decode_attend_contiguous(
     scale = (hd ** -0.5) if scale is None else float(scale)
     scratch = split_scratch(b * nh, length, hd, q.device)
     out = torch.empty_like(q)
-    KERNEL.launch(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+    kernel = KERNEL_F32 if q.dtype == torch.float32 else KERNEL
+    kernel.launch(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                   lengths.data_ptr(), out.data_ptr(), scratch.data_ptr(),
                   scratch.numel(), b, nh, nkv, hd, length, k_cache.stride(0),
                   scale, stream_handle(q.device))

@@ -1,10 +1,16 @@
-"""Kernel K1: fused attention forward (``csrc/flash_attn.cu``).
+"""Kernel K1: fused attention forward (``csrc/flash_attn.cu``, and
+``csrc/flash_attn_f32.cu`` for float32).
 
-Port of the Pallas TPU kernel ``detikzify_tpu/ops/flash.py::flash_attention``.
-For S > 16 the CUDA kernel streams K/V tiles through shared memory with an
-online softmax on ``wgmma``; for S <= ``SMALL_S`` (the MAP head) a cluster
-of ``CLUSTER`` blocks splits the keys (``split_keys`` each) and merges their
-fp32 partials (see the header of ``flash_attn.cu``). ``attend_split_plain``
+Port of the Pallas TPU kernel ``detikzify_tpu/ops/flash.py::flash_attention``,
+which takes any dtype and any head_dim up to 128. bf16 inputs take
+``flash_attn.cu`` at head_dim 32, 64, 72 or 128 (``HEAD_DIMS``): for S > 16
+the CUDA kernel streams K/V tiles through shared memory with an online
+softmax on ``wgmma``; for S <= ``SMALL_S`` (the MAP head) a cluster of
+``CLUSTER`` blocks splits the keys (``split_keys`` each) and merges their
+fp32 partials (see the header of ``flash_attn.cu``). float32 inputs take
+``flash_attn_f32.cu`` (``KERNEL_F32``: every product an fp32 FFMA, no
+TF32) at any head_dim up to ``MAX_HEAD_DIM_F32`` that is a multiple of 4.
+Any other dtype or head_dim raises on the card. ``attend_split_plain``
 repeats the split arithmetic in PyTorch for the tests. The plain version is
 ``ops.attention.attend_plain``: a tensor on the CPU takes it, a CUDA tensor
 launches the kernel or raises.
@@ -29,8 +35,12 @@ from .cuda import KERNELS, stream_handle
 from .paged import merge_partials
 
 KERNEL = KERNELS["flash_attention"]
-#: head dims the kernel is built for: Llama-3.1 (128), SigLIP (72) and 64
-HEAD_DIMS = (64, 72, 128)
+KERNEL_F32 = KERNELS["flash_attention_f32"]
+#: bf16 head dims the kernel is built for: Llama-3.1 (128), SigLIP (72),
+#: 64 and 32 (the speculation model's; tiled at 64)
+HEAD_DIMS = (32, 64, 72, 128)
+#: float32: any head_dim up to this that is a multiple of 4 (16-byte rows)
+MAX_HEAD_DIM_F32 = 128
 #: query rows at or below which the kernel splits the keys across a
 #: cluster of blocks, and the blocks in it (``SMALL_S``, ``CLUSTER`` in
 #: flash_attn.cu)
@@ -145,20 +155,30 @@ def _launch(q, k, v, causal, kv_mask, scale, q_offsets, kv_limits):
         raise ValueError(f"flash_attention: k {tuple(k.shape)} / v "
                          f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
     t, nkv = k.shape[1], k.shape[2]
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"flash_attention: q is {q.dtype}; the kernel "
+                         "takes bfloat16 or float32")
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.device != q.device or x.device.type != "cuda":
             raise ValueError(f"flash_attention: {name} on {x.device}, "
                              f"expected the CUDA device of q")
-        if x.dtype != torch.bfloat16:
-            raise ValueError(f"flash_attention: {name} is {x.dtype}; the "
-                             "kernel takes bfloat16")
+        if x.dtype != q.dtype:
+            raise ValueError(f"flash_attention: {name} is {x.dtype}, q "
+                             f"{q.dtype}; the kernel takes one dtype")
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"flash_attention: {name} is not contiguous "
                              "and 16-byte aligned")
-    if k.shape[3] != hd or hd not in HEAD_DIMS or nh % nkv:
+    f32 = q.dtype == torch.float32
+    if f32:
+        hd_ok = hd % 4 == 0 and 0 < hd <= MAX_HEAD_DIM_F32
+        rule = f"a multiple of 4 up to {MAX_HEAD_DIM_F32} in float32"
+    else:
+        hd_ok = hd in HEAD_DIMS
+        rule = f"one of {HEAD_DIMS} in bfloat16"
+    if k.shape[3] != hd or not hd_ok or nh % nkv:
         raise ValueError(f"flash_attention: unsupported head layout "
-                         f"NH={nh} NKV={nkv} Hd={hd} (Hd must be one of "
-                         f"{HEAD_DIMS}, NH a multiple of NKV)")
+                         f"NH={nh} NKV={nkv} Hd={hd} (Hd must be {rule}, "
+                         "NH a multiple of NKV)")
     if causal and s > t:
         raise ValueError("flash_attention: causal needs S <= T")
     if kv_mask is not None:
@@ -180,7 +200,7 @@ def _launch(q, k, v, causal, kv_mask, scale, q_offsets, kv_limits):
                                  f"{q.device}")
     scale = (hd ** -0.5) if scale is None else float(scale)
     out = torch.empty_like(q)
-    KERNEL.launch(
+    (KERNEL_F32 if f32 else KERNEL).launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if kv_mask is None else kv_mask.data_ptr(),
         q_offsets.data_ptr() if per_batch else None,

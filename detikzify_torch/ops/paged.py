@@ -21,6 +21,11 @@ with a key limit per query row, and ``decode_attend_contiguous_split``
 (K3), ``decode_attend_paged_split`` (K2) and
 ``decode_verify_attend_paged_split`` (K4) apply it for the tests.
 
+Both kernels take bf16 pools and float32 pools (the ``*_f32`` entry
+points: every product an fp32 FFMA, P kept in fp32), at head_dim 32, 64
+or 128 (``SPLIT_HEAD_DIMS``). The JAX kernels read pools of any dtype;
+the JAX package sends head_dim 32 to XLA, the port to the same kernels.
+
 A tensor on the CPU takes the plain version, a CUDA tensor launches the
 kernel or raises.
 """
@@ -31,10 +36,15 @@ from typing import Optional
 import torch
 
 from .attention import NEG_INF, decode_attend_plain
-from .cuda import KERNELS, SPLIT_ROWS, split_scratch, stream_handle
+from .cuda import (KERNELS, SPLIT_HEAD_DIMS, SPLIT_ROWS, split_scratch,
+                   stream_handle)
 
 KERNEL = KERNELS["paged_decode"]
+KERNEL_F32 = KERNELS["paged_decode_f32"]
 VERIFY_KERNEL = KERNELS["paged_verify"]
+VERIFY_KERNEL_F32 = KERNELS["paged_verify_f32"]
+#: pool dtypes K2 and K4 take
+DTYPES = (torch.bfloat16, torch.float32)
 #: verify-window rows per slot, and query rows per (slot, KV head), that K4
 #: is built for
 MAX_K1, MAX_VERIFY_ROWS = 8, 64
@@ -149,9 +159,10 @@ def decode_verify_attend_paged_split(q, pool_k, pool_v, tab, starts, *,
 
 def _check_pool(name: str, q: torch.Tensor, pool_k: torch.Tensor,
                 pool_v: torch.Tensor, tab: torch.Tensor, hd: int) -> tuple:
-    """Argument checks shared by K2 and K4: bf16 CUDA tensors, contiguous
-    16-byte aligned q and pools, head_dim 64 or 128, page a multiple of 64,
-    an int32 [B, m] table with unit column stride. Returns (page, NKV)."""
+    """Argument checks shared by K2 and K4: CUDA tensors of one dtype in
+    ``DTYPES``, contiguous 16-byte aligned q and pools, head_dim in
+    ``SPLIT_HEAD_DIMS``, page a multiple of 64, an int32 [B, m] table with
+    unit column stride. Returns (page, NKV)."""
     b = q.shape[0]
     if pool_k.dim() != 4 or pool_k.shape != pool_v.shape:
         raise ValueError(f"{name}: pools {tuple(pool_k.shape)} / "
@@ -161,15 +172,15 @@ def _check_pool(name: str, q: torch.Tensor, pool_k: torch.Tensor,
         if x.device != q.device or x.device.type != "cuda":
             raise ValueError(f"{name}: {arg} on {x.device}, expected the "
                              "CUDA device of q")
-        if x.dtype != torch.bfloat16:
-            raise ValueError(f"{name}: {arg} is {x.dtype}; the kernel takes "
-                             "bfloat16")
+        if x.dtype not in DTYPES or x.dtype != q.dtype:
+            raise ValueError(f"{name}: {arg} is {x.dtype}, q {q.dtype}; the "
+                             "kernel takes bfloat16 or float32, one dtype")
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"{name}: {arg} is not contiguous and 16-byte "
                              "aligned")
-    if phd != hd or hd not in (64, 128):
+    if phd != hd or hd not in SPLIT_HEAD_DIMS:
         raise ValueError(f"{name}: head_dim {hd} (pool {phd}); the kernel "
-                         "takes 64 or 128")
+                         f"takes {SPLIT_HEAD_DIMS}")
     if page % 64:
         raise ValueError(f"{name}: page size {page} is not a multiple of 64")
     if (tab.dim() != 2 or tab.shape[0] != b or tab.dtype != torch.int32
@@ -211,7 +222,7 @@ def decode_attend_paged(
     m = tab.shape[1]
     scratch = split_scratch(b * nh, m * page, hd, q.device)
     out = torch.empty_like(q)
-    KERNEL.launch(
+    (KERNEL_F32 if q.dtype == torch.float32 else KERNEL).launch(
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), tab.data_ptr(),
         lengths.data_ptr(), out.data_ptr(), scratch.data_ptr(),
         scratch.numel(), b, nh, nkv, hd, page, m, tab.stride(0), scale,
@@ -271,7 +282,8 @@ def decode_verify_attend_paged(
     m = tab.shape[1]
     scratch = split_scratch(b * k1 * nh, m * page, hd, q.device)
     out = torch.empty_like(q)
-    VERIFY_KERNEL.launch(
+    kernel = VERIFY_KERNEL_F32 if q.dtype == torch.float32 else VERIFY_KERNEL
+    kernel.launch(
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), tab.data_ptr(),
         starts.data_ptr(), out.data_ptr(), scratch.data_ptr(),
         scratch.numel(), b, k1, nh, nkv, hd, page, m, tab.stride(0), scale,

@@ -421,25 +421,47 @@ def test_unembed_logits_not_rounded_through_bf16(cuda):
 
 
 def test_wrappers_raise_instead_of_falling_back(cuda):
-    q = torch.zeros((1, 4, 2, 24), device=cuda)          # fp32: refused
-    with pytest.raises(ValueError, match="bfloat16"):
-        flash.flash_attention(q, q, q)
+    qh16 = torch.zeros((1, 4, 2, 24), dtype=torch.float16, device=cuda)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        flash.flash_attention(qh16, qh16, qh16)          # fp16: refused
     qh = torch.zeros((1, 4, 2, 96), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="Hd must be one of"):
-        flash.flash_attention(qh, qh, qh)                # no tile for 96
+        flash.flash_attention(qh, qh, qh)                # no bf16 tile for 96
+    for hd in (30, 132):        # fp32: a multiple of 4 up to 128
+        qf = torch.zeros((1, 4, 2, hd), device=cuda)
+        with pytest.raises(ValueError, match="multiple of 4 up to 128"):
+            flash.flash_attention(qf, qf, qf)
+    qf = torch.zeros((1, 4, 2, 32), device=cuda)
+    with pytest.raises(ValueError, match="one dtype"):
+        flash.flash_attention(qf, qf.to(torch.bfloat16), qf)
     qb = torch.zeros((1, 2, 96), dtype=torch.bfloat16, device=cuda)
     pool = torch.zeros((2, 128, 2, 96), dtype=torch.bfloat16, device=cuda)
     tab = torch.zeros((1, 1), dtype=torch.int32, device=cuda)
     lengths = torch.ones((1,), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         paged.decode_attend_paged(qb, pool, pool, tab, lengths)
+    with pytest.raises(ValueError, match="head_dim"):   # fp32: 32, 64, 128
+        paged.decode_attend_paged(qb.float(), pool.float(), pool.float(),
+                                  tab, lengths)
+    q32 = torch.zeros((1, 2, 32), dtype=torch.float16, device=cuda)
+    pool32 = torch.zeros((2, 128, 2, 32), dtype=torch.float16, device=cuda)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        paged.decode_attend_paged(q32, pool32, pool32, tab, lengths)
+    with pytest.raises(ValueError, match="one dtype"):
+        paged.decode_attend_paged(q32.float(), pool32.to(torch.bfloat16),
+                                  pool32.to(torch.bfloat16), tab, lengths)
     qv = torch.zeros((1, 9, 8, 128), dtype=torch.bfloat16, device=cuda)
     pool = torch.zeros((2, 128, 8, 128), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="K1 <= 8"):
         paged.decode_verify_attend_paged(qv, pool, pool, tab, lengths)
+    with pytest.raises(ValueError, match="K1 <= 8"):
+        paged.decode_verify_attend_paged(qv.float(), pool.float(),
+                                         pool.float(), tab, lengths)
     kc = torch.zeros((1, 64, 2, 96), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         attention.decode_attend(qb, kc, kc, lengths)
+    with pytest.raises(ValueError, match="head_dim"):
+        attention.decode_attend(qb.float(), kc.float(), kc.float(), lengths)
     kc = torch.zeros((1, 64, 2, 128), dtype=torch.bfloat16, device=cuda)
     qc = torch.zeros((1, 4, 128), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="strides"):
@@ -459,6 +481,140 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
         quant_matmul.KERNEL.launch(
             xb.data_ptr(), q8.data_ptr(), scale.data_ptr(), xb.data_ptr(),
             None, 4, 256, 200, 1, 0, 0, paged.stream_handle(cuda))
+
+
+# ---------------------------------------------------------------------------
+# K1-K4 at float32 and head_dim 32 (the spec model's, ClipScore's fp32
+# towers, tiny-test's 12 and 16)
+# ---------------------------------------------------------------------------
+
+F32_TOL = 2.0 ** -16
+
+
+def _close_f32(got, want, pv_abs):
+    """fp32 kernel against fp32 plain version: |diff| <= 2^-16 (pv_abs +
+    |want|) elementwise (chip_smoke.py's F32_TOL); an output rounded
+    through bf16 must fail the same bound."""
+    assert got.dtype == torch.float32
+    bound = F32_TOL * (pv_abs + want.abs())
+    err = (got - want).abs()
+    assert bool(torch.isfinite(got).all())
+    assert bool((err <= bound).all()), float((err / bound).max())
+    rounded = got.to(torch.bfloat16).float()
+    assert not bool(((rounded - want).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("mode", ["full", "causal", "mask", "window"])
+@pytest.mark.parametrize("hd", [12, 16, 32, 72, 128])
+@pytest.mark.parametrize("s", [1, 16, 17, 65, 729])
+def test_flash_kernel_fp32_matches_plain(cuda, s, hd, mode):
+    """K1's fp32 kernel at every mask kind, on its 16-row blocks (S <= 16)
+    and its 64-row ones, at head dims that are not multiples of 32 (tiled
+    at the next one) and at the tower's 729 rows; one launch of the fp32
+    handle a call, none of the bf16 one."""
+    gen = torch.Generator(device=cuda).manual_seed(s * 11 + hd)
+    # the masks and head layout of the bf16 cases, at this head_dim in fp32
+    q, k, v, kw = _k1_case_inputs(gen, cuda, s, 72 if hd == 72 else 64, mode)
+    b, t = q.shape[0], k.shape[1]
+    nh, nkv = q.shape[2], k.shape[2]
+    q = torch.randn((b, s, nh, hd), generator=gen, device=cuda)
+    k = torch.randn((b, t, nkv, hd), generator=gen, device=cuda)
+    v = torch.randn((b, t, nkv, hd), generator=gen, device=cuda)
+    before = (flash.KERNEL_F32.launches, flash.KERNEL.launches)
+    got = flash.flash_attention(q, k, v, **kw)
+    assert (flash.KERNEL_F32.launches, flash.KERNEL.launches) == (
+        before[0] + 1, before[1])
+    assert got.shape == q.shape
+    _close_f32(got, attention.attend_plain(q, k, v, **kw),
+               attention.attend_plain(q, k, v.abs(), **kw))
+
+
+@pytest.mark.parametrize("mode", ["full", "causal", "mask", "window"])
+@pytest.mark.parametrize("s", [1, 16, 17, 65, 130])
+def test_flash_kernel_bf16_head_dim_32(cuda, s, mode):
+    """K1's bf16 kernel at head_dim 32 (tiled at 64 on the wgmma path,
+    and on the split-key path at S <= 16), every mask kind."""
+    gen = torch.Generator(device=cuda).manual_seed(s * 13)
+    q, k, v, kw = _k1_case_inputs(gen, cuda, s, 64, mode)
+    b, t, nh, nkv = q.shape[0], k.shape[1], q.shape[2], k.shape[2]
+    q, k, v = (_rnd(gen, cuda, b, s, nh, 32), _rnd(gen, cuda, b, t, nkv, 32),
+               _rnd(gen, cuda, b, t, nkv, 32))
+    before = flash.KERNEL.launches
+    got = flash.flash_attention(q, k, v, **kw)
+    assert flash.KERNEL.launches == before + 1
+    assert got.shape == q.shape
+    _close(got, attention.attend_plain(q, k, v, **kw),
+           attention.attend_plain(q, k, v.abs(), **kw))
+
+
+def _pool_case(gen, dev, dtype, b, nh, nkv, hd, page, m):
+    n_pages = b * m + 3
+    pk = torch.randn((n_pages, page, nkv, hd), generator=gen,
+                     device=dev).to(dtype)
+    pv = torch.randn((n_pages, page, nkv, hd), generator=gen,
+                     device=dev).to(dtype)
+    tab = torch.randperm(n_pages, generator=gen, device=dev)[:b * m]
+    return pk, pv, tab.reshape(b, m).to(torch.int32)
+
+
+def _check(dtype, got, want, pv_abs):
+    if dtype == torch.float32:
+        _close_f32(got, want, pv_abs)
+    else:
+        _close(got, want, pv_abs)
+
+
+@pytest.mark.parametrize("dtype,hd", [(torch.float32, 32),
+                                      (torch.float32, 64),
+                                      (torch.float32, 128),
+                                      (torch.bfloat16, 32)])
+@pytest.mark.parametrize("nh,nkv", [(4, 4), (8, 2), (32, 32)])
+def test_decode_kernels_fp32_and_head_dim_32(cuda, nh, nkv, dtype, hd):
+    """K2, K4 and K3 over fp32 pools and caches at head_dim 32, 64 and 128
+    and over bf16 ones at head_dim 32 (MHA, GQA and DS-7b's 32 heads),
+    lengths across the 128-row splits, a dead verify slot and one past the
+    table's edge; each call launches its own dtype's handle once."""
+    from detikzify_torch.ops import decode_flash
+
+    gen = torch.Generator(device=cuda).manual_seed(nh * 7 + hd)
+    b, page, m = 5, 128, 5
+    pk, pv, tab = _pool_case(gen, cuda, dtype, b, nh, nkv, hd, page, m)
+    f32 = dtype == torch.float32
+    k2 = paged.KERNEL_F32 if f32 else paged.KERNEL
+    k4 = paged.VERIFY_KERNEL_F32 if f32 else paged.VERIFY_KERNEL
+    k3 = decode_flash.KERNEL_F32 if f32 else decode_flash.KERNEL
+
+    lengths = torch.tensor([1, 57, 300, 517, m * page], dtype=torch.int32,
+                           device=cuda)
+    q = torch.randn((b, nh, hd), generator=gen, device=cuda).to(dtype)
+    before = k2.launches
+    got = paged.decode_attend_paged(q, pk, pv, tab, lengths)
+    assert k2.launches == before + 1 and got.dtype == dtype
+    _check(dtype, got, paged.decode_attend_paged_plain(q, pk, pv, tab,
+                                                       lengths),
+           paged.decode_attend_paged_plain(q, pk, pv.abs(), tab, lengths))
+
+    if (nh // nkv) * 5 <= paged.MAX_VERIFY_ROWS:
+        starts = torch.tensor([0, 52, 300, 512, m * page - 3],
+                              dtype=torch.int32, device=cuda)
+        qv = torch.randn((b, 5, nh, hd), generator=gen,
+                         device=cuda).to(dtype)
+        before = k4.launches
+        got = paged.decode_verify_attend_paged(qv, pk, pv, tab, starts)
+        assert k4.launches == before + 1 and got.dtype == dtype
+        _check(dtype, got, paged.decode_verify_attend_paged_plain(
+            qv, pk, pv, tab, starts), paged.decode_verify_attend_paged_plain(
+            qv, pk, pv.abs(), tab, starts))
+
+    kc, vc = paged.gather_pages(pk, tab), paged.gather_pages(pv, tab)
+    for limit in (None, 384):
+        kk = kc if limit is None else kc[:, :limit]
+        vv = vc if limit is None else vc[:, :limit]
+        before = k3.launches
+        got = attention.decode_attend(q, kk, vv, lengths)
+        assert k3.launches == before + 1 and got.dtype == dtype
+        _check(dtype, got, attention.decode_attend_plain(q, kk, vv, lengths),
+               attention.decode_attend_plain(q, kk, vv.abs(), lengths))
 
 
 # ---------------------------------------------------------------------------
@@ -787,15 +943,32 @@ def test_clip_text_tower_on_card_matches_plain(cuda):
 
 
 def test_clipscore_refuses_fp32_towers_on_card(cuda):
-    """K1 takes bf16 only: an fp32 tower on the card raises, it does not
-    fall back to the plain version."""
+    """ClipScore's fp32 towers (the JAX metric's type) no longer raise on
+    the card: each layer runs K1's fp32 kernel and the pooled output
+    agrees with the CPU's fp32 plain versions. A tower in a dtype no kernel
+    takes (fp16) is still refused, not sent to the plain version."""
+    import copy
+
     from detikzify_torch.models import convert, siglip
 
-    cfg = _siglip_cfg().replace(num_hidden_layers=1)
-    text = convert.init_random_siglip_text(cfg, device=cuda,
-                                           dtype=torch.float32, seed=0)
-    with pytest.raises(ValueError, match="bfloat16"):
-        siglip.apply_text(text, cfg, torch.zeros((2, 64), dtype=torch.long))
+    cfg = _siglip_cfg()
+    ref = convert.init_random_siglip_text(cfg, device="cpu",
+                                          dtype=torch.float32, seed=0)
+    text = copy.deepcopy(ref).to(cuda)
+    ids = torch.randint(0, 32000, (4, 64),
+                        generator=torch.Generator().manual_seed(2))
+    before = flash.KERNEL_F32.launches
+    with torch.inference_mode():
+        got = siglip.apply_text(text, cfg, ids.to(cuda))["pooler_output"]
+        want = siglip.apply_text(ref, cfg, ids)["pooler_output"]
+    assert flash.KERNEL_F32.launches == before + cfg.num_hidden_layers
+    assert got.dtype == torch.float32
+    cos = torch.nn.functional.cosine_similarity(got.cpu(), want, dim=-1)
+    assert float(cos.min()) >= 0.9999
+    half = copy.deepcopy(ref).to(cuda, torch.float16)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        siglip.apply_text(half, cfg.replace(num_hidden_layers=1),
+                          ids[:, :8].to(cuda))
 
 
 def test_kid_features_on_card_match_cpu(cuda):

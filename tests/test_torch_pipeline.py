@@ -623,9 +623,11 @@ def test_chip_smoke_cpu_rehearsal():
     adapter and GRPO references, ``grpo``, ``adapter_pretrain``,
     ``adapter_train``), the pipelined engine (``pipelined``,
     ``pipelined_spec``), the BPE
-    speculation measurement (``spec_acceptance``), the verification
-    tool (``verify_real``) and the mesh's model axis over two gloo ranks
-    (``tp``, ``tp_spec``, ``tp_train``)."""
+    speculation measurement (``spec_acceptance``, ``spec_acceptance_steps``,
+    on JAX's fp32 model), the DS-7b int8 streaming drive (``ds7b``), the
+    verification tool (``verify_real``) and the mesh's model axis over two
+    gloo ranks (``tp``, ``tp_spec``, ``tp_train``); the kernel rows hold the
+    fp32 variants of K1-K4 beside the bf16 ones."""
     env = dict(os.environ, OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "chip_smoke.py", "--cpu-rehearsal",
                           "--max-new-tokens", "8"], cwd=ROOT, env=env,
@@ -636,7 +638,9 @@ def test_chip_smoke_cpu_rehearsal():
     kernels = json.loads(lines[-2])["kernels"]
     names = {row["kernel"] for row in kernels}
     assert names == {"flash_attention", "paged_decode", "paged_verify",
-                     "decode_contig", "int8_gemv"}
+                     "decode_contig", "int8_gemv", "flash_attention_f32",
+                     "paged_decode_f32", "paged_verify_f32",
+                     "decode_contig_f32"}
     paths = {"sample", "contiguous", "spec_greedy", "tikzero_sample",
              "tikzero_simulate", "load", "simulate", "simulate_spec",
              "simulate_spec_gated", "serve", "evaluate_predict",
@@ -645,7 +649,8 @@ def test_chip_smoke_cpu_rehearsal():
              "infer_cli_mcts", "serve_bench", "v1_sample", "v1_simulate",
              "train", "pretrain", "grpo", "adapter_pretrain",
              "adapter_train", "pipelined", "pipelined_spec", "verify_real",
-             "spec_acceptance", "mesh", "tp", "tp_spec", "tp_train"}
+             "spec_acceptance", "spec_acceptance_steps", "ds7b", "mesh",
+             "tp", "tp_spec", "tp_train"}
     assert all(set(row["launches_by_path"]) == paths for row in kernels)
     # the v1 family's kernel shapes sit beside the v2 ones
     row_names = {row["name"] for row in kernels}
@@ -676,7 +681,7 @@ def test_chip_smoke_cpu_rehearsal():
             refs.append((obj["model"], obj["weights"]))
     assert refs == [("v2", "bf16"), ("v2", "int8+fused"), ("v1", "bf16"),
                     ("v1", "int8+fused"), ("tikzero", "bf16"),
-                    ("clipscore", "bf16"), ("train", "bf16"),
+                    ("clipscore", "fp32"), ("train", "bf16"),
                     ("adapter", "bf16"), ("grpo", "bf16")]
     tz = phases["tikzero_sample"]
     assert all(d["differing_entries"] == 0
@@ -813,6 +818,31 @@ def test_chip_smoke_cpu_rehearsal():
                                                 "down", "lm_head")
         for m in (8, 40)} <= row_names
     assert not list((ROOT / "build").glob("tp_*"))
+    # the fp32 and head_dim-32 variants of K1-K4, each with its control (an
+    # output rounded through bf16 must fail the fp32 tolerance)
+    f32_rows = [r for r in kernels if r["kernel"].endswith("_f32")]
+    assert {r["name"] for r in f32_rows} == {
+        "flash_attention/clip_text_f32", "flash_attention/clip_vision_f32",
+        "flash_attention/clip_map_head_f32",
+        "flash_attention/spec_train_f32", "flash_attention/spec_prefill_f32",
+        "paged_decode/spec_f32", "paged_verify/spec_f32",
+        "decode_contig/spec_f32", "decode_contig/spec_f32/kv_limit80"}
+    assert all(r["bf16_control_max_err_over_tol"] > 1 for r in f32_rows)
+    assert {"flash_attention/spec_train_bf16",
+            "flash_attention/spec_prefill_bf16", "paged_decode/spec_bf16",
+            "paged_verify/spec_bf16", "decode_contig/spec_bf16"} <= row_names
+    # JAX's spec model (4 heads of 32, fp32) and the DS-7b streaming drive
+    sa = phases["spec_acceptance"]["measurement"]
+    assert (sa["head_dim"], sa["dtype"]) == (32, "float32")
+    ds7 = phases["ds7b"]
+    assert ds7["heads"][0] == ds7["heads"][1]          # MHA
+    assert [r["rollouts"] for r in ds7["runs"]] == [16, 16]
+    assert all(r["tokens"] > 0 for r in ds7["runs"])
+    assert ds7["products_nk"]["lm_head"][0] % 128      # the dequant branch
+    assert ds7["streamed_sample"]["tokens"] > 0
+    assert {"paged_decode/ds7b"} | {
+        f"int8_gemv/ds7_{p}/rows{m}" for p in ("qkv", "o", "gateup", "down")
+        for m in (1, 8)} <= row_names
     # training: K1's backward with its mutant, the gradient reference, the
     # step at two accumulations, the trainer's save and resume, pretrain
     assert "flash_attention/train_decoder" in row_names
