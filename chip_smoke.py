@@ -36,8 +36,13 @@ Phases, each printing one JSON line:
               (K1 on the text tower, the vision tower and its MAP head)
               and at the spec model's head_dim 32 in fp32 and in bf16
               (K1 on its training pass and its prefill window, K2, K4 and
-              K3), each fp32 one held to 2^-16 of the mass with an output
-              rounded through bf16 as a control that must fail,
+              K3) and at detikzify-ds-1.3b's shapes in fp32, which
+              verify_real's fp32 leg gives them (K1 on the tower and the
+              prefill window at 16 heads of 128; K2 at its bench decode,
+              K4 at its verify window, K3 over a 512-row cache), each
+              fp32 one held to 2^-16 of the
+              mass with an output rounded through bf16 as a control that
+              must fail (and, for K1, the plain version in one TF32 pass),
               and time kernel, plain version and the PyTorch library
               call (CUDA events, median of many launches, L2 flushed before
               each), next to the least time the card needs for the same
@@ -72,7 +77,7 @@ Phases, each printing one JSON line:
               by ``load_adapter_params``, bit for bit; on the same bf16
               weights, ``sample()`` with a figure and a caption and with a
               caption alone (the adapter's blank image),
-              ``SIDE_NEW_TOKENS`` (64) new tokens;
+              ``SIDE_NEW_TOKENS`` (48) new tokens;
               the caption-conditioned encoder pass timed against the plain
               one;
 10. tikzero_simulate -- ``simulate()`` with the caption: 8 expansions,
@@ -117,6 +122,15 @@ Phases, each printing one JSON line:
               ``google/siglip-so400m-patch14-384`` two-tower written and
               loaded back in fp32, the JAX metric's type), and the
               redacted variants;
+15b. verify_real -- ``detikzify_torch.tools.verify_real`` with no flag, in
+              two legs: the int8 leg on the load phase's v2-8b export
+              (8.47 B parameters, over the runbook's 3 B line:
+              ``serve_load`` int8 with a bf16 cache, ``eval_smoke``) and
+              the fp32 leg on a ``detikzify-ds-1.3b`` v1 checkpoint and
+              timm tower written under ``build/`` (``serve_load`` places
+              the fp32 tree with an fp32 cache, then ``spec_acceptance``
+              and ``bench`` on it, through K1's, K4's and K2's fp32
+              kernels and no K5);
 16. replicas -- ``parallel.ReplicaPool`` on the int8 + fused weights, one
               replica (``devices=None``) and two sharing ``cuda:0``:
               ``map_until_compilable`` (fast mode), a greedy
@@ -227,13 +241,18 @@ ROOT = Path(__file__).resolve().parent
 
 PEAK_BF16_FLOPS = 989e12       # H100 SXM dense bf16 tensor-core peak
 PEAK_FP32_FLOPS = 67e12        # H100 SXM fp32 (FFMA, outside the tensor cores)
+PEAK_TF32_FLOPS = 495e12       # H100 SXM dense TF32 tensor-core peak
+TF32X3 = 3                     # TF32 products per fp32 product in 3xTF32
 PEAK_BYTES = 3.35e12           # H100 SXM HBM3 bandwidth
 BF16_U = 2.0 ** -8             # bf16 unit roundoff
 # the fp32 kernels' tolerance, in place of bf16's 2u: the fp32 kernels and
 # their plain versions (other summation orders, the kernels' ex2.approx)
-# differ by at most 0.06 of it (9.2e-7 of the mass that reaches an
-# element) at these shapes on an H100, and one rounding through bf16
-# (2^-9) or TF32 products (2^-11) is 2^5-2^7 times it
+# differed by at most 0.06 of it (9.2e-7 of the mass that reaches an
+# element) at these shapes on an H100 with FFMA products, and one rounding
+# through bf16 (2^-9) or TF32 products (2^-11) is 2^5-2^7 times it. K1's
+# fp32 kernel runs 3xTF32 (hi*hi + hi*lo + lo*hi of two TF32 halves,
+# ~2^-21 of each product): its two controls, the output rounded through
+# bf16 and the plain version with TF32 products, must both fail it
 F32_TOL = 2.0 ** -16
 
 # (name, B, S, T, NH, NKV, Hd, mode) for K1 at the main path's shapes
@@ -287,7 +306,8 @@ _VERIFY = _typed("verify_split_kernel", "verify_merge_kernel")
 KERNEL_FUNCTIONS = {
     "flash_attention": ("flash_fwd_kernel", "flash_split_kernel",
                         "flash_split_merge_kernel"),
-    "flash_attention_f32": ("flash_f32_kernel",),
+    "flash_attention_f32": ("flash_f32_tile_kernel",
+                            "flash_f32_split_kernel"),
     "paged_decode": _PAGED["bf16"], "paged_decode_f32": _PAGED["f32"],
     "decode_contig": _CONTIG["bf16"], "decode_contig_f32": _CONTIG["f32"],
     "paged_verify": _VERIFY["bf16"], "paged_verify_f32": _VERIFY["f32"],
@@ -424,6 +444,32 @@ K1_SPEC_CASES = (
     ("spec_train", 8, 128, 128, 4, 4, 32, "causal"),
     ("spec_prefill", 1, 16, 144, 4, 4, 32, "window"),
 )
+# the verify_real phase's fp32 leg serves detikzify-ds-1.3b whole (a v1
+# checkpoint with its timm tower, under the 3 B parameters below which the
+# JAX runbook serves a checkpoint in fp32 on a card): K1 in float32 at its
+# shapes, the so400m tower's 729 patches of one figure (16 heads of 72)
+# and the engine's prefill window (the 243-token prompt in a 256-row
+# bucket over 384 rows, 16 heads of 128) for one rollout and for a wave of
+# 8 (from the third row on restored from a 128-row prefix, as k1_inputs
+# builds a window)
+DS13_PROMPT = 243
+K1_DS13_F32_CASES = (
+    ("ds13_vision_f32", 1, 729, 729, 16, 16, 72, "full"),
+    ("ds13_prefill_f32", 1, 256, 384, 16, 16, 128, "window"),
+    ("ds13_prefill_wave_f32", 8, 256, 384, 16, 16, 128, "window"),
+)
+# K2 in float32 at that leg's bench decode (8 slots of four 128-row pages,
+# max_len 512: the prompt and up to 32 tokens); K4 at its spec_acceptance
+# verify window (4 slots, K+1 = 5, starts over the 48 speculated tokens,
+# one dead slot); K3, which no fp32 path launches, over a contiguous
+# 512-row cache with K2's lengths, whole and through a 256-row view
+K2_DS13_F32_CASE = dict(B=8, NH=16, NKV=16, Hd=128, page=128, m=4,
+                        lengths=(244, 248, 252, 256, 260, 264, 269, 275))
+K4_DS13_F32_CASE = dict(B=4, K1=5, NH=16, NKV=16, Hd=128, page=128, m=4,
+                        starts=(243, 262, 286, 0))
+K3_DS13_F32_CASE = dict(B=8, L=512, NH=16, NKV=16, Hd=128,
+                        lengths=K2_DS13_F32_CASE["lengths"],
+                        limits=(None, 256))
 K2_SPEC_CASE = dict(B=8, NH=4, NKV=4, Hd=32, page=128, m=1,
                     lengths=(10, 16, 22, 28, 34, 40, 46, 57))
 K4_SPEC_CASE = dict(B=8, K1=5, NH=4, NKV=4, Hd=32, page=128, m=1,
@@ -471,13 +517,22 @@ PIPE_NEW_TOKENS, PIPE_BLOCK = 128, 16
 # and checkpoints, none of which needs a longer rollout. The whole script
 # took 1348 s on an H100 at 700 W with the tp phase in and no cut (PR 15,
 # call 2), over its 1200 s limit; these halved rollouts, PIPE_NEW_TOKENS
-# and PROFILE_NEW_TOKENS bring it back under
-SIDE_NEW_TOKENS = 64
+# and PROFILE_NEW_TOKENS bring it back under. 48 from 64 since the fp32
+# K1's 3xTF32 build (34 s against 15) and the fp32 kernel rows took the
+# whole script to 1045 s on an H100 at 700 W whose host had run it in
+# 1011 s before them
+SIDE_NEW_TOKENS = 48
 # the profiled requests (one sample(), one simulate() wave): the
 # profiler's reading of a 32-token request's events took ~25-45 s of each
 # profile (call 2); 16 tokens keep several decode steps in the window
 PROFILE_NEW_TOKENS = 16
 VERIFY_REAL_ITEMS = 2   # eval_smoke's test items in the verify_real phase
+# the verify_real phase: its int8 leg serves the load phase's v2-8b export
+# (8.47 B parameters, quantized by the serve rule, no --quantize), its fp32
+# leg a detikzify-ds-1.3b export; the fp32 leg's speculated and benched
+# tokens a rollout
+VERIFY_REAL_FP32_PRESET = "detikzify-ds-1.3b"
+VERIFY_REAL_SPEC_TOKENS, VERIFY_REAL_BENCH_TOKENS = 48, 32
 # training at bench.py's train_bench shape: detikzify-ds-1.3b full
 # fine-tune, bf16 weights, micro-batch 4 at sequence 640 (300 image tokens
 # + code), remat, 8-bit Adam moments, grad_accum 1 and 2
@@ -777,15 +832,111 @@ def k5_rows(torch, gen, device, rehearsal: bool, timer) -> list:
     return rows
 
 
-def kernel_phase(torch, device, rehearsal: bool, iters: int):
+def tf32_round(torch, x):
+    """``x`` (fp32) rounded to TF32's 10 mantissa bits, to nearest with
+    ties away from zero, as ``cvt.rna.tf32.f32`` rounds it."""
+    bits = x.contiguous().view(torch.int32)
+    return torch.bitwise_and(bits + 0x1000, -0x2000).view(torch.float32)
+
+
+def tf32_plain(torch, plain, q, k, v, **kw):
+    """The 1xTF32 control: ``plain`` on q, k and v rounded to TF32, with
+    the card's fp32 matmuls in TF32 (at S = 1 cuBLAS runs a GEMV in fp32,
+    so the rounded operands carry the single pass there too)."""
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return plain(*(tf32_round(torch, x) for x in (q, k, v)), **kw)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+
+
+def k1_row(torch, gen, device, rehearsal: bool, timer, case, prompt,
+           lengths, dtype) -> dict:
+    """K1 (bf16 or float32) against its plain version at one shape; times
+    kernel, plain version and SDPA. An fp32 row carries two controls that
+    must fail its tolerance (the output rounded through bf16; on the card,
+    the plain version with TF32 products) and its bound on the design's
+    units beside the FFMA one."""
     from detikzify_torch.ops import attention, flash
 
-    gen = torch.Generator(device=device).manual_seed(1234)
-    timer = None if rehearsal else Timer(torch, device, iters)
+    name, b, s, t, nh, nkv, hd, mode = case
+    if rehearsal:   # tiny shapes: the CPU only checks the wiring
+        s, t = min(s, 9), 12
+        lengths = lengths and tuple(min(n, t) for n in lengths)
+    q, k, v, kw, vis = k1_inputs(torch, gen, device, b, s, t, nh, nkv, hd,
+                                 mode, prompt, lengths, dtype)
+    is_f32 = dtype == torch.float32
+    if is_f32 and not name.endswith("_f32"):
+        name += "_f32"
+    elif dtype == torch.bfloat16 and hd == 32:
+        name += "_bf16"
+    kernel = "flash_attention_f32" if is_f32 else "flash_attention"
+    got = flash.flash_attention(q, k, v, **kw)
+    want = attention.attend_plain(q, k, v, **kw)
+    pv_abs = attention.attend_plain(q, k, v.abs(), **kw)
+    tol = tolerance_check(torch, got, want, pv_abs)
+    if not tol.pop("ok"):
+        raise SystemExit(f"K1 {name}: kernel disagrees with its plain "
+                         f"version: {tol}")
+    if is_f32:
+        tol["bf16_control_max_err_over_tol"] = f32_control(
+            torch, got, want, pv_abs, f"K1 {name}")
+        if not rehearsal:
+            tol["tf32_control_max_err_over_tol"] = control_check(
+                torch, tf32_plain(torch, attention.attend_plain, q, k, v,
+                                  **kw), want, pv_abs,
+                f"K1 {name}: the plain version in one TF32 pass")
+    row = {"name": f"flash_attention/{name}", "kernel": kernel,
+           "route": "cuda",
+           "source": "detikzify_torch/csrc/"
+           + ("flash_attn_f32.cu" if is_f32 else "flash_attn.cu"),
+           "replaces": "detikzify_tpu/ops/flash.py:187",
+           "shape": {"B": b, "S": s, "T": t, "NH": nh, "NKV": nkv, "Hd": hd,
+                     "mode": mode, "dtype": str(dtype).replace("torch.", ""),
+                     **({"key_lengths": list(lengths)} if lengths else {})},
+           **tol}
+    nbytes = (q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+              + (b * t if lengths else 0))
+    flops = 4 * nh * hd * vis
+    if not is_f32:
+        row.update(bound(nbytes, flops, PEAK_BF16_FLOPS))
+    else:
+        # the split-key path (S <= 16 over > 256 keys) runs FFMA, the
+        # tiles 3xTF32 on the tensor cores
+        ffma = bound(nbytes, flops, PEAK_FP32_FLOPS)
+        tf32 = bound(nbytes, TF32X3 * flops, PEAK_TF32_FLOPS)
+        small = s <= flash.SMALL_S and t > flash.SPLIT_MIN_T_F32
+        row.update(ffma if small else tf32)
+        row.update(bound_units="FFMA, 67 TFLOP/s" if small
+                   else "3xTF32, 3 x 495 TFLOP/s dense",
+                   bound_ffma_ms=ffma["bound_ms"],
+                   bound_tf32x3_ms=tf32["bound_ms"])
+    if timer is not None:
+        import torch.nn.functional as F
+
+        row["ms"] = timer(lambda: flash.flash_attention(q, k, v, **kw))
+        row["plain_ms"] = timer(lambda: attention.attend_plain(q, k, v, **kw))
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        mask = None
+        if mode == "window":
+            qpos = (kw["q_offsets"][:, None, None, None]
+                    + torch.arange(s, device=device)[None, None, :, None])
+            kpos = torch.arange(t, device=device)[None, None, None, :]
+            mask = (kpos <= qpos) & (kpos
+                                     < kw["kv_limits"][:, None, None, None])
+        elif lengths:
+            mask = _sdpa_mask(torch, kw, s, t, device)
+        row["library_ms"] = timer(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=mode == "causal",
+            enable_gqa=nh != nkv))
+    return row
+
+
+def k1_cases(torch):
+    """(case, prompt, key lengths, dtype) of every K1 row."""
     bf16, f32 = torch.bfloat16, torch.float32
-    rows = []
-    for (name, b, s, t, nh, nkv, hd, mode), prompt, lengths, dtype in (
-            [(c, 300, None, bf16) for c in K1_CASES + K1_SERVE_CASES]
+    return ([(c, 300, None, bf16) for c in K1_CASES + K1_SERVE_CASES]
             + [(c, V1_PROMPT, None, bf16) for c in K1_V1_CASES]
             + [(c[:8], None, c[8], bf16) for c in K1_TIKZERO_CASES]
             + [(c, None, None, bf16) for c in K1_EVAL_CASES]
@@ -794,64 +945,44 @@ def kernel_phase(torch, device, rehearsal: bool, iters: int):
             + [(c, 300, None, bf16) for c in K1_TP_CASES]
             + [(c, None, None, f32) for c in K1_EVAL_F32_CASES]
             + [(c, SPEC_PROMPT, None, dt) for dt in (f32, bf16)
-               for c in K1_SPEC_CASES]):
-        if rehearsal:   # tiny shapes: the CPU only checks the wiring
-            s, t = min(s, 9), 12
-            lengths = lengths and tuple(min(n, t) for n in lengths)
-        q, k, v, kw, vis = k1_inputs(torch, gen, device, b, s, t, nh, nkv,
-                                     hd, mode, prompt, lengths, dtype)
-        is_f32 = dtype == f32
-        if is_f32 and not name.endswith("_f32"):
-            name += "_f32"
-        elif dtype == bf16 and hd == 32:
-            name += "_bf16"
-        kernel = "flash_attention_f32" if is_f32 else "flash_attention"
-        got = flash.flash_attention(q, k, v, **kw)
-        want = attention.attend_plain(q, k, v, **kw)
-        pv_abs = attention.attend_plain(q, k, v.abs(), **kw)
-        tol = tolerance_check(torch, got, want, pv_abs)
-        if not tol.pop("ok"):
-            raise SystemExit(f"K1 {name}: kernel disagrees with its plain "
-                             f"version: {tol}")
-        if is_f32:
-            tol["bf16_control_max_err_over_tol"] = f32_control(
-                torch, got, want, pv_abs, f"K1 {name}")
-        row = {"name": f"flash_attention/{name}", "kernel": kernel,
-               "route": "cuda",
-               "source": "detikzify_torch/csrc/"
-               + ("flash_attn_f32.cu" if is_f32 else "flash_attn.cu"),
-               "replaces": "detikzify_tpu/ops/flash.py:187",
-               "shape": {"B": b, "S": s, "T": t, "NH": nh, "NKV": nkv,
-                         "Hd": hd, "mode": mode,
-                         "dtype": str(dtype).replace("torch.", ""),
-                         **({"key_lengths": list(lengths)} if lengths
-                            else {})},
-               **tol}
-        esize = q.element_size()
-        row.update(bound(esize * (2 * q.numel() + k.numel() + v.numel())
-                         + (b * t if lengths else 0), 4 * nh * hd * vis,
-                         PEAK_FP32_FLOPS if is_f32 else PEAK_BF16_FLOPS))
-        if timer is not None:
-            import torch.nn.functional as F
+               for c in K1_SPEC_CASES]
+            + [(c, DS13_PROMPT, None, f32) for c in K1_DS13_F32_CASES])
 
-            row["ms"] = timer(lambda: flash.flash_attention(q, k, v, **kw))
-            row["plain_ms"] = timer(
-                lambda: attention.attend_plain(q, k, v, **kw))
-            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-            mask = None
-            if mode == "window":
-                qpos = (kw["q_offsets"][:, None, None, None]
-                        + torch.arange(s, device=device)[None, None, :, None])
-                kpos = torch.arange(t, device=device)[None, None, None, :]
-                mask = (kpos <= qpos) & (kpos
-                                         < kw["kv_limits"][:, None, None, None])
-            elif lengths:
-                mask = _sdpa_mask(torch, kw, s, t, device)
-            row["library_ms"] = timer(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, is_causal=mode == "causal",
-                enable_gqa=nh != nkv))
-        rows.append(row)
 
+def f32_decode_cases():
+    """(row builder, case, name) of every float32 K2, K4 and K3 row: the
+    spec model's shapes and detikzify-ds-1.3b's."""
+    return ((k2_row, K2_SPEC_CASE, "paged_decode/spec_f32"),
+            (k4_row, K4_SPEC_CASE, "paged_verify/spec_f32"),
+            (k3_rows, K3_SPEC_CASE, "decode_contig/spec_f32"),
+            (k2_row, K2_DS13_F32_CASE, "paged_decode/ds13_f32"),
+            (k4_row, K4_DS13_F32_CASE, "paged_verify/ds13_f32"),
+            (k3_rows, K3_DS13_F32_CASE, "decode_contig/ds13_f32"))
+
+
+def f32_decode_rows(torch, gen, device, rehearsal: bool, timer) -> list:
+    """K2, K4 and K3 in float32 (``f32_decode_cases``), then at the spec
+    model's shapes in bf16."""
+    rows = []
+    for fn, case, name in f32_decode_cases():
+        got = fn(torch, gen, device, rehearsal, timer, case, name,
+                 torch.float32)
+        rows.extend(got if isinstance(got, list) else [got])
+    bf16 = torch.bfloat16
+    rows.append(k2_row(torch, gen, device, rehearsal, timer, K2_SPEC_CASE,
+                       "paged_decode/spec_bf16", bf16))
+    rows.append(k4_row(torch, gen, device, rehearsal, timer, K4_SPEC_CASE,
+                       "paged_verify/spec_bf16", bf16))
+    rows.extend(k3_rows(torch, gen, device, rehearsal, timer, K3_SPEC_CASE,
+                        "decode_contig/spec_bf16", bf16))
+    return rows
+
+
+def kernel_phase(torch, device, rehearsal: bool, iters: int):
+    gen = torch.Generator(device=device).manual_seed(1234)
+    timer = None if rehearsal else Timer(torch, device, iters)
+    rows = [k1_row(torch, gen, device, rehearsal, timer, *c)
+            for c in k1_cases(torch)]
     rows.append(k2_row(torch, gen, device, rehearsal, timer, K2_CASE,
                        "paged_decode"))
     rows.append(k2_row(torch, gen, device, rehearsal, timer, K2_V1_CASE,
@@ -866,15 +997,7 @@ def kernel_phase(torch, device, rehearsal: bool, iters: int):
     rows.append(k4_row(torch, gen, device, rehearsal, timer, K4_TP_CASE,
                        "paged_verify/tp2"))
     rows.extend(k3_rows(torch, gen, device, rehearsal, timer))
-    for dtype in (f32, bf16):
-        tag = "f32" if dtype == f32 else "bf16"
-        rows.append(k2_row(torch, gen, device, rehearsal, timer,
-                           K2_SPEC_CASE, f"paged_decode/spec_{tag}", dtype))
-        rows.append(k4_row(torch, gen, device, rehearsal, timer,
-                           K4_SPEC_CASE, f"paged_verify/spec_{tag}", dtype))
-        rows.extend(k3_rows(torch, gen, device, rehearsal, timer,
-                            K3_SPEC_CASE, f"decode_contig/spec_{tag}",
-                            dtype))
+    rows.extend(f32_decode_rows(torch, gen, device, rehearsal, timer))
     rows.extend(k5_rows(torch, gen, device, rehearsal, timer))
     return rows
 
@@ -1192,10 +1315,12 @@ def k3_rows(torch, gen, device, rehearsal: bool, timer, case=K3_CASE,
     return rows
 
 
-def v1_config(rehearsal: bool, feature_layer=None):
-    """The v1 model of the v1 phases: ``detikzify-tl-1.1b`` as its
-    ``config.json`` describes it (the timm so400m tower at 384 px, 729
-    patches, 243 image tokens; TinyLlama), tapped at ``feature_layer`` (the
+def v1_config(rehearsal: bool, feature_layer=None,
+              preset: str = "detikzify-tl-1.1b"):
+    """The v1 model of the v1 phases: ``detikzify-tl-1.1b`` (or another v1
+    ``preset``) as its ``config.json`` describes it (the timm so400m tower
+    at 384 px, 729 patches, 243 image tokens; TinyLlama's decoder, or the
+    preset's), tapped at ``feature_layer`` (the
     second-to-last of the tower's layers by default). The rehearsal's is
     tiny-test with v1's wiring: bos 1, eos 2, the image and pad tokens at
     the top of the vocabulary, a biased projector, SelfSim pinned to cos,
@@ -1213,7 +1338,7 @@ def v1_config(rehearsal: bool, feature_layer=None):
             is_v1=True)
     else:
         cfg = import_hf.config_from_hf_json(
-            v1_hf_config(get_config("detikzify-tl-1.1b"), 0))
+            v1_hf_config(get_config(preset), 0))
     if feature_layer is None:
         feature_layer = cfg.vision.num_hidden_layers - 2
     return cfg.replace(feature_layer=feature_layer)
@@ -6397,49 +6522,137 @@ def tp_only(torch, device, rehearsal: bool, args) -> int:
     return 0
 
 
+def verify_real_fp32_checkpoint(torch, device, rehearsal: bool, seed: int,
+                                work: str):
+    """``VERIFY_REAL_FP32_PRESET`` whole, random bf16 weights from ``seed``,
+    written as a v1 checkpoint and its timm tower (``write_v1_checkpoint``)
+    under ``work``; in the rehearsal, tiny-test through ``save_pretrained``
+    (a tiny timm tower has no config the loader could read). Returns
+    (config, checkpoint, tower or None)."""
+    from detikzify_torch.config import get_config
+    from detikzify_torch.models import convert
+    from detikzify_torch.models.load import save_pretrained
+
+    cfg = (get_config("tiny-test") if rehearsal
+           else v1_config(False, preset=VERIFY_REAL_FP32_PRESET))
+    gen = torch.Generator(device=device).manual_seed(seed + 17)
+    params = convert.init_random(cfg, device=device, dtype=torch.bfloat16,
+                                 generator=gen)
+    ckpt, tower = os.path.join(work, "checkpoint"), None
+    if rehearsal:
+        save_pretrained(ckpt, params, cfg)
+    else:
+        tower = os.path.join(work, "tower")
+        write_v1_checkpoint(torch, params, cfg, ckpt, tower)
+    del params
+    _free(torch, rehearsal)
+    return cfg, ckpt, tower
+
+
 def verify_real_phase(torch, device, rehearsal: bool, seed: int, cfg,
                       export_dir: str, max_new_tokens: int) -> dict:
-    """``detikzify_torch.tools.verify_real``'s ``import`` (int8 load) and
-    ``eval_smoke`` (``VERIFY_REAL_ITEMS`` synthetic items: search to the
-    first compilable program, then every metric of ``examples.eval``'s
-    ``score``) on the ``load`` phase's exported checkpoint, the smoke
-    tokenizer standing in for the checkpoint's. The three reference steps
-    must report ``not_run``."""
+    """``detikzify_torch.tools.verify_real`` in two legs, each a path of its
+    own, the smoke tokenizer standing in for each checkpoint's:
+
+    * ``verify_real`` -- the ``load`` phase's v2-8b export (``cfg``) with
+      no flag: ``import`` (the fp32 tree on the host), ``serve_load``
+      (above 3 B parameters on a card the serve rule quantizes: int8
+      weight-only, bf16 cache) and ``eval_smoke`` (``VERIFY_REAL_ITEMS``
+      synthetic items: search to the first compilable program, then every
+      metric of ``examples.eval``'s ``score``) on those int8 weights. The
+      rehearsal's tiny export is under the line and passes ``--quantize``;
+    * ``verify_real_fp32`` -- ``VERIFY_REAL_FP32_PRESET``
+      (``verify_real_fp32_checkpoint``), no flag: ``import``,
+      ``serve_load`` (the fp32 tree on the card, fp32 cache, as the JAX
+      runbook serves a checkpoint under 3 B parameters),
+      ``spec_acceptance`` (speculate=4) and ``bench`` on it: K1's fp32
+      kernel on the tower and the prefill, K4's and K2's fp32 kernels, and
+      no int8 product.
+
+    The three reference steps must report ``not_run``."""
     from detikzify_torch.ops import launch_counts, reset_launch_counts
     from detikzify_torch.tools import verify_real
 
+    (ROOT / "build").mkdir(exist_ok=True)
     work = tempfile.mkdtemp(prefix="verify_real_", dir=ROOT / "build")
+    tokens = ["--spec-tokens", str(min(VERIFY_REAL_SPEC_TOKENS,
+                                       max_new_tokens)),
+              "--bench-tokens", str(min(VERIFY_REAL_BENCH_TOKENS,
+                                        max_new_tokens))]
+    result = {"phase": "verify_real"}
+    paths = {}
     try:
-        _, args = verify_real.parse_args(
-            ["--checkpoint", f"v2-8b={export_dir}", "--device", str(device),
-             "--eval-items", str(VERIFY_REAL_ITEMS), "--workdir", work]
-            + ([] if rehearsal else ["--quantize"]))
-        reset_launch_counts()
-        with checkpoint_tokenizer(cfg, cfg.image_seq_len + max_new_tokens):
-            t0 = time.perf_counter()
-            out = verify_real.verify_checkpoint(
-                "v2-8b", export_dir, args, steps=("import", "eval_smoke"))
-            wall = time.perf_counter() - t0
-        counts = launch_counts()
+        for path in ("verify_real", "verify_real_fp32"):
+            if path == "verify_real":
+                ckpt, tower, lcfg = export_dir, None, cfg
+                flags = ["--quantize"] if rehearsal else []
+                steps = ("import", "serve_load", "eval_smoke")
+                serve, quantized = ("int8", "bfloat16"), True
+                preset = "tiny-test" if rehearsal else "detikzify-v2-8b"
+            else:
+                t0 = time.perf_counter()
+                lcfg, ckpt, tower = verify_real_fp32_checkpoint(
+                    torch, device, rehearsal, seed, work)
+                result["fp32_export_s"] = time.perf_counter() - t0
+                flags = tokens + (["--vision-tower", tower] if tower
+                                  else [])
+                steps = ("import", "serve_load", "spec_acceptance", "bench")
+                serve, quantized = ("fp32", "float32"), False
+                preset = ("tiny-test" if rehearsal
+                          else VERIFY_REAL_FP32_PRESET)
+            _, args = verify_real.parse_args(
+                ["--checkpoint", f"{path}={ckpt}", "--device", str(device),
+                 "--eval-items", str(VERIFY_REAL_ITEMS), "--workdir", work]
+                + flags)
+            reset_launch_counts()
+            with checkpoint_tokenizer(lcfg,
+                                      lcfg.image_seq_len + max_new_tokens):
+                t0 = time.perf_counter()
+                out = verify_real.verify_checkpoint(path, ckpt, args,
+                                                    steps=steps)
+                wall = time.perf_counter() - t0
+            paths[path] = launch_counts()
+            _free(torch, rehearsal)
+            verdict = verify_real.verdict_of({path: out})
+            result[path] = {"preset": preset, "flags": flags,
+                            "steps": {k: v for k, v in out.items()
+                                      if isinstance(v, dict)},
+                            "verdict": verdict["verdict"], "wall_s": wall,
+                            "launches": paths[path]}
+            leg = result[path]["steps"]
+            got = (leg["serve_load"].get("mode"),
+                   leg["serve_load"].get("cache_dtype"))
+            n = leg["import"].get("n_params", 0)
+            # on the card the rule alone decides: int8 above 3 B, fp32 below
+            by_rule = rehearsal or (n > 3_000_000_000) == quantized
+            if not (verdict["verdict"] == "pass"
+                    and all(leg[s]["ok"] for s in steps)
+                    and all(leg[s]["ok"] is None
+                            for s in verify_real.REFERENCE_STEPS)
+                    and got == serve
+                    and leg["import"]["serve_quantized"] == quantized
+                    and by_rule):
+                emit(result)
+                raise SystemExit(f"{path} failed (serve_load {got}, want "
+                                 f"{serve}; {n} parameters): "
+                                 f"{result[path]}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    _free(torch, rehearsal)
-    verdict = verify_real.verdict_of({"v2-8b": out})
-    result = {"phase": "verify_real", "steps": {
-        k: v for k, v in out.items() if isinstance(v, dict)},
-        "verdict": verdict["verdict"], "wall_s": wall, "launches": counts}
     emit(result)
-    steps = result["steps"]
-    if not (steps["import"]["ok"] and steps["eval_smoke"]["ok"]
-            and verdict["verdict"] == "pass"
-            and all(steps[s]["ok"] is None
-                    for s in verify_real.REFERENCE_STEPS)):
-        raise SystemExit(f"verify_real failed: {result}")
     if not rehearsal:
+        counts = paths["verify_real"]
         for name in ("flash_attention", "paged_decode", "int8_gemv"):
             if counts[name] <= 0:
                 raise SystemExit(f"verify_real never launched {name}")
-    return counts
+        counts = paths["verify_real_fp32"]
+        for name in ("flash_attention_f32", "paged_verify_f32",
+                     "paged_decode_f32"):
+            if counts[name] <= 0:
+                raise SystemExit(f"verify_real_fp32 never launched {name}")
+        if counts["int8_gemv"] != 0:
+            raise SystemExit("verify_real_fp32 launched int8_gemv "
+                             f"{counts['int8_gemv']} times")
+    return paths
 
 
 def training_phases(torch, device, rehearsal: bool, seed: int) -> dict:
@@ -6616,9 +6829,8 @@ def main(argv=None) -> int:
                                      qparams, processor.cfg, side)
         paths.update(evaluate_phase(torch, device, rehearsal, args.seed,
                                     processor.cfg, export_dir, side))
-        paths["verify_real"] = verify_real_phase(
-            torch, device, rehearsal, args.seed, processor.cfg, export_dir,
-            side)
+        paths.update(verify_real_phase(torch, device, rehearsal, args.seed,
+                                       processor.cfg, export_dir, side))
         paths.update(replicas_phase(torch, device, rehearsal, args.seed,
                                     qparams, processor.cfg, side))
         paths["trace"] = trace_phase(torch, device, rehearsal, args.seed,

@@ -9,7 +9,8 @@
 // with fp32 sums, out = acc / max(l, 1e-30). The TPU kernel reads a cache
 // of any dtype; this one takes bf16 caches (detikzify_decode_contig) and
 // float32 caches (detikzify_decode_contig_f32, every product an fp32 FFMA
-// and p kept in fp32), at head_dim 32, 64 and 128.
+// and p kept in fp32, the keys streamed through a ring of 16-row chunks,
+// and no merge launch where L <= 128), at head_dim 32, 64 and 128.
 //
 // What bounds it on the H100: as K2, device-memory bytes,
 // sum_b min(lengths[b], L) * NKV * Hd * 2 (K and V) * 2 bytes; the rows
@@ -77,8 +78,9 @@ template <class T, int HD>
 __global__ void __launch_bounds__(WARPS * 32, ds::min_blocks(1, WARPS))
 contig_split_kernel(Args<T> a, ds::Partials part, int nsplit, int,
                     float sl) {
-  ds::split_partial<HD, 1, WARPS>(a.q, a.k, a.v, part, blockIdx.x, nsplit,
-                                  0, sl, slot<HD>(a, blockIdx.z, blockIdx.y));
+  ds::split_block<HD, 1, WARPS>(a.q, a.k, a.v, a.out, part, blockIdx.x,
+                                nsplit, 0, sl,
+                                slot<HD>(a, blockIdx.z, blockIdx.y));
 }
 
 template <class T, int HD>

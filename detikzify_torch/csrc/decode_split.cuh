@@ -37,13 +37,18 @@
 // partial.
 //
 // The same partials come from a second body for float32 pools and caches
-// (split_partial on float pointers): the same splits, warps and merge, with
+// (split_partial on float pointers): the same splits, limits and merge, with
 // every product an fp32 FFMA (no TF32, no tensor core) and P kept in fp32,
-// as the plain versions keep it for fp32 values. Each lane owns one key row
-// of its warp's 32 for the scores (its K row read as float4 from shared
-// memory, the query rows broadcast) and one head-dim column in 32 for P V
-// (each P value shuffled from the lane of its key). The merge writes the
-// caches' type. Both bodies take head_dim 32, 64 and 128.
+// as the plain versions keep it for fp32 values. At <= 20 query rows a KV
+// head that is ~5 FLOP a byte, far under the card's ridge: the body is
+// bound by bytes and launches. Its keys stream through a 3-stage cp.async
+// ring of 16-row chunks shared by the block's warps (~62 KB of shared
+// memory at head_dim 128, three blocks an SM), each warp owning some of the
+// query rows over all of the split's keys (no combine across warps). Where
+// the launch has one split (every slot's keys fit 128 rows, as the spec
+// model's do), the split kernel writes the output and no merge is launched.
+// The merge writes the caches' type. Both bodies take head_dim 32, 64 and
+// 128.
 //
 // The caller describes one (slot, KV head) with a Slot: members b, h, nkv,
 // R and length, and
@@ -358,159 +363,253 @@ __device__ __forceinline__ void split_partial(
                                    * s.R + rp0);
 }
 
+constexpr int F32_CROWS = 16;           // key rows per chunk of the fp32 ring
+constexpr int F32_STAGES = 3;           // chunks in the fp32 ring
+
 template <int HD, int NTP, int WARPS>
 struct SmemF32 {
   // K rows padded by 4 floats: the 8 lanes of a quarter-warp reading their
-  // own rows' float4 fall on distinct banks
-  float k[WARPS * WROWS][HD + 4];
-  float v[WARPS * WROWS][HD];
-  float q[8 * NTP][HD];                      // the pass's rows, scaled
-  float m[WARPS][8 * NTP], l[WARPS][8 * NTP];
+  // own keys' float4 fall on distinct banks
+  float k[F32_STAGES][F32_CROWS][HD + 4];
+  float v[F32_STAGES][F32_CROWS][HD];
+  // the pass's rows, scaled; a row's second half starts 4 floats late, so
+  // the two halves a warp reads at once fall on distinct banks
+  float q[8 * NTP][HD + 4];
+  float p[WARPS][8 * NTP / WARPS][F32_CROWS];  // each warp's P of a chunk
 };
 
-// The float32 body: the same block, partials and limits as the bf16 one,
-// every product an fp32 FFMA. Lane `lane` of a warp scores key row
-// r0 + w0 + lane against the pass's query rows, then adds P V into head
-// columns lane + 32 j, each P value shuffled from the lane of its key.
+// DL consecutive floats from shared memory as one vector load
+template <int DL>
+__device__ __forceinline__ void load_cols(float (&x)[DL], const float* src) {
+  if constexpr (DL == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(src);
+    x[0] = t.x, x[1] = t.y, x[2] = t.z, x[3] = t.w;
+  } else if constexpr (DL == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(src);
+    x[0] = t.x, x[1] = t.y;
+  } else {
+    x[0] = *src;
+  }
+}
+
+// The float32 body: the same splits, limits and partials as the bf16 one,
+// every product an fp32 FFMA. The block's keys stream through a ring of
+// F32_STAGES chunks of F32_CROWS rows (cp.async, two chunks ahead of the one
+// computed, one barrier a chunk); warp w owns the pass's query rows
+// w, w + WARPS, ... and runs the online softmax over every chunk for them,
+// so no partial is combined across warps. On a chunk, lane l scores key
+// l % 16 against half l / 16 of the head dims (four independent sums, one
+// shuffle adds the halves); the chunk's P goes to the warp's shared rows
+// and P V reads it back four keys at a time, lane l adding into head
+// columns [l * HD / 32, (l + 1) * HD / 32). Each lane keeps its key's share
+// of a row's sum, added across the lanes once at the end. With `out` (the
+// launch has one split) each row's output is written here and no merge
+// runs.
 template <int HD, int NTP, int WARPS, class Slot>
 __device__ __forceinline__ void split_partial(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const Partials& part, int split,
-    int nsplit, int rp0, float scale_log2, const Slot& s) {
+    int nsplit, int rp0, float scale_log2, const Slot& s, float* out) {
   constexpr int SPLIT = WARPS * WROWS, THREADS = WARPS * 32, NR = 8 * NTP;
-  constexpr int CH = HD / 4;                 // 16-byte chunks per row
+  constexpr int CR = F32_CROWS;
+  constexpr int C4 = HD / 4;                 // 16-byte chunks per row
+  constexpr int H4 = HD / 8;                 // float4s in half a row
   constexpr int DL = HD / 32;                // head columns per lane
+  constexpr int RW = NR / WARPS;             // query rows per warp
+  constexpr int GROUPS = SPLIT / WROWS;      // contiguous 32-row groups
   static_assert(HD % 32 == 0, "head_dim 32, 64 or 128");
+  static_assert(NR % WARPS == 0 && WROWS % CR == 0 && CR % 4 == 0,
+                "whole rows per warp, whole chunks per 32-row group");
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int nr = min(NR, s.R - rp0);         // query rows of this pass
   const int r0 = split * SPLIT;
-  if (r0 >= s.length) return;                // a dead split: no partial
+  if (r0 >= s.length) {                      // a dead split: no partial
+    if (out != nullptr)                      // ... of an empty slot: 0
+      for (int e = tid; e < nr * HD; e += THREADS)
+        out[s.qrow(rp0 + e / HD) * HD + e % HD] = 0.f;
+    return;
+  }
   extern __shared__ __align__(16) unsigned char smem_raw[];
   SmemF32<HD, NTP, WARPS>& sm =
       *reinterpret_cast<SmemF32<HD, NTP, WARPS>*>(smem_raw);
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int r1 = min(r0 + SPLIT, s.length);
-  const int w0 = warp * WROWS;
-  const bool live = r0 + w0 < r1;
-  const int nr = min(NR, s.R - rp0);         // query rows of this pass
-
-  if (live) {
-    // this warp's 32 rows: K, then V, as two copy groups
-    const size_t base0 = s.kv(r0 + w0);
-    const int rs = s.nkv * HD;
+  const int nch = (r1 - r0 + CR - 1) / CR;
+  const int rs = s.nkv * HD;
+  // where each live 32-row group of the split starts (one read of the
+  // page table each, all in flight before the first copy)
+  size_t base[GROUPS];
 #pragma unroll
-    for (int kv = 0; kv < 2; ++kv) {
-      const float* src = kv ? v : k;
+  for (int g = 0; g < GROUPS; ++g)
+    base[g] = r0 + g * WROWS < r1 ? s.kv(r0 + g * WROWS) : 0;
+  // chunk c's K and V rows into stage c % F32_STAGES; rows at or past r1
+  // are zero
+  auto issue = [&](int c) {
+    const int row0 = r0 + c * CR, st = c % F32_STAGES;
+    size_t b0 = 0;
 #pragma unroll
-      for (int it = 0; it < WROWS * CH / 32; ++it) {
-        const int e = lane + 32 * it;
-        const int r = e / CH, cc = e % CH;
-        const bool full = r0 + w0 + r < r1;
-        const size_t off = full ? base0 + (size_t)r * rs + cc * 4 : 0;
-        float* dst = kv ? &sm.v[w0 + r][cc * 4] : &sm.k[w0 + r][cc * 4];
-        cp_async16(smem_u32(dst), src + off, full);
-      }
-      cp_async_commit();
+    for (int g = 0; g < GROUPS; ++g)
+      if (g == c * CR / WROWS) b0 = base[g];
+    b0 += (size_t)(c * CR % WROWS) * rs;
+#pragma unroll
+    for (int e0 = 0; e0 < 2 * CR * C4; e0 += THREADS) {
+      const int e = e0 + tid;
+      const int kv = e / (CR * C4), r = e % (CR * C4) / C4, cc = e % C4;
+      const bool full = row0 + r < r1;
+      const size_t off = full ? b0 + (size_t)r * rs + 4 * cc : 0;
+      float* dst = kv ? &sm.v[st][r][4 * cc] : &sm.k[st][r][4 * cc];
+      cp_async16(smem_u32(dst), (kv ? v : k) + off, full);
     }
+  };
+  static_assert(2 * CR * C4 % THREADS == 0, "whole copy steps");
+#pragma unroll
+  for (int c = 0; c < F32_STAGES - 1; ++c) {
+    if (c < nch) issue(c);
+    cp_async_commit();
   }
   for (int e = tid; e < NR * HD; e += THREADS) {
-    const int r = e / HD;
-    sm.q[r][e % HD] =
-        r < nr ? q[s.qrow(rp0 + r) * HD + e % HD] * scale_log2 : 0.f;
-  }
-  __syncthreads();                           // the query rows are staged
-
-  float acc[NR][DL];
-  float m2[NR], l2[NR];
-#pragma unroll
-  for (int r = 0; r < NR; ++r) {
-    m2[r] = -INFINITY;
-    l2[r] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DL; ++j) acc[r][j] = 0.f;
+    const int r = e / HD, d = e % HD;
+    sm.q[r][d + (d >= HD / 2 ? 4 : 0)] =
+        r < nr ? q[s.qrow(rp0 + r) * HD + d] * scale_log2 : 0.f;
   }
 
-  if (live) {
-    cp_async_wait<1>();                      // K rows landed
-    __syncwarp();
-    const int key = r0 + w0 + lane;
-    float sc[NR];
+  // this warp's rows warp + WARPS i: max (log2 domain; the sentinel while
+  // the row has seen no key), this lane's share of the sum, unnormalised acc
+  float acc[RW][DL], m[RW], l[RW];
+  int lim[RW];
 #pragma unroll
-    for (int r = 0; r < NR; ++r) sc[r] = 0.f;
-#pragma unroll 4
-    for (int c4 = 0; c4 < CH; ++c4) {
-      const float4 kk = *reinterpret_cast<const float4*>(&sm.k[w0 + lane][4 * c4]);
+  for (int i = 0; i < RW; ++i) {
+    const int r = warp + WARPS * i;
+    m[i] = NEG_SENTINEL;
+    l[i] = 0.f;
+    lim[i] = r < nr ? s.limit(rp0 + r) : 0;
 #pragma unroll
-      for (int r = 0; r < NR; ++r) {
-        const float4 qq = *reinterpret_cast<const float4*>(&sm.q[r][4 * c4]);
-        sc[r] = fmaf(qq.x, kk.x, sc[r]);
-        sc[r] = fmaf(qq.y, kk.y, sc[r]);
-        sc[r] = fmaf(qq.z, kk.z, sc[r]);
-        sc[r] = fmaf(qq.w, kk.w, sc[r]);
+    for (int j = 0; j < DL; ++j) acc[i][j] = 0.f;
+  }
+  const int kl = lane & (CR - 1), half = lane / CR;
+
+  for (int c = 0; c < nch; ++c) {
+    cp_async_wait<F32_STAGES - 2>();         // chunk c landed
+    __syncthreads();                         // for all; chunk c - 1 is done
+    if (c + F32_STAGES - 1 < nch) issue(c + F32_STAGES - 1);
+    cp_async_commit();
+    const int st = c % F32_STAGES;
+    const int key = r0 + c * CR + kl;
+
+    // scores: four independent sums a row over this lane's half
+    float sc[RW][4];
+#pragma unroll
+    for (int i = 0; i < RW; ++i)
+      sc[i][0] = sc[i][1] = sc[i][2] = sc[i][3] = 0.f;
+    const float* krow = &sm.k[st][kl][half * (HD / 2)];
+#pragma unroll
+    for (int i4 = 0; i4 < H4; ++i4) {
+      const float4 kk = *reinterpret_cast<const float4*>(krow + 4 * i4);
+#pragma unroll
+      for (int i = 0; i < RW; ++i) {
+        if (warp + WARPS * i >= nr) continue;
+        const float4 qq = *reinterpret_cast<const float4*>(
+            &sm.q[warp + WARPS * i][half * (HD / 2 + 4) + 4 * i4]);
+        sc[i][0] = fmaf(qq.x, kk.x, sc[i][0]);
+        sc[i][1] = fmaf(qq.y, kk.y, sc[i][1]);
+        sc[i][2] = fmaf(qq.z, kk.z, sc[i][2]);
+        sc[i][3] = fmaf(qq.w, kk.w, sc[i][3]);
       }
     }
-    // per query row: keys at or past its limit get the sentinel; max and
-    // sum over the warp's 32 keys; a row that sees none of them gets max
-    // -inf, sum 0 and p = 0
+    // keys at or past a row's limit get the sentinel; the online update
+    // over the chunk's CR keys (both halves of the warp hold them)
 #pragma unroll
-    for (int r = 0; r < NR; ++r) {
-      const int lim = r < nr ? s.limit(rp0 + r) : 0;
-      const float x = key < lim ? sc[r] : NEG_SENTINEL;
+    for (int i = 0; i < RW; ++i) {
+      if (warp + WARPS * i >= nr) continue;
+      float x = (sc[i][0] + sc[i][1]) + (sc[i][2] + sc[i][3]);
+      x += __shfl_xor_sync(0xffffffffu, x, CR);
+      x = key < lim[i] ? x : NEG_SENTINEL;
       float mx = x;
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
+      for (int o = CR / 2; o > 0; o >>= 1)
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const bool seen = mx != NEG_SENTINEL;
-      const float p = ex2(x - (seen ? mx : 0.f));
-      float sum = p;
+      const float mn = fmaxf(m[i], mx);
+      const float alpha = ex2(m[i] - mn);
+      const float p = ex2(x - mn);
+      l[i] = l[i] * alpha + p;
+      m[i] = mn;
+      if (half == 0) sm.p[warp][i][kl] = p;
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      m2[r] = seen ? mx : -INFINITY;
-      l2[r] = sum;
-      sc[r] = p;
+      for (int j = 0; j < DL; ++j) acc[i][j] *= alpha;
     }
-
-    cp_async_wait<0>();                      // V rows landed
     __syncwarp();
-#pragma unroll 4
-    for (int c = 0; c < WROWS; ++c) {
-      float vv[DL];
+    // acc += P V over the chunk's keys, four at a time
 #pragma unroll
-      for (int j = 0; j < DL; ++j) vv[j] = sm.v[w0 + c][lane + 32 * j];
+    for (int k4 = 0; k4 < CR / 4; ++k4) {
+      float vv[4][DL];
 #pragma unroll
-      for (int r = 0; r < NR; ++r) {
-        const float p = __shfl_sync(0xffffffffu, sc[r], c);
+      for (int u = 0; u < 4; ++u)
+        load_cols<DL>(vv[u], &sm.v[st][4 * k4 + u][lane * DL]);
 #pragma unroll
-        for (int j = 0; j < DL; ++j) acc[r][j] = fmaf(p, vv[j], acc[r][j]);
+      for (int i = 0; i < RW; ++i) {
+        if (warp + WARPS * i >= nr) continue;
+        const float4 pp =
+            *reinterpret_cast<const float4*>(&sm.p[warp][i][4 * k4]);
+#pragma unroll
+        for (int j = 0; j < DL; ++j) {
+          acc[i][j] = fmaf(pp.x, vv[0][j], acc[i][j]);
+          acc[i][j] = fmaf(pp.y, vv[1][j], acc[i][j]);
+          acc[i][j] = fmaf(pp.z, vv[2][j], acc[i][j]);
+          acc[i][j] = fmaf(pp.w, vv[3][j], acc[i][j]);
+        }
       }
     }
   }
-  if (lane == 0) {
-#pragma unroll
-    for (int r = 0; r < NR; ++r) {
-      sm.m[warp][r] = m2[r];
-      sm.l[warp][r] = l2[r];
-    }
-  }
-  __syncthreads();                           // every warp is done with K, V
 
-  // the warps' accumulators, [WARPS][nr][HD] fp32, over the K and V rows
-  float* red = &sm.k[0][0];
-  static_assert(sizeof(float) * WARPS * NR * HD <= sizeof(sm.k) + sizeof(sm.v),
-                "the accumulators fit in the K and V rows");
+  // a row that saw no key of the split: max -inf, sum 0, acc 0 (output 0)
 #pragma unroll
-  for (int r = 0; r < NR; ++r) {
-    if (r < nr) {
+  for (int i = 0; i < RW; ++i) {
+    const int r = warp + WARPS * i;
+    if (r >= nr) continue;
+    float li = l[i];
+#pragma unroll
+    for (int o = CR / 2; o > 0; o >>= 1)
+      li += __shfl_xor_sync(0xffffffffu, li, o);
+    const bool seen = m[i] != NEG_SENTINEL;
+    if (out != nullptr) {
+      const float inv = seen ? 1.f / fmaxf(li, 1e-30f) : 0.f;
+      float* o = out + s.qrow(rp0 + r) * HD + lane * DL;
+#pragma unroll
+      for (int j = 0; j < DL; ++j) o[j] = acc[i][j] * inv;
+    } else {
+      const size_t rec =
+          (((size_t)s.b * s.nkv + s.h) * nsplit + split) * s.R + rp0 + r;
 #pragma unroll
       for (int j = 0; j < DL; ++j)
-        red[(warp * nr + r) * HD + lane + 32 * j] = acc[r][j];
+        part.acc[rec * HD + lane * DL + j] = seen ? acc[i][j] : 0.f;
+      if (lane == 0) {
+        part.ml[rec * 2] = seen ? m[i] : -INFINITY;
+        part.ml[rec * 2 + 1] = seen ? li : 0.f;
+      }
     }
   }
-  __syncthreads();
-  combine_warps<HD, WARPS, NR>(sm.m, sm.l, red, nr, part,
-                               (((size_t)s.b * s.nkv + s.h) * nsplit + split)
-                                   * s.R + rp0);
+}
+
+// One block of a split kernel: the bf16 body always writes a partial for
+// the merge; the float32 body writes the output itself when the launch has
+// one split.
+template <int HD, int NTP, int WARPS, class Slot>
+__device__ __forceinline__ void split_block(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16*, const Partials& part,
+    int split, int nsplit, int rp0, float scale_log2, const Slot& s) {
+  split_partial<HD, NTP, WARPS>(q, k, v, part, split, nsplit, rp0,
+                                scale_log2, s);
+}
+
+template <int HD, int NTP, int WARPS, class Slot>
+__device__ __forceinline__ void split_block(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* out, const Partials& part,
+    int split, int nsplit, int rp0, float scale_log2, const Slot& s) {
+  split_partial<HD, NTP, WARPS>(q, k, v, part, split, nsplit, rp0,
+                                scale_log2, s, nsplit == 1 ? out : nullptr);
 }
 
 __device__ __forceinline__ void store_out(__nv_bfloat16* o, float x) {
@@ -580,8 +679,9 @@ __device__ __forceinline__ void merge_partials(
 // kernel over (R, NKV, B) as its programmatic dependent: the merge may be
 // scheduled as the split blocks start and waits for their grid to finish,
 // so its launch overlaps the split kernel's tail. T is the element type
-// (bf16 or float), which sets the split block's shared memory. Returns a
-// cudaError_t.
+// (bf16 or float), which sets the split block's shared memory; a float32
+// launch of one split has written its output and launches no merge.
+// Returns a cudaError_t.
 template <int HD, int NTP, int WARPS, class T, class Args>
 int launch_split_merge(void (*split_kernel)(Args, Partials, int, int, float),
                        void (*merge_kernel)(Args, Partials, int),
@@ -606,6 +706,8 @@ int launch_split_merge(void (*split_kernel)(Args, Partials, int, int, float),
   cudaError_t err = cudaLaunchKernelEx(&cfg, split_kernel, args, part, nsplit,
                                        npass, scale_log2);
   if (err != cudaSuccess) return (int)err;
+  // one float32 split: the split kernel has written the output
+  if (std::is_same<T, float>::value && nsplit == 1) return (int)cudaSuccess;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr[0].val.programmaticStreamSerializationAllowed = 1;

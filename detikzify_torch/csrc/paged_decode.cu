@@ -10,8 +10,10 @@
 // and out = acc / max(l, 1e-30), as the TPU kernel does. The TPU kernel
 // reads a pool of any dtype; this one takes bf16 pools
 // (detikzify_paged_decode) and float32 pools (detikzify_paged_decode_f32,
-// every product an fp32 FFMA and p kept in fp32), at head_dim 32, 64 and
-// 128 (the JAX package sends head_dim 32 to XLA; the same function here).
+// every product an fp32 FFMA and p kept in fp32, the keys streamed through
+// a ring of 16-row chunks, and no merge launch where the table holds one
+// 128-row split), at head_dim 32, 64 and 128 (the JAX package sends
+// head_dim 32 to XLA; the same function here).
 //
 // What bounds it on the H100: every live K/V row is read once and used for
 // only 2 * G * Hd FLOP per element pair (G = NH / NKV query rows), so it is
@@ -88,9 +90,9 @@ __device__ __forceinline__ PagedSlot slot(const Args<T>& a, int b, int h) {
 template <class T, int HD>
 __global__ void __launch_bounds__(WARPS * 32, ds::min_blocks(1, WARPS))
 paged_split_kernel(Args<T> a, ds::Partials part, int nsplit, int, float sl) {
-  ds::split_partial<HD, 1, WARPS>(a.q, a.pool_k, a.pool_v, part, blockIdx.x,
-                                  nsplit, 0, sl,
-                                  slot<HD>(a, blockIdx.z, blockIdx.y));
+  ds::split_block<HD, 1, WARPS>(a.q, a.pool_k, a.pool_v, a.out, part,
+                                blockIdx.x, nsplit, 0, sl,
+                                slot<HD>(a, blockIdx.z, blockIdx.y));
 }
 
 template <class T, int HD>

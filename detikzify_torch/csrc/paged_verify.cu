@@ -13,8 +13,9 @@
 // stays finite. The TPU kernel reads a pool of any dtype; this one takes
 // bf16 pools (detikzify_paged_verify) and float32 pools
 // (detikzify_paged_verify_f32, every product an fp32 FFMA and p kept in
-// fp32), at head_dim 32, 64 and 128 (the JAX package sends head_dim 32 to
-// XLA; the same function here).
+// fp32, the keys streamed through a ring of 16-row chunks, and no merge
+// launch where the table holds one 128-row split), at head_dim 32, 64 and
+// 128 (the JAX package sends head_dim 32 to XLA; the same function here).
 //
 // What bounds it on the H100: every valid K/V row is read once and used
 // for 2 * G * K1 * Hd FLOP per element pair (G * K1 = 20 query rows at
@@ -95,9 +96,9 @@ __global__ void __launch_bounds__(WARPS * 32, ds::min_blocks(NTP, WARPS))
 verify_split_kernel(Args<T> a, ds::Partials part, int nsplit, int npass,
                     float sl) {
   const int h = blockIdx.y / npass, pass = blockIdx.y % npass;
-  ds::split_partial<HD, NTP, WARPS>(a.q, a.pool_k, a.pool_v, part,
-                                    blockIdx.x, nsplit, pass * 8 * NTP, sl,
-                                    slot<HD>(a, blockIdx.z, h));
+  ds::split_block<HD, NTP, WARPS>(a.q, a.pool_k, a.pool_v, a.out, part,
+                                  blockIdx.x, nsplit, pass * 8 * NTP, sl,
+                                  slot<HD>(a, blockIdx.z, h));
 }
 
 template <class T, int HD>

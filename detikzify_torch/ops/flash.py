@@ -8,8 +8,12 @@ the CUDA kernel streams K/V tiles through shared memory with an online
 softmax on ``wgmma``; for S <= ``SMALL_S`` (the MAP head) a cluster of
 ``CLUSTER`` blocks splits the keys (``split_keys`` each) and merges their
 fp32 partials (see the header of ``flash_attn.cu``). float32 inputs take
-``flash_attn_f32.cu`` (``KERNEL_F32``: every product an fp32 FFMA, no
-TF32) at any head_dim up to ``MAX_HEAD_DIM_F32`` that is a multiple of 4.
+``flash_attn_f32.cu`` (``KERNEL_F32``) at any head_dim up to
+``MAX_HEAD_DIM_F32`` that is a multiple of 4: for S > 16 both products on
+the tensor cores in 3xTF32 (each fp32 operand split into two TF32 halves,
+three products summed in fp32), and for S <= ``SMALL_S`` over more than
+``SPLIT_MIN_T_F32`` keys the keys split over a cluster of ``CLUSTER``
+blocks in FFMA, as the bf16 path splits them.
 Any other dtype or head_dim raises on the card. ``attend_split_plain``
 repeats the split arithmetic in PyTorch for the tests. The plain version is
 ``ops.attention.attend_plain``: a tensor on the CPU takes it, a CUDA tensor
@@ -43,8 +47,11 @@ HEAD_DIMS = (32, 64, 72, 128)
 MAX_HEAD_DIM_F32 = 128
 #: query rows at or below which the kernel splits the keys across a
 #: cluster of blocks, and the blocks in it (``SMALL_S``, ``CLUSTER`` in
-#: flash_attn.cu)
+#: flash_attn.cu and flash_attn_f32.cu)
 SMALL_S, CLUSTER = 16, 8
+#: keys above which the fp32 kernel takes the split-key path at S <= 16
+#: (``SPLIT_MIN_T`` in flash_attn_f32.cu)
+SPLIT_MIN_T_F32 = 256
 
 
 def split_keys(t: int) -> int:

@@ -9,8 +9,11 @@
 For each checkpoint directory it runs, recording a verdict per step:
 
   1. ``import``           -- checkpoint -> the port's params/config/processor
-                             (``models.load.load`` on ``--device``; int8
-                             weight-only with ``--quantize``).
+                             in fp32 on the host (``models.load.load`` with
+                             ``device="cpu"``), as the JAX runbook commits
+                             its fp32 tree to the host; reports the
+                             parameter count and whether serving quantizes
+                             (``serve_plan``).
   2. ``processor_parity`` -- tokens and pixels against the reference
                              processor loaded from the same directory.
   3. ``logit_parity``     -- fp32 forward logits against the reference
@@ -19,16 +22,25 @@ For each checkpoint directory it runs, recording a verdict per step:
   4. ``export_gate``      -- the port's ``save_pretrained`` export loads
                              through the reference's own loader with the
                              same logits.
-  5. ``spec_acceptance``  -- measured tokens/step with the checkpoint's
+  5. ``serve_load``       -- the serving weights on ``--device``: with
+                             ``--quantize``, or above 3 B parameters on a
+                             card, the fp32 tree is dropped and the
+                             checkpoint loaded int8 weight-only with a bf16
+                             cache; otherwise the fp32 tree is placed on
+                             the device with an fp32 cache.
+  6. ``spec_acceptance``  -- measured tokens/step with the checkpoint's
                              tokenizer: unhinted sampling (T=0.8) and
                              MCTS-style parent-continuation hints, beside
                              the TPU's 1.3 verify break-even.
-  6. ``bench``            -- batched decode tok/s, prefix-hit start ms,
+  7. ``bench``            -- batched decode tok/s, prefix-hit start ms,
                              MCTS rollouts/min (parallelism 8), p50 time
                              to first compile.
-  7. ``eval_smoke``       -- ``examples.eval``'s protocol (``predict``'s
+  8. ``eval_smoke``       -- ``examples.eval``'s protocol (``predict``'s
                              per-item search, then ``score``) on a small
-                             synthetic test set: every metric finite.
+                             synthetic test set, on the weights
+                             ``examples.eval`` loads (``serve_load``'s int8
+                             ones where serving quantizes, else a bf16
+                             load on ``--device``): every metric finite.
 
 Steps 2-4 need the reference package: they run only with ``--reference
 PATH`` (its parity runs on the CPU in fp32) and are reported as
@@ -42,6 +54,7 @@ FakeBackend unless ``--tex`` is given.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import sys
@@ -49,12 +62,38 @@ import time
 import traceback
 from typing import Optional, Sequence
 
-PORT_STEPS = ("import", "spec_acceptance", "bench", "eval_smoke")
+PORT_STEPS = ("import", "serve_load", "spec_acceptance", "bench",
+              "eval_smoke")
 REFERENCE_STEPS = ("processor_parity", "logit_parity", "export_gate")
-STEPS = ("import",) + REFERENCE_STEPS + ("spec_acceptance", "bench",
-                                         "eval_smoke")
+STEPS = ("import",) + REFERENCE_STEPS + PORT_STEPS[1:]
 #: the JAX package's verify/plain break-even, measured on a TPU
 TPU_BREAK_EVEN = 1.3
+#: parameters above which a card serves a checkpoint int8 weight-only
+QUANTIZE_ABOVE = 3_000_000_000
+
+
+def serve_plan(n_params: int, quantize: bool, device) -> tuple:
+    """(weights, cache dtype) of the serving steps: ``("int8",
+    "bfloat16")`` when ``quantize`` is asked for or a card serves more than
+    ``QUANTIZE_ABOVE`` parameters, else ``("fp32", "float32")``. The JAX
+    runbook's rule (``tools/verify_real.py``: ``quantize or (n > 3e9 and
+    not --cpu)``), ``device="cpu"`` standing for its ``--cpu``."""
+    import torch
+
+    card = torch.device(device).type != "cpu"
+    if quantize or (n_params > QUANTIZE_ABOVE and card):
+        return "int8", "bfloat16"
+    return "fp32", "float32"
+
+
+def weights_kind(params) -> str:
+    """``"int8"`` for weight-only int8 projections, else the weights'
+    dtype (``"float32"``, ``"bfloat16"``)."""
+    from detikzify_torch.ops.quant import QuantLinear
+
+    if any(isinstance(m, QuantLinear) for m in params.modules()):
+        return "int8"
+    return str(params.text.embed_tokens.dtype).replace("torch.", "")
 
 
 def log(*a):
@@ -189,23 +228,23 @@ def verify_checkpoint(name: str, path: str, args,
                 f"({out[key]['seconds']}s)")
         return deco
 
-    on_card = device.type == "cuda"
-    cache = torch.bfloat16 if on_card else torch.float32
+    tower = args.vision_tower or None
 
     @step("import")
     def _():
-        dtype = torch.bfloat16 if on_card else torch.float32
-        params, cfg, proc = mload.load(
-            path, dtype=dtype, quantize=bool(args.quantize),
-            vision_tower=args.vision_tower or None, device=device)
-        n = sum(t.numel() for t in params.parameters())
-        state.update(params=params, cfg=cfg, proc=proc)
-        return {"n_params": int(n), "quantized": bool(args.quantize),
-                "device": str(device)}
+        # the fp32 tree on the host: the reference steps run on it, and
+        # serve_load places it on the device or drops it for int8
+        params, cfg, proc = mload.load(path, dtype=torch.float32,
+                                       vision_tower=tower, device="cpu")
+        n = int(sum(t.numel() for t in params.parameters()))
+        plan = serve_plan(n, args.quantize, device)
+        state.update(params=params, cfg=cfg, proc=proc, plan=plan)
+        return {"n_params": n, "serve_quantized": plan[0] == "int8",
+                "device": "cpu"}
 
     if not out["import"].get("ok"):
         return out
-    cfg, params, proc = state["cfg"], state["params"], state["proc"]
+    cfg, proc = state["cfg"], state["proc"]
     img = _figure(cfg.vision.image_size)
 
     def reference():
@@ -222,11 +261,8 @@ def verify_checkpoint(name: str, path: str, args,
             loader.REFERENCE_PATH = args.reference
             ref = loader.load_reference()
             model, rproc = ref.model.load(path, dtype=torch.float32)
-            cpu_params, _, cpu_proc = mload.load(
-                path, dtype=torch.float32, device="cpu",
-                vision_tower=args.vision_tower or None)
             state.update(ref=ref, ref_model=model.eval(), ref_proc=rproc,
-                         cpu_params=cpu_params, cpu_proc=cpu_proc)
+                         cpu_params=state["params"], cpu_proc=proc)
         return state
 
     @step("processor_parity")
@@ -301,11 +337,41 @@ def verify_checkpoint(name: str, path: str, args,
         assert d <= args.atol, f"reference disagrees with our export by {d}"
         return {"roundtrip_logit_max_diff": d}
 
+    @step("serve_load")
+    def _():
+        # the reference's tree first; then either the fp32 tree on the
+        # device, or (int8) no fp32 tree at all before the int8 load
+        for key in ("ref_model", "ref_proc", "cpu_params", "cpu_proc"):
+            state.pop(key, None)
+        mode, cache_dtype = state["plan"]
+        if mode == "int8":
+            state["params"] = None
+            gc.collect()
+            sp, _, _ = mload.load(path, quantize=True, vision_tower=tower,
+                                  device=device)
+            state.update(serve_params=sp, serve_cache=torch.bfloat16)
+        else:
+            state.update(serve_params=state.pop("params").to(device),
+                         serve_cache=torch.float32)
+        return {"mode": mode, "cache_dtype": cache_dtype}
+
+    if out["serve_load"]["ok"] is None:    # not requested: nothing to serve
+        for key in PORT_STEPS[2:]:
+            out[key] = {"ok": None, "not_run": "needs serve_load"}
+        return out
+    if not out["serve_load"]["ok"]:
+        return out
+
+    def served(eng) -> dict:
+        """What an engine runs on: its weights and its cache's dtype."""
+        return {"weights": weights_kind(eng.params),
+                "cache_dtype": str(eng.cache.k.dtype).replace("torch.", "")}
+
     @step("spec_acceptance")
     def _():
-        eng = DecodeEngine(params, cfg, num_slots=4,
+        eng = DecodeEngine(state["serve_params"], cfg, num_slots=4,
                            max_len=min(cfg.model_max_length, 512),
-                           cache_dtype=cache, speculate=4,
+                           cache_dtype=state["serve_cache"], speculate=4,
                            spec_min_rate=0.0, device=device,
                            sampling=SamplingParams(temperature=0.8,
                                                    top_p=0.95))
@@ -328,7 +394,7 @@ def verify_checkpoint(name: str, path: str, args,
         hinted = eng.spec_rate
         return {"spec_rate_unhinted_t08": round(unhinted, 3),
                 "spec_rate_hinted_t08": round(hinted, 3),
-                "break_even_tpu": TPU_BREAK_EVEN}
+                "break_even_tpu": TPU_BREAK_EVEN, **served(eng)}
 
     @step("bench")
     def _():
@@ -340,9 +406,10 @@ def verify_checkpoint(name: str, path: str, args,
         if not args.tex:
             set_backend(FakeBackend(latency=0.25))
         try:
-            eng = DecodeEngine(params, cfg, num_slots=8,
+            eng = DecodeEngine(state["serve_params"], cfg, num_slots=8,
                                max_len=min(cfg.model_max_length, 512),
-                               decode_block=32, cache_dtype=cache,
+                               decode_block=32,
+                               cache_dtype=state["serve_cache"],
                                device=device,
                                sampling=SamplingParams(temperature=0.8,
                                                        top_p=0.95))
@@ -365,8 +432,9 @@ def verify_checkpoint(name: str, path: str, args,
             pfx_ms = (time.time() - t0) * 1e3
             eng.release(ro)
             eng.run()
-            pipe = DetikzifyPipeline(params, cfg, proc, engine=eng,
-                                     metric="fast", device=device)
+            pipe = DetikzifyPipeline(state["serve_params"], cfg, proc,
+                                     engine=eng, metric="fast",
+                                     device=device)
             list(pipe.simulate(image=img, expansions=1))     # warmup
             t0 = time.time()
             list(pipe.simulate(image=img, expansions=8, parallelism=8))
@@ -384,6 +452,7 @@ def verify_checkpoint(name: str, path: str, args,
                 "p50_ttfc_s": round(p50_time_to_first_compile(ttfc), 2)
                 if ttfc else None,
                 "backend": "latexmk" if args.tex else "fake",
+                **served(eng),
             }
         finally:
             if not args.tex:
@@ -396,6 +465,15 @@ def verify_checkpoint(name: str, path: str, args,
         from detikzify_torch.infer import DetikzifyPipeline
         from detikzify_torch.infer.tikz import FakeBackend, set_backend
 
+        # the weights examples.eval loads: int8 where serving quantizes
+        # (serve_load's), else models.load.load's default bf16
+        if state["plan"][0] == "int8":
+            params = state["serve_params"]
+        else:
+            state.pop("serve_params", None)
+            gc.collect()
+            params, _, _ = mload.load(path, vision_tower=tower,
+                                      device=device)
         testset = _testset(args.eval_items)
         if not args.tex:
             set_backend(FakeBackend(latency=0.0))
@@ -420,7 +498,8 @@ def verify_checkpoint(name: str, path: str, args,
         scores_path = os.path.join(args.workdir, f"{name}_scores.json")
         with open(scores_path, "w") as f:
             json.dump({name: vals}, f)
-        return {"metrics": len(vals), "scores_json": scores_path}
+        return {"metrics": len(vals), "scores_json": scores_path,
+                "weights": weights_kind(params)}
 
     return out
 
@@ -438,7 +517,8 @@ def parse_args(argv=None):
                    help="use the real latexmk toolchain (default: "
                         "FakeBackend)")
     p.add_argument("--quantize", action="store_true",
-                   help="load the weights int8 weight-only")
+                   help="serve int8 weight-only with a bf16 cache (also "
+                        "the default on a card above 3 B parameters)")
     p.add_argument("--device", default="cuda",
                    help="device of the serving steps ('cpu' runs the "
                         "kernels' plain versions)")

@@ -243,3 +243,60 @@ def test_spec_measurement_model_is_jax_on_every_device(device, monkeypatch):
         assert getattr(cfg.text, name) == getattr(want.text, name), name
     assert cfg.dtype == want.dtype
     assert (out["head_dim"], out["dtype"]) == (32, "float32")
+
+
+# ---------------------------------------------------------------------------
+# why K1's fp32 kernel may run 3xTF32 on the tensor cores: its products,
+# emulated here bit for bit in their rounding, stay within the card check's
+# bound (chip_smoke.py's F32_TOL) of the fp32 plain version, and a single
+# TF32 pass does not
+# ---------------------------------------------------------------------------
+
+F32_TOL = 2.0 ** -16
+
+
+def _tf32(x):
+    """fp32 ``x`` rounded to TF32 (10 mantissa bits) to nearest, ties away
+    from zero: ``cvt.rna.tf32.f32``."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def _mm(a, b, passes):
+    """a @ b in fp32 from TF32 operands: one pass (hi hi) or the kernel's
+    three (lo hi + hi lo + hi hi, hi = tf32(x), lo = tf32(x - hi)). Each
+    TF32 product is exact in fp32; the sums are fp32."""
+    ah, bh = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ah @ bh
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _attend_tf32(q, k, v, passes):
+    """One head of softmax(q k^T / sqrt(hd)) v, [S, hd] over [T, hd], with
+    both products as K1's fp32 kernel takes them; softmax in fp32."""
+    s = _mm(q * np.float32(q.shape[-1] ** -0.5), k.T, passes)
+    p = np.exp(s - s.max(-1, keepdims=True)).astype(np.float32)
+    return _mm(p, v, passes) / p.sum(-1, keepdims=True)
+
+
+@pytest.mark.parametrize("s,t,hd", [(729, 729, 72),    # clip_vision_f32
+                                    (301, 301, 128)])  # v2 at head_dim 128
+def test_three_tf32_passes_hold_the_fp32_bound(s, t, hd):
+    """3xTF32 attention is within 2^-16 (|v|-weighted mass + |out|) of the
+    fp32 plain version at ClipScore's vision head shape and at head_dim
+    128; one TF32 pass fails that bound by far."""
+    rng = np.random.default_rng(hd)
+    q = rng.standard_normal((s, hd)).astype(np.float32)
+    k = rng.standard_normal((t, hd)).astype(np.float32)
+    v = rng.standard_normal((t, hd)).astype(np.float32)
+    qt, kt, vt = (_t(x)[None, :, None] for x in (q, k, v))
+    want = tattention.attend_plain(qt, kt, vt)[0, :, 0].numpy()
+    pv_abs = tattention.attend_plain(qt, kt, vt.abs())[0, :, 0].numpy()
+    bound = F32_TOL * (pv_abs + np.abs(want))
+    three = np.abs(_attend_tf32(q, k, v, 3) - want) / bound
+    one = np.abs(_attend_tf32(q, k, v, 1) - want) / bound
+    assert three.max() <= 0.25, three.max()
+    assert one.max() >= 8.0, one.max()

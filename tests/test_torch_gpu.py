@@ -505,13 +505,13 @@ def _close_f32(got, want, pv_abs):
 
 
 @pytest.mark.parametrize("mode", ["full", "causal", "mask", "window"])
-@pytest.mark.parametrize("hd", [12, 16, 32, 72, 128])
+@pytest.mark.parametrize("hd", [4, 12, 16, 32, 36, 72, 128])
 @pytest.mark.parametrize("s", [1, 16, 17, 65, 729])
 def test_flash_kernel_fp32_matches_plain(cuda, s, hd, mode):
-    """K1's fp32 kernel at every mask kind, on its 16-row blocks (S <= 16)
-    and its 64-row ones, at head dims that are not multiples of 32 (tiled
-    at the next one) and at the tower's 729 rows; one launch of the fp32
-    handle a call, none of the bf16 one."""
+    """K1's fp32 kernel at every mask kind, at S <= 16 over a few keys and
+    on its 64-row tiles, at head dims that are not multiples of 8 or 32
+    (tiled at 32, 64, 72 or 128 with zero pad columns) and at the tower's
+    729 rows; one launch of the fp32 handle a call, none of the bf16 one."""
     gen = torch.Generator(device=cuda).manual_seed(s * 11 + hd)
     # the masks and head layout of the bf16 cases, at this head_dim in fp32
     q, k, v, kw = _k1_case_inputs(gen, cuda, s, 72 if hd == 72 else 64, mode)
@@ -568,12 +568,14 @@ def _check(dtype, got, want, pv_abs):
                                       (torch.float32, 64),
                                       (torch.float32, 128),
                                       (torch.bfloat16, 32)])
-@pytest.mark.parametrize("nh,nkv", [(4, 4), (8, 2), (32, 32)])
+@pytest.mark.parametrize("nh,nkv", [(4, 4), (8, 2), (32, 32), (32, 8),
+                                    (16, 2)])
 def test_decode_kernels_fp32_and_head_dim_32(cuda, nh, nkv, dtype, hd):
     """K2, K4 and K3 over fp32 pools and caches at head_dim 32, 64 and 128
-    and over bf16 ones at head_dim 32 (MHA, GQA and DS-7b's 32 heads),
-    lengths across the 128-row splits, a dead verify slot and one past the
-    table's edge; each call launches its own dtype's handle once."""
+    and over bf16 ones at head_dim 32 (MHA, GQA 4 as v2-8b's, 8 and DS-7b's
+    32 heads), lengths across the 128-row splits, a dead verify slot and
+    one past the table's edge; each call launches its own dtype's handle
+    once."""
     from detikzify_torch.ops import decode_flash
 
     gen = torch.Generator(device=cuda).manual_seed(nh * 7 + hd)
@@ -615,6 +617,151 @@ def test_decode_kernels_fp32_and_head_dim_32(cuda, nh, nkv, dtype, hd):
         assert k3.launches == before + 1 and got.dtype == dtype
         _check(dtype, got, attention.decode_attend_plain(q, kk, vv, lengths),
                attention.decode_attend_plain(q, kk, vv.abs(), lengths))
+
+
+# ---------------------------------------------------------------------------
+# the Hopper redesign of the float32 kernels: K1's 3xTF32 tiles and its
+# cluster path at S <= 16, the decode body's ring and its one-split launch
+# ---------------------------------------------------------------------------
+
+def _f32_k1_inputs(gen, dev, b, s, t, nh, nkv, hd, mode):
+    """fp32 q, k, v and the mask of ``mode``: "mask" leaves the second row
+    no key (a uniform average over the T keys), "window" gives it a zero
+    key limit and the first a prefix offset."""
+    q = torch.randn((b, s, nh, hd), generator=gen, device=dev)
+    k = torch.randn((b, t, nkv, hd), generator=gen, device=dev)
+    v = torch.randn((b, t, nkv, hd), generator=gen, device=dev)
+    kw = {}
+    if mode == "causal":
+        kw["causal"] = True
+    elif mode == "mask":
+        mask = torch.ones((b, t), dtype=torch.bool, device=dev)
+        mask[0, t // 3:] = False
+        if b > 1:
+            mask[1, :] = False
+        kw["kv_mask"] = mask
+    elif mode == "window":
+        kw["q_offsets"] = torch.tensor([128] + [0] * (b - 1),
+                                       dtype=torch.int32, device=dev)
+        kw["kv_limits"] = torch.tensor([min(t, 300)] + [0] * (b - 1),
+                                       dtype=torch.int32, device=dev)
+    return q, k, v, kw
+
+
+def _k1_f32_hold(q, k, v, kw):
+    before = (flash.KERNEL_F32.launches, flash.KERNEL.launches)
+    got = flash.flash_attention(q, k, v, **kw)
+    assert (flash.KERNEL_F32.launches, flash.KERNEL.launches) == (
+        before[0] + 1, before[1])
+    assert got.shape == q.shape
+    want = attention.attend_plain(q, k, v, **kw)
+    pv_abs = attention.attend_plain(q, k, v.abs(), **kw)
+    _close_f32(got, want, pv_abs)
+    return want, pv_abs
+
+
+@pytest.mark.parametrize("mode", ["full", "causal", "mask", "window"])
+@pytest.mark.parametrize("t", [729, 900])
+@pytest.mark.parametrize("s", [1, 3, 16])
+def test_flash_kernel_fp32_cluster_path(cuda, s, t, mode):
+    """K1 fp32 at S <= 16 splits the 729 or 900 keys of the MAP head's
+    tower over a cluster of 8 blocks and merges their fp32 partials: every
+    mask kind, a row with no visible key, SigLIP's 16 heads of 72."""
+    gen = torch.Generator(device=cuda).manual_seed(s * 31 + t)
+    _k1_f32_hold(*_f32_k1_inputs(gen, cuda, 2, s, t, 16, 16, 72, mode))
+
+
+@pytest.mark.parametrize("b,s,t,nh,nkv,hd,mode,prompt", [
+    (8, 64, 64, 16, 16, 72, "full", None),      # ClipScore's text tower
+    (4, 729, 729, 16, 16, 72, "full", None),    # its vision tower
+    (4, 1, 729, 16, 16, 72, "full", None),      # its MAP head
+    (8, 128, 128, 4, 4, 32, "causal", None),    # the spec model's training
+    (1, 16, 144, 4, 4, 32, "window", 9),        # its prefill window
+    (1, 729, 729, 16, 16, 72, "full", None),    # DS-1.3b's tower in fp32
+    (1, 256, 384, 16, 16, 128, "window", 243),  # its prefill window
+    (8, 256, 384, 16, 16, 128, "window", 243),  # a wave of 8 rollouts
+])
+def test_flash_kernel_fp32_kernel_phase_shapes(cuda, b, s, t, nh, nkv, hd,
+                                               mode, prompt):
+    """K1 fp32 at every fp32 shape of chip_smoke.py's kernel phase; the
+    plain version with one TF32 pass for its products fails the bound the
+    kernel's 3xTF32 meets."""
+    import chip_smoke
+
+    gen = torch.Generator(device=cuda).manual_seed(b * s + hd)
+    q, k, v, kw = _f32_k1_inputs(gen, cuda, b, s, t, nh, nkv, hd, mode)
+    if mode == "window":              # fresh prompts, as the engine starts
+        kw = {"q_offsets": torch.zeros(b, dtype=torch.int32, device=cuda),
+              "kv_limits": torch.full((b,), prompt, dtype=torch.int32,
+                                      device=cuda)}
+    want, pv_abs = _k1_f32_hold(q, k, v, kw)
+    one_pass = chip_smoke.tf32_plain(torch, attention.attend_plain, q, k, v,
+                                     **kw)
+    bound = F32_TOL * (pv_abs + want.abs())
+    assert not bool(((one_pass - want).abs() <= bound).all())
+
+
+def _device_functions(fn, split_kernel):
+    """The names of the device functions ``fn`` launches, from a profile
+    that holds ``split_kernel`` (the profiler can lose a launch's device
+    events, as it did for a function loaded lazily in the profiled call:
+    ``fn`` runs once first, and the profile is taken again, up to three
+    times, until the split kernel is in it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = " ".join(e.name for e in prof.events())
+        if split_kernel in names:
+            return names
+    raise AssertionError(f"no {split_kernel} in three profiles: {names}")
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("nh,nkv", [(4, 4), (32, 8), (8, 1)])
+@pytest.mark.parametrize("page,m", [(64, 2), (128, 1)])
+def test_decode_kernels_fp32_one_split_no_merge(cuda, page, m, nh, nkv, hd):
+    """Where every slot's keys fit one 128-row split (the spec model's one
+    page), the fp32 K2, K4 and K3 write their output from the split kernel
+    and launch no merge; the result holds against the plain versions."""
+    from detikzify_torch.ops import decode_flash
+
+    gen = torch.Generator(device=cuda).manual_seed(nh * 5 + hd + page)
+    b = 6
+    pk, pv, tab = _pool_case(gen, cuda, torch.float32, b, nh, nkv, hd, page,
+                             m)
+    lengths = torch.tensor([1, 9, 16, 57, 100, 128], dtype=torch.int32,
+                           device=cuda)
+    q = torch.randn((b, nh, hd), generator=gen, device=cuda)
+    run = lambda: paged.decode_attend_paged(q, pk, pv, tab, lengths)  # noqa
+    assert "merge_kernel" not in _device_functions(run, "paged_split_kernel")
+    _close_f32(run(), paged.decode_attend_paged_plain(q, pk, pv, tab,
+                                                      lengths),
+               paged.decode_attend_paged_plain(q, pk, pv.abs(), tab,
+                                               lengths))
+    if (nh // nkv) * 5 <= paged.MAX_VERIFY_ROWS:
+        starts = torch.tensor([0, 4, 11, 52, 95, 123], dtype=torch.int32,
+                              device=cuda)
+        qv = torch.randn((b, 5, nh, hd), generator=gen, device=cuda)
+        run = lambda: paged.decode_verify_attend_paged(  # noqa
+            qv, pk, pv, tab, starts)
+        assert "merge_kernel" not in _device_functions(run,
+                                                       "verify_split_kernel")
+        _close_f32(run(), paged.decode_verify_attend_paged_plain(
+            qv, pk, pv, tab, starts), paged.decode_verify_attend_paged_plain(
+            qv, pk, pv.abs(), tab, starts))
+    kc, vc = paged.gather_pages(pk, tab), paged.gather_pages(pv, tab)
+    before = decode_flash.KERNEL_F32.launches
+    run = lambda: attention.decode_attend(q, kc, vc, lengths)  # noqa
+    assert "merge_kernel" not in _device_functions(run, "contig_split_kernel")
+    assert decode_flash.KERNEL_F32.launches > before
+    _close_f32(run(), attention.decode_attend_plain(q, kc, vc, lengths),
+               attention.decode_attend_plain(q, kc, vc.abs(), lengths))
 
 
 # ---------------------------------------------------------------------------

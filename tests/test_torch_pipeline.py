@@ -625,7 +625,8 @@ def test_chip_smoke_cpu_rehearsal():
     ``pipelined_spec``), the BPE
     speculation measurement (``spec_acceptance``, ``spec_acceptance_steps``,
     on JAX's fp32 model), the DS-7b int8 streaming drive (``ds7b``), the
-    verification tool (``verify_real``) and the mesh's model axis over two
+    verification tool (``verify_real``, its int8 and fp32 legs) and the
+    mesh's model axis over two
     gloo ranks (``tp``, ``tp_spec``, ``tp_train``); the kernel rows hold the
     fp32 variants of K1-K4 beside the bf16 ones."""
     env = dict(os.environ, OMP_NUM_THREADS="1")
@@ -649,6 +650,7 @@ def test_chip_smoke_cpu_rehearsal():
              "infer_cli_mcts", "serve_bench", "v1_sample", "v1_simulate",
              "train", "pretrain", "grpo", "adapter_pretrain",
              "adapter_train", "pipelined", "pipelined_spec", "verify_real",
+             "verify_real_fp32",
              "spec_acceptance", "spec_acceptance_steps", "ds7b", "mesh",
              "tp", "tp_spec", "tp_train"}
     assert all(set(row["launches_by_path"]) == paths for row in kernels)
@@ -826,11 +828,34 @@ def test_chip_smoke_cpu_rehearsal():
         "flash_attention/clip_map_head_f32",
         "flash_attention/spec_train_f32", "flash_attention/spec_prefill_f32",
         "paged_decode/spec_f32", "paged_verify/spec_f32",
-        "decode_contig/spec_f32", "decode_contig/spec_f32/kv_limit80"}
+        "decode_contig/spec_f32", "decode_contig/spec_f32/kv_limit80",
+        # DS-1.3b's shapes in fp32, the verify_real fp32 leg's
+        "flash_attention/ds13_vision_f32", "flash_attention/ds13_prefill_f32",
+        "flash_attention/ds13_prefill_wave_f32", "paged_decode/ds13_f32",
+        "paged_verify/ds13_f32", "decode_contig/ds13_f32",
+        "decode_contig/ds13_f32/kv_limit80"}
     assert all(r["bf16_control_max_err_over_tol"] > 1 for r in f32_rows)
     assert {"flash_attention/spec_train_bf16",
             "flash_attention/spec_prefill_bf16", "paged_decode/spec_bf16",
             "paged_verify/spec_bf16", "decode_contig/spec_bf16"} <= row_names
+    # verify_real's two legs: int8 on the load phase's export (the CPU's
+    # rule quantizes only under --quantize), fp32 with an fp32 cache on a
+    # checkpoint of its own without it, serving steps on serve_load's
+    # weights
+    vr = phases["verify_real"]
+    leg = vr["verify_real"]
+    assert leg["flags"] == ["--quantize"]
+    assert (leg["steps"]["serve_load"]["mode"],
+            leg["steps"]["serve_load"]["cache_dtype"]) == ("int8", "bfloat16")
+    assert leg["steps"]["import"]["serve_quantized"]
+    assert leg["steps"]["eval_smoke"]["weights"] == "int8"
+    assert "--quantize" not in vr["verify_real_fp32"]["flags"]
+    leg = vr["verify_real_fp32"]["steps"]
+    assert (leg["serve_load"]["mode"], leg["serve_load"]["cache_dtype"]) == (
+        "fp32", "float32")
+    assert all((leg[s]["weights"], leg[s]["cache_dtype"]) == (
+        "float32", "float32") for s in ("spec_acceptance", "bench"))
+    assert not list((ROOT / "build").glob("verify_real_*"))
     # JAX's spec model (4 heads of 32, fp32) and the DS-7b streaming drive
     sa = phases["spec_acceptance"]["measurement"]
     assert (sa["head_dim"], sa["dtype"]) == (32, "float32")

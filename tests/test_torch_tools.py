@@ -7,8 +7,10 @@
     ``load_ensemble`` reads them back;
   * ``detikzify_torch.tools.verify_real --make-tiny --device cpu`` (a tiny
     checkpoint written by the port's ``save_pretrained``) reports ``ok``
-    for its four port steps and ``not_run`` for the three steps that need
-    the reference package;
+    for its five port steps and ``not_run`` for the three steps that need
+    the reference package, and serves the fp32 tree with an fp32 cache as
+    the JAX runbook does; its serve rule (``serve_plan``) is the JAX
+    runbook's, read from ``tools/verify_real.py``;
   * ``ImageSim`` takes per-channel statistics, as a loaded checkpoint's
     processor gives them (the fault ``eval_smoke`` found).
 """
@@ -129,9 +131,70 @@ def test_verify_real_make_tiny_cpu(tmp_path):
     assert steps["bench"]["decode_tok_s"] > 0
     assert steps["eval_smoke"]["metrics"] >= 8
     assert 1.0 <= steps["spec_acceptance"]["spec_rate_hinted_t08"] <= 5.0
+    # off a card, a checkpoint under 3 B parameters is served as JAX serves
+    # it: the fp32 tree with an fp32 cache, which spec_acceptance and bench
+    # run on; eval_smoke on the bf16 load examples.eval makes
+    assert steps["import"]["serve_quantized"] is False
+    assert (steps["serve_load"]["mode"],
+            steps["serve_load"]["cache_dtype"]) == ("fp32", "float32")
+    for name in ("spec_acceptance", "bench"):
+        assert (steps[name]["weights"], steps[name]["cache_dtype"]) == (
+            "float32", "float32"), (name, steps[name])
+    assert steps["eval_smoke"]["weights"] == "bfloat16"
     # the checkpoint came from the port's own exporter
     with open(tmp_path / "ck" / "config.json") as f:
         assert json.load(f)["model_type"] == "detikzify"
+
+
+def _jax_serve_rule():
+    """The JAX runbook's serve rule and its two serve_load results, read
+    from ``tools/verify_real.py`` (its ``import`` step, line 189, and its
+    ``serve_load`` step, lines 314-323)."""
+    with open(os.path.join(ROOT, "tools", "verify_real.py")) as f:
+        src = f.read()
+    rule = "bool(args.quantize) or (n > 3_000_000_000 and not args.cpu)"
+    assert f"quant = {rule}" in src
+    serve = src[src.index('@step("serve_load")'):
+                src.index('@step("spec_acceptance")')]
+    assert 'return {"mode": "int8", "cache_dtype": "bfloat16"}' in serve
+    assert 'return {"mode": "fp32", "cache_dtype": "float32"}' in serve
+    return rule
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+@pytest.mark.parametrize("quantize", [False, True])
+@pytest.mark.parametrize("n_params", [541_885_888, 3_000_000_000,
+                                      3_000_000_001, 8_000_000_000])
+def test_verify_real_serve_rule_is_jax(n_params, quantize, device):
+    """``serve_plan`` gives the JAX runbook's serving weights and cache:
+    int8 / bf16 when ``--quantize`` is given or a card serves more than
+    3 B parameters, fp32 / fp32 otherwise (``--device cpu`` standing for
+    JAX's ``--cpu``)."""
+    import argparse
+
+    args = argparse.Namespace(quantize=quantize, cpu=device == "cpu")
+    quant = eval(_jax_serve_rule(), {}, {"args": args, "n": n_params})
+    want = ("int8", "bfloat16") if quant else ("fp32", "float32")
+    assert verify_real.serve_plan(n_params, quantize, device) == want
+
+
+def test_verify_real_quantize_serves_int8_cpu(tmp_path):
+    """With ``--quantize`` the fp32 tree is dropped for an int8 load with a
+    bf16 cache, and spec_acceptance runs on those weights and that cache."""
+    ck = tmp_path / "ck"
+    verify_real.make_tiny_checkpoint(str(ck))
+    _, args = verify_real.parse_args(
+        ["--checkpoint", f"tiny={ck}", "--device", "cpu", "--quantize",
+         "--spec-tokens", "8", "--workdir", str(tmp_path / "work")])
+    steps = verify_real.verify_checkpoint(
+        "tiny", str(ck), args,
+        steps=("import", "serve_load", "spec_acceptance"))
+    assert steps["import"]["serve_quantized"] is True
+    assert (steps["serve_load"]["mode"],
+            steps["serve_load"]["cache_dtype"]) == ("int8", "bfloat16")
+    assert (steps["spec_acceptance"]["weights"],
+            steps["spec_acceptance"]["cache_dtype"]) == ("int8", "bfloat16")
+    assert steps["bench"]["ok"] is None and steps["eval_smoke"]["ok"] is None
 
 
 def test_verify_real_counts_only_steps_that_ran():

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time two builds of the port's kernels K1-K5 on one card, in turns.
 
-    python3 tools/kernel_ab.py --old DIR [--iters 30] [--only k5] [--profile]
+    python3 tools/kernel_ab.py --old DIR [--iters 30] [--only k5|f32]
+                               [--profile]
 
 DIR holds an earlier ``detikzify_torch/csrc`` whose K1-K4 have the current
 C interfaces and whose K5 (``int8_gemv.cu``) has either the current one
@@ -25,6 +26,16 @@ package's K5 wrapper (median over 200 calls, no synchronisation) and, with
 ``--profile``, each K5 device function's profiled time. Prints the card
 as nvidia-smi names it, then one JSON line per shape; exits non-zero if a
 build disagrees with the plain version or there is no card.
+
+``--only f32`` times the float32 entry points of K1-K4 instead (DIR's
+``detikzify_flash_attention_f32``, ``detikzify_paged_decode_f32``,
+``detikzify_paged_verify_f32`` and ``detikzify_decode_contig_f32`` with the
+current C interfaces): every float32 row of ``chip_smoke.py``'s kernel
+phase is run through the package's wrappers with the old build's handle in
+place of the new one, then with the new one, old, new, new, old; each run
+holds its build to ``chip_smoke.py``'s fp32 tolerance with its controls,
+and each JSON line gives ``old_ms`` and ``new_ms`` beside the row's bound,
+plain and SDPA times from the new runs.
 """
 from __future__ import annotations
 
@@ -59,8 +70,9 @@ def main(argv=None) -> int:
     ap.add_argument("--old", required=True,
                     help="directory with the earlier csrc sources")
     ap.add_argument("--iters", type=int, default=30)
-    ap.add_argument("--only", choices=("k5",),
-                    help="time only K5 (skip K1-K4)")
+    ap.add_argument("--only", choices=("k5", "f32"),
+                    help="time only K5, or only K1-K4's float32 entry "
+                         "points")
     ap.add_argument("--profile", action="store_true",
                     help="K5: also the device time of each of its device "
                          "functions under torch.profiler, old and new")
@@ -78,6 +90,8 @@ def main(argv=None) -> int:
                                           split_scratch)
 
     old = Path(args.old).resolve()
+    if args.only == "f32":
+        return f32_main(torch, cs, old, args.iters)
     old_headers = sorted(old.glob("*.cuh"))
 
     def old_kernel(name, source):
@@ -277,6 +291,82 @@ def main(argv=None) -> int:
                cs.bound(live * nkv * hd * 2 * 2 + 2 * q.numel() * 2,
                         4 * nh * hd * live))
     return finish(failed)
+
+
+# K1-K4's float32 entry points: (module, attribute holding the handle,
+# KERNELS name, source file)
+F32_HANDLES = (
+    ("flash", "KERNEL_F32", "flash_attention_f32", "flash_attn_f32.cu"),
+    ("paged", "KERNEL_F32", "paged_decode_f32", "paged_decode.cu"),
+    ("paged", "VERIFY_KERNEL_F32", "paged_verify_f32", "paged_verify.cu"),
+    ("decode_flash", "KERNEL_F32", "decode_contig_f32", "decode_contig.cu"),
+)
+
+
+def f32_main(torch, cs, old: Path, iters: int) -> int:
+    """``--only f32``: every float32 row of the kernel phase, old build
+    against new (see the module's docstring). A row whose build disagrees
+    with the plain version stops the run (``chip_smoke.py``'s row
+    builders raise SystemExit)."""
+    from detikzify_torch.ops import decode_flash, flash, paged
+    from detikzify_torch.ops.cuda import KERNELS, CudaKernel
+
+    modules = {"flash": flash, "paged": paged, "decode_flash": decode_flash}
+    headers = sorted(old.glob("*.cuh"))
+    olds = {name: CudaKernel(name + "_old", old / src, KERNELS[name].symbol,
+                             KERNELS[name].argtypes, headers=headers)
+            for _, _, name, src in F32_HANDLES}
+    kernels = list(olds.values()) + [KERNELS[n] for _, _, n, _ in
+                                     F32_HANDLES]
+    started = [(k, k._start_build()) for k in kernels]
+    for k, st in started:
+        if st is not None:
+            k._finish_build(st)
+    for k in kernels:
+        k._load()
+
+    def use(which: str) -> None:
+        for mod, attr, name, _ in F32_HANDLES:
+            setattr(modules[mod], attr,
+                    olds[name] if which == "old" else KERNELS[name])
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = cs.nvidia_smi()
+    print(smi, flush=True)
+    timer = cs.Timer(torch, dev, iters)
+    f32 = torch.float32
+    runs = [lambda g, c=case, p=prompt, n=lengths: cs.k1_row(
+                torch, g, dev, False, timer, c, p, n, f32)
+            for case, prompt, lengths, dtype in cs.k1_cases(torch)
+            if dtype == f32]
+    runs += [lambda g, fn=fn, c=case, n=name: fn(
+                 torch, g, dev, False, timer, c, n, f32)
+             for fn, case, name in cs.f32_decode_cases()]
+    for run in runs:
+        got = {}
+        for which in ("old", "new", "new", "old"):
+            use(which)
+            res = run(torch.Generator(device=dev).manual_seed(1234))
+            for r in res if isinstance(res, list) else [res]:
+                got.setdefault(r["name"], []).append((which, r))
+        use("new")
+        for name, both in got.items():
+            new = [r for w, r in both if w == "new"]
+            row = {k: v for k, v in new[0].items()
+                   if k not in ("ms", "plain_ms", "library_ms")}
+            row.update(
+                device=smi,
+                old_ms=[r["ms"] for w, r in both if w == "old"],
+                new_ms=[r["ms"] for r in new],
+                plain_ms=[r["plain_ms"] for r in new],
+                library_ms=[r["library_ms"] for r in new],
+                old_max_err_over_tol=max(r["max_err_over_tol"]
+                                         for w, r in both if w == "old"))
+            row["speedup"] = sum(row["old_ms"]) / sum(row["new_ms"])
+            cs.emit(row)
+    return finish([])
 
 
 def finish(failed) -> int:
