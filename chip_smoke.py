@@ -96,7 +96,19 @@ Phases, each printing one JSON line:
               under torch.profiler;
 13. simulate_spec -- the same ``simulate()`` on a speculative engine
               (speculate=4), with every draft class kept on and then with
-              the default gating (spec_min_rate 1.3);
+              the default gating (spec_min_rate 1.3) over 64 expansions of
+              256 tokens, long enough that a draft class bails out and the
+              leg decodes plain blocks (K2) too;
+13b. pipelined -- ``DecodeEngine(pipelined=True)`` against eager stepping,
+              greedy, every decode step recorded (so on eager engines), then
+              a pipelined speculative run (eager, for the verify/plain step
+              ratio) and one profiled block on graphs;
+13c. graphs -- each decode block as a CUDA graph (the engine's default on
+              a card) against eager dispatch (``graphs=False``) in turns:
+              greedy streams and launches equal, plain and speculate=4;
+              ms a step, a profiled block, ``sample()`` and ``simulate()``
+              of each, pipelined dispatch over graphs, captures, capture
+              seconds and pool bytes;
 14. serve  -- the HTTP server (``serve.make_server``) on the same int8 +
               fused weights, SelfSim, 8 slots over 2048 rows, driven over
               real HTTP: an idle greedy request (equal to a direct
@@ -211,8 +223,15 @@ Phases, each printing one JSON line:
               decoder trains;
 31. the ``kernels`` JSON line (launches on each path above, each counted
    from 0 just before the path ran and read just after, and their sum;
-   ``train`` counts the train and trainer phases), the nvidia-smi line,
+   ``train`` counts the train and trainer phases; a kernel inside a CUDA
+   graph counts at each replay), the nvidia-smi line,
    and as the last line ``{"ok": true, "device": {...}}``.
+
+Every decode engine on a card runs its blocks as CUDA graphs unless a
+phase says otherwise: the phases that record each decode step's logits
+(spec_greedy, pipelined's recorded runs, replicas, the tp phase's
+unsharded reference) build theirs eagerly (``eager_engines``), and an
+engine over a model axis is eager.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 ``--cpu-rehearsal`` runs the same phases on the CPU at ``tiny-test`` with
@@ -416,6 +435,13 @@ TIKZERO_CAPTION = ("a bar chart of rollouts per minute on three machines, "
 TIKZERO_EXPANSIONS = 8  # MCTS expansions of the tikzero_simulate phase
 V1_EXPANSIONS = 8       # MCTS expansions of the v1_simulate phase
 SIM_EXPANSIONS = 16     # MCTS expansions of the simulate phases
+# the gated speculative leg: enough slot-steps that a draft class fails two
+# 1024-slot-step windows and bails out (random weights accept almost no
+# sampled draft), so the leg switches between speculative and plain blocks
+# and resyncs the histories (DecodeEngine._update_spec_gating, _resync_buf)
+SIM_GATED_EXPANSIONS, SIM_GATED_NEW_TOKENS = 64, 256
+GRAPH_NEW_TOKENS = 128  # greedy tokens a figure of the graphs phase
+GRAPH_SIM_EXPANSIONS = 8  # its simulate() A/B: one wave of 8
 SPECULATE = 4           # draft tokens per verify step (K1 = 5)
 CONTIG_NEW_TOKENS = 64  # greedy tokens of the contiguous phase
 # K1 at ClipScore's towers (google/siglip-so400m-patch14-384, 16 heads at
@@ -2454,6 +2480,35 @@ def _engine(torch, params, cfg, device, seed, temperature=0.0, **kw):
                         device=device, seed=seed, **kw)
 
 
+@contextlib.contextmanager
+def eager_engines():
+    """Decode engines built inside decode eagerly (``graphs=False``). A
+    phase that records every decode step by wrapping a model function
+    needs Python to run at every step, and a CUDA graph's replay runs none:
+    under a graph the wrapper would record the capture alone, once a
+    program, and the phase would pass on an empty or stale record."""
+    from detikzify_torch.engine import decode as engine_mod
+
+    init = engine_mod.DecodeEngine.__init__
+
+    def eager_init(self, *a, graphs=False, **kw):
+        init(self, *a, graphs=graphs, **kw)
+
+    engine_mod.DecodeEngine.__init__ = eager_init
+    try:
+        yield
+    finally:
+        engine_mod.DecodeEngine.__init__ = init
+
+
+def _not_capturing(torch) -> None:
+    """A recording wrapper's guard: it raises inside a CUDA graph capture
+    (where it would record nothing that replays) instead of passing."""
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise SystemExit("a recording wrapper ran inside a CUDA graph "
+                         "capture; build its engine under eager_engines()")
+
+
 def _free(torch, rehearsal: bool) -> None:
     gc.collect()
     if not rehearsal:
@@ -2621,6 +2676,7 @@ def spec_greedy_phase(torch, device, rehearsal: bool, seed: int, params,
     decode_step_paged = detikzify.decode_step_paged
 
     def record_plain(params_, cfg_, tokens, positions, *a, **kw):
+        _not_capturing(torch)
         logits, pool = decode_step_paged(params_, cfg_, tokens, positions,
                                          *a, **kw)
         for slot, p in enumerate(positions.tolist()):
@@ -2643,7 +2699,8 @@ def spec_greedy_phase(torch, device, rehearsal: bool, seed: int, params,
 
     detikzify.decode_step_paged = record_plain
     try:
-        plain, plain_s = run(_engine(torch, params, cfg, device, seed))
+        plain, plain_s = run(_engine(torch, params, cfg, device, seed,
+                                     graphs=False))
     finally:
         detikzify.decode_step_paged = decode_step_paged
     _free(torch, rehearsal)
@@ -2652,13 +2709,14 @@ def spec_greedy_phase(torch, device, rehearsal: bool, seed: int, params,
     verify = detikzify.decode_verify_step_paged_zerocopy
 
     def record_verify(params_, cfg_, block, start, *a, dead=None, **kw):
+        _not_capturing(torch)
         logits, pool = verify(params_, cfg_, block, start, *a, dead=dead,
                               **kw)
         calls.append((block.tolist(), start.tolist(), dead.tolist(), logits))
         return logits, pool
 
     eng = _engine(torch, params, cfg, device, seed, speculate=SPECULATE,
-                  spec_min_rate=0.0)
+                  spec_min_rate=0.0, graphs=False)
     detikzify.decode_verify_step_paged_zerocopy = record_verify
     try:
         spec, spec_s = run(eng)
@@ -2773,8 +2831,10 @@ def simulate_spec_phase(torch, device, rehearsal: bool, seed: int, params,
     """``simulate()`` on a speculative engine (speculate=4) over the int8 +
     fused weights of the simulate phase, the same figure and SelfSim:
     first with every draft class kept on (spec_min_rate=0), then with the
-    default gating (1.3). Counters reset just before each and read just
-    after."""
+    default gating (1.3) at ``SIM_GATED_EXPANSIONS`` expansions of
+    ``SIM_GATED_NEW_TOKENS`` tokens, long enough for a draft class to bail
+    out: the gated leg must then decode plain blocks too (K2). Counters
+    reset just before each and read just after."""
     import math
 
     from detikzify_torch.infer import DetikzifyPipeline, TikzDocument
@@ -2784,8 +2844,11 @@ def simulate_spec_phase(torch, device, rehearsal: bool, seed: int, params,
     cfg = processor.cfg
     fig = synthetic_figures(1, seed + 1)[0]
     paths = {}
-    for path, min_rate in (("simulate_spec", 0.0),
-                           ("simulate_spec_gated", 1.3)):
+    gated = ((SIM_EXPANSIONS, max_new_tokens) if rehearsal
+             else (SIM_GATED_EXPANSIONS, SIM_GATED_NEW_TOKENS))
+    for path, min_rate, (expansions, new_tokens) in (
+            ("simulate_spec", 0.0, (SIM_EXPANSIONS, max_new_tokens)),
+            ("simulate_spec_gated", 1.3, gated)):
         _free(torch, rehearsal)
         eng = _engine(torch, params, cfg, device, seed,
                       temperature=SamplingParams().temperature,
@@ -2797,15 +2860,15 @@ def simulate_spec_phase(torch, device, rehearsal: bool, seed: int, params,
         if not rehearsal:
             torch.cuda.synchronize()
         t0 = time.perf_counter()
-        results = list(pipe.simulate(image=fig, expansions=SIM_EXPANSIONS,
+        results = list(pipe.simulate(image=fig, expansions=expansions,
                                      parallelism=8,
-                                     max_new_tokens=max_new_tokens))
+                                     max_new_tokens=new_tokens))
         if not rehearsal:
             torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         counts = launch_counts()
         c = dict(eng.counters)
-        if len(results) != SIM_EXPANSIONS or not all(
+        if len(results) != expansions or not all(
                 isinstance(d, TikzDocument) and math.isfinite(float(sc))
                 for sc, d in results):
             raise SystemExit(f"{path}: simulate yielded {len(results)} "
@@ -2817,15 +2880,17 @@ def simulate_spec_phase(torch, device, rehearsal: bool, seed: int, params,
         if c["spec_steps"] <= 0:
             raise SystemExit(f"{path}: no speculative step ran")
         if not rehearsal:
-            for name in ("flash_attention", "paged_verify", "int8_gemv"):
+            need = ("flash_attention", "paged_verify", "int8_gemv") + (
+                ("paged_decode",) if min_rate > 0 else ())
+            for name in need:
                 if counts[name] <= 0:
                     raise SystemExit(f"{path} never launched {name}")
         result = {
             "phase": path, "weights": "int8 + fused",
             "metric": f"SelfSim {pipe.metric.mode}",
             "speculate": SPECULATE, "spec_min_rate": min_rate,
-            "expansions": SIM_EXPANSIONS, "parallelism": 8,
-            "max_new_tokens": max_new_tokens, "wall_s": wall_s,
+            "expansions": expansions, "parallelism": 8,
+            "max_new_tokens": new_tokens, "wall_s": wall_s,
             "rollouts": len(results),
             "rollouts_per_min": len(results) / wall_s * 60,
             "decode_tokens": c["decode_tokens"],
@@ -2839,6 +2904,8 @@ def simulate_spec_phase(torch, device, rehearsal: bool, seed: int, params,
             "classes_bailed_out": [k for k, st in eng._spec_cls.items()
                                    if not st["on"]],
             "distinct_programs": len({d.code for _, d in results}),
+            "graph_stats": dict(eng.graph_stats),
+            "programs": sorted(str(key[:3]) for key in eng._programs),
             "launches": counts}
         if not rehearsal and min_rate == 0.0:
             prof = profile_call(torch, lambda: list(pipe.simulate(
@@ -3912,6 +3979,7 @@ def replicas_phase(torch, device, rehearsal: bool, seed: int, params, cfg,
     decode_step_paged = detikzify.decode_step_paged
 
     def record(params_, cfg_, tokens, positions, *a, **kw):
+        _not_capturing(torch)
         logits, pool_ = decode_step_paged(params_, cfg_, tokens, positions,
                                           *a, **kw)
         ctx = getattr(local, "ctx", None)
@@ -3959,6 +4027,9 @@ def replicas_phase(torch, device, rehearsal: bool, seed: int, params, cfg,
               "items": REPLICA_ITEMS, "greedy_figures": REPLICA_GREEDY,
               "new_tokens": max_new_tokens, "runs": {}}
     paths, parity = {}, {}
+    # the recorded greedy samples need every decode step in Python
+    eager = eager_engines()
+    eager.__enter__()
     try:
         # the single greedy pipeline the replicas are held against
         single = DetikzifyPipeline(params, cfg, processor, metric="fast",
@@ -4094,6 +4165,7 @@ def replicas_phase(torch, device, rehearsal: bool, seed: int, params, cfg,
                 raise SystemExit(f"replicas ({run}): {'; '.join(problems)}")
     finally:
         detikzify.decode_step_paged = decode_step_paged
+        eager.__exit__(None, None, None)
         raw.clear()
         rows.clear()
     result["single"] = {"seconds": single_s, "launches": single_counts}
@@ -5303,6 +5375,7 @@ def pipelined_phase(torch, device, rehearsal: bool, seed: int, params,
     records = []
 
     def record(params_, cfg_, tokens, positions, *a, **kw):
+        _not_capturing(torch)
         logits, pool = decode_step_paged(params_, cfg_, tokens, positions,
                                          *a, **kw)
         records.append((positions, logits))    # no host read here
@@ -5332,13 +5405,17 @@ def pipelined_phase(torch, device, rehearsal: bool, seed: int, params,
                      "step_ms": wall * 1e3 / max(
                          eng.counters["decode_steps"], 1)}
 
+    # the recorded runs decode eagerly (every step through ``record``),
+    # and so does the speculative run, whose step the verify/plain ratio
+    # holds against the pipelined one's; the profiled block runs on graphs
     kw = dict(decode_block=PIPE_BLOCK)
     detikzify.decode_step_paged = record
     try:
         eager, eager_run = run(_engine(torch, params, cfg, device, seed,
-                                       **kw), n_new)
+                                       graphs=False, **kw), n_new)
         eager_rows = _decode_rows(records)
-        eng = _engine(torch, params, cfg, device, seed, pipelined=True, **kw)
+        eng = _engine(torch, params, cfg, device, seed, pipelined=True,
+                      graphs=False, **kw)
         if not rehearsal:
             _checked_dispatch(torch, eng)
         # the launches of the pipelined run alone
@@ -5348,6 +5425,8 @@ def pipelined_phase(torch, device, rehearsal: bool, seed: int, params,
         piped_rows = _decode_rows(records)
     finally:
         detikzify.decode_step_paged = decode_step_paged
+    if not eager_rows or not piped_rows:
+        raise SystemExit("pipelined: a recorded run recorded no decode step")
     if [x[0] for x in piped] != [x[0] for x in eager]:
         raise SystemExit("the two engines placed the figures on different "
                          "slots")
@@ -5385,7 +5464,8 @@ def pipelined_phase(torch, device, rehearsal: bool, seed: int, params,
     _free(torch, rehearsal)
 
     spec_eng = _engine(torch, params, cfg, device, seed, pipelined=True,
-                       speculate=SPECULATE, spec_min_rate=0.0, **kw)
+                       speculate=SPECULATE, spec_min_rate=0.0, graphs=False,
+                       **kw)
     if not rehearsal:
         _checked_dispatch(torch, spec_eng)
     reset_launch_counts()
@@ -5448,6 +5528,200 @@ def pipelined_phase(torch, device, rehearsal: bool, seed: int, params,
                 if got[name] <= 0:
                     raise SystemExit(f"{path} never launched {name}")
     return {"pipelined": counts, "pipelined_spec": spec_counts}
+
+
+def graphs_phase(torch, device, rehearsal: bool, seed: int, params,
+                 processor, n_new: int) -> dict:
+    """CUDA graphs (``DecodeEngine._build_jit``) against eager dispatch
+    (``graphs=False``) on the int8 + fused v2-8b at 8 slots, every pair in
+    turns (eager, graph, graph, eager) on fresh engines:
+
+      * eight figures (prompts of 300 image tokens), ``n_new`` greedy
+        tokens each, plain and ``speculate=4`` (spec_min_rate 0): the
+        greedy streams and the launches of every kernel must be equal
+        between the graph and the eager runs, and on a graph engine every
+        block after its key's first call must be one replay (dispatches =
+        captures + replays); each graph engine reports the graphs it
+        captured, their capture seconds and its memory pool's bytes;
+      * ms a decode step with the eight slots live (two blocks to warm up,
+        four timed), eager and graph, plain and verify (the verify/plain
+        ratio of each), then graph dispatch eager against pipelined;
+      * one block of each under torch.profiler: busy ms and idle share;
+      * ``sample()`` of one figure (vision, prefill, ``n_new`` tokens,
+        SelfSim off) and ``simulate()`` (``GRAPH_SIM_EXPANSIONS``
+        expansions, parallelism 8, SelfSim EMD), each on a fresh
+        pipeline a turn (its captures inside the wall time).
+
+    The launches of the first graph run of each mode are the paths
+    ``graphs`` and ``graphs_spec``."""
+    from detikzify_torch.infer import DetikzifyPipeline
+    from detikzify_torch.ops import launch_counts, reset_launch_counts
+
+    def sync():
+        if not rehearsal:
+            torch.cuda.synchronize()
+
+    cfg = processor.cfg
+    prompts, emb = _greedy_prompts(torch, device, params, processor, seed)
+    # on the CPU a "graph" engine is the default one, which decodes eagerly
+    kinds = {"eager": {"graphs": False},
+             "graph": {} if rehearsal else {"graphs": True}}
+    turns = ("eager", "graph", "graph", "eager")
+
+    def graph_report(eng) -> dict:
+        return dict(eng.graph_stats, programs=len(eng._programs),
+                    pool_bytes=0 if rehearsal else eng.graph_pool_bytes())
+
+    def greedy_run(kind: str, spec: int) -> tuple:
+        extra = dict(speculate=spec, spec_min_rate=0.0) if spec else {}
+        eng = _engine(torch, params, cfg, device, seed, **kinds[kind],
+                      **extra)
+        reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        ros = eng.start_many(prompts, image_embeds=emb, max_new_tokens=n_new)
+        while not all(ro.finished for ro in ros):
+            eng.step()
+        sync()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        streams = [list(ro.token_ids) for ro in ros]
+        new = sum(ro.new_tokens for ro in ros)
+        for ro in ros:
+            eng.release(ro)
+        c = eng.counters
+        run = {"kind": kind, "wall_s": wall, "new_tokens": new,
+               "tokens_per_s": new / wall,
+               "decode_steps": c["decode_steps"],
+               "decode_dispatches": c["decode_dispatches"],
+               "spec_rate": eng.spec_rate if spec else None,
+               **graph_report(eng), "launches": counts}
+        if (kind == "graph" and not rehearsal
+                and c["decode_dispatches"] != run["captures"]
+                + run["replays"]):
+            raise SystemExit(f"graphs: {c['decode_dispatches']} dispatches "
+                             f"but {run['captures']} captures and "
+                             f"{run['replays']} replays")
+        del eng
+        _free(torch, rehearsal)
+        return run, streams, counts
+
+    result = {"phase": "graphs", "weights": "int8 + fused",
+              "slots": len(prompts), "prompt_tokens": len(prompts[0]),
+              "new_tokens": n_new, "turns": list(turns)}
+    paths = {}
+    for mode, spec in (("plain", 0), ("spec", SPECULATE)):
+        runs, streams, counts = [], [], []
+        for kind in turns:
+            run, st, ct = greedy_run(kind, spec)
+            runs.append(run)
+            streams.append(st)
+            counts.append(ct)
+        path = "graphs" if mode == "plain" else "graphs_spec"
+        paths[path] = counts[turns.index("graph")]
+        same_streams = all(st == streams[0] for st in streams)
+        same_counts = all(ct == counts[0] for ct in counts)
+        result[mode] = {"runs": runs, "streams_equal": same_streams,
+                        "launches_equal": same_counts}
+        if not same_streams:
+            emit(result)
+            raise SystemExit(f"graphs ({mode}): greedy streams differ "
+                             "between graph and eager runs")
+        if not same_counts:
+            emit(result)
+            raise SystemExit(f"graphs ({mode}): kernel launches differ "
+                             f"between graph and eager runs: {counts}")
+        if not rehearsal:
+            need = ("flash_attention", "int8_gemv",
+                    "paged_verify" if spec else "paged_decode")
+            for name in need:
+                if paths[path][name] <= 0:
+                    raise SystemExit(f"{path} never launched {name}")
+
+    # ms a decode step in the steady state: eager against graph, plain and
+    # verify steps (sampled at T 0.8, so the slots stay in one page bucket
+    # and no capture falls inside the timed blocks), then the graph
+    # engine's eager dispatch against its pipelined one
+    def step_ms(kind: str, pipelined: bool = False, spec: bool = False
+                ) -> float:
+        extra = (dict(temperature=0.8, speculate=SPECULATE,
+                      spec_min_rate=0.0) if spec else {})
+        eng = _engine(torch, params, cfg, device, seed, pipelined=pipelined,
+                      **kinds[kind], **extra)
+        ms = _step_ms(torch, eng, prompts, rehearsal)
+        del eng
+        _free(torch, rehearsal)
+        return ms
+
+    result["step_ms"] = [{"kind": k, "ms": step_ms(k)} for k in turns]
+    result["verify_step_ms"] = [{"kind": k, "ms": step_ms(k, spec=True)}
+                                for k in turns]
+    result["verify_plain_step_ratio"] = {
+        k: statistics.mean(r["ms"] for r in result["verify_step_ms"]
+                           if r["kind"] == k)
+        / statistics.mean(r["ms"] for r in result["step_ms"]
+                          if r["kind"] == k) for k in kinds}
+    result["graph_dispatch_step_ms"] = [
+        {"pipelined": p, "ms": step_ms("graph", p)}
+        for p in (False, True, True, False)]
+
+    # one block of each kind under the profiler, the slots live
+    if not rehearsal:
+        result["block_profile"] = {}
+        for kind in ("eager", "graph"):
+            eng = _engine(torch, params, cfg, device, seed, **kinds[kind])
+            ros = eng.start_many(prompts, image_embeds=emb,
+                                 max_new_tokens=8 * eng.decode_block)
+            for _ in range(3):
+                eng.step()
+            prof, wall_ms = _profile_window(torch, eng.step)
+            result["block_profile"][kind] = _window_time(prof, wall_ms)
+            for ro in ros:
+                eng.release(ro)
+            del eng, prof
+            _free(torch, rehearsal)
+
+    # sample() and simulate() end to end, a fresh pipeline a turn
+    fig = synthetic_figures(1, seed + 1)[0]
+
+    def pipeline_run(kind: str, what: str) -> dict:
+        eng = _engine(torch, params, cfg, device, seed,
+                      temperature=0.8 if what == "simulate" else 0.0,
+                      **kinds[kind])
+        pipe = DetikzifyPipeline(
+            params, cfg, processor, engine=eng, device=device, seed=seed,
+            **({"metric": "fast"} if what == "sample" else {}))
+        sync()
+        t0 = time.perf_counter()
+        if what == "sample":
+            out = pipe.sample(image=fig, max_new_tokens=n_new)
+            n = 1 if out.code is not None else 0
+        else:
+            n = len(list(pipe.simulate(image=fig,
+                                       expansions=GRAPH_SIM_EXPANSIONS,
+                                       parallelism=8,
+                                       max_new_tokens=n_new)))
+        sync()
+        wall = time.perf_counter() - t0
+        run = {"kind": kind, "wall_s": wall,
+               "decode_steps": eng.counters["decode_steps"],
+               **graph_report(eng)}
+        if what == "simulate":
+            run["rollouts"] = n
+            run["rollouts_per_min"] = n / wall * 60
+        pipe.close()
+        del pipe, eng
+        _free(torch, rehearsal)
+        return run
+
+    result["sample"] = [pipeline_run(k, "sample") for k in turns]
+    result["simulate"] = [pipeline_run(k, "simulate") for k in turns]
+    if not rehearsal:
+        result["nvidia_smi"] = nvidia_smi()
+    emit(result)
+    del emb
+    _free(torch, rehearsal)
+    return paths
 
 
 def _step_ms(torch, eng, prompts, rehearsal: bool, blocks: int = 4) -> float:
@@ -5568,7 +5842,7 @@ def ds7b_phase(torch, device, rehearsal: bool, seed: int) -> dict:
     emb = eng.encode_image(processor(images=[pipe.load(fig)]).pixel_values)
     prompt = [cfg.image_token_id] * cfg.image_seq_len + [cfg.bos_token_id]
 
-    def run_streaming(n: int, max_new: int) -> dict:
+    def run_streaming(n: int, max_new: int, eng=eng) -> dict:
         streams = [[] for _ in range(n)]
         results, started, active = {}, 0, []
         t0 = time.perf_counter()
@@ -5600,6 +5874,15 @@ def ds7b_phase(torch, device, rehearsal: bool, seed: int) -> dict:
 
     free0 = eng.num_free_pages
     warm = run_streaming(DS7_SLOTS, DS7_WARMUP_TOKENS)
+    # the same traffic on an eager engine (graphs=False) before and after
+    # the two graph runs: eager, graph, graph, eager
+    eager_eng = DecodeEngine(
+        params, cfg, num_slots=DS7_SLOTS, max_len=DS7_MAX_LEN,
+        decode_block=DS7_BLOCK, prefix_budget_bytes=64 << 20,
+        sampling=SamplingParams(temperature=0.8, top_p=0.95, top_k=0),
+        device=device, seed=seed, graphs=False)
+    run_streaming(DS7_SLOTS, DS7_WARMUP_TOKENS, eager_eng)
+    eager_runs = [run_streaming(2 * DS7_SLOTS, DS7_NEW_TOKENS, eager_eng)]
     reset_launch_counts()
     steps0 = eng.counters["decode_steps"]
     runs = [run_streaming(2 * DS7_SLOTS, DS7_NEW_TOKENS)
@@ -5631,6 +5914,8 @@ def ds7b_phase(torch, device, rehearsal: bool, seed: int) -> dict:
     stages["streamed_sample_s"] = time.perf_counter() - t0
     streamed_ids = list(ids)
     counts = launch_counts()
+    eager_runs.append(run_streaming(2 * DS7_SLOTS, DS7_NEW_TOKENS, eager_eng))
+    del eager_eng
     code = out["doc"].code
     if processor.decode(streamed_ids, skip_special_tokens=True) != code:
         raise SystemExit("ds7b: the streamed ids do not decode to the "
@@ -5657,6 +5942,9 @@ def ds7b_phase(torch, device, rehearsal: bool, seed: int) -> dict:
               "products_nk": shapes, "k5_eligible": k5_eligible,
               "stages_s": stages, "warmup": warm, "runs": runs,
               "ds7b_stream_tok_s": max(r["tokens_per_s"] for r in runs),
+              "eager_runs": eager_runs, "graph_stats": dict(eng.graph_stats),
+              "graph_pool_bytes": 0 if rehearsal
+              else eng.graph_pool_bytes(),
               "decode_steps": decode_steps,
               "streamed_sample": {"tokens": len(streamed_ids),
                                   "code_chars": len(code),
@@ -5945,12 +6233,14 @@ class LogitRecorder:
             return logits, pool
 
         def decode(params, cfg, tokens, positions, *a, **kw):
+            _not_capturing(torch)
             logits, pool = orig[1](params, cfg, tokens, positions, *a, **kw)
             self._add(torch.arange(tokens.shape[0], device=tokens.device),
                       positions, logits, False)
             return logits, pool
 
         def verify(params, cfg, block, start, *a, **kw):
+            _not_capturing(torch)
             logits, pool = orig[2](params, cfg, block, start, *a, **kw)
             b, k1 = block.shape
             dev = block.device
@@ -5964,7 +6254,8 @@ class LogitRecorder:
          engine_mod.DecodeEngine._start_wave) = (prefill, decode, verify,
                                                  start_wave)
         try:
-            yield self
+            with eager_engines():       # every step through the wrappers
+                yield self
         finally:
             (detikzify.prefill_paged, detikzify.decode_step_paged,
              detikzify.decode_verify_step_paged_zerocopy,
@@ -6724,6 +7015,10 @@ def main(argv=None) -> int:
                     help="timed launches per kernel measurement")
     ap.add_argument("--skip-main", action="store_true",
                     help="build and hold the kernels only")
+    ap.add_argument("--eager", action="store_true",
+                    help="build every decode engine with graphs=False (an "
+                         "A/B of the whole script against its CUDA graphs; "
+                         "the graphs phase keeps its graph runs)")
     ap.add_argument("--tp-ranks", default="2",
                     type=lambda s: [int(x) for x in s.split(",")],
                     help="the tp phase's model axis (nccl with one rank a "
@@ -6779,6 +7074,11 @@ def main(argv=None) -> int:
 
     if args.tp_only:
         return tp_only(torch, device, rehearsal, args)
+    if args.eager:
+        engines = eager_engines()
+        engines.__enter__()
+    emit({"phase": "engines", "graphs": "off (--eager)" if args.eager
+          else "on a card unless a phase builds its engines eagerly"})
     rows = kernel_phase(torch, device, rehearsal, args.iters)
     if args.skip_main:      # a kernel-only run prints no result line
         emit({"kernels": rows})
@@ -6825,6 +7125,9 @@ def main(argv=None) -> int:
         paths.update(pipelined_phase(
             torch, device, rehearsal, args.seed, qparams, processor,
             min(PIPE_NEW_TOKENS, 2 * args.max_new_tokens)))
+        paths.update(graphs_phase(
+            torch, device, rehearsal, args.seed, qparams, processor,
+            min(GRAPH_NEW_TOKENS, args.max_new_tokens)))
         paths["serve"] = serve_phase(torch, device, rehearsal, args.seed,
                                      qparams, processor.cfg, side)
         paths.update(evaluate_phase(torch, device, rehearsal, args.seed,

@@ -681,7 +681,10 @@ __device__ __forceinline__ void merge_partials(
 // so its launch overlaps the split kernel's tail. T is the element type
 // (bf16 or float), which sets the split block's shared memory; a float32
 // launch of one split has written its output and launches no merge.
-// Returns a cudaError_t.
+// Returns a cudaError_t. Nothing here allocates, synchronises or reads
+// device memory on the host, so the decode engine's CUDA graphs capture
+// it; a capture records the merge's dependency as a programmatic edge
+// (CUDA 12.3 and later).
 template <int HD, int NTP, int WARPS, class T, class Args>
 int launch_split_merge(void (*split_kernel)(Args, Partials, int, int, float),
                        void (*merge_kernel)(Args, Partials, int),

@@ -495,7 +495,9 @@ cudaError_t launch_wide(const void* x, const void* q, const void* scale,
                                       part, M, N, K);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || nsplit == 1) return err;
-  // the reduce as a programmatic dependent: its launch overlaps the tail
+  // the reduce as a programmatic dependent: its launch overlaps the tail.
+  // A CUDA graph capture (the decode engine's) records it as a
+  // programmatic edge (CUDA 12.3 and later), so a replay keeps the overlap
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr[0].val.programmaticStreamSerializationAllowed = 1;

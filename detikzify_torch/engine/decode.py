@@ -21,18 +21,26 @@
     acceptance; draft classes (hinted, unhinted) are gated by their
     measured tokens per step.
 
-Per-slot token/position state lives on the device; the host keeps plain-int
-mirrors updated from fetched results. The host-side page accounting and the
-speculative gating are the JAX engine's, line for line. With
-``pipelined=True`` block N+1 is launched before block N's tokens are read:
-no dispatch waits on the device (host arrays go up from pinned memory, and
-each block's tokens come down into pinned memory behind an event recorded
-when it is launched). Not ported here: the gather/scatter decode and verify
-views and the attention-backend pin (see ROADMAP).
+Per-slot token/position state lives on the device, at fixed addresses,
+updated only in place; the host keeps plain-int mirrors updated from
+fetched results. The host-side page accounting and the speculative gating
+are the JAX engine's, line for line. As JAX compiles ``decode_many`` once
+per set of static arguments, the engine keeps one program per ``(mode, k,
+kv_pages, banned, suppress)`` (``_build_jit``): on a card a CUDA graph,
+captured at the key's first call and replayed after it, so a block of k
+steps over all slots is one dispatch. With ``pipelined=True`` block N+1 is
+launched before block N's tokens are read: no dispatch waits on the device
+(host arrays go up from pinned memory, and each block's tokens come down
+into pinned memory behind an event recorded when it is launched). Not
+ported here: the gather/scatter decode and verify views and the
+attention-backend pin (see ROADMAP).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+import threading
+import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -41,9 +49,13 @@ import torch
 from ..config import DetikzifyConfig
 from ..models import detikzify, llama
 from ..models.detikzify import Params
+from ..ops import cuda as cuda_ops
 from ..ops.sampling import SamplingParams, sample, speculative_accept
 
 BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048)
+# one CUDA graph capture at a time in the process (PyTorch's rule); other
+# threads go on launching meanwhile (``capture_error_mode="thread_local"``)
+_CAPTURE_LOCK = threading.Lock()
 
 
 def _bucket(n: int, max_len: int) -> int:
@@ -90,15 +102,22 @@ class Rollout:
 
 class _Fetch:
     """Device tensors on their way to the host. ``pinned`` (pipelined
-    stepping on a card): the copy goes into pinned memory, issued with the
+    stepping): on a card the copy goes into pinned memory, issued with the
     launch that produced them, and an event marks its end, so reading
-    waits for that event only, never for work launched after it.
-    Otherwise the first read copies them (eager stepping: a wait for all
-    the work launched)."""
+    waits for that event only, never for work launched after it; on the
+    CPU they are copied at once. Otherwise the first read copies them
+    (eager stepping: a wait for all the work launched).
+
+    A decode block's outputs are its program's static tensors, which the
+    next block overwrites: ``overwritten`` (a callable) says whether that
+    has happened, and reading after it raises instead of returning the
+    later block's tokens."""
 
     def __init__(self, *tensors: Optional[torch.Tensor],
-                 pinned: bool = False):
+                 pinned: bool = False,
+                 overwritten: Optional[Callable[[], bool]] = None):
         self._tensors, self._host, self._event = tensors, None, None
+        self._overwritten = overwritten
         dev = next((t.device for t in tensors if t is not None), None)
         if pinned and dev is not None and dev.type == "cuda":
             self._host = []
@@ -113,14 +132,47 @@ class _Fetch:
             # whichever device is current
             self._event = torch.cuda.Event()
             self._event.record(torch.cuda.current_stream(dev))
+        elif pinned and dev is not None:
+            self._host = [None if t is None else t.clone() for t in tensors]
 
     def numpy(self) -> List[Optional[np.ndarray]]:
         if self._host is None:
+            if self._overwritten is not None and self._overwritten():
+                raise RuntimeError(
+                    "a decode block's tokens were read after the next "
+                    "block overwrote its program's outputs")
             self._host = [None if t is None else t.cpu()
                           for t in self._tensors]
         elif self._event is not None:
             self._event.synchronize()
         return [None if h is None else h.numpy() for h in self._host]
+
+
+class _Program:
+    """One decode block at one static key: the counterpart of one program
+    that the JAX engine's ``jax.jit`` compiled. With ``graph`` a CUDA
+    graph, each call one replay, its kernels' launches counted from the
+    capture's ``tally``; else (the CPU, an engine built with
+    ``graphs=False``, a model axis) the block function, run eagerly.
+    Either way each call's outputs land in the same static tensors."""
+
+    def __init__(self, fn: Callable[[], tuple],
+                 outputs: Optional[tuple] = None, graph=None,
+                 tally: Optional[dict] = None):
+        self.fn, self.outputs, self.graph, self.tally = (fn, outputs, graph,
+                                                         tally)
+
+    def __call__(self) -> tuple:
+        if self.graph is not None:
+            self.graph.replay()
+            cuda_ops.add_launches(self.tally)
+            return self.outputs
+        out = self.fn()
+        if self.outputs is None:
+            self.outputs = tuple(torch.empty_like(t) for t in out)
+        for dst, src in zip(self.outputs, out):
+            dst.copy_(src)
+        return self.outputs
 
 
 class DecodeEngine:
@@ -142,6 +194,7 @@ class DecodeEngine:
         spec_min_rate: float = 1.3,
         device="cuda",
         seed: int = 0,
+        graphs: Optional[bool] = None,
     ):
         """All engine state (page pool, page tables, per-slot tokens and
         positions, the sampling generator seeded with ``seed``) lives on
@@ -171,7 +224,14 @@ class DecodeEngine:
 
         ``pipelined=True``: ``step()`` launches block N+1 before it reads
         block N's tokens, so the host's token handling overlaps the
-        device; finishes are seen one block later (see ``step``)."""
+        device; finishes are seen one block later (see ``step``).
+
+        ``graphs``: whether each decode block runs as a CUDA graph
+        (``_build_jit``). By default it does on a card and does not on the
+        CPU or over a model axis (its collectives run over gloo, which a
+        graph cannot capture); ``graphs=False`` keeps a card's blocks
+        eager, for an A/B; ``graphs=True`` where no graph can run
+        raises."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("DecodeEngine: no CUDA device; pass "
@@ -218,6 +278,17 @@ class DecodeEngine:
                 "axis would repeat the same work on each row; place the "
                 "weights on a (data=1, model=m) mesh, or run one engine a "
                 "device with parallel.ReplicaPool")
+        if graphs is None:
+            graphs = self.device.type == "cuda" and placement is None
+        elif graphs and placement is not None:
+            raise ValueError(
+                "DecodeEngine(graphs=True) over a model axis: its "
+                "collectives run over gloo, which a CUDA graph cannot "
+                "capture; build it with graphs=False")
+        elif graphs and self.device.type != "cuda":
+            raise ValueError("DecodeEngine(graphs=True): CUDA graphs need a "
+                             f"CUDA device, not {self.device}")
+        self.graphs = bool(graphs)
         kv_heads = llama.kv_heads(params.text)
         page_bytes = (2 * tcfg.num_hidden_layers * page_size
                       * kv_heads * tcfg.head_dim
@@ -249,6 +320,12 @@ class DecodeEngine:
                                     device=dev)
         self._pos_dev = torch.zeros((num_slots,), dtype=torch.int32,
                                     device=dev)
+        # a block's inputs: which slots decode, and their (temperature,
+        # top_p, top_k), copied in place before each dispatch
+        self._active_dev = torch.zeros((num_slots,), dtype=torch.bool,
+                                       device=dev)
+        self._samp_dev = torch.zeros((num_slots, 3), dtype=torch.float32,
+                                     device=dev)
         # speculative decoding: device-side token history per slot (wider
         # than the cache so K+1-token writes at the last position never
         # clamp; -1 = empty, never matches a token id) and per-slot
@@ -297,22 +374,126 @@ class DecodeEngine:
                          "restore_cow_rows": 0, "prefix_copy_rows": 0,
                          # plain->speculative history re-uploads
                          "buf_resyncs": 0}
+        self._build_jit()
 
     # ------------------------------------------------------------------
     # device programs
     # ------------------------------------------------------------------
 
-    def _put(self, x, dtype=torch.int32) -> torch.Tensor:
-        """Host array -> tensor on the engine's device. Pipelined on a
-        card it goes from pinned memory without blocking the host: a copy
-        from pageable memory would wait for the block in flight. The
-        pinned buffer comes from PyTorch's caching host allocator, which
-        reuses it only once the copy has ended."""
+    @property
+    def params(self) -> Params:
+        return self._params
+
+    @params.setter
+    def params(self, params: Params) -> None:
+        """The weights every block reads (GRPO rebinds them to the current
+        policy). A graph reads the tensors it was captured with, so other
+        weights drop the programs; the JAX engine passes them to every
+        jitted call."""
+        if getattr(self, "_params", params) is not params:
+            self._programs.clear()
+        self._params = params
+
+    def _build_jit(self) -> None:
+        """The program cache, the counterpart of the JAX engine's jitted
+        ``decode_many`` and ``decode_many_spec``: one program a key,
+        ``(speculative, k, kv_pages, banned, suppress)``, JAX's static
+        arguments and the mode; sampling parameters are device data and
+        add none. With ``graphs`` a key's first call runs its block
+        eagerly on the engine's capture stream (real work, and the
+        warm-up of everything built at first use: the kernels' libraries,
+        cuBLAS, K5's plan), then captures it as a CUDA graph into the
+        engine's one memory pool, where every allocation of the block
+        lives (the kernels' scratch and outputs too), with the sampling
+        generator registered: a graph engine draws what an eager one with
+        the same ``seed`` draws. Every later call is one replay. A failed
+        capture or replay raises. Start waves, ``_copy_page``,
+        ``_resync_buf`` and ``encode_image`` stay eager: a start wave's
+        prefill of >= 300 rows a rollout keeps the card busy, and its
+        shapes change with every wave."""
+        self._programs: Dict[tuple, _Program] = {}
+        self._block_calls = 0          # blocks run, for _Fetch's check
+        self._pool = self._stream = None
+        if self.graphs:
+            self._pool = torch.cuda.graph_pool_handle()
+            self._stream = torch.cuda.Stream(self.device)
+        self.graph_stats = {"captures": 0, "capture_s": 0.0, "replays": 0}
+
+    def _block(self, speculative: bool, k: int, kv_pages: int) -> tuple:
+        """Run one decode block through its key's program; returns its
+        outputs: the program's static tensors (on a graph engine the
+        key's first call, run eagerly, returns its own)."""
+        key = (speculative, k, kv_pages, self._banned(),
+               None if speculative else self._suppress())
+        self._block_calls += 1
+        prog = self._programs.get(key)
+        if prog is not None:
+            self.graph_stats["replays"] += prog.graph is not None
+            return prog()
+        fn = functools.partial(self._decode_many_spec if speculative
+                               else self._decode_many, k, kv_pages)
+        if not self.graphs:
+            prog = self._programs[key] = _Program(fn)
+            return prog()
+        cur = torch.cuda.current_stream(self.device)
+        self._stream.wait_stream(cur)
+        with torch.cuda.stream(self._stream):
+            out = fn()
+        cur.wait_stream(self._stream)
+        self._programs[key] = self._capture(fn)
+        return out
+
+    def _capture(self, fn: Callable[[], tuple]) -> _Program:
+        """Capture ``fn`` (a block, already run once) as a CUDA graph on
+        the engine's capture stream. Nothing runs: the engine's state is
+        what it was before."""
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.generator)
+        with torch.cuda.stream(self._stream), _CAPTURE_LOCK, \
+                cuda_ops.tally_launches() as tally:
+            graph.capture_begin(pool=self._pool,
+                                capture_error_mode="thread_local")
+            try:
+                static = fn()
+            except BaseException:
+                try:
+                    graph.capture_end()
+                except RuntimeError:
+                    pass          # the error raised below broke it
+                raise
+            graph.capture_end()
+        self.graph_stats["captures"] += 1
+        self.graph_stats["capture_s"] += time.perf_counter() - t0
+        return _Program(fn, static, graph, tally)
+
+    def graph_pool_bytes(self) -> int:
+        """Card bytes held by the engine's graph memory pool (0 without
+        graphs)."""
+        if self._pool is None:
+            return 0
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg["segment_pool_id"]) == tuple(self._pool))
+
+    def _upload(self, dst: torch.Tensor, x) -> None:
+        """Host array -> the device tensor ``dst``, in place (a graph
+        reads a block's inputs at fixed addresses). Pipelined on a card it
+        goes from pinned memory without blocking the host: a copy from
+        pageable memory would wait for the block in flight. The pinned
+        buffer comes from PyTorch's caching host allocator, which reuses
+        it only once the copy has ended."""
+        src = torch.from_numpy(np.ascontiguousarray(x)).to(dst.dtype)
         if self.pipelined and self.device.type == "cuda":
-            t = torch.from_numpy(np.ascontiguousarray(np.asarray(x)))
-            return t.to(dtype).pin_memory().to(self.device,
-                                               non_blocking=True)
-        return torch.as_tensor(np.asarray(x), device=self.device).to(dtype)
+            dst.copy_(src.pin_memory(), non_blocking=True)
+        else:
+            dst.copy_(src)
+
+    def _put(self, x, dtype=torch.int32) -> torch.Tensor:
+        """Host array -> a new tensor on the engine's device."""
+        x = np.asarray(x)
+        out = torch.empty(x.shape, dtype=dtype, device=self.device)
+        self._upload(out, x)
+        return out
 
     def _samp_cols(self, samp: torch.Tensor):
         return dict(temperature=samp[:, 0], top_p=samp[:, 1],
@@ -340,15 +521,16 @@ class DecodeEngine:
         return firsts
 
     @torch.inference_mode()
-    def _decode_many(self, active: torch.Tensor, samp: torch.Tensor, k: int,
-                     kv_pages: int) -> torch.Tensor:
-        """k zero-copy decode steps for all slots; returns tokens [k, S].
+    def _decode_many(self, k: int, kv_pages: int) -> Tuple[torch.Tensor]:
+        """k zero-copy decode steps for all slots; returns (tokens [k, S],).
         Slots that emit EOS freeze: their writes divert to the trash page
-        (position max_len - 1), they re-emit EOS and stop advancing."""
+        (position max_len - 1), they re-emit EOS and stop advancing. Reads
+        ``_active_dev`` and ``_samp_dev``; tokens and positions end in
+        place."""
         eos, max_len = self.eos_token_id, self.max_len
         tokens, positions = self._tok_dev, self._pos_dev
-        done = ~active | (tokens == eos)
-        cols = self._samp_cols(samp)
+        done = ~self._active_dev | (tokens == eos)
+        cols = self._samp_cols(self._samp_dev)
         out = []
         for _ in range(k):
             write_pos = torch.where(done, torch.full_like(positions,
@@ -367,8 +549,9 @@ class DecodeEngine:
             done = done | (nxt == eos)
             tokens = nxt
             out.append(nxt)
-        self._tok_dev, self._pos_dev = tokens, positions
-        return torch.stack(out)
+        self._tok_dev.copy_(tokens)
+        self._pos_dev.copy_(positions)
+        return (torch.stack(out),)
 
     @torch.inference_mode()
     def _start_wave_spec(self, slots, ids, image_embeds, starts, seq_lens,
@@ -404,8 +587,7 @@ class DecodeEngine:
         return torch.where(mask, idx, torch.full_like(idx, -1)).amax(dim=1)
 
     @torch.inference_mode()
-    def _decode_many_spec(self, active: torch.Tensor, samp: torch.Tensor,
-                          k: int, kv_pages: int):
+    def _decode_many_spec(self, k: int, kv_pages: int):
         """k speculative steps for all slots, zero-copy.
 
         Per step and slot: draft ``spec`` tokens by n-gram lookup over the
@@ -414,14 +596,15 @@ class DecodeEngine:
         whose attention reads the pool (K4), and emit 1..spec+1 tokens via
         distribution-preserving acceptance. Frozen slots write to the trash
         page and re-emit EOS. Returns token blocks [k, S, spec+1] and emit
-        counts [k, S]."""
+        counts [k, S]; state as ``_decode_many``, the histories in place
+        too."""
         spec, k1, eos = self.spec, self.spec + 1, self.eos_token_id
         trash = self._trash_start
         dev = self.device
         buf, hint = self._buf_dev, self._hint_dev
         tokens, positions = self._tok_dev, self._pos_dev
-        done = ~active | (tokens == eos)
-        cols = self._samp_cols(samp)
+        done = ~self._active_dev | (tokens == eos)
+        cols = self._samp_cols(self._samp_dev)
         w, hw = buf.shape[1], hint.shape[1]
         iidx = torch.arange(w - 1, device=dev)[None, :]
         hidx = torch.arange(hw - 1, device=dev)[None, :]
@@ -507,7 +690,8 @@ class DecodeEngine:
             done = done | has_eos
             out_toks.append(emitted)
             out_counts.append(adv)
-        self._tok_dev, self._pos_dev = tokens, positions
+        self._tok_dev.copy_(tokens)
+        self._pos_dev.copy_(positions)
         return torch.stack(out_toks), torch.stack(out_counts)
 
     @torch.inference_mode()
@@ -1074,16 +1258,15 @@ class DecodeEngine:
         self.counters["decode_dispatches"] += 1
         self.counters["decode_steps"] += k
         use_spec = self._use_spec()
-        active = self._put(self._active, torch.bool)
-        samp = self._put(self._samp_host, torch.float32)
+        self._upload(self._active_dev, self._active)
+        self._upload(self._samp_dev, self._samp_host)
         if use_spec:
             self._resync_buf()
-            toks_dev, counts_dev = self._decode_many_spec(
-                active, samp, k, self._kv_pages(k, True))
+            toks_dev, counts_dev = self._block(True, k,
+                                               self._kv_pages(k, True))
         else:
             counts_dev = None
-            toks_dev = self._decode_many(active, samp, k,
-                                         self._kv_pages(k, False))
+            (toks_dev,) = self._block(False, k, self._kv_pages(k, False))
             if self.spec > 0:
                 # positions advanced without history writes: these rows
                 # must be resynced before the next speculative block
@@ -1091,8 +1274,10 @@ class DecodeEngine:
         self._last_dispatch_spec = use_spec
         owners = {slot: ro for slot, ro in self._rollouts.items()
                   if self._active[slot]}
-        self._inflight = (_Fetch(toks_dev, counts_dev,
-                                 pinned=self.pipelined), k, owners)
+        calls = self._block_calls
+        self._inflight = (_Fetch(toks_dev, counts_dev, pinned=self.pipelined,
+                                 overwritten=lambda: self._block_calls
+                                 != calls), k, owners)
 
     def _consume(self, inflight) -> List[Rollout]:
         """Wait for a dispatched block's tokens (and any pending first

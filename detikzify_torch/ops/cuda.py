@@ -16,9 +16,17 @@ The counter is bumped in exactly one place: after a launch of the kernel
 returned ``cudaSuccess``, under the handle's lock, as several threads may
 launch one kernel (``parallel.ReplicaPool``'s workers, the server's
 scheduler).
+
+Under a CUDA graph a launch is recorded once, at capture, and runs at
+every replay. So while a thread captures (:func:`tally_launches`), a
+launch goes into that thread's tally and not into the counter, and the
+graph's owner adds the tally to the counters at each replay
+(:func:`add_launches`): a path's counts are then those of the same work
+launched eagerly.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -35,6 +43,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
+# the tally of the kernels this thread records into a CUDA graph, or None
+_capturing = threading.local()
 
 
 def _nvcc() -> str:
@@ -122,6 +132,10 @@ class CudaKernel:
         if rc != 0:
             msg = self._err(rc).decode(errors="replace")
             raise RuntimeError(f"{self.name}: CUDA error {rc}: {msg}")
+        tally = getattr(_capturing, "tally", None)
+        if tally is not None:
+            tally[self] = tally.get(self, 0) + 1
+            return
         with self._count_lock:
             self.launches += 1
 
@@ -209,6 +223,27 @@ def build_all() -> Dict[str, str]:
         k._load()
     return {name: builder[k.library].build_log
             for name, k in KERNELS.items()}
+
+
+@contextlib.contextmanager
+def tally_launches():
+    """Around a CUDA graph capture on this thread: yields the tally
+    ``{kernel handle: launches}`` that the kernels launched inside go to
+    instead of their counters. Other threads count as before."""
+    prev = getattr(_capturing, "tally", None)
+    tally: Dict[CudaKernel, int] = {}
+    _capturing.tally = tally
+    try:
+        yield tally
+    finally:
+        _capturing.tally = prev
+
+
+def add_launches(tally: Dict[CudaKernel, int]) -> None:
+    """Count one replay of a graph whose capture recorded ``tally``."""
+    for kernel, n in tally.items():
+        with kernel._count_lock:
+            kernel.launches += n
 
 
 def reset_launch_counts() -> None:

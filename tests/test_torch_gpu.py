@@ -1508,3 +1508,160 @@ def test_tensor_parallel_ranks_on_one_card(cuda, tmp_path, weights):
         if weights == "int8":
             names.append("int8_gemv")
         assert all(g["launches"][n] > 0 for n in names), g["launches"]
+
+
+# --- decode blocks as CUDA graphs ---------------------------------------------
+
+def _graph_model(cuda):
+    """``tiny-test``'s shape with the decoder at 2 heads of 64, int8 +
+    fused (K2, K4 and K5 inside every block; the lm_head's N 512 takes
+    K5), and four prompts."""
+    from detikzify_torch.config import tiny_test_config
+    from detikzify_torch.models import convert
+    from detikzify_torch.ops.quant import fuse_projections, quantize_params
+
+    cfg = tiny_test_config(vocab_size=512)
+    cfg = cfg.replace(text=cfg.text.replace(
+        hidden_size=128, intermediate_size=256, num_attention_heads=2,
+        num_key_value_heads=2))
+    params = fuse_projections(quantize_params(convert.init_random(
+        cfg, device=cuda, dtype=torch.bfloat16)))
+    prompts = [[cfg.bos_token_id] + [5 + i] * (3 + i) for i in range(4)]
+    return cfg, params, prompts
+
+
+def _graph_engine(cfg, params, cuda, graphs, temperature=0.0, **kw):
+    from detikzify_torch.engine import DecodeEngine
+    from detikzify_torch.ops.sampling import SamplingParams
+
+    return DecodeEngine(params, cfg, num_slots=4, max_len=256,
+                        decode_block=8, graphs=graphs, device=cuda, seed=3,
+                        sampling=SamplingParams(temperature=temperature),
+                        **kw)
+
+
+def _graph_run(eng, prompts, new=40):
+    from detikzify_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    ros = [eng.start(p, max_new_tokens=new, lazy=True) for p in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    return [list(r.token_ids) for r in ros], launch_counts()
+
+
+@pytest.mark.parametrize("spec", [0, 4])
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_graph_engine_matches_eager(cuda, spec, temperature):
+    """A graph engine and an eager one (``graphs=False``) with the same
+    seed: equal streams token for token, greedy and sampled (the sampling
+    generator is registered with every graph, so a replay draws from the
+    same Philox offsets as the eager block), equal launches of every
+    kernel (each replay adds the capture's tally), equal counters; every
+    block after its key's first call is one replay."""
+    cfg, params, prompts = _graph_model(cuda)
+    kw = dict(speculate=spec, spec_min_rate=0.0) if spec else {}
+    out = {}
+    for graphs in (False, True):
+        eng = _graph_engine(cfg, params, cuda, graphs, temperature, **kw)
+        assert eng.graphs is graphs
+        out[graphs] = _graph_run(eng, prompts) + (dict(eng.counters),
+                                                  dict(eng.graph_stats))
+    (s0, c0, n0, _), (s1, c1, n1, g1) = out[False], out[True]
+    assert s1 == s0
+    assert c1 == c0
+    assert c1["paged_verify" if spec else "paged_decode"] > 0
+    assert c1["int8_gemv"] > 0
+    assert n1 == n0
+    assert g1["captures"] >= 1 and g1["replays"] >= 1
+    assert n1["decode_dispatches"] == g1["captures"] + g1["replays"]
+
+
+def test_capture_leaves_engine_state_unchanged(cuda):
+    """A capture runs nothing: the pool (its trash page aside, which any
+    frozen slot may write), tokens, positions, histories and the sampling
+    generator's state are what they were before it; a replay then
+    advances them."""
+    import functools
+
+    cfg, params, prompts = _graph_model(cuda)
+    eng = _graph_engine(cfg, params, cuda, True, 0.8, speculate=4,
+                        spec_min_rate=0.0)
+    for p in prompts:
+        eng.start(p, max_new_tokens=40, lazy=True)
+    eng.step()
+    eng._upload(eng._active_dev, eng._active)
+    eng._upload(eng._samp_dev, eng._samp_host)
+    torch.cuda.synchronize()
+    trash = eng._trash_page
+
+    def snapshot():
+        keep = [i for i in range(eng.cache.k.shape[1]) if i != trash]
+        return {"k": eng.cache.k[:, keep].clone(),
+                "v": eng.cache.v[:, keep].clone(),
+                "tok": eng._tok_dev.clone(), "pos": eng._pos_dev.clone(),
+                "buf": eng._buf_dev.clone(), "hint": eng._hint_dev.clone(),
+                "gen": eng.generator.get_state().clone()}
+
+    before = snapshot()
+    prog = eng._capture(functools.partial(eng._decode_many_spec, 2, 2))
+    torch.cuda.synchronize()
+    after = snapshot()
+    for name in before:
+        assert torch.equal(before[name], after[name]), name
+    prog()
+    torch.cuda.synchronize()
+    moved = snapshot()
+    assert not torch.equal(moved["pos"], before["pos"])
+    assert not torch.equal(moved["gen"], before["gen"])
+
+
+def test_capture_beside_another_threads_launches(cuda):
+    """One thread's engine captures its graphs while another thread's
+    eager engine launches the same kernels: both finish with the streams
+    they give alone."""
+    import threading
+
+    cfg, params, prompts = _graph_model(cuda)
+    alone = {g: _graph_run(_graph_engine(cfg, params, cuda, g), prompts)[0]
+             for g in (False, True)}
+    got, errors = {}, []
+    start = threading.Barrier(2)
+
+    def drive(graphs):
+        try:
+            eng = _graph_engine(cfg, params, cuda, graphs)
+            ros = [eng.start(p, max_new_tokens=40, lazy=True)
+                   for p in prompts]
+            start.wait(timeout=60)
+            eng.run()
+            torch.cuda.synchronize()
+            got[graphs] = [list(r.token_ids) for r in ros]
+        except BaseException as err:      # to the test's thread
+            errors.append(err)
+
+    threads = [threading.Thread(target=drive, args=(g,))
+               for g in (False, True)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not errors, errors
+    assert got == alone
+
+
+def test_model_axis_engine_refuses_graphs(cuda):
+    """An engine whose weights are placed over a model axis decodes
+    eagerly by default and raises when asked for graphs (its gloo
+    collectives cannot be captured)."""
+    import types
+
+    cfg, params, _ = _graph_model(cuda)
+    params.placement = types.SimpleNamespace(
+        mesh=types.SimpleNamespace(shape={"data": 1, "model": 2}))
+    try:
+        with pytest.raises(ValueError, match="model axis"):
+            _graph_engine(cfg, params, cuda, True)
+        assert _graph_engine(cfg, params, cuda, None).graphs is False
+    finally:
+        del params.placement

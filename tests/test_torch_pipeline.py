@@ -622,7 +622,8 @@ def test_chip_smoke_cpu_rehearsal():
     ``train``, ``trainer``, ``mesh``, ``pretrain``), post-training (the
     adapter and GRPO references, ``grpo``, ``adapter_pretrain``,
     ``adapter_train``), the pipelined engine (``pipelined``,
-    ``pipelined_spec``), the BPE
+    ``pipelined_spec``), decode blocks as CUDA graphs against eager
+    dispatch (``graphs``, ``graphs_spec``), the BPE
     speculation measurement (``spec_acceptance``, ``spec_acceptance_steps``,
     on JAX's fp32 model), the DS-7b int8 streaming drive (``ds7b``), the
     verification tool (``verify_real``, its int8 and fp32 legs) and the
@@ -649,7 +650,8 @@ def test_chip_smoke_cpu_rehearsal():
              "replicas_one", "replicas_two", "trace", "infer_cli_one_shot",
              "infer_cli_mcts", "serve_bench", "v1_sample", "v1_simulate",
              "train", "pretrain", "grpo", "adapter_pretrain",
-             "adapter_train", "pipelined", "pipelined_spec", "verify_real",
+             "adapter_train", "pipelined", "pipelined_spec", "graphs",
+             "graphs_spec", "verify_real",
              "verify_real_fp32",
              "spec_acceptance", "spec_acceptance_steps", "ds7b", "mesh",
              "tp", "tp_spec", "tp_train"}
@@ -739,6 +741,14 @@ def test_chip_smoke_cpu_rehearsal():
     for path in ("simulate_spec", "simulate_spec_gated"):
         assert phases[path]["rollouts"] == 16
         assert phases[path]["spec_counters"]["spec_steps"] > 0
+    # decode blocks through the program cache against eager dispatch: the
+    # same streams and launches, plain and speculative, in turns
+    gr = phases["graphs"]
+    assert gr["turns"] == ["eager", "graph", "graph", "eager"]
+    for mode in ("plain", "spec"):
+        assert gr[mode]["streams_equal"] and gr[mode]["launches_equal"]
+        assert [r["kind"] for r in gr[mode]["runs"]] == gr["turns"]
+    assert [r["rollouts"] for r in gr["simulate"]] == [8] * 4
     # the HTTP server on the int8 + fused weights, driven over real HTTP
     serve = phases["serve"]
     assert "flash_attention/vision_fused4" in row_names
