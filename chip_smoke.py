@@ -150,8 +150,8 @@ Phases, each printing one JSON line:
               launches against the replicas' own decode steps; items/s,
               peak memory;
 17. trace  -- ``utils.profiling.trace`` around one ``sample()`` of 32
-              tokens, its prefill annotated: the trace file holds the
-              annotation and K1's and K2's device functions;
+              tokens, its prefill in a span: the trace file holds the
+              span and K1's and K2's device functions;
 18. infer_cli -- ``detikzify_torch.examples.infer.main`` on the exported
               bf16 checkpoint, two PNG paths on stdin: one-shot with
               ``--output``, then ``--mcts``;
@@ -4310,16 +4310,16 @@ def serve_bench_phase(torch, device, rehearsal: bool) -> dict:
 def trace_phase(torch, device, rehearsal: bool, seed: int, params,
                 processor) -> dict:
     """``utils.profiling.trace`` around one ``sample()`` of 32 tokens on the
-    int8 + fused weights, its prefill inside ``annotate("prefill")``, both
+    int8 + fused weights, its prefill inside ``span("prefill")``, both
     timed on the host by ``utils.profiling.Timer``: the
-    trace file under ``build/`` must hold the annotation and, on the card,
+    trace file under ``build/`` must hold the span and, on the card,
     K1's and K2's device functions (``KERNEL_FUNCTIONS``)."""
     import shutil
     import tempfile
 
     from detikzify_torch.infer import DetikzifyPipeline
     from detikzify_torch.ops import launch_counts, reset_launch_counts
-    from detikzify_torch.utils.profiling import Timer, annotate, trace
+    from detikzify_torch.utils.profiling import Timer, span, trace
 
     _free(torch, rehearsal)
     pipe = DetikzifyPipeline(params, processor.cfg, processor, metric="fast",
@@ -4330,7 +4330,7 @@ def trace_phase(torch, device, rehearsal: bool, seed: int, params,
     timer = Timer()
 
     def annotated_start(*a, **kw):
-        with annotate("prefill"), timer("prefill"):
+        with span("prefill"), timer("prefill"):
             return start(*a, **kw)
 
     eng.start = annotated_start

@@ -31,14 +31,21 @@ captured at the key's first call and replayed after it, so a block of k
 steps over all slots is one dispatch. With ``pipelined=True`` block N+1 is
 launched before block N's tokens are read: no dispatch waits on the device
 (host arrays go up from pinned memory, and each block's tokens come down
-into pinned memory behind an event recorded when it is launched). Not
+into pinned memory behind an event recorded when it is launched). While
+a profiler runs, each start (``engine.start``), its prefill
+(``engine.prefill``), each ``step()`` (``engine.step``) and each tower
+pass (``tower``) is a span of ``utils.profiling``; ``counters
+["host_syncs"]`` counts the host's waits for the device. Not
 ported here: the gather/scatter decode and verify views and the
 attention-backend pin (see ROADMAP).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import gc
+import itertools
 import threading
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -51,11 +58,28 @@ from ..models import detikzify, llama
 from ..models.detikzify import Params
 from ..ops import cuda as cuda_ops
 from ..ops.sampling import SamplingParams, sample, speculative_accept
+from ..utils import profiling
 
 BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048)
 # one CUDA graph capture at a time in the process (PyTorch's rule); other
 # threads go on launching meanwhile (``capture_error_mode="thread_local"``)
 _CAPTURE_LOCK = threading.Lock()
+# serial request ids, unique in the process: a rollout's spans carry its id
+_RIDS = itertools.count()
+
+
+@contextlib.contextmanager
+def _gc_paused():
+    """No cyclic garbage collection inside: a dead graph engine lives on in
+    its reference cycles, and a collection during a capture would destroy
+    its graphs there, which invalidates the capture."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def _bucket(n: int, max_len: int) -> int:
@@ -94,6 +118,7 @@ class Rollout:
     finish_reason: Optional[str] = None  # "eos" | "length" | "abort"
     aborted: bool = False
     hinted: bool = False                 # draft class for spec gating
+    rid: int = -1                        # serial request id (its spans')
 
     @property
     def length(self) -> int:
@@ -111,13 +136,20 @@ class _Fetch:
     A decode block's outputs are its program's static tensors, which the
     next block overwrites: ``overwritten`` (a callable) says whether that
     has happened, and reading after it raises instead of returning the
-    later block's tokens."""
+    later block's tokens.
+
+    The first read blocks the host on the device (the copy, or the wait
+    for the event) and counts one ``counters["host_syncs"]``; on the CPU
+    too, so that counts are the card's."""
 
     def __init__(self, *tensors: Optional[torch.Tensor],
                  pinned: bool = False,
-                 overwritten: Optional[Callable[[], bool]] = None):
+                 overwritten: Optional[Callable[[], bool]] = None,
+                 counters: dict):
         self._tensors, self._host, self._event = tensors, None, None
         self._overwritten = overwritten
+        self._counters = counters
+        self._waited = False
         dev = next((t.device for t in tensors if t is not None), None)
         if pinned and dev is not None and dev.type == "cuda":
             self._host = []
@@ -145,6 +177,9 @@ class _Fetch:
                           for t in self._tensors]
         elif self._event is not None:
             self._event.synchronize()
+        if not self._waited:
+            self._waited = True
+            self._counters["host_syncs"] += 1
         return [None if h is None else h.numpy() for h in self._host]
 
 
@@ -341,10 +376,12 @@ class DecodeEngine:
         # fetch, counts or None, k, {slot: rollout} snapshot)
         self._inflight = None
         # whether the last dispatched block speculated (the pipelined
-        # ``_kv_limit`` slack reads it), and which slots' device histories
-        # went stale through plain blocks (resynced before the next
-        # speculative block)
+        # ``_kv_limit`` slack reads it) and its page count (the
+        # ``engine.step`` span's ``kv_pages``), and which slots' device
+        # histories went stale through plain blocks (resynced before the
+        # next speculative block)
         self._last_dispatch_spec = False
+        self._last_kv_pages = 0
         self._buf_stale = np.zeros((num_slots,), bool)
         self._active = np.zeros((num_slots,), bool)       # host-controlled
         # per-slot (temperature, top_p, top_k), uploaded per dispatch
@@ -373,7 +410,10 @@ class DecodeEngine:
                          # + tail) and boundary rows copied on store
                          "restore_cow_rows": 0, "prefix_copy_rows": 0,
                          # plain->speculative history re-uploads
-                         "buf_resyncs": 0}
+                         "buf_resyncs": 0,
+                         # waits of the host for the device: pageable
+                         # uploads, token fetches, the tower's pixels
+                         "host_syncs": 0}
         self._build_jit()
 
     # ------------------------------------------------------------------
@@ -445,13 +485,13 @@ class DecodeEngine:
 
     def _capture(self, fn: Callable[[], tuple]) -> _Program:
         """Capture ``fn`` (a block, already run once) as a CUDA graph on
-        the engine's capture stream. Nothing runs: the engine's state is
-        what it was before."""
+        the engine's capture stream, the cyclic garbage collector paused.
+        Nothing runs: the engine's state is what it was before."""
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.generator)
         with torch.cuda.stream(self._stream), _CAPTURE_LOCK, \
-                cuda_ops.tally_launches() as tally:
+                cuda_ops.tally_launches() as tally, _gc_paused():
             graph.capture_begin(pool=self._pool,
                                 capture_error_mode="thread_local")
             try:
@@ -481,8 +521,11 @@ class DecodeEngine:
         goes from pinned memory without blocking the host: a copy from
         pageable memory would wait for the block in flight. The pinned
         buffer comes from PyTorch's caching host allocator, which reuses
-        it only once the copy has ended."""
+        it only once the copy has ended. Eager, the copy waits for the
+        stream: one ``counters["host_syncs"]`` (on the CPU too)."""
         src = torch.from_numpy(np.ascontiguousarray(x)).to(dst.dtype)
+        if not self.pipelined:
+            self.counters["host_syncs"] += 1
         if self.pipelined and self.device.type == "cuda":
             dst.copy_(src.pin_memory(), non_blocking=True)
         else:
@@ -853,11 +896,13 @@ class DecodeEngine:
     def _launch_group(self, rollouts: List[Rollout],
                       prefixes: List[Optional[StoredPrefix]],
                       image_embeds: Optional[torch.Tensor],
-                      hints: Optional[List[Optional[Sequence[int]]]] = None,
-                      ) -> None:
+                      hints: Optional[List[Optional[Sequence[int]]]],
+                      span) -> None:
         """Run ONE fused start for these rollouts. Each row may carry its
         own stored prefix (or none) and, on a speculative engine, its own
-        draft hint; first tokens arrive lazily."""
+        draft hint; first tokens arrive lazily. ``span`` is the caller's
+        ``engine.start`` span; the prefill launches and the first tokens'
+        draw are an ``engine.prefill`` span inside it."""
         b = len(rollouts)
         page, m_cap = self.page, self._m_cap
         starts_l: List[int] = []
@@ -962,7 +1007,9 @@ class DecodeEngine:
         slots = [ro.slot for ro in rollouts]
         self.counters["starts"] += b
         self.counters["start_dispatches"] += 1
-        self.counters["prefill_tokens"] += sum(len(t) for t in tails)
+        rows = sum(len(t) for t in tails)
+        self.counters["prefill_tokens"] += rows
+        span.set(rows=rows)
         self.counters["prefill_tokens_saved"] += sum(starts_l)
         put = self._put
         args = (put(slots), put(ids), image_embeds, put(starts_l),
@@ -979,13 +1026,16 @@ class DecodeEngine:
                     n = min(len(h), hint_rows.shape[1])
                     hint_rows[i, :n] = list(h)[:n]
                     ro.hinted = True
-            firsts = self._start_wave_spec(*args, put(full_ids),
-                                           put(hint_rows))
+            args += (put(full_ids), put(hint_rows))
+        ids_attr = ({"rid": rollouts[0].rid} if b == 1
+                    else {"rids": [ro.rid for ro in rollouts]})
+        wave = self._start_wave_spec if self.spec > 0 else self._start_wave
+        with profiling.span("engine.prefill", bucket=bucket, **ids_attr):
+            firsts = wave(*args)
+        if self.spec > 0:
             # the start wave rewrote these slots' history rows in full
             self._buf_stale[np.asarray(slots)] = False
-        else:
-            firsts = self._start_wave(*args)
-        fetch = _Fetch(firsts, pinned=self.pipelined)
+        fetch = _Fetch(firsts, pinned=self.pipelined, counters=self.counters)
         for i, ro in enumerate(rollouts):
             self._rollouts[ro.slot] = ro
             self._active[ro.slot] = True
@@ -1006,7 +1056,7 @@ class DecodeEngine:
                        max_new_tokens=max(
                            min(max_new_tokens,
                                self._trash_start - len(token_ids)), 1),
-                       on_token=on_token)
+                       on_token=on_token, rid=next(_RIDS))
 
     @staticmethod
     def _check_prefix(token_ids: Sequence[int],
@@ -1037,17 +1087,20 @@ class DecodeEngine:
         continuation in MCTS."""
         if not self._free_slots:
             raise RuntimeError("no free slots")
-        token_ids = list(token_ids)
-        prefix = self._check_prefix(token_ids, prefix)
-        ro = self._make_rollout(token_ids, max_new_tokens, sampling,
-                                on_token)
-        try:
-            self._launch_group([ro], [prefix], image_embeds, hints=[hint])
-        except BaseException:
-            self._free_slots.append(ro.slot)   # never launched: return it
-            raise
-        if not lazy:
-            self.flush()
+        with profiling.span("engine.start") as span:
+            token_ids = list(token_ids)
+            prefix = self._check_prefix(token_ids, prefix)
+            ro = self._make_rollout(token_ids, max_new_tokens, sampling,
+                                    on_token)
+            span.set(rid=ro.rid, slot=ro.slot)
+            try:
+                self._launch_group([ro], [prefix], image_embeds, [hint],
+                                   span)
+            except BaseException:
+                self._free_slots.append(ro.slot)   # never launched: return it
+                raise
+            if not lazy:
+                self.flush()
         return ro
 
     def start_many(
@@ -1097,9 +1150,14 @@ class DecodeEngine:
                     n *= 2
                 emb = (None if image_embeds is None
                        else image_embeds[i:i + n])
-                self._launch_group(
-                    rollouts[i:i + n], pfs[i:i + n], emb,
-                    hints=None if hints is None else list(hints[i:i + n]))
+                group = rollouts[i:i + n]
+                with profiling.span("engine.start",
+                                    rids=[ro.rid for ro in group],
+                                    slots=[ro.slot for ro in group]) as span:
+                    self._launch_group(
+                        group, pfs[i:i + n], emb,
+                        None if hints is None else list(hints[i:i + n]),
+                        span)
                 i += n
         except BaseException:
             for ro in rollouts[i:]:    # never launched: return their slots
@@ -1254,30 +1312,34 @@ class DecodeEngine:
     def _dispatch(self, k: int) -> None:
         """Launch one decode block (speculative or plain), start the fetch
         of its tokens and snapshot which rollout owned each slot, as
-        ``_inflight``. Nothing here waits on the device."""
+        ``_inflight``; the block's page count is ``_last_kv_pages``.
+        Pipelined, nothing here waits on the device; eager, the two
+        uploads do."""
         self.counters["decode_dispatches"] += 1
         self.counters["decode_steps"] += k
         use_spec = self._use_spec()
         self._upload(self._active_dev, self._active)
         self._upload(self._samp_dev, self._samp_host)
+        kv_pages = self._kv_pages(k, use_spec)
         if use_spec:
             self._resync_buf()
-            toks_dev, counts_dev = self._block(True, k,
-                                               self._kv_pages(k, True))
+            toks_dev, counts_dev = self._block(True, k, kv_pages)
         else:
             counts_dev = None
-            (toks_dev,) = self._block(False, k, self._kv_pages(k, False))
+            (toks_dev,) = self._block(False, k, kv_pages)
             if self.spec > 0:
                 # positions advanced without history writes: these rows
                 # must be resynced before the next speculative block
                 self._buf_stale[self._active] = True
         self._last_dispatch_spec = use_spec
+        self._last_kv_pages = kv_pages
         owners = {slot: ro for slot, ro in self._rollouts.items()
                   if self._active[slot]}
         calls = self._block_calls
         self._inflight = (_Fetch(toks_dev, counts_dev, pinned=self.pipelined,
                                  overwritten=lambda: self._block_calls
-                                 != calls), k, owners)
+                                 != calls, counters=self.counters),
+                          k, owners)
 
     def _consume(self, inflight) -> List[Rollout]:
         """Wait for a dispatched block's tokens (and any pending first
@@ -1413,20 +1475,31 @@ class DecodeEngine:
         ``pipelined=True`` block N+1 launches BEFORE block N's tokens are
         read -- the device runs while the host handles tokens, and finishes
         are seen one block later (the first call after a start only primes
-        the pipeline and returns ``[]``)."""
+        the pipeline and returns ``[]``).
+
+        One ``engine.step`` span: dispatch, uploads, the wait for the
+        block's tokens and their delivery; ``captured`` says whether this
+        call captured a graph."""
         k = self.decode_block if k is None else k
-        if not self.pipelined:
+        with profiling.span("engine.step", k=k) as span:
+            captures = self.graph_stats["captures"]
+            prev = None
+            if self.pipelined:
+                prev, self._inflight = self._inflight, None
             if self._active.any():
                 self._dispatch(k)
-            prev, self._inflight = self._inflight, None
-            return self._consume(prev)
-        prev, self._inflight = self._inflight, None
-        if self._active.any():
-            self._dispatch(k)
-        if prev is None and self._inflight is not None \
-                and not self._first_pending:
-            return []                    # pipeline primed; tokens next call
-        return self._consume(prev)
+                span.set(kv_pages=self._last_kv_pages,
+                         active=len(self._inflight[2]))
+            if not self.pipelined:
+                prev, self._inflight = self._inflight, None
+                out = self._consume(prev)
+            elif prev is None and self._inflight is not None \
+                    and not self._first_pending:
+                out = []                 # pipeline primed; tokens next call
+            else:
+                out = self._consume(prev)
+            span.set(captured=self.graph_stats["captures"] > captures)
+        return out
 
     @property
     def has_inflight(self) -> bool:
@@ -1434,8 +1507,9 @@ class DecodeEngine:
 
     def flush_steps(self) -> List[Rollout]:
         """Drain the block in flight without dispatching a new one."""
-        prev, self._inflight = self._inflight, None
-        return self._consume(prev)
+        with profiling.span("engine.step", k=0, captured=False):
+            prev, self._inflight = self._inflight, None
+            return self._consume(prev)
 
     def run(self, max_steps: Optional[int] = None) -> List[Rollout]:
         """Step until every rollout finishes; returns them all."""
@@ -1458,9 +1532,15 @@ class DecodeEngine:
         """[B,H,W,C] (numpy or tensor) -> projected image tokens (vision
         runs once per image). With ``adapter_inputs`` (a
         ``siglip.AdapterInputs``) the tower is caption-conditioned through
-        the TikZero cross-attention blocks."""
-        pv = torch.as_tensor(np.asarray(pixel_values)
-                             if not torch.is_tensor(pixel_values)
-                             else pixel_values, device=self.device)
-        return detikzify.encode_image(self.params, self.cfg, pv,
-                                      adapter=adapter_inputs)
+        the TikZero cross-attention blocks. One ``tower`` span; pixels
+        from the host go up as a pageable copy, which waits for the
+        device: one ``counters["host_syncs"]`` (on the CPU too)."""
+        with profiling.span("tower", images=len(pixel_values)):
+            if (not torch.is_tensor(pixel_values)
+                    or pixel_values.device.type == "cpu"):
+                self.counters["host_syncs"] += 1
+            pv = torch.as_tensor(np.asarray(pixel_values)
+                                 if not torch.is_tensor(pixel_values)
+                                 else pixel_values, device=self.device)
+            return detikzify.encode_image(self.params, self.cfg, pv,
+                                          adapter=adapter_inputs)

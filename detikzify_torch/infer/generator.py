@@ -43,6 +43,7 @@ from ..engine import DecodeEngine
 from ..mcts import MonteCarlo, Node, Normalizer
 from ..ops.sampling import make_newline_table
 from ..processing import DetikzifyProcessor
+from ..utils import profiling
 from ..utils.functools import cache_cast
 from ..utils.generation import ExplicitAbort
 from .tikz import CompileService, TikzDocument
@@ -231,13 +232,10 @@ class DetikzifyGenerator:
         self.decode = cache_cast(lambda ids: tuple(ids))(self.decode)
         self.score = cache_cast(lambda img: img.tobytes())(self.score)
 
-        self.stats = {"rollouts": 0, "rollout_tokens": 0,
-                      "rollout_time": 0.0, "compile_time": 0.0,
-                      "score_time": 0.0, "prefix_hits": 0,
+        # the search's phases are spans (``utils.profiling``): mcts.launch,
+        # .step, .resolve, .complete, .dispatch, .wait, .score, .compile
+        self.stats = {"rollouts": 0, "rollout_tokens": 0, "prefix_hits": 0,
                       "prefix_tokens_saved": 0,
-                      # host wall time by phase of the parallel loop
-                      "t_launch": 0.0, "t_step": 0.0, "t_resolve": 0.0,
-                      "t_complete": 0.0, "t_dispatch": 0.0, "t_wait": 0.0,
                       # selections that landed on a terminal state, and
                       # wave renders whose score was already memoised
                       "terminal_revisits": 0, "score_memo_hits": 0,
@@ -333,7 +331,6 @@ class DetikzifyGenerator:
         if self.control.should_stop:
             return  # aborted before this rollout started: leave the engine
 
-        t0 = time.time()
         ro = self._start(ids, hint)
         boundary: List[int] = list(ids)   # cumulative prefix at last boundary
         line: List[int] = []
@@ -368,7 +365,6 @@ class DetikzifyGenerator:
         finally:
             self.stats["rollouts"] += 1
             self.stats["rollout_tokens"] += ro.new_tokens
-            self.stats["rollout_time"] += time.time() - t0
 
     # ------------------------------------------------------------------
 
@@ -398,7 +394,6 @@ class DetikzifyGenerator:
                 or self.control.should_stop):
             return self.decode(tuple(ids))      # nothing to extend
 
-        t0 = time.time()
         ro = self._start(ids)
         try:
             while not ro.finished:
@@ -416,21 +411,18 @@ class DetikzifyGenerator:
         finally:
             self.stats["rollouts"] += 1
             self.stats["rollout_tokens"] += ro.new_tokens
-            self.stats["rollout_time"] += time.time() - t0
         doc = self.decode(tuple(ro.token_ids))
         self._finish_rollout([])
         return doc
 
     def score(self, image) -> Numeric:
         assert self.metric is not None
-        t0 = time.time()
-        if self._score_takes_text:
-            value = float(self.metric.score(img1=image, img2=self.image,
-                                            text2=self.text))
-        else:               # custom metrics without text support
-            value = float(self.metric.score(image, self.image))
-        self.stats["score_time"] += time.time() - t0
-        return value
+        with profiling.span("mcts.score"):
+            if self._score_takes_text:
+                return float(self.metric.score(img1=image, img2=self.image,
+                                               text2=self.text))
+            # custom metrics without text support
+            return float(self.metric.score(image, self.image))
 
     def _store_prefixes_for(self, ro, nodes: List[WideNode]) -> List[tuple]:
         """Store KV prefixes (rollout prompt + candidate tree nodes) from a
@@ -487,10 +479,9 @@ class DetikzifyGenerator:
             node.visits += 1
             node, new_nodes = self._merge(node.parent, new_nodes)
 
-        t0 = time.time()
-        tikz = self.decode((new_nodes or [node])[-1].token_ids)
-        tikz.compile()
-        self.stats["compile_time"] += time.time() - t0
+        with profiling.span("mcts.compile"):
+            tikz = self.decode((new_nodes or [node])[-1].token_ids)
+            tikz.compile()
 
         attached = self._attach(node, new_nodes, tikz)
         self._finish_rollout(attached)
@@ -611,8 +602,7 @@ class DetikzifyGenerator:
     class _Expansion:
         __slots__ = ("node", "path", "ro", "boundary", "line", "num_lines",
                      "continuation", "processed", "new_nodes", "stopped",
-                     "future", "t0", "prompt", "prefix", "stored_keys",
-                     "hint")
+                     "future", "prompt", "prefix", "stored_keys", "hint")
 
         def __init__(self, node, path):
             self.node = node
@@ -621,7 +611,6 @@ class DetikzifyGenerator:
             self.new_nodes: List = []
             self.stopped = False
             self.future = None
-            self.t0 = time.time()
             self.prompt = None      # token ids to roll out from (None: leaf)
             self.prefix = None      # StoredPrefix to restore, if any
             self.hint = None        # speculative draft reference text
@@ -721,7 +710,6 @@ class DetikzifyGenerator:
                 exploration=self.exploration))
         self.stats["rollouts"] += 1
         self.stats["rollout_tokens"] += ro.new_tokens
-        self.stats["rollout_time"] += time.time() - exp.t0
         self._record_rollout_tokens(exp.new_nodes, origin=exp.node)
         # only the first sqrt(n) nodes can be attached. They are stored
         # before the compile resolves (the slot must be freed first);
@@ -797,19 +785,18 @@ class DetikzifyGenerator:
                     img_bytes.append(b)
         if not imgs:
             return None
-        t0 = time.time()
-        # only the reference features carry the caption (renders are never
-        # conditioned, as in score()); the metric's LRU keeps them
-        if self.text is not None:
-            dev, k = self.metric.score_against_async(imgs, self.image,
-                                                     text=self.text)
-        else:
-            dev, k = self.metric.score_against_async(imgs, self.image)
-        ready = None
-        if isinstance(dev, torch.Tensor) and dev.is_cuda:
-            ready = torch.cuda.Event()
-            ready.record()
-        self.stats["score_time"] += time.time() - t0
+        with profiling.span("mcts.score", images=len(imgs)):
+            # only the reference features carry the caption (renders are
+            # never conditioned, as in score()); the metric's LRU keeps them
+            if self.text is not None:
+                dev, k = self.metric.score_against_async(imgs, self.image,
+                                                         text=self.text)
+            else:
+                dev, k = self.metric.score_against_async(imgs, self.image)
+            ready = None
+            if isinstance(dev, torch.Tensor) and dev.is_cuda:
+                ready = torch.cuda.Event()
+                ready.record()
         return dev, k, keys, img_bytes, seen, ready
 
     def _resolve_scores(self, pending) -> dict:
@@ -818,10 +805,9 @@ class DetikzifyGenerator:
         if pending is None:
             return {}
         dev, k, keys, img_bytes, seen, _ = pending
-        t0 = time.time()
-        vals = (dev[:k].float().cpu().numpy()
-                if isinstance(dev, torch.Tensor) else np.asarray(dev)[:k])
-        self.stats["score_time"] += time.time() - t0
+        with profiling.span("mcts.score"):
+            vals = (dev[:k].float().cpu().numpy()
+                    if isinstance(dev, torch.Tensor) else np.asarray(dev)[:k])
         memo = getattr(self.score, "cache", None)
         out = {}
         for key, b, v in zip(keys, img_bytes, vals):
@@ -855,7 +841,6 @@ class DetikzifyGenerator:
                 # live re-read: a scheduler may rebalance the slot shares
                 parallelism = max(1, min(self.parallelism,
                                          self.engine.num_slots))
-                t_ph = time.time()
                 wave: List = []
                 # ``parallelism`` bounds concurrent DECODING rollouts;
                 # expansions in the compile or score stage hold no slot, so
@@ -863,35 +848,35 @@ class DetikzifyGenerator:
                 # in-flight expansions are capped at 2x parallelism to
                 # bound virtual-loss staleness.
                 n_scoring = sum(len(e) for e, _ in scoring)
-                while ((target is None or launched < target)
-                       and len(decoding) + len(wave) < parallelism
-                       and len(decoding) + len(compiling) + n_scoring
-                       + len(wave) < 2 * parallelism
-                       and self.engine.num_active + len(wave)
-                       < self.engine.num_slots
-                       and len(wave) < self.engine.num_free_slots
-                       and not timed_out()
-                       and not self.control.should_stop):
-                    exp = self._prepare_expansion()
-                    launched += 1
-                    if exp.prompt is None:      # terminal state
-                        self.stats["terminal_revisits"] += 1
-                        doc = self.decode(exp.node.token_ids)
-                        if "output" in doc.__dict__:
-                            # an already-compiled program (decode memo):
-                            # skip the compile pool
-                            fut: _cf.Future = _cf.Future()
-                            fut.set_result(doc)
-                            exp.future = fut
+                with profiling.span("mcts.launch"):
+                    while ((target is None or launched < target)
+                           and len(decoding) + len(wave) < parallelism
+                           and len(decoding) + len(compiling) + n_scoring
+                           + len(wave) < 2 * parallelism
+                           and self.engine.num_active + len(wave)
+                           < self.engine.num_slots
+                           and len(wave) < self.engine.num_free_slots
+                           and not timed_out()
+                           and not self.control.should_stop):
+                        exp = self._prepare_expansion()
+                        launched += 1
+                        if exp.prompt is None:      # terminal state
+                            self.stats["terminal_revisits"] += 1
+                            doc = self.decode(exp.node.token_ids)
+                            if "output" in doc.__dict__:
+                                # an already-compiled program (decode
+                                # memo): skip the compile pool
+                                fut: _cf.Future = _cf.Future()
+                                fut.set_result(doc)
+                                exp.future = fut
+                            else:
+                                exp.future = self.compiler.submit_doc(doc)
+                            compiling.append(exp)
                         else:
-                            exp.future = self.compiler.submit_doc(doc)
-                        compiling.append(exp)
-                    else:
-                        wave.append(exp)
-                if wave:
-                    self._launch_wave(wave)
-                    decoding.extend(wave)
-                self.stats["t_launch"] += time.time() - t_ph
+                            wave.append(exp)
+                    if wave:
+                        self._launch_wave(wave)
+                        decoding.extend(wave)
                 self.stats["max_inflight"] = max(
                     self.stats["max_inflight"],
                     len(decoding) + len(compiling) + n_scoring)
@@ -899,15 +884,14 @@ class DetikzifyGenerator:
                 if decoding:
                     if compiling or scoring:
                         self.stats["overlap_ticks"] += 1
-                    t_ph = time.time()
-                    self.engine.step()
-                    for exp in list(decoding):
-                        self._advance_segmentation(exp)
-                        if exp.ro.finished:
-                            self._finalize_rollout(exp)
-                            decoding.remove(exp)
-                            compiling.append(exp)
-                    self.stats["t_step"] += time.time() - t_ph
+                    with profiling.span("mcts.step"):
+                        self.engine.step()
+                        for exp in list(decoding):
+                            self._advance_segmentation(exp)
+                            if exp.ro.finished:
+                                self._finalize_rollout(exp)
+                                decoding.remove(exp)
+                                compiling.append(exp)
 
                 # resolve score waves dispatched on an EARLIER iteration;
                 # while decode or compile work remains, only those whose
@@ -918,34 +902,30 @@ class DetikzifyGenerator:
                         ready = pending[-1]
                         if ready is not None and not ready.query():
                             break
-                    t_ph = time.time()
-                    wave_scores = self._resolve_scores(pending)
-                    self.stats["t_resolve"] += time.time() - t_ph
+                    with profiling.span("mcts.resolve"):
+                        wave_scores = self._resolve_scores(pending)
                     while exps_w:
                         exp = exps_w.pop(0)
                         completed += 1
-                        t_ph = time.time()
-                        out = self._complete_expansion(
-                            exp, precomputed=wave_scores.get(id(exp)))
-                        self.stats["t_complete"] += time.time() - t_ph
+                        with profiling.span("mcts.complete"):
+                            out = self._complete_expansion(
+                                exp, precomputed=wave_scores.get(id(exp)))
                         yield out
                     scoring.pop(0)
 
-                t_ph = time.time()
                 ready = [exp for exp in compiling if exp.future.done()]
                 if ready:
-                    for exp in ready:
-                        compiling.remove(exp)
-                    pending = self._dispatch_scores(ready)
-                    self.stats["t_dispatch"] += time.time() - t_ph
+                    with profiling.span("mcts.dispatch"):
+                        for exp in ready:
+                            compiling.remove(exp)
+                        pending = self._dispatch_scores(ready)
                     if pending is None:
                         # nothing to batch (no metric / nothing
                         # rasterizable / all memoised): complete in place
                         for exp in ready:
                             completed += 1
-                            t_ph = time.time()
-                            out = self._complete_expansion(exp)
-                            self.stats["t_complete"] += time.time() - t_ph
+                            with profiling.span("mcts.complete"):
+                                out = self._complete_expansion(exp)
                             yield out
                     else:
                         scoring.append((ready, pending))
@@ -967,10 +947,9 @@ class DetikzifyGenerator:
                     continue
                 if not decoding and compiling:
                     # nothing to decode: wait briefly for ANY compile
-                    t_ph = time.time()
-                    _cf.wait([e.future for e in compiling], timeout=0.05,
-                             return_when=_cf.FIRST_COMPLETED)
-                    self.stats["t_wait"] += time.time() - t_ph
+                    with profiling.span("mcts.wait"):
+                        _cf.wait([e.future for e in compiling], timeout=0.05,
+                                 return_when=_cf.FIRST_COMPLETED)
         finally:
             for exp in decoding:
                 self.engine.abort(exp.ro)

@@ -1616,6 +1616,42 @@ def test_capture_leaves_engine_state_unchanged(cuda):
     assert not torch.equal(moved["gen"], before["gen"])
 
 
+def test_capture_pauses_garbage_collection(cuda):
+    """A dead graph engine lives on in its reference cycles until the
+    cyclic collector runs, and a collection inside another engine's
+    capture would destroy its graphs there and invalidate that capture.
+    Every capture runs with the collector paused and restores it after;
+    the engine still gives the stream it gives alone."""
+    import gc
+
+    cfg, params, prompts = _graph_model(cuda)
+    alone = _graph_run(_graph_engine(cfg, params, cuda, True), prompts)[0]
+    dead = _graph_engine(cfg, params, cuda, True)
+    _graph_run(dead, prompts)
+    assert dead.graph_stats["captures"] >= 1
+    del dead                 # garbage in its cycles until a collection
+    eng = _graph_engine(cfg, params, cuda, True)
+    block, seen = eng._decode_many, []
+
+    def probed(*args):
+        if torch.cuda.is_current_stream_capturing():
+            seen.append(gc.isenabled())
+        return block(*args)
+
+    eng._decode_many = probed
+    enabled = gc.isenabled()
+    gc.enable()
+    try:
+        got = _graph_run(eng, prompts)[0]
+        assert gc.isenabled()
+    finally:
+        if not enabled:
+            gc.disable()
+    assert seen and not any(seen)
+    assert len(seen) == eng.graph_stats["captures"]
+    assert got == alone
+
+
 def test_capture_beside_another_threads_launches(cuda):
     """One thread's engine captures its graphs while another thread's
     eager engine launches the same kernels: both finish with the streams

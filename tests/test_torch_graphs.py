@@ -321,3 +321,26 @@ def test_tally_is_per_thread():
     for _ in range(2):
         cuda_ops.add_launches(tallies[0])
     assert k.launches == 1500 + 100
+
+
+@pytest.mark.parametrize("enabled", [True, False])
+def test_capture_pauses_the_collector_and_restores_it(enabled):
+    """A capture's cyclic garbage collection is off inside (a dead engine's
+    graphs must not be destroyed during another capture) and as it was
+    after, an error raised inside included."""
+    import gc
+
+    from detikzify_torch.engine.decode import _gc_paused
+
+    before = gc.isenabled()
+    (gc.enable if enabled else gc.disable)()
+    try:
+        with _gc_paused():
+            assert not gc.isenabled()
+        assert gc.isenabled() is enabled
+        with pytest.raises(RuntimeError):
+            with _gc_paused():
+                raise RuntimeError("inside the capture")
+        assert gc.isenabled() is enabled
+    finally:
+        (gc.enable if before else gc.disable)()

@@ -243,6 +243,37 @@ def test_simulate_parallel(selfsim_pipe):
     assert _free(engine) and not engine._rollouts
 
 
+@pytest.mark.parametrize("parallelism", [1, 3])
+def test_simulate_phases_are_spans(selfsim_pipe, parallelism):
+    """Under a profiler the search's phases are spans of
+    ``utils.profiling`` (the sequential path compiles and scores in place;
+    the parallel loop's decode phase holds the engine's steps)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from detikzify_torch.utils import profiling
+
+    profiling.clear()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            results = list(selfsim_pipe.simulate(
+                image=_figures()[1], expansions=4, parallelism=parallelism,
+                max_new_tokens=12))
+        spans = profiling.spans()
+    finally:
+        profiling.clear()
+    assert len(results) == 4 and _free(selfsim_pipe.engine)
+    names = {s.name for s in spans}
+    by_id = {s.id: s for s in spans}
+    if parallelism == 1:
+        assert {"mcts.compile", "engine.start", "engine.step"} <= names
+    else:
+        assert {"mcts.launch", "mcts.step", "mcts.complete"} <= names
+        assert any(by_id[s.parent].name == "mcts.step" for s in spans
+                   if s.name == "engine.step" and s.parent in by_id)
+        assert any(by_id[s.parent].name == "mcts.launch" for s in spans
+                   if s.name == "engine.start" and s.parent in by_id)
+
+
 def test_simulate_parallel_virtual_loss_reverted(selfsim_pipe):
     gen = selfsim_pipe.generator(image=_figures()[2],
                                  metric=selfsim_pipe.metric,

@@ -21,10 +21,10 @@ def test_infer_device_and_count_without_a_card():
 
 def test_trace_writes_a_cpu_trace_with_the_annotation(tmp_path):
     """``trace`` leaves one TensorBoard trace in ``logdir`` whose events
-    hold the ``annotate`` span and the ops run inside it."""
+    hold the ``span`` and the ops run inside it."""
     x = torch.randn(64, 64)
     with profiling.trace(str(tmp_path)):
-        with profiling.annotate("prefill"):
+        with profiling.span("prefill"):
             (x @ x).sum()
     files = list(tmp_path.rglob("*.pt.trace.json"))
     assert len(files) == 1
